@@ -1,0 +1,153 @@
+"""Communicators on the rank-stacked runtime (paper §3.1: ranks, communicators).
+
+``repro`` runs SPMD inside ``jax.shard_map``: each device holds one rank's
+shard, the rank is ``lax.axis_index`` and a link step is ``lax.ppermute``.
+The port runs all P ranks on one card instead.  Every distributed tensor
+carries a leading rank dimension ``(P, ...)``; row ``r`` is what rank ``r``
+would hold.  Then:
+
+* :meth:`Communicator.rank` is ``torch.arange(P)``, shaped to broadcast
+  against a rank-stacked tensor, so a per-rank predicate
+  (``jnp.where(r == root, ...)`` in the reference) is one broadcast
+  ``torch.where``;
+* :func:`ppermute` is an index copy along dim 0; ranks that receive
+  nothing get zeros, exactly as ``lax.ppermute`` gives them.
+
+A multi-card ``torch.distributed`` rendering of the same interface is later
+work; the schedules written against it do not change.
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass, replace
+
+import torch
+
+from .routing import RouteTable, compute_route_table
+from .topology import Topology
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller names
+    another.  Raises when CUDA is asked for and there is no card — the port
+    never moves to the CPU on its own."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run the plain PyTorch path"
+        )
+    return dev
+
+
+@functools.lru_cache(maxsize=1024)
+def _pair_index(pairs: tuple, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(src, dst) index tensors of a permutation on ``device``, made once:
+    a copy from pageable host memory to the card synchronises the stream,
+    so a schedule that rebuilt them every step would stall the host."""
+    src = torch.tensor([s for s, _ in pairs], device=device)
+    dst = torch.tensor([d for _, d in pairs], device=device)
+    return src, dst
+
+
+def ppermute(x: torch.Tensor, pairs) -> torch.Tensor:
+    """Move rank rows of ``x`` along (src, dst) pairs: ``out[dst] = x[src]``,
+    zeros on every rank that is no destination (``lax.ppermute``'s
+    semantics).  ``x`` is not modified."""
+    out = torch.zeros_like(x)
+    if pairs:
+        src, dst = _pair_index(tuple(pairs), x.device)
+        out.index_copy_(0, dst, x.index_select(0, src))
+    return out
+
+
+@dataclass(frozen=True)
+class Communicator:
+    """SMI_Comm: ``size`` ranks stacked on ``device`` with a routed topology.
+
+    ``axis_names``/``axis_sizes`` name the rank grid as the reference's mesh
+    axes do (row-major linearisation); ``transport`` names the default
+    message-moving backend (see :mod:`repro_torch.transport`).
+    """
+
+    axis_names: tuple[str, ...]
+    axis_sizes: tuple[int, ...]
+    topology: Topology
+    route_table: RouteTable
+    name: str = "world"
+    transport: str = "static"
+    device: torch.device = torch.device("cuda")
+
+    # -- construction ------------------------------------------------------
+
+    @staticmethod
+    def create(
+        axis_names,
+        axis_sizes,
+        topology: Topology | None = None,
+        routing_scheme: str = "auto",
+        name: str = "world",
+        transport: str = "static",
+        device=None,
+    ) -> "Communicator":
+        if isinstance(axis_names, str):
+            axis_names = (axis_names,)
+        axis_names = tuple(axis_names)
+        axis_sizes = tuple(int(s) for s in axis_sizes)
+        n = 1
+        for s in axis_sizes:
+            n *= s
+        if topology is None:
+            topology = Topology.torus(axis_sizes)
+        if topology.n_ranks != n:
+            raise ValueError(
+                f"topology has {topology.n_ranks} ranks but axes "
+                f"{axis_names} give {n}"
+            )
+        rt = compute_route_table(topology, scheme=routing_scheme)
+        return Communicator(
+            axis_names, axis_sizes, topology, rt, name=name,
+            transport=transport, device=resolve_device(device),
+        )
+
+    def with_topology(self, topology: Topology, routing_scheme: str = "auto") -> "Communicator":
+        """Re-route over a new logical topology without changing the program
+        structure — the paper's 'recompute routes, keep the bitstream'."""
+        rt = compute_route_table(topology, scheme=routing_scheme)
+        return replace(self, topology=topology, route_table=rt)
+
+    def with_transport(self, transport: str) -> "Communicator":
+        """Same ranks/routes, different message-moving backend."""
+        return replace(self, transport=transport)
+
+    def plan(self, op: str, nbytes: int):
+        """The netsim tuner's decision in the reference; not ported yet."""
+        raise NotImplementedError(
+            "Communicator.plan (the netsim tuner, plan='auto') comes with "
+            "the tuner slice of the port; pass plan=None or a Plan"
+        )
+
+    # -- rank queries --------------------------------------------------------
+
+    @property
+    def size(self) -> int:
+        return self.topology.n_ranks
+
+    def rank(self, ndim: int = 1) -> torch.Tensor:
+        """SMI_Comm_rank of every stacked rank: ``arange(P)`` shaped
+        ``(P, 1, ..., 1)`` with ``ndim`` dims, to broadcast against a
+        rank-stacked tensor of that many dims."""
+        r = torch.arange(self.size, device=self.device)
+        return r.view((self.size,) + (1,) * (ndim - 1))
+
+    # ring helpers over the linearised rank order -----------------------------
+
+    def ring_perm(self, step: int = 1) -> list[tuple[int, int]]:
+        """Ring permutation (+step along linearised ranks, wrap-around)."""
+        n = self.size
+        return [(i, (i + step) % n) for i in range(n)]
+
+    def path_perm(self, path: list[int]) -> list[tuple[int, int]]:
+        """Pipeline permutation along a routed path (each hop advances)."""
+        return list(zip(path[:-1], path[1:]))

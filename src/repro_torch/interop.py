@@ -1,0 +1,50 @@
+"""Carry state across from the reference package, with plain types only.
+
+Both helpers take what ``repro`` hands out as JSON strings and numpy
+arrays, so the port and the reference can start from the same state
+without the port importing anything of ``repro``.
+"""
+
+from __future__ import annotations
+
+import json
+
+import numpy as np
+import torch
+
+from .core.comm import Communicator
+from .core.topology import Topology
+
+
+def communicator_from_reference(topology_json: str, axis_names, axis_sizes,
+                                transport: str = "static", device=None) -> Communicator:
+    """Rebuild a :class:`Communicator` from ``repro``'s
+    ``Topology.to_json()`` string.
+
+    The JSON carries edges, not torus coordinates: when its edges are
+    exactly those of the torus over ``axis_sizes``, the torus is rebuilt
+    with its coordinates (so routing is dimension-order, as in the
+    reference); any other graph routes breadth-first over its edges, in the
+    JSON's order."""
+    spec = json.loads(topology_json)
+    sizes = tuple(int(s) for s in (axis_sizes if not isinstance(axis_sizes, int)
+                                   else (axis_sizes,)))
+    torus = Topology.torus(sizes)
+    if json.loads(torus.to_json())["edges"] == spec["edges"] \
+            and torus.n_ranks == int(spec["n_ranks"]):
+        topo = torus._replace_name(spec.get("name", torus.name))
+    else:
+        topo = Topology.from_json(topology_json)
+    return Communicator.create(axis_names, sizes, topology=topo, transport=transport,
+                               device=device)
+
+
+def tiles_from_reference(np_tiles, device=None) -> torch.Tensor:
+    """The reference's ``(P, nx, ny)`` tile stack (or any per-rank shard
+    stack, rank first) as the port's rank-stacked tensor on ``device``
+    (``cuda`` unless named).  The data is copied; the numpy array is not
+    shared."""
+    from .core.comm import resolve_device
+
+    arr = np.array(np_tiles, copy=True)
+    return torch.from_numpy(arr).to(resolve_device(device))

@@ -1,0 +1,146 @@
+"""The Transport protocol: what a message-moving backend must provide.
+
+A backend turns *logical* communication steps — a ring shift, an explicit
+permutation, a routed point-to-point transfer — into data movement between
+the rows of a rank-stacked tensor.  The collectives and the halo exchange
+are written once against this interface.
+
+Every backend is *schedule-preserving*: for a fixed communicator and
+arguments it moves exactly the same values to the same ranks, so collective
+results are bit-identical across backends.
+
+Cost accounting (:class:`TransportStats`) counts what ONE rank moves: a
+step's bytes are those of ``x[0]``, never of the whole ``(P, ...)`` stack,
+so the counters equal the reference's per-shard counts.
+"""
+
+from __future__ import annotations
+
+import abc
+from contextlib import contextmanager
+from dataclasses import dataclass, field
+
+import torch
+
+from ..core.comm import resolve_device
+
+
+@dataclass
+class TransportStats:
+    """Per-instance accounting, reset with :meth:`Transport.reset_stats`.
+
+    ``steps``/``bytes_moved``: schedule cost per rank (one step = one
+    link-schedule tick; bytes = payload one rank carries per tick, summed).
+    ``by_tag`` splits the same counters per message *tag* (set with
+    :meth:`Transport.tagged`), so the halo exchange keeps its own line when
+    it shares a backend instance with other traffic.
+    """
+
+    steps: int = 0
+    bytes_moved: int = 0
+    #: tag -> {"steps": int, "bytes": int} sub-accounting (see class doc)
+    by_tag: dict = field(default_factory=dict)
+
+    def tag_counts(self, tag: str) -> tuple[int, int]:
+        """(steps, bytes) tallied under ``tag`` (0, 0 when never tagged)."""
+        e = self.by_tag.get(tag, {"steps": 0, "bytes": 0})
+        return e["steps"], e["bytes"]
+
+
+def rank_bytes(x: torch.Tensor) -> int:
+    """Wire bytes one rank's row of the rank-stacked ``x`` holds."""
+    return x[0].numel() * x.element_size()
+
+
+@dataclass
+class Transport(abc.ABC):
+    """One message-moving backend on ``device`` (``cuda`` unless the caller
+    names another).  Instances are cheap, stateful only in their counters;
+    create one per logical phase when separate accounting is wanted."""
+
+    stats: TransportStats = field(default_factory=TransportStats)
+    device: object = None
+
+    # registry key; a plain class attribute (NOT a dataclass field) so
+    # @register_transport's assignment reaches every instance
+    name = ""
+
+    #: active message tag (see :meth:`tagged`)
+    _tag: str | None = None
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+
+    def _check(self, x: torch.Tensor):
+        if x.device.type != self.device.type:
+            raise ValueError(
+                f"{type(self).__name__} on {self.device} was given a tensor "
+                f"on {x.device}"
+            )
+
+    # ------------------------------------------------------------- steps
+
+    @abc.abstractmethod
+    def permute(self, x, comm, pairs):
+        """Move rank rows of ``x`` along explicit (src, dst) pairs — one
+        link step of the schedule.  Ranks absent as a destination receive
+        zeros (``lax.ppermute``'s semantics)."""
+
+    def shift(self, x, comm, step: int = 1):
+        """Ring shift of ``x`` by ``step`` along the linearised ranks."""
+        return self.permute(x, comm, comm.ring_perm(step))
+
+    def accumulate(self, a, b):
+        """Elementwise ``a + b`` — the reduction-combine hook.  The fused
+        backend routes it to its CUDA kernel; it must equal plain ``+`` bit
+        for bit."""
+        return a + b
+
+    def shift_accumulate(self, x, addend, comm, step: int = 1):
+        """Hot-path hook for the ring-reduce inner loop:
+        ``shift(x) + addend``.  Must equal the unfused composition bit for
+        bit."""
+        return self.accumulate(self.shift(x, comm, step), addend)
+
+    def send_contribution(self, c, comm, step: int = 1):
+        """Ship one rank-local contribution a logical ring distance
+        ``step``.  On exact wires this is just :meth:`shift`."""
+        return self.shift(c, comm, step)
+
+    @abc.abstractmethod
+    def p2p(self, x, *, src, dst, comm, n_chunks: int = 1):
+        """Routed whole-message transfer: row ``src`` of ``x`` delivered to
+        row ``dst`` along the communicator's route table; zeros elsewhere."""
+
+    # ---------------------------------------------------------- counters
+
+    @contextmanager
+    def tagged(self, tag: str):
+        """Tag every step accounted inside the block (halo message
+        tagging): the same counters are also bucketed into
+        ``stats.by_tag[tag]``."""
+        prev = self._tag
+        self._tag = tag
+        try:
+            yield self
+        finally:
+            self._tag = prev
+
+    def tally(self, steps: int, nbytes: int):
+        """Add raw (steps, bytes) to the counters, honouring the active tag
+        (the single accounting funnel)."""
+        self.stats.steps += steps
+        self.stats.bytes_moved += nbytes
+        if self._tag is not None:
+            e = self.stats.by_tag.setdefault(
+                self._tag, {"steps": 0, "bytes": 0}
+            )
+            e["steps"] += steps
+            e["bytes"] += nbytes
+
+    def account(self, x, steps: int = 1):
+        """Tally ``steps`` steps that each carry one rank row of ``x``."""
+        self.tally(steps, rank_bytes(x) * steps)
+
+    def reset_stats(self):
+        self.stats = TransportStats()

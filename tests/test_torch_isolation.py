@@ -1,0 +1,91 @@
+"""The port stands alone: it imports neither JAX nor anything of ``repro``,
+and its entry points run on ``cuda`` unless the caller names the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _forbidden_imports(path: Path):
+    """(line, module) of every import of JAX or of ``repro`` at any depth,
+    lazy imports inside functions included; relative imports stay in the
+    package."""
+    bad = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        elif isinstance(node, ast.Call) and getattr(node.func, "id", getattr(
+                node.func, "attr", None)) in ("import_module", "__import__") and node.args \
+                and isinstance(node.args[0], ast.Constant):
+            names = [str(node.args[0].value)]
+        else:
+            continue
+        bad += [(node.lineno, n) for n in names if n.split(".")[0] in FORBIDDEN]
+    return bad
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_repro_import(path):
+    assert path.exists(), path
+    assert _forbidden_imports(path) == []
+
+
+def test_scan_catches_a_lazy_import(tmp_path):
+    f = tmp_path / "m.py"
+    f.write_text("def f():\n    from repro.core import x\n    import jax.numpy\n"
+                 "    import importlib; importlib.import_module('repro.netsim')\n"
+                 "    from repro_torch import y\n")
+    assert [n for _, n in _forbidden_imports(f)] == ["repro.core", "jax.numpy", "repro.netsim"]
+
+
+def test_importing_the_port_loads_no_jax_or_repro():
+    code = (
+        "import pkgutil, sys, repro_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
+        "for m in mods: __import__(m)\n"
+        "import repro_torch.launch.stencil\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert len(mods) > 20, mods\n"
+        "print(bad)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
+                         cwd=ROOT, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]"
+
+
+def test_entry_points_default_to_cuda():
+    from repro_torch.apps import DistributedStencil
+    from repro_torch.core import Communicator
+    from repro_torch.launch import stencil as launch_stencil
+    from repro_torch.transport import get_transport
+    from repro_torch.transport.fused import FusedTransport
+    from repro_torch.transport.static import StaticTransport
+
+    makers = [lambda: DistributedStencil.create((2, 4)).device, lambda: FusedTransport().device,
+              lambda: StaticTransport().device, lambda: get_transport("fused").device,
+              lambda: Communicator.create("x", (8,)).device]
+    if torch.cuda.is_available():
+        assert all(m().type == "cuda" for m in makers)
+        return
+    for make in makers:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_stencil.main(["--domain", "16x16", "--steps", "1"])
