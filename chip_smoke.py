@@ -20,10 +20,32 @@ non-zero):
 5. the reduction path: ``allreduce``, ``reduce_scatter`` and ``reduce`` of
    8 x 16 Mi float32 on ``smi:fused`` against ``smi:static``, on ring(1x8)
    and torus(2x4), bit for bit; kernel A must launch;
-6. one ``{"kernels": [...]}`` line: per kernel its launches on its path,
-   time per launch (CUDA events, after warm-up, at the path's shapes), the
-   bound (bytes moved over 3.35 TB/s), the plain version's time and one
-   PyTorch library call's time (timed here only, never used by the port).
+6. per kernel its launches on its path, time per launch (CUDA events,
+   after warm-up, at the path's shapes), the bound (bytes moved over 3.35
+   TB/s), the plain version's time and one PyTorch library call's time
+   (timed here only, never used by the port);
+7. kernel C (``router_run``) against both plain routers (``impl="vector"``
+   and ``"scalar"``), bit for bit on (out_pay, out_cnt, overflow, t_done):
+   the reference's four equivalence configurations on torus(2x4) and the
+   snake bus, the out_cap overrun, the step-budget flood and the halo shape
+   (4096 float32 at 32 per packet: 128 packets, a 133-tick budget), which
+   is also where kernel C is timed;
+8. one RouterConfig re-routed from the torus table to the snake-bus table:
+   everything delivered, nothing lost, the kernel library neither rebuilt
+   nor reloaded;
+9. the paper's Tab. 4 injection workload (R in 1, 4, 8, 16, switch bubble,
+   two saturated ports): delivered packets, drain ticks (equal to the plain
+   router's), ticks per packet, microseconds per run;
+10. the stencil path over ``smi:packet`` (overlapped and not), equal bit for
+    bit to the single-rank sweep, with 12,928 halo steps and 1,572,864 bytes
+    per rank; kernels C and B must launch;
+11. ``allreduce``, ``reduce_scatter`` and ``reduce`` of 8 x 16 Mi float32
+    over ``packet`` (2048 float32 per packet) on ring(1x8), torus(2x4) and
+    the snake bus, equal bit for bit to ``static`` with no loss; kernel C
+    must launch.
+
+A ``{"kernels": [...]}`` line carries the rows of phases 6 and 7.  Each
+phase prints its seconds.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository around it, the script exits non-zero and prints
@@ -52,6 +74,19 @@ P = 8
 REDUCE_ELEMS = 16 * 1024 * 1024  # per rank
 STENCIL_ARGS = ["--grid", "2x4", "--domain", "8192x8192", "--steps", "32",
                 "--comm-mode", "smi:static"]
+PACKET_STENCIL_ARGS = STENCIL_ARGS[:-1] + ["smi:packet"]
+#: halo traffic of one packet stencil run (32 steps of the 2x4 grid's four
+#: slabs of a 4096x2048 tile): 404 router ticks a step, as
+#: repro.netsim.predict_halo_stats gives for the packet wire
+PACKET_HALO = (32 * 404, 32 * 49152)
+DIMS = (2, 4)
+#: the reference's router equivalence configurations (tests/test_router.py)
+EQ_CFGS = {
+    "r1": dict(n_ports=1, R=1, switch_bubble=False, tick_batch=1),
+    "r4_bubble": dict(n_ports=1, R=4, switch_bubble=True, tick_batch=2),
+    "ports2_r8": dict(n_ports=2, R=8, switch_bubble=False, tick_batch=4),
+    "ports2_bubble_r16": dict(n_ports=2, R=16, switch_bubble=True, tick_batch=3),
+}
 
 
 def log(msg: str):
@@ -93,10 +128,11 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
 
 
 def reset_counts():
+    from repro_torch.kernels.router import router_run
     from repro_torch.kernels.stencil import stencil_sweep
     from repro_torch.transport.fused import fused_accumulate
 
-    stencil_sweep.launches = fused_accumulate.launches = 0
+    stencil_sweep.launches = fused_accumulate.launches = router_run.launches = 0
 
 
 def phase_build():
@@ -305,6 +341,267 @@ def phase_kernel_table(dev, launches_a, launches_b, err_a, err_b) -> list[dict]:
     return rows
 
 
+# -- the packet router (kernel C) ----------------------------------------------------
+
+
+def _stage(dev, n_ports, fifo_cap, pkt_elems, msgs):
+    """(src, port, dst, value) messages -> staged (pay, dst, len) on ``dev``."""
+    import numpy as np
+    import torch
+
+    pay = np.zeros((P, n_ports, fifo_cap, pkt_elems), np.float32)
+    dst = np.zeros((P, n_ports, fifo_cap), np.int32)
+    ln = np.zeros((P, n_ports), np.int32)
+    for s, p, d, val in msgs:
+        i = ln[s, p]
+        pay[s, p, i] = val
+        dst[s, p, i] = d
+        ln[s, p] += 1
+    return [torch.from_numpy(a).to(dev) for a in (pay, dst, ln)]
+
+
+def _tables(dev):
+    import torch
+
+    from repro_torch.core import Topology, make_router_tables, snake_bus
+
+    return {name: torch.from_numpy(make_router_tables(topo, DIMS)).to(dev)
+            for name, topo in (("torus", Topology.torus(DIMS)), ("snake_bus", snake_bus(DIMS)))}
+
+
+def _halo_job(dev):
+    """The router run of one E/W halo permute of the packet stencil: a
+    4096-float32 column slab per rank, 32 float32 per packet."""
+    import torch
+
+    from repro_torch.core import Communicator
+    from repro_torch.netsim import halo_pairs
+    from repro_torch.transport import get_transport
+
+    comm = Communicator.create(("x", "y"), DIMS, device=dev)
+    g = torch.Generator(device=dev).manual_seed(6)
+    vec = torch.randn((P, 4096), generator=g, device=dev)
+    tp = get_transport("packet", device=dev, pkt_elems=32)
+    return comm, tp.router_job(vec, comm, halo_pairs(DIMS, 0, +1))
+
+
+def phase_router_kernel(dev) -> tuple[float, dict]:
+    """Kernel C against the vector and scalar routers; returns the worst
+    error and the halo-shape timing row of the kernel table."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import Communicator, RouterConfig, run_router
+
+    comm = Communicator.create(("x", "y"), DIMS, device=dev)
+    tables = _tables(dev)
+    cases = []
+    for name, kw in sorted(EQ_CFGS.items()):
+        cfg = RouterConfig(dims=DIMS, fifo_cap=6, transit_cap=8, out_cap=16, pkt_elems=4, **kw)
+        rng = np.random.RandomState(sum(map(ord, name)) % 1000)
+        msgs = [(s, p, rng.randint(0, P), float(rng.randint(1, 99)))
+                for s in range(P) for p in range(cfg.n_ports) for _ in range(rng.randint(0, 5))]
+        for topo in ("torus", "snake_bus"):
+            cases.append((f"{name}/{topo}", cfg, tables[topo], msgs, 64))
+    cfg = RouterConfig(dims=DIMS, n_ports=1, fifo_cap=8, transit_cap=16, out_cap=2, pkt_elems=4)
+    cases.append(("out_cap_overrun", cfg, tables["torus"],
+                  [(s, 0, 0, float(10 + s)) for s in (1, 2, 4, 5)], 64))
+    cfg = RouterConfig(dims=DIMS, n_ports=1, fifo_cap=8, transit_cap=8, out_cap=8, pkt_elems=4,
+                       tick_batch=4)
+    cases.append(("step_budget", cfg, tables["torus"],
+                  [(s, 0, (s + 1 + k) % P, float(10 * s + k)) for s in range(P) for k in range(4)],
+                  5))
+    worst = 0.0
+    names = ("out_pay", "out_cnt", "overflow", "t_done")
+    for name, cfg, tbl, msgs, n_steps in cases:
+        args = (cfg, comm, tbl, *_stage(dev, cfg.n_ports, cfg.fifo_cap, cfg.pkt_elems, msgs),
+                n_steps)
+        got = run_router(*args, impl="kernel")
+        for impl in ("vector", "scalar"):
+            want = run_router(*args, impl=impl)
+            torch.cuda.synchronize()
+            for a, b, nm in zip(got, want, names):
+                if not same_bits(a, b):
+                    raise AssertionError(f"router {name}: kernel != {impl} on {nm}")
+        log(f"router {name:>26}: kernel bit-equal to vector and scalar "
+            f"(delivered {int(got[1].sum())}, overflow {int(got[2].sum())})")
+        if name == "out_cap_overrun" and (int(got[1][0, 0]), int(got[2].sum())) != (2, 2):
+            raise AssertionError("out_cap overrun: expected 2 delivered and 2 counted")
+
+    # the halo shape: also where kernel C is timed
+    from repro_torch.kernels.router import router_run, tick_spec_of
+    from repro_torch.core.router import _fabric
+
+    comm, (cfg, tbl, pay, dst, ln, n_steps) = _halo_job(dev)
+    args = (cfg, comm, tbl, pay, dst, ln, n_steps)
+    got = run_router(*args, impl="kernel")
+    for impl in ("vector", "scalar"):
+        want = run_router(*args, impl=impl)
+        torch.cuda.synchronize()
+        for a, b, nm in zip(got, want, names):
+            if not same_bits(a, b):
+                raise AssertionError(f"router halo shape: kernel != {impl} on {nm}")
+        worst = max(worst, max_abs_err(got[0], want[0]))
+    links, link_ids, src = _fabric(DIMS, dev)
+    spec = tick_spec_of(cfg, P, link_ids)
+    ticks = int(router_run(spec, tbl, src, pay, dst, ln, n_steps)[4])
+    packets = int(ln.sum())
+    if int(got[1].sum()) != packets or int(got[2].sum()) != 0:
+        raise AssertionError("router halo shape: packets lost")
+    ms = time_ms(lambda: run_router(*args, impl="kernel"))
+    plain_ms = time_ms(lambda: run_router(*args, impl="vector"), reps=3, warmup=1)
+    # bytes: each staged packet and header read once, the lengths, route
+    # table and exchange table read once, every output written once
+    E, itemsize = cfg.pkt_elems, 4
+    nbytes = itemsize * (packets * (E + 1) + ln.numel() + tbl.numel() + src.numel() + len(links)
+                         + got[0].numel() + got[1].numel() + got[2].numel() + got[3].numel())
+    t_bound, _ = bound(nbytes, 0)
+    log(f"router halo shape: {packets} packets, {ticks} of {n_steps} ticks run, "
+        f"kernel {ms:.4f} ms ({ms / ticks * 1e3:.3f} us/tick), plain {plain_ms:.4f} ms, "
+        f"bound {t_bound:.6f} ms")
+    row = dict(name="router_run", route="cuda", source="src/repro_torch/csrc/router.cu",
+               replaces="src/repro/kernels/router/kernel.py:83", launches=0, max_abs_err=worst,
+               ms=ms, plain_ms=plain_ms, bound_ms=t_bound, bound_by="bytes", library_ms=None,
+               ticks=ticks, tick_budget=n_steps, us_per_tick=ms / ticks * 1e3,
+               shape=list(pay.shape), dtype="float32")
+    return worst, row
+
+
+def phase_router_reroute(dev):
+    """One RouterConfig, the torus table then the snake-bus table: all
+    delivered, nothing lost, no rebuild and no reload of the kernels."""
+    from repro_torch.core import Communicator, RouterConfig, run_router
+    from repro_torch.kernels import build
+
+    comm = Communicator.create(("x", "y"), DIMS, device=dev)
+    cfg = RouterConfig(dims=DIMS)
+    msgs = [(0, 0, 5, 9.0), (2, 1, 6, 8.0), (7, 0, 1, 3.0), (4, 1, 3, 2.0), (6, 0, 0, 7.0)]
+    staged = _stage(dev, cfg.n_ports, cfg.fifo_cap, cfg.pkt_elems, msgs)
+    lib, cache, digest = build.library(), build.library.cache_info(), build._digest()
+    for topo, tbl in _tables(dev).items():
+        out_pay, out_cnt, ovf, _ = run_router(cfg, comm, tbl, *staged, 64, impl="kernel")
+        if int(ovf.sum()) != 0:
+            raise AssertionError(f"re-route {topo}: packets lost")
+        for _s, p, d, val in msgs:
+            if val not in out_pay[d, p, :int(out_cnt[d, p]), 0].tolist():
+                raise AssertionError(f"re-route {topo}: message {val} not delivered")
+    after = build.library.cache_info()
+    if build.library() is not lib or after.misses != cache.misses or build._digest() != digest:
+        raise AssertionError("re-routing rebuilt or reloaded the kernel library")
+    log(f"re-route: torus then snake bus on one config, {len(msgs)} messages each, "
+        f"delivered, no loss; the kernel library was neither rebuilt nor reloaded")
+
+
+def phase_injection(dev) -> list[dict]:
+    """The paper's Tab. 4 (benchmarks/injection.py): both FIFOs of every
+    rank saturated toward the same +y link, switch bubble on."""
+    import torch
+
+    from repro_torch.core import Communicator, RouterConfig, run_router
+
+    comm = Communicator.create(("x", "y"), DIMS, device=dev)
+    tbl = _tables(dev)["torus"]
+    rows = []
+    for R in (1, 4, 8, 16):
+        cfg = RouterConfig(dims=DIMS, n_ports=2, fifo_cap=8, out_cap=32, transit_cap=32, R=R,
+                           switch_bubble=True)
+        msgs = []
+        for r in range(P):
+            row, col = divmod(r, 4)
+            msgs += [(r, 0, row * 4 + (col + 1) % 4, 0.0)] * 8   # +y, 1 hop
+            msgs += [(r, 1, row * 4 + (col + 2) % 4, 0.0)] * 8   # +y twice, 2 hops
+        args = (cfg, comm, tbl, *_stage(dev, 2, 8, cfg.pkt_elems, msgs), 96)
+        got = run_router(*args, impl="kernel")
+        want = run_router(*args, impl="vector")
+        torch.cuda.synchronize()
+        if not all(same_bits(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"injection R={R}: kernel != vector")
+        delivered, lost = int(got[1].sum()), int(got[2].sum())
+        drain = int(got[3].max()) + 1
+        if drain != int(want[3].max()) + 1 or lost:
+            raise AssertionError(f"injection R={R}: drain or loss differs")
+        us = time_ms(lambda: run_router(*args, impl="kernel")) * 1e3
+        rows.append(dict(R=R, delivered=delivered, drain_ticks=drain,
+                         ticks_per_packet=drain / (delivered / P), us_per_run=us))
+        log(f"injection R={R:>2}: delivered {delivered}, drain {drain} ticks, "
+            f"{drain / (delivered / P):.2f} ticks/packet, {us:.1f} us/run, overflow {lost}")
+    return rows
+
+
+def phase_packet_stencil() -> tuple[int, dict]:
+    import torch
+
+    from repro_torch.kernels.router import router_run
+    from repro_torch.kernels.stencil import stencil_sweep
+    from repro_torch.launch import stencil as launch_stencil
+
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts()
+        for sched, extra in (("overlapped", []), ("reference", ["--no-overlap"])):
+            out = os.path.join(tmp, f"{sched}.json")
+            rc = launch_stencil.main([*PACKET_STENCIL_ARGS, *extra, "--json", out])
+            torch.cuda.synchronize()
+            res = json.loads(Path(out).read_text())
+            if rc != 0 or not res["ok"] or res["max_err"] != 0.0:
+                raise AssertionError(f"packet stencil {sched}: rc={rc} result={res}")
+            if (res["halo_steps"], res["halo_bytes_per_rank"]) != PACKET_HALO:
+                raise AssertionError(f"packet stencil {sched}: halo {res['halo_steps']} steps / "
+                                     f"{res['halo_bytes_per_rank']} B, expected {PACKET_HALO}")
+            results[sched] = res
+        launches_c, launches_b = router_run.launches, stencil_sweep.launches
+    if launches_c == 0 or launches_b == 0:
+        raise AssertionError(f"packet stencil path launched kernel C {launches_c} and "
+                             f"kernel B {launches_b} times")
+    for sched, res in results.items():
+        log(f"packet stencil {sched}: {res['wall_per_step_s'] * 1e3:.4f} ms/step, halo "
+            f"{res['halo_steps']} steps / {res['halo_bytes_per_rank']} B per rank, equal to "
+            f"the single-rank sweep")
+    log(f"packet stencil path: kernel C launched {launches_c} times, kernel B {launches_b}")
+    return launches_c, results
+
+
+def phase_packet_reductions(dev) -> int:
+    import torch
+
+    from repro_torch.core import Communicator, snake_bus
+    from repro_torch.core.collectives import allreduce, reduce, stream_reduce_scatter
+    from repro_torch.kernels.router import router_run
+    from repro_torch.transport import get_transport
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((P, REDUCE_ELEMS), generator=g, device=dev)
+    ops = {"allreduce": lambda v, c, t: allreduce(v, c, transport=t),
+           "reduce_scatter": lambda v, c, t: stream_reduce_scatter(v, c, transport=t),
+           "reduce": lambda v, c, t: reduce(v, c, root=3, transport=t)}
+    comms = {"ring(1x8)": Communicator.create(("x",), (8,), device=dev),
+             "torus(2x4)": Communicator.create(("x", "y"), DIMS, device=dev),
+             "snake_bus(2x4)": Communicator.create(("x", "y"), DIMS, topology=snake_bus(DIMS),
+                                                   device=dev)}
+    reset_counts()
+    for cname, comm in comms.items():
+        for name, op in ops.items():
+            ts = get_transport("static", device=dev)
+            tp = get_transport("packet", device=dev, pkt_elems=2048)
+            t0 = time.perf_counter()
+            got = op(x, comm, tp)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            want = op(x, comm, ts)
+            torch.cuda.synchronize()
+            if not same_bits(got, want) or not torch.isfinite(got).all():
+                raise AssertionError(f"{name} on {cname}: smi:packet != smi:static")
+            if int(tp.stats.overflow.sum()) != 0:
+                raise AssertionError(f"{name} on {cname}: packets lost")
+            log(f"{name:>14} on {cname:>14}: smi:packet bit-equal to smi:static, overflow 0, "
+                f"{tp.stats.steps} router ticks budgeted, {secs * 1e3:.1f} ms")
+    launches = router_run.launches
+    if launches == 0:
+        raise AssertionError("the packet reductions never launched kernel C")
+    log(f"packet reduction path: kernel C launched {launches} times")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -333,9 +630,40 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows = phase_kernel_table(dev, launches_a, launches_b, err_a, err_b)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"phases 1-6: {time.perf_counter() - t_start:.1f}s")
+
+    t0 = time.perf_counter()
+    _err_c, row_c = phase_router_kernel(dev)
+    torch.cuda.synchronize()
+    log(f"phase 7 (kernel C vs plain): {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase_router_reroute(dev)
+    torch.cuda.synchronize()
+    log(f"phase 8 (re-route): {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    injection = phase_injection(dev)
+    torch.cuda.synchronize()
+    log(f"phase 9 (injection): {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    launches_c, packet_stencil = phase_packet_stencil()
+    torch.cuda.synchronize()
+    log(f"phase 10 (packet stencil): {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches_c_red = phase_packet_reductions(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"phase 11 (packet reductions): {time.perf_counter() - t0:.1f}s")
+    row_c["launches"] = launches_c
+    row_c["launches_reductions"] = launches_c_red
+    rows.append(row_c)
 
     log("stencil_wall_per_step_ms: " + json.dumps(
         {k: v["wall_per_step_s"] * 1e3 for k, v in stencil.items()}))
+    log("packet_stencil_wall_per_step_ms: " + json.dumps(
+        {k: v["wall_per_step_s"] * 1e3 for k, v in packet_stencil.items()}))
+    log("injection_tab4: " + json.dumps(injection))
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

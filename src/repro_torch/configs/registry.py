@@ -5,7 +5,7 @@ from __future__ import annotations
 
 #: transport backends of the port (``comm_mode="smi:<backend>"``); bare
 #: ``"smi"`` means ``smi:static``
-TRANSPORT_BACKENDS: tuple[str, ...] = ("static", "fused")
+TRANSPORT_BACKENDS: tuple[str, ...] = ("static", "fused", "packet")
 COMM_MODES: tuple[str, ...] = ("smi", *(f"smi:{b}" for b in TRANSPORT_BACKENDS))
 
 #: default (grid, domain, steps) cells the stencil launcher runs: the

@@ -1,6 +1,6 @@
 """Carry state across from the reference package, with plain types only.
 
-Both helpers take what ``repro`` hands out as JSON strings and numpy
+The helpers take what ``repro`` hands out as JSON strings and numpy
 arrays, so the port and the reference can start from the same state
 without the port importing anything of ``repro``.
 """
@@ -48,3 +48,19 @@ def tiles_from_reference(np_tiles, device=None) -> torch.Tensor:
 
     arr = np.array(np_tiles, copy=True)
     return torch.from_numpy(arr).to(resolve_device(device))
+
+
+def router_inputs_from_reference(route_tbl, inq_pay, inq_dst, inq_len, device=None):
+    """The reference's router inputs as the port's tensors on ``device``
+    (``cuda`` unless named): the ``(n, n)`` route table of
+    ``repro.core.router.make_router_tables`` and the staged
+    ``(P, n_ports, fifo_cap, E)`` payloads, ``(P, n_ports, fifo_cap)``
+    destinations and ``(P, n_ports)`` lengths, numpy arrays with the rank
+    first.  Returns ``(route_tbl, inq_pay, inq_dst, inq_len)``: int32,
+    float32, int32, int32, contiguous copies."""
+    from .core.comm import resolve_device
+
+    dev = resolve_device(device)
+    conv = [(route_tbl, np.int32), (inq_pay, np.float32), (inq_dst, np.int32),
+            (inq_len, np.int32)]
+    return tuple(torch.from_numpy(np.array(a, dtype=dt, copy=True)).to(dev) for a, dt in conv)

@@ -27,7 +27,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("accumulate.cu", "stencil.cu")
+SOURCES = ("accumulate.cu", "stencil.cu", "router.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_NAME = "libsmi_kernels.so"
 #: where the CUDA toolkit puts nvcc when neither CUDA_HOME nor PATH names it
@@ -114,6 +114,8 @@ def library() -> ctypes.CDLL:
     lib.smi_accumulate.restype = i32
     lib.smi_stencil_sweep.argtypes = [p, p, i64, i64, i64, i32, p]
     lib.smi_stencil_sweep.restype = i32
+    lib.smi_router_run.argtypes = [p] * 13 + [i32] * 11 + [p]
+    lib.smi_router_run.restype = i32
     lib.smi_error_string.argtypes = [i32]
     lib.smi_error_string.restype = ctypes.c_char_p
     return lib

@@ -5,8 +5,9 @@
   ``accumulate``/``shift_accumulate`` fold hooks, routed ``p2p``, and
   per-step cost counters.
 * :func:`~repro_torch.transport.registry.get_transport` — the string-keyed
-  registry: ``"static"`` (index-copy schedules) and ``"fused"`` (static
-  schedules whose folds run on a CUDA add kernel).
+  registry: ``"static"`` (index-copy schedules), ``"fused"`` (static
+  schedules whose folds run on a CUDA add kernel) and ``"packet"`` /
+  ``"packet:pallas"`` (every step through the packet router, kernel C).
 * :func:`~repro_torch.transport.registry.resolve_comm_mode` — parses
   ``comm_mode`` strings (``"smi:fused"``).
 """

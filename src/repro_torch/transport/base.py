@@ -11,7 +11,9 @@ results are bit-identical across backends.
 
 Cost accounting (:class:`TransportStats`) counts what ONE rank moves: a
 step's bytes are those of ``x[0]``, never of the whole ``(P, ...)`` stack,
-so the counters equal the reference's per-shard counts.
+so the counters equal the reference's per-shard counts.  The packet backend
+also accumulates the router's loss counter, so lossless runs are
+assertable.
 """
 
 from __future__ import annotations
@@ -34,10 +36,18 @@ class TransportStats:
     ``by_tag`` splits the same counters per message *tag* (set with
     :meth:`Transport.tagged`), so the halo exchange keeps its own line when
     it shares a backend instance with other traffic.
+
+    ``overflow`` is the packet router's loss counter, a ``(P,)`` int32
+    tensor on the transport's device summed over router runs without a host
+    sync (``None`` for backends that cannot drop traffic); reading it is
+    the caller's sync.  The reference's ``trace_token`` and
+    ``Transport._guard_runtime_reuse`` are not ported: they keep JAX tracers
+    of one trace out of another, and eager PyTorch has no tracers.
     """
 
     steps: int = 0
     bytes_moved: int = 0
+    overflow: torch.Tensor | None = None
     #: tag -> {"steps": int, "bytes": int} sub-accounting (see class doc)
     by_tag: dict = field(default_factory=dict)
 
@@ -45,6 +55,10 @@ class TransportStats:
         """(steps, bytes) tallied under ``tag`` (0, 0 when never tagged)."""
         e = self.by_tag.get(tag, {"steps": 0, "bytes": 0})
         return e["steps"], e["bytes"]
+
+    def add_overflow(self, ovf: torch.Tensor):
+        """Add one router run's per-rank loss count (no host sync)."""
+        self.overflow = ovf if self.overflow is None else self.overflow + ovf
 
 
 def rank_bytes(x: torch.Tensor) -> int:

@@ -3,9 +3,9 @@
 Call sites name their backend with a string carried in
 ``Communicator.transport`` or a ``comm_mode`` like ``"smi:fused"``; the
 same call site then runs over whichever backend the string selects.  The
-port has ``"static"`` and ``"fused"``.  The reference's other keys name
-backends that are not ported yet, and asking for one raises — it never
-falls back to another backend.
+port has ``"static"``, ``"fused"``, ``"packet"`` and ``"packet:pallas"``.
+The reference's compressed keys name a backend that is not ported yet, and
+asking for one raises — it never falls back to another backend.
 """
 
 from __future__ import annotations
@@ -19,8 +19,6 @@ DEFAULT_TRANSPORT = "static"
 
 #: reference backends the port does not have yet, and the slice that adds each
 NOT_PORTED = {
-    "packet": "the packet-router slice",
-    "packet:pallas": "the packet-router slice",
     "compressed": "the compressed-wire slice",
 }
 
@@ -37,8 +35,9 @@ def register_transport(name: str):
 
 
 def _ensure_builtins():
-    if "static" not in _REGISTRY:
-        from . import fused, static  # noqa: F401
+    # each module registers its keys when first imported; importing one of
+    # them directly must not hide the others
+    from . import fused, packet, static  # noqa: F401
 
 
 def available_transports() -> tuple[str, ...]:

@@ -80,6 +80,7 @@ def test_entry_points_default_to_cuda():
 
     makers = [lambda: DistributedStencil.create((2, 4)).device, lambda: FusedTransport().device,
               lambda: StaticTransport().device, lambda: get_transport("fused").device,
+              lambda: get_transport("packet").device,
               lambda: Communicator.create("x", (8,)).device]
     if torch.cuda.is_available():
         assert all(m().type == "cuda" for m in makers)

@@ -110,13 +110,32 @@ def test_ppermute_leaves_input_alone_and_counts_one_rank():
 
 
 def test_registry_keys_and_resolution():
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    # importing one backend module first must not hide the other keys
+    code = ("import repro_torch.transport.fused\n"
+            "from repro_torch.transport import available_transports\n"
+            "print(available_transports())")
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent.parent / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         check=True, env=env, timeout=120).stdout
+    assert out.strip() == str(("fused", "packet", "packet:pallas", "static"))
     comm = port_comm("torus", transport="fused")
     assert type(resolve_transport(None, comm)).__name__ == "FusedTransport"
     assert resolve_transport("static", comm).device.type == "cpu"
     assert resolve_comm_mode("smi") == ("smi", "static")
     assert resolve_comm_mode("smi:fused") == ("smi", "fused")
     assert resolve_comm_mode(None)[0] == "none"
-    for key in ("packet", "packet:pallas", "compressed", "compressed:packet"):
+    from repro_torch.transport.packet import PacketTransport, PallasPacketTransport
+
+    assert type(get_transport("packet", device="cpu")) is PacketTransport
+    assert type(resolve_transport("packet:pallas", comm)) is PallasPacketTransport
+    assert resolve_comm_mode("smi:packet") == ("smi", "packet")
+    assert resolve_comm_mode("smi:packet:pallas") == ("smi", "packet:pallas")
+    for key in ("compressed", "compressed:packet"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             get_transport(key, device="cpu")
         with pytest.raises(NotImplementedError, match="not ported yet"):
