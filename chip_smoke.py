@@ -42,9 +42,23 @@ non-zero):
 11. ``allreduce``, ``reduce_scatter`` and ``reduce`` of 8 x 16 Mi float32
     over ``packet`` (2048 float32 per packet) on ring(1x8), torus(2x4) and
     the snake bus, equal bit for bit to ``static`` with no loss; kernel C
-    must launch.
+    must launch;
+12. kernel E (``flash_attention_kernel``) against its plain version within
+    1e-4 (float32) and 1.6e-2 (bfloat16) on unit normals: yi-6b's prefill
+    shape (32 heads x 4096 x 128, bfloat16, causal, where E, its plain
+    version and ``scaled_dot_product_attention`` are timed), GQA 32/4 in
+    float32 at 1000 real keys, Sq 256 != Skv 1024, a 2048-token window at
+    head dim 256, and non-causal;
+13. yi-6b at full width and depth through ``build_prefill`` on 4096 tokens:
+    kernel E launched once per layer (32), hidden states finite and within
+    a row cosine of 0.999 of the same prefill with the plain refs; ms per
+    prefill, tokens/s and kernel E's share of the profiled device time;
+14. ``python -m repro_torch.launch.serve --arch yi-6b --requests 8
+    --max-new 16 --slots 4 --capacity 256`` with ``--engine wave`` and
+    ``continuous``: every request's tokens equal across the two engines;
+    tokens/s and ms per decode step of each.
 
-A ``{"kernels": [...]}`` line carries the rows of phases 6 and 7.  Each
+A ``{"kernels": [...]}`` line carries the rows of phases 6, 7 and 12.  Each
 phase prints its seconds.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -69,6 +83,8 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 #: H100 SXM float32 rate outside the tensor cores, operations per second
 F32_OPS_PER_S = 67e12
+#: H100 SXM dense bfloat16 tensor-core rate, operations per second
+BF16_OPS_PER_S = 989e12
 
 P = 8
 REDUCE_ELEMS = 16 * 1024 * 1024  # per rank
@@ -120,19 +136,22 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
     """(least ms, what bounds it): bytes over the memory rate against
-    operations over the float32 rate."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    operations over the card's peak rate for their type (float32 unless
+    named)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def reset_counts():
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
     from repro_torch.kernels.router import router_run
     from repro_torch.kernels.stencil import stencil_sweep
     from repro_torch.transport.fused import fused_accumulate
 
     stencil_sweep.launches = fused_accumulate.launches = router_run.launches = 0
+    flash_attention_kernel.launches = 0
 
 
 def phase_build():
@@ -602,6 +621,225 @@ def phase_packet_reductions(dev) -> int:
     return launches
 
 
+# -- the dense model: flash attention (kernel E), prefill, serving ---------------------
+
+#: yi-6b's attention at the prefill shape: one sequence of 4096 tokens, its
+#: 32 query heads over KV heads expanded to 32 (the model path), head dim 128
+PREFILL_TOKENS = 4096
+#: kernel E's cases: (name, BH, H, Hkv, Sq, Skv, skv_actual, D, causal, window,
+#: dtype); Sq and Skv are the wrapper's padded lengths
+FA_CASES = (
+    ("prefill_bf16_causal", 32, 32, 32, 4096, 4096, 4096, 128, True, None, "bfloat16"),
+    ("gqa_32_4_f32_ragged", 32, 32, 4, 1024, 1024, 1000, 128, True, None, "float32"),
+    ("sq256_skv1024_f32", 32, 32, 32, 256, 1024, 1024, 128, True, None, "float32"),
+    ("window2048_d256_f32", 16, 16, 16, 4096, 4096, 4096, 256, True, 2048, "float32"),
+    ("noncausal_f32", 32, 32, 32, 1024, 1024, 1024, 128, False, None, "float32"),
+)
+FA_TOL = {"float32": 1e-4, "bfloat16": 1.6e-2}
+
+
+def _fa_inputs(dev, g, BH, Hkv_rows, Sq, Skv, skv, D, dtype):
+    """Unit-normal q, k, v in the kernel's padded layout; keys past ``skv``
+    are zero, as the wrapper's padding leaves them."""
+    import torch
+
+    q = torch.randn((BH, Sq, D), generator=g, device=dev)
+    k = torch.randn((Hkv_rows, Skv, D), generator=g, device=dev)
+    v = torch.randn((Hkv_rows, Skv, D), generator=g, device=dev)
+    k[:, skv:] = 0
+    v[:, skv:] = 0
+    dt = getattr(torch, dtype)
+    return q.to(dt), k.to(dt), v.to(dt)
+
+
+def phase_flash_kernel(dev) -> tuple[float, dict]:
+    """Kernel E against its plain version on the cases of ``FA_CASES``;
+    returns the worst error and the prefill-shape timing row (kernel E, the
+    plain version and ``scaled_dot_product_attention``, CUDA events)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention_kernel, flash_attention_plain
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    worst = {}
+    row = None
+    for name, BH, H, Hkv, Sq, Skv, skv, D, causal, window, dtype in FA_CASES:
+        q, k, v = _fa_inputs(dev, g, BH, BH // H * Hkv, Sq, Skv, skv, D, dtype)
+        kw = dict(n_q_heads=H, n_kv_heads=Hkv, scale=D ** -0.5, causal=causal, window=window,
+                  skv_actual=skv)
+        got = flash_attention_kernel(q, k, v, **kw)
+        want = flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        if not torch.isfinite(got).all() or err > FA_TOL[dtype]:
+            raise AssertionError(f"flash_attention {name}: kernel != plain (max abs err {err}, "
+                                 f"tolerance {FA_TOL[dtype]})")
+        worst[dtype] = max(worst.get(dtype, 0.0), err)
+        log(f"flash_attention {name:>22}: max abs err {err:.3e} (tolerance {FA_TOL[dtype]})")
+        if name == "prefill_bf16_causal":
+            ms = time_ms(lambda: flash_attention_kernel(q, k, v, **kw), reps=10)
+            plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, **kw), reps=3, warmup=1)
+            q4, k4, v4 = (t.view(1, BH, Sq, D) for t in (q, k, v))
+            sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True),
+                              reps=10)
+            # this run's data: every query sees the keys at or before it
+            pairs = BH * Sq * (Sq + 1) // 2
+            t_bound, by = bound(4 * q.numel() * q.element_size(), 4 * D * pairs, BF16_OPS_PER_S)
+            row = dict(name="flash_attention", route="cuda",
+                       source="src/repro_torch/csrc/flash_attention.cu",
+                       replaces="src/repro/kernels/flash_attention/kernel.py:88", launches=0,
+                       max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=t_bound, bound_by=by,
+                       library_ms=sdpa_ms, shape=list(q.shape), dtype=dtype, causal=True)
+            log(f"flash_attention prefill shape {list(q.shape)} bf16 causal: kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, sdpa {sdpa_ms:.4f} ms, bound {t_bound:.4f} ms ({by})")
+        del q, k, v, got, want
+    row["max_abs_err_by_dtype"] = worst
+    return max(worst.values()), row
+
+
+def _profile_device_ms(fn) -> tuple[float, list[tuple[str, float]]]:
+    """Device milliseconds of one call of ``fn`` under ``torch.profiler``:
+    the total over kernels and the rows by kernel name, largest first."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                  key=lambda kv: -kv[1])
+    return sum(ms for _, ms in rows), rows
+
+
+def phase_prefill(dev) -> tuple[int, dict]:
+    """yi-6b at full width and depth (32 layers, bfloat16, random weights
+    from a seeded generator) through ``build_prefill`` on one sequence of
+    4096 seeded tokens: a warm-up run, a timed run whose kernel E launches
+    are counted (one per layer), a profiled run (kernel E's share of the
+    device time), and the same prefill with ``use_kernel=False`` (the plain
+    refs): every row's cosine similarity at least 0.999."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.launch.steps import build_prefill
+    from repro_torch.models import init_lm
+    from repro_torch.models.common import tree_leaves_with_path
+    from repro_torch.models.model import model_dtype
+
+    cfg = get_arch("yi-6b")
+    shape = ShapeConfig("prefill_4k", PREFILL_TOKENS, 1, "prefill")
+    t0 = time.perf_counter()
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(13), dev, dtype=model_dtype(cfg))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in tree_leaves_with_path(params))
+    log(f"prefill: {cfg.name} params {n_params} ({n_params * 2 / 1e9:.2f} GB bf16) initialised "
+        f"on the card in {time.perf_counter() - t0:.1f}s")
+    prefill = build_prefill(cfg, shape, device=dev)
+    tokens = torch.from_numpy(np.random.RandomState(13).randint(0, cfg.vocab_size,
+                                                                (1, PREFILL_TOKENS)))
+    prefill(params, tokens)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    hidden = prefill(params, tokens)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = flash_attention_kernel.launches
+    if launches != cfg.n_layers:
+        raise AssertionError(f"prefill launched kernel E {launches} times, not {cfg.n_layers}")
+    if tuple(hidden.shape) != (1, PREFILL_TOKENS, cfg.d_model) or not torch.isfinite(hidden).all():
+        raise AssertionError(f"prefill hidden states {tuple(hidden.shape)} not finite or "
+                             f"not (1, {PREFILL_TOKENS}, {cfg.d_model})")
+    busy, rows = _profile_device_ms(lambda: prefill(params, tokens))
+    e_ms = sum(t for name, t in rows if "flash_attention" in name)
+    plain = prefill(params, tokens, use_kernel=False)
+    torch.cuda.synchronize()
+    cos = F.cosine_similarity(hidden[0].float(), plain[0].float(), dim=-1)
+    err = max_abs_err(hidden, plain)
+    log(f"prefill: {ms:.3f} ms for {PREFILL_TOKENS} tokens ({PREFILL_TOKENS / ms * 1e3:.1f} tok/s), "
+        f"kernel E launched {launches} times; profiled device time {busy:.3f} ms, kernel E "
+        f"{e_ms:.3f} ms ({e_ms / busy:.1%})")
+    for name, t in rows[:8]:
+        log(f"prefill profile: {t:9.3f} ms  {name[:90]}")
+    log(f"prefill vs use_kernel=False: min row cosine {float(cos.min()):.6f}, max abs diff {err:.4g}")
+    if float(cos.min()) < 0.999:
+        raise AssertionError(f"prefill hidden states disagree with the plain run: min row cosine "
+                             f"{float(cos.min())}")
+    decode = _decode_profile(cfg, params)
+    return launches, dict(ms=ms, tok_per_s=PREFILL_TOKENS / ms * 1e3, device_ms=busy,
+                          flash_ms=e_ms, flash_share=e_ms / busy, min_cos=float(cos.min()),
+                          max_abs_diff=err, params=n_params, decode=decode)
+
+
+def _decode_profile(cfg, params, n_ticks: int = 8) -> dict:
+    """Where a decode step's time goes: the continuous engine's tick with
+    the serving phase's 4 slots and 256 positions, on these params; wall ms
+    per tick (host clock, no profiler) against device-busy ms per tick
+    (``torch.profiler``)."""
+    import torch
+
+    from repro_torch.serving import ContinuousEngine, Request
+
+    eng = ContinuousEngine(cfg, params, batch_slots=4, capacity=256)
+    for uid in range(4):
+        eng.submit(Request(uid=uid, prompt=[1 + uid, 2, 3], max_new=10 * n_ticks))
+    for _ in range(4):
+        eng.tick()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_ticks):
+        eng.tick()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / n_ticks
+    busy, rows = _profile_device_ms(lambda: [eng.tick() for _ in range(n_ticks)])
+    busy /= n_ticks
+    log(f"decode tick (4 slots, 256 positions): wall {wall:.3f} ms, device busy {busy:.3f} ms "
+        f"(idle {max(0.0, 1 - busy / wall):.1%})")
+    for name, t in rows[:6]:
+        log(f"decode profile: {t / n_ticks:8.3f} ms/tick  {name[:90]}")
+    return dict(wall_ms=wall, device_ms=busy)
+
+
+#: the serving phase: yi-6b at full width, random weights, both engines
+SERVE_ARGS = ["--arch", "yi-6b", "--requests", "8", "--max-new", "16", "--slots", "4",
+              "--capacity", "256"]
+
+
+def phase_serving() -> dict:
+    """``launch.serve`` with the wave engine, then the continuous engine:
+    every request's tokens equal across the two."""
+    import torch
+
+    from repro_torch.launch import serve as launch_serve
+
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for engine in ("wave", "continuous"):
+            out = os.path.join(tmp, f"{engine}.json")
+            rc = launch_serve.main([*SERVE_ARGS, "--engine", engine, "--json", out])
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            res = json.loads(Path(out).read_text())
+            if rc != 0 or res["completed"] != res["requests"]:
+                raise AssertionError(f"serve {engine}: rc={rc}, {res['completed']} of "
+                                     f"{res['requests']} requests completed")
+            results[engine] = res
+            log(f"serve {engine}: {res['tokens']} tokens in {res['seconds']:.3f}s "
+                f"({res['tok_per_s']:.1f} tok/s), {res['decode_steps']} decode steps "
+                f"({res['ms_per_step']:.3f} ms/step)")
+    if results["wave"]["out"] != results["continuous"]["out"]:
+        raise AssertionError("the wave and continuous engines emitted different tokens: "
+                             f"{results['wave']['out']} != {results['continuous']['out']}")
+    log(f"serve: wave and continuous tokens equal for all {len(results['wave']['out'])} requests")
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -659,11 +897,31 @@ def main() -> int:
     row_c["launches_reductions"] = launches_c_red
     rows.append(row_c)
 
+    t0 = time.perf_counter()
+    _err_e, row_e = phase_flash_kernel(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"phase 12 (kernel E vs plain): {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    launches_e, prefill = phase_prefill(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"phase 13 (yi-6b prefill): {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    serving = phase_serving()
+    log(f"phase 14 (yi-6b serving): {time.perf_counter() - t0:.1f}s")
+    row_e["launches"] = launches_e
+    rows.append(row_e)
+
     log("stencil_wall_per_step_ms: " + json.dumps(
         {k: v["wall_per_step_s"] * 1e3 for k, v in stencil.items()}))
     log("packet_stencil_wall_per_step_ms: " + json.dumps(
         {k: v["wall_per_step_s"] * 1e3 for k, v in packet_stencil.items()}))
     log("injection_tab4: " + json.dumps(injection))
+    log("prefill_yi6b_4096: " + json.dumps(prefill))
+    log("serving_yi6b: " + json.dumps({k: {m: v[m] for m in ("tok_per_s", "ms_per_step",
+                                                              "decode_steps", "tokens")}
+                                       for k, v in serving.items()}))
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

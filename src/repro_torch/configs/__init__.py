@@ -1,6 +1,9 @@
-"""Launch-layer configuration: the parts of ``repro.configs`` the ported
-slice runs (transport backends, comm_mode strings, stencil cells)."""
+"""Configuration: the architectures and input shapes (a copy of
+``repro.configs``), and the launch tables of the ported slices (transport
+backends, comm_mode strings, stencil cells)."""
 
-from .registry import COMM_MODES, STENCIL_CASES, TRANSPORT_BACKENDS
+from .base import SHAPES, ModelConfig, ShapeConfig, pad_vocab
+from .registry import ARCHS, COMM_MODES, STENCIL_CASES, TRANSPORT_BACKENDS, get_arch, smoke
 
-__all__ = ["COMM_MODES", "STENCIL_CASES", "TRANSPORT_BACKENDS"]
+__all__ = ["ARCHS", "COMM_MODES", "SHAPES", "STENCIL_CASES", "TRANSPORT_BACKENDS", "ModelConfig",
+           "ShapeConfig", "get_arch", "pad_vocab", "smoke"]

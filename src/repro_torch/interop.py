@@ -64,3 +64,35 @@ def router_inputs_from_reference(route_tbl, inq_pay, inq_dst, inq_len, device=No
     conv = [(route_tbl, np.int32), (inq_pay, np.float32), (inq_dst, np.int32),
             (inq_len, np.int32)]
     return tuple(torch.from_numpy(np.array(a, dtype=dt, copy=True)).to(dev) for a, dt in conv)
+
+
+def _leaf_from_reference(a, dev) -> torch.Tensor:
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":  # ml_dtypes: cross as the bit pattern
+        bits = np.array(arr.view(np.uint16), copy=True).view(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(np.array(arr, copy=True)).to(dev)
+
+
+def params_from_reference(np_params, cfg, device=None):
+    """The reference's ``init_lm`` tree as the port's params on ``device``
+    (``cuda`` unless named): the same nesting of dicts and tuples, with the
+    ``periods`` leaves stacked over layers, each leaf a copy with the same
+    bits (``np_params`` is ``jax.tree.map(numpy.asarray, params)``).  The
+    embedding must have ``cfg``'s padded vocabulary."""
+    from .core.comm import resolve_device
+
+    dev = resolve_device(device)
+
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        if isinstance(t, (tuple, list)):
+            return tuple(conv(v) for v in t)
+        return None if t is None else _leaf_from_reference(t, dev)
+
+    params = conv(np_params)
+    want = (cfg.padded_vocab, cfg.d_model)
+    if tuple(params["embed"].shape) != want:
+        raise ValueError(f"embed {tuple(params['embed'].shape)} is not {cfg.name}'s {want}")
+    return params

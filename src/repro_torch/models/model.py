@@ -1,0 +1,101 @@
+"""LM wrapper (``repro.models.model``): embedding -> block stack -> final
+norm; prefill and one decode step, at tensor-parallel degree 1.
+
+The vocabulary stays padded to a multiple of 256 (``cfg.padded_vocab``):
+greedy decoding takes the argmax over every padded column, as the reference
+does.  Codebook streams (``n_codebooks > 1``) and precomputed frontend
+embeddings (``extra_embeds``) wait for their slices and raise.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.comm import resolve_device
+from ..mesh.api import make_ctx
+from ..parallel import parallel_embedding_partial, psum_tagged
+from .common import rms_norm, tree_map, trunc_normal
+from .transformer import apply_stack, decode_stack, init_stack, init_stack_cache
+
+CODEBOOK_ROADMAP = ("codebook streams (n_codebooks > 1) and frontend embeddings wait for the "
+                    "VLM/audio frontend slice (ROADMAP.md §1, item 12)")
+
+
+def _check_lm(cfg):
+    if cfg.n_codebooks > 1:
+        raise NotImplementedError(CODEBOOK_ROADMAP)
+
+
+def model_dtype(cfg) -> torch.dtype:
+    """The dtype the model computes in: bfloat16 or float32, from the config."""
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def init_lm(cfg, generator: torch.Generator | None = None, device=None, dtype=None):
+    """LM params on ``device`` (``cuda`` unless named; drawn from
+    ``generator``, seeded 0 on that device when none is given), float32 as
+    in the reference unless ``dtype`` names another: the full-width run
+    passes the model dtype, and each layer is drawn in float32 and cast."""
+    _check_lm(cfg)
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    if generator.device.type != dev.type:
+        raise ValueError(f"generator on {generator.device}, params asked on {dev}")
+    D, V = cfg.d_model, cfg.padded_vocab
+    dt = torch.float32 if dtype is None else dtype
+    ctx = make_ctx()
+    p = {"final_norm": torch.ones((D,), dtype=dt, device=dev),
+         "embed": trunc_normal(generator, (V, D), 0.02, dt),
+         "stack": init_stack(generator, cfg, ctx, dtype)}
+    if not cfg.tie_embeddings:
+        p["head"] = trunc_normal(generator, (D, V), D ** -0.5, dt)
+    return p
+
+
+def _cast(p, dtype):
+    """float32 leaves to ``dtype``; other leaves as they are (no copy when
+    a leaf already has its type)."""
+    return tree_map(lambda v: v.to(dtype) if v.dtype == torch.float32 else v, p)
+
+
+def embed_tokens_sp(params, tokens, cfg, ctx, extra_embeds=None):
+    """tokens (B, S) -> (B, S, D) in the model dtype."""
+    _check_lm(cfg)
+    if extra_embeds is not None:
+        raise NotImplementedError(CODEBOOK_ROADMAP)
+    emb = parallel_embedding_partial(params["embed"], tokens, ctx)
+    return emb.to(model_dtype(cfg))
+
+
+def lm_prefill(params, tokens, cfg, ctx, *, capacity: int, use_kernel=None):
+    """Prefill: the full forward over ``tokens`` (B, S); returns the final
+    hidden states (B, S, D).  Like the reference, it fills no cache (the
+    serving engines replay prompts through decode).  ``use_kernel`` goes to
+    the attention (``None``: kernel E on the card)."""
+    pf = _cast(params, model_dtype(cfg))
+    x = embed_tokens_sp(pf, tokens, cfg, ctx)
+    x = apply_stack(pf["stack"], x, cfg, ctx, use_kernel=use_kernel)
+    return rms_norm(x, pf["final_norm"], cfg.norm_eps)
+
+
+def lm_decode_step(params, caches, token, pos, cfg, ctx):
+    """One decode step.  token (B,) int; pos a scalar or a (B,) vector.
+    Returns (float32 logits (B, padded_vocab), caches) with the caches
+    updated in place."""
+    _check_lm(cfg)
+    pf = _cast(params, model_dtype(cfg))
+    emb = parallel_embedding_partial(pf["embed"], token, ctx)
+    x = psum_tagged(emb, ctx, "tp.embed")[:, None, :].to(model_dtype(cfg))  # (B, 1, D)
+    # on the device once, not once a layer (a copy from the host waits for the card)
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+    x, caches = decode_stack(pf["stack"], caches, x, pos, cfg, ctx)
+    x = rms_norm(x, pf["final_norm"], cfg.norm_eps)[:, 0]             # (B, D)
+    logits = x @ (pf["embed"].T if cfg.tie_embeddings else pf["head"])
+    return logits.float(), caches
+
+
+def lm_caches(cfg, B: int, capacity: int, ctx, device=None):
+    """Empty decode caches for ``B`` slots of ``capacity`` positions, in the
+    model dtype, on ``device`` (``cuda`` unless named)."""
+    return init_stack_cache(cfg, B, capacity, ctx, model_dtype(cfg), resolve_device(device))

@@ -1,0 +1,130 @@
+"""Block assembly (``repro.models.transformer``): the dense ``"attn"``
+block, stacked per pattern period.
+
+Parameters keep the reference's layout: ``{"periods": tuple of per-position
+block trees whose leaves carry a leading layer dim, "rem": tuple of
+remainder blocks}``.  The periods run as a Python loop over that dim (the
+reference's ``lax.scan``; there is no remat to port).  Block kinds other
+than ``"attn"`` raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .attention import apply_attention, decode_attention, init_attention, init_kv_cache
+from .common import rms_norm, tree_map
+from .mlp import apply_mlp, apply_mlp_replicated, init_mlp
+
+#: what the block kinds outside the slice raise with
+KIND_ROADMAP = {
+    "moe": "MoE blocks wait for their slice (ROADMAP.md §1, item 10)",
+    "ssm": "Mamba2 (ssm) blocks and kernel F wait for slice 4 (ROADMAP.md §1, item 8)",
+    "rec": "RG-LRU (rec) blocks wait for their slice (ROADMAP.md §1, item 11)",
+}
+
+
+def _check_kind(kind: str):
+    if kind != "attn":
+        raise NotImplementedError(KIND_ROADMAP.get(kind, f"unknown block kind {kind!r}"))
+
+
+def init_block(generator, kind: str, cfg, ctx, dtype=None):
+    _check_kind(kind)
+    D = cfg.d_model
+    dt = torch.float32 if dtype is None else dtype
+    dev = generator.device
+    return {"norm1": torch.ones((D,), dtype=dt, device=dev),
+            "attn": init_attention(generator, cfg, ctx, dtype),
+            "norm2": torch.ones((D,), dtype=dt, device=dev),
+            "mlp": init_mlp(generator, cfg, ctx, dtype=dtype)}
+
+
+def apply_block(p, kind: str, x, cfg, ctx, *, use_kernel=None):
+    """One block over x (B, S, D).  (The reference also returns the MoE
+    load-balancing loss, which a dense block does not have.)"""
+    _check_kind(kind)
+    x = x + apply_attention(p["attn"], rms_norm(x, p["norm1"], cfg.norm_eps), cfg, ctx,
+                            use_kernel=use_kernel)
+    return x + apply_mlp(p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps), cfg, ctx)
+
+
+def init_block_cache(kind: str, cfg, B: int, capacity: int, ctx, dtype, device=None):
+    _check_kind(kind)
+    cap = capacity if cfg.local_window is None else min(capacity, cfg.local_window)
+    return init_kv_cache(cfg, B, cap, ctx, dtype, device)
+
+
+def decode_block(p, kind: str, x, cache, pos, cfg, ctx):
+    _check_kind(kind)
+    y, cache = decode_attention(p["attn"], rms_norm(x, p["norm1"], cfg.norm_eps), cache, pos,
+                                cfg, ctx)
+    x = x + y
+    x = x + apply_mlp_replicated(p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps), cfg, ctx)
+    return x, cache
+
+
+# ------------------------------------------------------------ stacked form
+
+
+def _layout(cfg):
+    period = len(cfg.pattern)
+    return cfg.pattern, period, cfg.n_layers // period, cfg.n_layers % period
+
+
+def _layer(stacked, i: int):
+    return tree_map(lambda t: t[i], stacked)
+
+
+def init_stack(generator, cfg, ctx, dtype=None):
+    """``{"periods", "rem"}`` params.  Each layer is drawn in float32 and
+    copied into its slot of the stacked leaves (cast to ``dtype``), so the
+    peak is one layer above the stack."""
+    pattern, period, n_full, rem = _layout(cfg)
+    stacked = None
+    for i in range(n_full):
+        blocks = tuple(init_block(generator, pattern[j], cfg, ctx, dtype) for j in range(period))
+        if stacked is None:
+            stacked = tree_map(lambda t: torch.empty((n_full,) + tuple(t.shape), dtype=t.dtype,
+                                                     device=t.device), blocks)
+        tree_map(lambda dst, src: dst[i].copy_(src), stacked, blocks)
+        del blocks
+    remainder = tuple(init_block(generator, pattern[j], cfg, ctx, dtype) for j in range(rem))
+    return {"periods": stacked, "rem": remainder}
+
+
+def apply_stack(params, x, cfg, ctx, *, use_kernel=None):
+    pattern, period, n_full, _ = _layout(cfg)
+    for i in range(n_full if params["periods"] is not None else 0):
+        for j in range(period):
+            x = apply_block(_layer(params["periods"][j], i), pattern[j], x, cfg, ctx,
+                            use_kernel=use_kernel)
+    for j, p in enumerate(params["rem"]):
+        x = apply_block(p, pattern[j], x, cfg, ctx, use_kernel=use_kernel)
+    return x
+
+
+def init_stack_cache(cfg, B: int, capacity: int, ctx, dtype, device=None):
+    pattern, period, n_full, rem = _layout(cfg)
+    stacked = None
+    if n_full > 0:
+        stacked = tuple(
+            tree_map(lambda t: t.unsqueeze(0).repeat((n_full,) + (1,) * t.dim()),
+                     init_block_cache(pattern[j], cfg, B, capacity, ctx, dtype, device))
+            for j in range(period))
+    remainder = tuple(init_block_cache(pattern[j], cfg, B, capacity, ctx, dtype, device)
+                      for j in range(rem))
+    return {"periods": stacked, "rem": remainder}
+
+
+def decode_stack(params, caches, x, pos, cfg, ctx):
+    """One decode step through every layer; each layer's cache is a view of
+    the stacked cache and is updated in place.  Returns (x, caches)."""
+    pattern, period, n_full, _ = _layout(cfg)
+    for i in range(n_full if params["periods"] is not None else 0):
+        for j in range(period):
+            x, _ = decode_block(_layer(params["periods"][j], i), pattern[j], x,
+                                _layer(caches["periods"][j], i), pos, cfg, ctx)
+    for j, p in enumerate(params["rem"]):
+        x, _ = decode_block(p, pattern[j], x, caches["rem"][j], pos, cfg, ctx)
+    return x, caches

@@ -1,0 +1,134 @@
+"""Batched serving engine (``repro.serving.engine``): prefill-as-decode and
+wave batching.
+
+A fixed-width batch of slots decodes in lock-step; when a wave of requests
+completes, the caches are reset and the next wave is admitted.  The batch
+shares one cache position, so this engine is the bit-exactness oracle of
+:class:`~repro_torch.serving.continuous.ContinuousEngine`.  Prompts are
+replayed through decode steps.  Greedy sampling; deterministic.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..mesh.api import ParallelCtx
+from ..models import lm_caches, lm_decode_step
+from ..models.common import tree_leaves_with_path
+from ..models.model import _cast, model_dtype
+
+
+@dataclass
+class Request:
+    uid: int
+    prompt: list
+    max_new: int = 16
+    out: list = field(default_factory=list)
+    done: bool = False
+
+
+def params_device(params) -> torch.device:
+    """The device the params lie on (every leaf's)."""
+    return tree_leaves_with_path(params)[0][1].device
+
+
+class ServeEngine:
+    """The wave engine.  Runs where ``params`` lie; casts them to the model
+    dtype once, here, rather than on every step (the same bits)."""
+
+    def __init__(self, cfg, params, *, ctx: ParallelCtx | None = None, batch_slots: int = 4,
+                 capacity: int = 128, eos: int | None = None):
+        self.cfg = cfg
+        self.ctx = ctx or ParallelCtx()
+        self.params = _cast(params, model_dtype(cfg))
+        self.device = params_device(params)
+        self.B = batch_slots
+        self.capacity = capacity
+        self.eos = eos
+        self.caches = lm_caches(cfg, batch_slots, capacity, self.ctx, self.device)
+        self.slot_req: list[Request | None] = [None] * batch_slots
+        self.queue: list[Request] = []
+        self.admit_step: dict[int, int] = {}   # uid -> tick admitted
+        self.finish_step: dict[int, int] = {}  # uid -> tick completed
+        self.decode_steps = 0                  # decode steps run, over every run
+
+    def submit(self, req: Request):
+        self.queue.append(req)
+
+    def _step(self, cur: np.ndarray, pos) -> np.ndarray:
+        """One decode step of every slot; returns the greedy tokens (B,)."""
+        logits, self.caches = lm_decode_step(self.params, self.caches,
+                                             torch.from_numpy(cur).to(self.device), pos,
+                                             self.cfg, self.ctx)
+        self.decode_steps += 1
+        return logits.argmax(dim=1).cpu().numpy()
+
+    def _fill_wave(self):
+        """Admit a new wave only when every slot is free (the cache reset
+        keeps per-slot histories from leaking across requests)."""
+        if any(r is not None for r in self.slot_req):
+            return 0
+        n = 0
+        for i in range(self.B):
+            if self.queue:
+                self.slot_req[i] = self.queue.pop(0)
+                n += 1
+        if n:
+            self.caches = lm_caches(self.cfg, self.B, self.capacity, self.ctx, self.device)
+        return n
+
+    def run(self, *, max_steps: int = 256, arrivals=None) -> list[Request]:
+        """Drain the queue; returns completed requests.
+
+        ``arrivals`` is an optional ``[(tick, Request), ...]`` schedule: each
+        request joins the queue at its tick (idle ticks pass when nothing is
+        resident yet).  ``admit_step`` / ``finish_step`` record per-uid
+        admission and completion ticks either way."""
+        completed: list[Request] = []
+        pending = sorted(arrivals, key=lambda a: a[0]) if arrivals else []
+        cur = np.zeros((self.B,), dtype=np.int32)
+        cursor = np.zeros(self.B, dtype=np.int64)  # prompt read positions
+        pos = 0
+        steps = 0
+        while (pending or any(r is not None for r in self.slot_req)
+               or self.queue) and steps < max_steps:
+            while pending and pending[0][0] <= steps:
+                self.queue.append(pending.pop(0)[1])
+            if all(r is None for r in self.slot_req):
+                if self._fill_wave():
+                    pos = 0
+                    cur[:] = 0
+                    cursor[:] = 0
+                    for r in self.slot_req:
+                        if r is not None:
+                            self.admit_step[r.uid] = steps
+                else:
+                    steps += 1  # idle tick: waiting on arrivals
+                    continue
+            # the input token per slot: prompt replay or the last sample
+            for i, req in enumerate(self.slot_req):
+                if req is None:
+                    cur[i] = 0
+                elif cursor[i] < len(req.prompt):
+                    cur[i] = req.prompt[int(cursor[i])]
+            nxt = self._step(cur, pos)
+            for i, req in enumerate(self.slot_req):
+                if req is None:
+                    continue
+                cursor[i] += 1
+                if cursor[i] >= len(req.prompt):
+                    tok = int(nxt[i])
+                    req.out.append(tok)
+                    cur[i] = tok
+                    if len(req.out) >= req.max_new or (self.eos is not None and tok == self.eos):
+                        req.done = True
+                        self.finish_step[req.uid] = steps + 1
+                        completed.append(req)
+                        self.slot_req[i] = None
+                        cursor[i] = 0
+            pos += 1
+            steps += 1
+        return completed

@@ -72,16 +72,25 @@ def test_importing_the_port_loads_no_jax_or_repro():
 
 def test_entry_points_default_to_cuda():
     from repro_torch.apps import DistributedStencil
+    from repro_torch.configs import SHAPES, get_arch, smoke
     from repro_torch.core import Communicator
+    from repro_torch.launch import serve as launch_serve
     from repro_torch.launch import stencil as launch_stencil
+    from repro_torch.launch.steps import build_prefill
+    from repro_torch.mesh import ParallelCtx
+    from repro_torch.models import init_lm, lm_caches
     from repro_torch.transport import get_transport
     from repro_torch.transport.fused import FusedTransport
     from repro_torch.transport.static import StaticTransport
 
+    cfg = smoke(get_arch("yi-6b"))
     makers = [lambda: DistributedStencil.create((2, 4)).device, lambda: FusedTransport().device,
               lambda: StaticTransport().device, lambda: get_transport("fused").device,
               lambda: get_transport("packet").device,
-              lambda: Communicator.create("x", (8,)).device]
+              lambda: Communicator.create("x", (8,)).device,
+              lambda: build_prefill(cfg, SHAPES["prefill_32k"]).device,
+              lambda: init_lm(cfg)["embed"].device,
+              lambda: lm_caches(cfg, 2, 8, ParallelCtx())["periods"][0]["k"].device]
     if torch.cuda.is_available():
         assert all(m().type == "cuda" for m in makers)
         return
@@ -90,3 +99,5 @@ def test_entry_points_default_to_cuda():
             make()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         launch_stencil.main(["--domain", "16x16", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_serve.main(["--smoke"])

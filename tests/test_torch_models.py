@@ -1,0 +1,280 @@
+"""The port's dense model path against the reference's, on the CPU.
+
+Weights come from the reference's ``init_lm`` (its norm weights and biases,
+ones and zeros at init, perturbed with numpy noise so that they count) and
+cross to the port through ``params_from_reference``; inputs come from
+``numpy.random.RandomState``.  Configurations: the ``smoke()`` sizes of
+yi-6b, glm4-9b (qkv bias), minitron-4b (GELU) and yi-6b with ``qk_norm``
+and a 16-token local window.  Tolerance, float32: the largest difference
+is at most 1e-5 of the largest reference magnitude (the two sum the same
+terms in another order).
+"""
+
+from dataclasses import asdict
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as ref_configs
+from repro.kernels import common as ref_kcommon
+from repro.mesh.api import ParallelCtx as RefCtx
+from repro.models import attention as ref_attn
+from repro.models import common as ref_common
+from repro.models import mlp as ref_mlp
+from repro.models import model as ref_model
+from repro_torch import configs
+from repro_torch.interop import params_from_reference
+from repro_torch.kernels.common import cdiv, pad_to
+from repro_torch.mesh.api import ParallelCtx, make_ctx
+from repro_torch.models import attention, common, init_lm, lm_caches, lm_decode_step, lm_prefill
+from repro_torch.models import mlp as port_mlp
+from repro_torch.models.common import tree_leaves_with_path
+
+RTOL = 1e-5
+#: test configuration -> (arch, overrides of its smoke config)
+CFGS = {
+    "yi-6b": ("yi-6b", {}),
+    "glm4-9b": ("glm4-9b", {}),
+    "minitron-4b": ("minitron-4b", {}),
+    "yi-6b-qknorm-window": ("yi-6b", dict(qk_norm=True, local_window=16)),
+}
+
+
+def _cfgs(name):
+    """(reference config, port config) of one test configuration."""
+    arch, kw = CFGS[name]
+    return (ref_configs.smoke(ref_configs.get_arch(arch)).scaled(**kw),
+            configs.smoke(configs.get_arch(arch)).scaled(**kw))
+
+
+def _close(got, want, what=""):
+    got = got.detach().float().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    want = np.asarray(want, dtype=np.float32)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    scale = float(np.abs(want).max()) or 1.0
+    err = float(np.abs(got - want).max())
+    assert err <= RTOL * scale, f"{what}: max abs err {err} > {RTOL} * {scale}"
+
+
+def _ref_params(cfg, seed=0):
+    """The reference's init_lm as numpy, norms and biases perturbed."""
+    p = ref_model.init_lm(jax.random.PRNGKey(seed), cfg, RefCtx())
+    rng = np.random.RandomState(seed + 1)
+
+    def perturb(path, leaf):
+        a = np.asarray(leaf)
+        name = str(getattr(path[-1], "key", ""))
+        if "norm" in name or name in ("bq", "bk", "bv"):
+            a = a + 0.1 * rng.randn(*a.shape).astype(a.dtype)
+        return a
+
+    return jax.tree_util.tree_map_with_path(perturb, p)
+
+
+def _randn(shape, seed, scale=1.0):
+    return (scale * np.random.RandomState(seed).randn(*shape)).astype(np.float32)
+
+
+# -- configs and kernel utilities ------------------------------------------------
+
+
+@pytest.mark.parametrize("name", sorted(ref_configs.ARCHS))
+def test_configs_match_reference(name):
+    ref, port = ref_configs.get_arch(name), configs.get_arch(name)
+    assert asdict(port) == asdict(ref)
+    for a, b in ((port, ref), (configs.smoke(port), ref_configs.smoke(ref))):
+        assert asdict(a) == asdict(b)
+        assert (a.hd, a.padded_vocab, a.layer_pattern, a.param_count()) == \
+            (b.hd, b.padded_vocab, b.layer_pattern, b.param_count())
+    assert {k: asdict(v) for k, v in configs.SHAPES.items()} == \
+        {k: asdict(v) for k, v in ref_configs.SHAPES.items()}
+
+
+@pytest.mark.parametrize("shape,axis,multiple", [((5, 7), 0, 4), ((3, 130, 2), 1, 128),
+                                                 ((2, 128, 3), 1, 128), ((9,), -1, 8)])
+def test_pad_to_and_cdiv_match_reference(shape, axis, multiple):
+    x = _randn(shape, 1)
+    want, n = ref_kcommon.pad_to(jnp.asarray(x), multiple, axis)
+    got, m = pad_to(torch.from_numpy(x), multiple, axis)
+    assert m == n
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert cdiv(shape[axis], multiple) == ref_kcommon.cdiv(shape[axis], multiple)
+
+
+def test_trunc_normal_is_bounded_and_seeded():
+    g = torch.Generator().manual_seed(3)
+    x = common.trunc_normal(g, (200_000,), 0.5)
+    assert float(x.abs().max()) <= 1.0
+    # the standard normal truncated to [-2, 2] has std 0.8796
+    assert abs(float(x.std()) - 0.5 * 0.8796) < 0.005 and abs(float(x.mean())) < 0.005
+    again = common.trunc_normal(torch.Generator().manual_seed(3), (200_000,), 0.5)
+    assert torch.equal(x, again)
+
+
+# -- norms, RoPE, MLP ----------------------------------------------------------
+
+
+def test_rms_norm_rope_match_reference():
+    x = _randn((2, 12, 4, 16), 1)
+    w = _randn((16,), 2)
+    _close(common.rms_norm(torch.from_numpy(x), torch.from_numpy(w)),
+           ref_common.rms_norm(jnp.asarray(x), jnp.asarray(w)), "rms_norm")
+    pos = np.arange(5, 17)
+    for theta in (10_000.0, 5_000_000.0):
+        _close(common.rope(torch.from_numpy(x), torch.from_numpy(pos), theta),
+               ref_common.rope(jnp.asarray(x), jnp.asarray(pos), theta), "rope")
+    xb = _randn((3, 1, 4, 16), 3)
+    pb = np.array([0, 7, 300])
+    _close(common.rope_batched(torch.from_numpy(xb), torch.from_numpy(pb), 5e6),
+           ref_common.rope_batched(jnp.asarray(xb), jnp.asarray(pb), 5e6), "rope_batched")
+    same = np.full(3, 9)
+    assert torch.equal(common.rope_batched(torch.from_numpy(xb), torch.from_numpy(same)),
+                       common.rope(torch.from_numpy(xb), torch.tensor([9])))
+
+
+@pytest.mark.parametrize("name", ["yi-6b", "minitron-4b"])
+def test_mlp_matches_reference(name):
+    ref_cfg, cfg = _cfgs(name)
+    p = jax.tree.map(np.asarray, ref_mlp.init_mlp(jax.random.PRNGKey(1), ref_cfg, RefCtx()))
+    x = _randn((2, 9, cfg.d_model), 4)
+    tp = {k: torch.from_numpy(v.copy()) for k, v in p.items()}
+    ctx, rctx = ParallelCtx(), RefCtx()
+    _close(port_mlp.apply_mlp(tp, torch.from_numpy(x), cfg, ctx),
+           ref_mlp.apply_mlp(p, jnp.asarray(x), ref_cfg, rctx), "apply_mlp")
+    x1 = x[:, :1]
+    _close(port_mlp.apply_mlp_replicated(tp, torch.from_numpy(x1), cfg, ctx),
+           ref_mlp.apply_mlp_replicated(p, jnp.asarray(x1), ref_cfg, rctx), "replicated")
+
+
+# -- attention -----------------------------------------------------------------
+
+
+def _attn_params(name):
+    ref_cfg, cfg = _cfgs(name)
+    p = jax.tree.map(np.asarray, ref_attn.init_attention(jax.random.PRNGKey(2), ref_cfg,
+                                                         RefCtx()))
+    rng = np.random.RandomState(5)
+    p = {k: (v + 0.1 * rng.randn(*v.shape).astype(np.float32)
+             if k in ("bq", "bk", "bv", "q_norm", "k_norm") else v) for k, v in p.items()}
+    return ref_cfg, cfg, p, {k: torch.from_numpy(v.copy()) for k, v in p.items()}
+
+
+@pytest.mark.parametrize("name", sorted(CFGS))
+def test_apply_attention_matches_reference(name):
+    ref_cfg, cfg, p, tp = _attn_params(name)
+    x = _randn((2, 40, cfg.d_model), 6)
+    want = ref_attn.apply_attention(p, jnp.asarray(x), ref_cfg, RefCtx())
+    _close(attention.apply_attention(tp, torch.from_numpy(x), cfg, ParallelCtx()), want,
+           "apply_attention")
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+@pytest.mark.parametrize("name", sorted(CFGS))
+def test_decode_attention_matches_reference(name, per_row):
+    """Twelve steps into an 8-slot ring cache (so it wraps), the position a
+    scalar or one per row; outputs and caches equal at every step."""
+    ref_cfg, cfg, p, tp = _attn_params(name)
+    B, cap = 3, 8
+    rcache = ref_attn.init_kv_cache(ref_cfg, B, cap, RefCtx(), jnp.float32)
+    cache = attention.init_kv_cache(cfg, B, cap, ParallelCtx(), torch.float32)
+    offsets = np.array([0, 3, 5]) if per_row else np.zeros(B, np.int64)
+    for step in range(12):
+        x = _randn((B, 1, cfg.d_model), 100 + step)
+        pos = (offsets + step).astype(np.int32) if per_row else step
+        want, rcache = ref_attn.decode_attention(p, jnp.asarray(x), rcache, jnp.asarray(pos),
+                                                 ref_cfg, RefCtx())
+        got, cache = attention.decode_attention(tp, torch.from_numpy(x), cache,
+                                                torch.as_tensor(pos), cfg, ParallelCtx())
+        _close(got, want, f"step {step}")
+        for k in ("k", "v", "slot_pos"):
+            np.testing.assert_allclose(cache[k].numpy(), np.asarray(rcache[k]), rtol=0,
+                                       atol=RTOL * float(np.abs(np.asarray(rcache["k"])).max()))
+
+
+# -- the whole model -----------------------------------------------------------
+
+
+def test_init_lm_layout_matches_reference():
+    """Same nesting, leaf names, shapes and dtypes as the reference's tree,
+    for every configuration of the slice."""
+    for name in CFGS:
+        ref_cfg, cfg = _cfgs(name)
+        want = jax.eval_shape(lambda c=ref_cfg: ref_model.init_lm(jax.random.PRNGKey(0), c,
+                                                                   RefCtx()))
+        got = init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+        flat = [(path, tuple(t.shape)) for path, t in tree_leaves_with_path(got)]
+        ref_flat = [(tuple(getattr(k, "key", getattr(k, "idx", None)) for k in path),
+                     tuple(leaf.shape)) for path, leaf in jax.tree_util.tree_leaves_with_path(want)]
+        assert flat == ref_flat, name
+        assert all(t.dtype == torch.float32 for _, t in tree_leaves_with_path(got))
+    bf = init_lm(cfg, torch.Generator().manual_seed(0), "cpu", dtype=torch.bfloat16)
+    assert all(t.dtype == torch.bfloat16 for _, t in tree_leaves_with_path(bf))
+
+
+@pytest.mark.parametrize("name", sorted(CFGS))
+def test_lm_prefill_matches_reference(name):
+    """The reference runs kernel E's Pallas body in interpret mode; the port
+    its CPU dispatch (the refs), which agrees at Sq == Skv."""
+    ref_cfg, cfg = _cfgs(name)
+    np_params = _ref_params(ref_cfg)
+    tokens = np.random.RandomState(7).randint(0, cfg.vocab_size, (2, 40)).astype(np.int32)
+    want = jax.jit(lambda p, t: ref_model.lm_prefill(p, t, ref_cfg, RefCtx(), capacity=40,
+                                                     interp=True))(np_params, tokens)
+    params = params_from_reference(np_params, cfg, device="cpu")
+    got = lm_prefill(params, torch.from_numpy(tokens), cfg, ParallelCtx(), capacity=40)
+    _close(got, want, "lm_prefill")
+
+
+@pytest.mark.parametrize("name", sorted(CFGS))
+def test_lm_decode_step_matches_reference(name):
+    """Twenty steps over a 12-slot cache (windowed layers hold 12 too), the
+    positions one per row and wrapping; logits equal at every step."""
+    ref_cfg, cfg = _cfgs(name)
+    np_params = _ref_params(ref_cfg, seed=1)
+    params = params_from_reference(np_params, cfg, device="cpu")
+    B, cap = 2, 12
+    rcaches = ref_model.lm_caches(ref_cfg, B, cap, RefCtx())
+    caches = lm_caches(cfg, B, cap, ParallelCtx(), device="cpu")
+    step_fn = jax.jit(lambda p, c, t, pos: ref_model.lm_decode_step(p, c, t, pos, ref_cfg,
+                                                                    RefCtx()))
+    rng = np.random.RandomState(8)
+    for step in range(20):
+        tok = rng.randint(0, cfg.vocab_size, (B,)).astype(np.int32)
+        pos = np.array([step, step + 2], np.int32)
+        want, rcaches = step_fn(np_params, rcaches, tok, pos)
+        got, caches = lm_decode_step(params, caches, torch.from_numpy(tok), torch.from_numpy(pos),
+                                     cfg, ParallelCtx())
+        assert got.shape == (B, cfg.padded_vocab) and got.dtype == torch.float32
+        _close(got, want, f"step {step}")
+
+
+# -- what the slice does not run -------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ["mamba2-2.7b", "recurrentgemma-9b", "qwen3-moe-30b-a3b",
+                                  "llama4-scout-17b-a16e", "musicgen-medium"])
+def test_out_of_slice_families_raise(name):
+    cfg = configs.smoke(configs.get_arch(name))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+
+
+@pytest.mark.parametrize("kw", [dict(mesh=(1, 8)), dict(mesh=(2, 4)), dict(comm_mode="smi"),
+                                dict(comm_mode="bulk"), dict(opt_ring_attn=True)])
+def test_tensor_parallel_options_raise(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_ctx(**kw)
+    assert make_ctx((1, 1)).tp == 1 and make_ctx().rank() == 0
+
+
+def test_extra_embeds_raise():
+    cfg = configs.smoke(configs.get_arch("internvl2-1b"))
+    params = init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+    from repro_torch.models.model import embed_tokens_sp
+
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        embed_tokens_sp(params, torch.zeros((1, 4), dtype=torch.long), cfg, ParallelCtx(),
+                        extra_embeds=torch.zeros((1, 2, cfg.d_model)))
