@@ -56,10 +56,26 @@ non-zero):
 14. ``python -m repro_torch.launch.serve --arch yi-6b --requests 8
     --max-new 16 --slots 4 --capacity 256`` with ``--engine wave`` and
     ``continuous``: every request's tokens equal across the two engines;
-    tokens/s and ms per decode step of each.
+    tokens/s and ms per decode step of each;
+15. kernel F (``ssd_scan_kernel``) against its plain version within 1e-4
+    (float32) and 1.6e-2 (bfloat16) of the largest magnitude: mamba2-2.7b's
+    prefill shape (80 heads x 4096 x 64, state 128, bfloat16, B and C one
+    row shared by the heads, where F and its plain version are timed), the
+    reference's broadcast layout in float32, chunks of 64, a ragged S that
+    the entry point pads, and a small case against the sequential
+    ``ssd_ref`` (within 2e-4);
+16. mamba2-2.7b at full width and depth through ``build_prefill`` on 4096
+    tokens: kernel F launched once per layer (64), hidden states finite;
+    every layer's update from its own input within a row cosine of 0.999
+    of the plain scan's, and the float32 prefill within 0.999 of its plain
+    run end to end (the bfloat16 end-to-end cosine is reported beside the
+    noise of two plain runs); ms per prefill, tokens/s, kernel F's share of
+    the profiled device time, and a decode tick's wall/device split;
+17. phase 14's serving run with ``--arch mamba2-2.7b``: wave and continuous
+    tokens equal.
 
-A ``{"kernels": [...]}`` line carries the rows of phases 6, 7 and 12.  Each
-phase prints its seconds.
+A ``{"kernels": [...]}`` line carries the rows of phases 6, 7, 12 and 15.
+Each phase prints its seconds.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository around it, the script exits non-zero and prints
@@ -147,11 +163,12 @@ def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S) -> tuple[
 def reset_counts():
     from repro_torch.kernels.flash_attention import flash_attention_kernel
     from repro_torch.kernels.router import router_run
+    from repro_torch.kernels.ssd import ssd_scan_kernel
     from repro_torch.kernels.stencil import stencil_sweep
     from repro_torch.transport.fused import fused_accumulate
 
     stencil_sweep.launches = fused_accumulate.launches = router_run.launches = 0
-    flash_attention_kernel.launches = 0
+    flash_attention_kernel.launches = ssd_scan_kernel.launches = 0
 
 
 def phase_build():
@@ -714,35 +731,44 @@ def _profile_device_ms(fn) -> tuple[float, list[tuple[str, float]]]:
     return sum(ms for _, ms in rows), rows
 
 
-def phase_prefill(dev) -> tuple[int, dict]:
-    """yi-6b at full width and depth (32 layers, bfloat16, random weights
-    from a seeded generator) through ``build_prefill`` on one sequence of
-    4096 seeded tokens: a warm-up run, a timed run whose kernel E launches
-    are counted (one per layer), a profiled run (kernel E's share of the
-    device time), and the same prefill with ``use_kernel=False`` (the plain
-    refs): every row's cosine similarity at least 0.999."""
+def phase_prefill(dev, arch: str = "yi-6b", kernel: str = "E", seed: int = 13
+                  ) -> tuple[int, dict]:
+    """``arch`` at full width and depth (bfloat16, random weights from a
+    seeded generator) through ``build_prefill`` on one sequence of 4096
+    seeded tokens: a warm-up run, a timed run whose launches of ``kernel``
+    (E: flash attention, F: the SSD scan) are counted (one per layer), a
+    profiled run (the kernel's share of the device time), and the same
+    prefill with ``use_kernel=False`` (the plain versions).  For E every
+    row's cosine similarity must be at least 0.999.  For F the bfloat16
+    comparison is reported, not gated: 64 random SSM layers amplify bfloat16
+    rounding (two plain runs that differ only in the scan's chunk differ as
+    much, also reported); :func:`_ssm_checks` gates F instead."""
     import numpy as np
     import torch
     import torch.nn.functional as F
 
     from repro_torch.configs import ShapeConfig, get_arch
     from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.ssd import ssd_scan_kernel
     from repro_torch.launch.steps import build_prefill
     from repro_torch.models import init_lm
     from repro_torch.models.common import tree_leaves_with_path
     from repro_torch.models.model import model_dtype
 
-    cfg = get_arch("yi-6b")
+    wrapper, kernel_name = {"E": (flash_attention_kernel, "flash_attention"),
+                            "F": (ssd_scan_kernel, "ssd_scan")}[kernel]
+    cfg = get_arch(arch)
     shape = ShapeConfig("prefill_4k", PREFILL_TOKENS, 1, "prefill")
     t0 = time.perf_counter()
-    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(13), dev, dtype=model_dtype(cfg))
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(seed), dev,
+                     dtype=model_dtype(cfg))
     torch.cuda.synchronize()
     n_params = sum(t.numel() for _, t in tree_leaves_with_path(params))
     log(f"prefill: {cfg.name} params {n_params} ({n_params * 2 / 1e9:.2f} GB bf16) initialised "
         f"on the card in {time.perf_counter() - t0:.1f}s")
     prefill = build_prefill(cfg, shape, device=dev)
-    tokens = torch.from_numpy(np.random.RandomState(13).randint(0, cfg.vocab_size,
-                                                                (1, PREFILL_TOKENS)))
+    tokens = torch.from_numpy(np.random.RandomState(seed).randint(0, cfg.vocab_size,
+                                                                  (1, PREFILL_TOKENS)))
     prefill(params, tokens)
     torch.cuda.synchronize()
     reset_counts()
@@ -750,31 +776,113 @@ def phase_prefill(dev) -> tuple[int, dict]:
     hidden = prefill(params, tokens)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    launches = flash_attention_kernel.launches
+    launches = wrapper.launches
     if launches != cfg.n_layers:
-        raise AssertionError(f"prefill launched kernel E {launches} times, not {cfg.n_layers}")
+        raise AssertionError(f"{cfg.name} prefill launched kernel {kernel} {launches} times, "
+                             f"not {cfg.n_layers}")
     if tuple(hidden.shape) != (1, PREFILL_TOKENS, cfg.d_model) or not torch.isfinite(hidden).all():
         raise AssertionError(f"prefill hidden states {tuple(hidden.shape)} not finite or "
                              f"not (1, {PREFILL_TOKENS}, {cfg.d_model})")
     busy, rows = _profile_device_ms(lambda: prefill(params, tokens))
-    e_ms = sum(t for name, t in rows if "flash_attention" in name)
+    k_ms = sum(t for name, t in rows if kernel_name in name)
     plain = prefill(params, tokens, use_kernel=False)
     torch.cuda.synchronize()
     cos = F.cosine_similarity(hidden[0].float(), plain[0].float(), dim=-1)
     err = max_abs_err(hidden, plain)
-    log(f"prefill: {ms:.3f} ms for {PREFILL_TOKENS} tokens ({PREFILL_TOKENS / ms * 1e3:.1f} tok/s), "
-        f"kernel E launched {launches} times; profiled device time {busy:.3f} ms, kernel E "
-        f"{e_ms:.3f} ms ({e_ms / busy:.1%})")
+    log(f"prefill: {cfg.name} {ms:.3f} ms for {PREFILL_TOKENS} tokens "
+        f"({PREFILL_TOKENS / ms * 1e3:.1f} tok/s), kernel {kernel} launched {launches} times; "
+        f"profiled device time {busy:.3f} ms, kernel {kernel} {k_ms:.3f} ms ({k_ms / busy:.1%})")
     for name, t in rows[:8]:
         log(f"prefill profile: {t:9.3f} ms  {name[:90]}")
     log(f"prefill vs use_kernel=False: min row cosine {float(cos.min()):.6f}, max abs diff {err:.4g}")
-    if float(cos.min()) < 0.999:
+    res = dict(ms=ms, tok_per_s=PREFILL_TOKENS / ms * 1e3, device_ms=busy, kernel_ms=k_ms,
+               kernel_share=k_ms / busy, min_cos=float(cos.min()), max_abs_diff=err,
+               params=n_params)
+    if kernel == "E" and float(cos.min()) < 0.999:
         raise AssertionError(f"prefill hidden states disagree with the plain run: min row cosine "
                              f"{float(cos.min())}")
-    decode = _decode_profile(cfg, params)
-    return launches, dict(ms=ms, tok_per_s=PREFILL_TOKENS / ms * 1e3, device_ms=busy,
-                          flash_ms=e_ms, flash_share=e_ms / busy, min_cos=float(cos.min()),
-                          max_abs_diff=err, params=n_params, decode=decode)
+    if kernel == "F":
+        del plain
+        res.update(_ssm_checks(dev, cfg, params, tokens, prefill, hidden, seed))
+    res["decode"] = _decode_profile(cfg, params)
+    return launches, res
+
+
+def _row_cos(a, b):
+    """Each row's cosine similarity of two (1, S, D) tensors, in float32."""
+    import torch.nn.functional as F
+
+    return F.cosine_similarity(a[0].float(), b[0].float(), dim=-1)
+
+
+def _ssm_checks(dev, cfg, params, tokens, prefill, hidden, seed) -> dict:
+    """What gates kernel F on the mamba2 prefill path:
+
+    * layer by layer at full depth in bfloat16: each block's update (its
+      output less its input) from the kernel run's own input, with F and
+      with the plain scan; every row's cosine at least 0.999 in every
+      layer;
+    * end to end in float32 (the same seeded weights, drawn in float32),
+      F against the plain scan: every row's cosine at least 0.999.
+
+    Reported beside them: the bfloat16 prefill with the plain scan at chunk
+    64 against chunk 128, the rounding noise of two right answers."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.steps import build_prefill
+    from repro_torch.mesh.api import make_ctx
+    from repro_torch.models import init_lm
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models.model import embed_tokens_sp
+    from repro_torch.models.transformer import _layer, apply_block
+
+    ctx = make_ctx()
+    x = embed_tokens_sp(params, tokens.to(dev), cfg, ctx)
+    worst_layer = (1.0, -1)
+    for i in range(cfg.n_layers):
+        p = _layer(params["stack"]["periods"][0], i)
+        got = apply_block(p, "ssm", x, cfg, ctx, use_kernel=True)
+        want = apply_block(p, "ssm", x, cfg, ctx, use_kernel=False)
+        c = float(_row_cos(got - x, want - x).min())
+        worst_layer = min(worst_layer, (c, i))
+        x = got
+    torch.cuda.synchronize()
+    log(f"prefill per layer (bf16, F vs plain on each layer's own input): min row cosine "
+        f"{worst_layer[0]:.6f} (layer {worst_layer[1]})")
+    if worst_layer[0] < 0.999:
+        raise AssertionError(f"layer {worst_layer[1]}: F's block update disagrees with the plain "
+                             f"scan's, min row cosine {worst_layer[0]}")
+    del x, got, want
+
+    plain128 = prefill(params, tokens, use_kernel=False)
+    with mock.patch.object(ssm_mod, "SSD_CHUNK", 64):
+        plain64 = prefill(params, tokens, use_kernel=False)
+    torch.cuda.synchronize()
+    noise = float(_row_cos(plain64, plain128).min())
+    log(f"prefill noise (bf16, plain scan chunk 64 vs chunk 128): min row cosine {noise:.6f}; "
+        f"F vs plain: {float(_row_cos(hidden, plain128).min()):.6f}")
+    del plain128, plain64
+
+    cfg32 = cfg.scaled(dtype="float32")
+    params32 = init_lm(cfg32, torch.Generator(device=dev).manual_seed(seed), dev,
+                       dtype=torch.float32)
+    prefill32 = build_prefill(cfg32, ShapeConfig("prefill_4k", PREFILL_TOKENS, 1, "prefill"),
+                              device=dev)
+    got32 = prefill32(params32, tokens)
+    want32 = prefill32(params32, tokens, use_kernel=False)
+    torch.cuda.synchronize()
+    cos32 = float(_row_cos(got32, want32).min())
+    err32 = max_abs_err(got32, want32)
+    log(f"prefill float32 end to end, F vs plain: min row cosine {cos32:.8f}, max abs diff "
+        f"{err32:.4g}")
+    if not torch.isfinite(got32).all() or cos32 < 0.999:
+        raise AssertionError(f"float32 prefill with F disagrees with the plain scan: min row "
+                             f"cosine {cos32}")
+    return dict(min_cos_per_layer=worst_layer[0], bf16_noise_min_cos=noise, f32_min_cos=cos32,
+                f32_max_abs_diff=err32)
 
 
 def _decode_profile(cfg, params, n_ticks: int = 8) -> dict:
@@ -806,14 +914,13 @@ def _decode_profile(cfg, params, n_ticks: int = 8) -> dict:
     return dict(wall_ms=wall, device_ms=busy)
 
 
-#: the serving phase: yi-6b at full width, random weights, both engines
-SERVE_ARGS = ["--arch", "yi-6b", "--requests", "8", "--max-new", "16", "--slots", "4",
-              "--capacity", "256"]
+#: the serving phases: full width, random weights, both engines
+SERVE_ARGS = ["--requests", "8", "--max-new", "16", "--slots", "4", "--capacity", "256"]
 
 
-def phase_serving() -> dict:
-    """``launch.serve`` with the wave engine, then the continuous engine:
-    every request's tokens equal across the two."""
+def phase_serving(arch: str = "yi-6b") -> dict:
+    """``launch.serve --arch arch`` with the wave engine, then the
+    continuous engine: every request's tokens equal across the two."""
     import torch
 
     from repro_torch.launch import serve as launch_serve
@@ -822,7 +929,8 @@ def phase_serving() -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         for engine in ("wave", "continuous"):
             out = os.path.join(tmp, f"{engine}.json")
-            rc = launch_serve.main([*SERVE_ARGS, "--engine", engine, "--json", out])
+            rc = launch_serve.main(["--arch", arch, *SERVE_ARGS, "--engine", engine,
+                                    "--json", out])
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             res = json.loads(Path(out).read_text())
@@ -830,14 +938,117 @@ def phase_serving() -> dict:
                 raise AssertionError(f"serve {engine}: rc={rc}, {res['completed']} of "
                                      f"{res['requests']} requests completed")
             results[engine] = res
-            log(f"serve {engine}: {res['tokens']} tokens in {res['seconds']:.3f}s "
+            log(f"serve {arch} {engine}: {res['tokens']} tokens in {res['seconds']:.3f}s "
                 f"({res['tok_per_s']:.1f} tok/s), {res['decode_steps']} decode steps "
                 f"({res['ms_per_step']:.3f} ms/step)")
     if results["wave"]["out"] != results["continuous"]["out"]:
         raise AssertionError("the wave and continuous engines emitted different tokens: "
                              f"{results['wave']['out']} != {results['continuous']['out']}")
-    log(f"serve: wave and continuous tokens equal for all {len(results['wave']['out'])} requests")
+    log(f"serve {arch}: wave and continuous tokens equal for all {len(results['wave']['out'])} "
+        f"requests")
     return results
+
+
+# -- mamba2: the SSD scan (kernel F) ---------------------------------------------------
+
+#: kernel F's cases: (name, BH, S, Dh, Dst, G, chunk, dtype, entry); B and C
+#: have G rows shared by BH / G heads; ``entry`` goes through the padding
+#: entry point ``ssd_scan`` (S need not be a multiple of the chunk)
+SSD_CASES = (
+    ("prefill_bf16_shared_bc", 80, 4096, 64, 128, 1, 128, "bfloat16", False),
+    ("broadcast_layout_f32", 32, 2048, 64, 128, 32, 128, "float32", False),
+    ("chunk64_f32", 16, 1024, 64, 128, 16, 64, "float32", False),
+    ("ragged_s1000_bf16", 16, 1000, 64, 128, 2, 128, "bfloat16", True),
+    ("small_vs_sequential_f32", 4, 256, 16, 8, 4, 64, "float32", True),
+)
+SSD_TOL = {"float32": 1e-4, "bfloat16": 1.6e-2}
+#: against the sequential recurrence, which sums in another order (the
+#: reference's own kernel test holds its Pallas scan to 2e-4)
+SSD_SEQ_TOL = 2e-4
+
+
+def _ssd_inputs(dev, g, BH, S, Dh, Dst, G, dtype):
+    """x, B, C ``0.5 randn``, dt uniform in [0.05, 0.55), A ``-exp(0.3
+    randn)`` (the reference's test distributions), in ``dtype``."""
+    import torch
+
+    x = torch.randn((BH, S, Dh), generator=g, device=dev) * 0.5
+    dt = torch.rand((BH, S), generator=g, device=dev) * 0.5 + 0.05
+    B = torch.randn((G, S, Dst), generator=g, device=dev) * 0.5
+    C = torch.randn((G, S, Dst), generator=g, device=dev) * 0.5
+    A = -torch.exp(torch.randn((BH, 1), generator=g, device=dev) * 0.3)
+    dt_ = getattr(torch, dtype)
+    return [t.to(dt_) for t in (x, dt, B, C, A)]
+
+
+def _ssd_bound(x, dt, B, C, A, chunk: int) -> tuple[float, str]:
+    """The least time for one scan: each input read once and the output
+    written once, against the causal products of the chunked form (the
+    lower triangle of C B^T and of scores . xd, C . h_in and the state
+    update) on the bf16 tensor cores."""
+    BH, S, Dh = x.shape
+    Dst = B.shape[-1]
+    nbytes = sum(t.numel() * t.element_size() for t in (x, dt, B, C, A)) \
+        + x.numel() * x.element_size()
+    L = chunk
+    flop_per_chunk = 2 * (L * (L + 1) // 2 * (Dst + Dh) + 2 * L * Dst * Dh)
+    return bound(nbytes, flop_per_chunk * BH * (S // L), BF16_OPS_PER_S)
+
+
+def phase_ssd_kernel(dev) -> tuple[float, dict]:
+    """Kernel F against its plain version on the cases of ``SSD_CASES``;
+    returns the worst relative error and the prefill-shape timing row
+    (kernel F and the plain version, CUDA events; no single PyTorch call
+    computes an SSD scan)."""
+    import torch
+
+    from repro_torch.kernels.ssd import ssd_ref, ssd_scan, ssd_scan_kernel, ssd_scan_plain
+
+    g = torch.Generator(device=dev).manual_seed(15)
+    worst, row = {}, None
+    for name, BH, S, Dh, Dst, G, chunk, dtype, entry in SSD_CASES:
+        x, dt, B, C, A = _ssd_inputs(dev, g, BH, S, Dh, Dst, G, dtype)
+        if entry:
+            before = ssd_scan_kernel.launches
+            got = ssd_scan(x, dt, B, C, A, chunk=chunk)
+            if ssd_scan_kernel.launches != before + 1:
+                raise AssertionError(f"ssd_scan {name}: the entry point did not launch kernel F")
+            want = ssd_scan(x, dt, B, C, A, chunk=chunk, use_kernel=False)
+        else:
+            got = ssd_scan_kernel(x, dt, B, C, A, chunk=chunk)
+            want = ssd_scan_plain(x, dt, B, C, A, chunk=chunk)
+        torch.cuda.synchronize()
+        mag = float(want.abs().max())
+        err = max_abs_err(got, want)
+        if tuple(got.shape) != (BH, S, Dh) or not torch.isfinite(got).all() \
+                or err > SSD_TOL[dtype] * mag:
+            raise AssertionError(f"ssd_scan {name}: kernel != plain (max abs err {err}, "
+                                 f"tolerance {SSD_TOL[dtype]} x {mag})")
+        worst[dtype] = max(worst.get(dtype, 0.0), err / mag)
+        log(f"ssd_scan {name:>24}: max abs err {err:.3e} of {mag:.3g} (tolerance "
+            f"{SSD_TOL[dtype]} of it)")
+        if name.startswith("small_vs_sequential"):
+            seq = ssd_ref(x, dt, B, C, A)
+            torch.cuda.synchronize()
+            err_seq = max_abs_err(got, seq)
+            if err_seq > SSD_SEQ_TOL * float(seq.abs().max()):
+                raise AssertionError(f"ssd_scan {name}: kernel != ssd_ref (max abs err {err_seq})")
+            log(f"ssd_scan {name:>24}: against the sequential ssd_ref, max abs err {err_seq:.3e}")
+        if name.startswith("prefill"):
+            ms = time_ms(lambda: ssd_scan_kernel(x, dt, B, C, A, chunk=chunk), reps=10)
+            plain_ms = time_ms(lambda: ssd_scan_plain(x, dt, B, C, A, chunk=chunk), reps=3,
+                               warmup=1)
+            t_bound, by = _ssd_bound(x, dt, B, C, A, chunk)
+            row = dict(name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd.cu",
+                       replaces="src/repro/kernels/ssd/kernel.py:80", launches=0,
+                       max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=t_bound, bound_by=by,
+                       library_ms=None, shape=list(x.shape), state=Dst, bc_rows=G, chunk=chunk,
+                       dtype=dtype)
+            log(f"ssd_scan prefill shape {list(x.shape)} state {Dst} bf16: kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, bound {t_bound:.4f} ms ({by})")
+        del x, dt, B, C, A, got, want
+    row["max_rel_err_by_dtype"] = worst
+    return max(worst.values()), row
 
 
 def main() -> int:
@@ -913,15 +1124,33 @@ def main() -> int:
     row_e["launches"] = launches_e
     rows.append(row_e)
 
+    t0 = time.perf_counter()
+    _err_f, row_f = phase_ssd_kernel(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"phase 15 (kernel F vs plain): {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    launches_f, ssm_prefill = phase_prefill(dev, "mamba2-2.7b", "F", seed=16)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"phase 16 (mamba2-2.7b prefill): {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    ssm_serving = phase_serving("mamba2-2.7b")
+    log(f"phase 17 (mamba2-2.7b serving): {time.perf_counter() - t0:.1f}s")
+    row_f["launches"] = launches_f
+    rows.append(row_f)
+
     log("stencil_wall_per_step_ms: " + json.dumps(
         {k: v["wall_per_step_s"] * 1e3 for k, v in stencil.items()}))
     log("packet_stencil_wall_per_step_ms: " + json.dumps(
         {k: v["wall_per_step_s"] * 1e3 for k, v in packet_stencil.items()}))
     log("injection_tab4: " + json.dumps(injection))
     log("prefill_yi6b_4096: " + json.dumps(prefill))
-    log("serving_yi6b: " + json.dumps({k: {m: v[m] for m in ("tok_per_s", "ms_per_step",
+    for name, res in (("serving_yi6b", serving), ("serving_mamba2", ssm_serving)):
+        log(f"{name}: " + json.dumps({k: {m: v[m] for m in ("tok_per_s", "ms_per_step",
                                                               "decode_steps", "tokens")}
-                                       for k, v in serving.items()}))
+                                      for k, v in res.items()}))
+    log("prefill_mamba2_4096: " + json.dumps(ssm_prefill))
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -15,8 +15,8 @@ def build_prefill(cfg: ModelConfig, shape: ShapeConfig, *, device=None):
     unless named): a callable ``prefill(params, tokens, *, use_kernel=None)``
     that runs :func:`~repro_torch.models.lm_prefill` on tokens (B, S) and
     returns the final hidden states (B, S, D).  On the card its attention is
-    kernel E; ``use_kernel=False`` runs the plain refs there, for
-    comparisons.
+    kernel E and its SSD scan kernel F; ``use_kernel=False`` runs their
+    plain versions there, for comparisons.
 
     The reference shards the params over a mesh and switches FSDP on for
     yi-6b (12.1 GB of bfloat16 > 10 GB); on one card both are the identity.

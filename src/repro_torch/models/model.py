@@ -72,7 +72,8 @@ def lm_prefill(params, tokens, cfg, ctx, *, capacity: int, use_kernel=None):
     """Prefill: the full forward over ``tokens`` (B, S); returns the final
     hidden states (B, S, D).  Like the reference, it fills no cache (the
     serving engines replay prompts through decode).  ``use_kernel`` goes to
-    the attention (``None``: kernel E on the card)."""
+    every attention and SSM block (``None``: kernels E and F on the card;
+    ``False``: their plain versions, for comparisons)."""
     pf = _cast(params, model_dtype(cfg))
     x = embed_tokens_sp(pf, tokens, cfg, ctx)
     x = apply_stack(pf["stack"], x, cfg, ctx, use_kernel=use_kernel)

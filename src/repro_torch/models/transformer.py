@@ -1,11 +1,11 @@
 """Block assembly (``repro.models.transformer``): the dense ``"attn"``
-block, stacked per pattern period.
+block and the Mamba2 ``"ssm"`` block, stacked per pattern period.
 
 Parameters keep the reference's layout: ``{"periods": tuple of per-position
 block trees whose leaves carry a leading layer dim, "rem": tuple of
 remainder blocks}``.  The periods run as a Python loop over that dim (the
-reference's ``lax.scan``; there is no remat to port).  Block kinds other
-than ``"attn"`` raise ``NotImplementedError``.
+reference's ``lax.scan``; there is no remat to port).  The block kinds
+``"moe"`` and ``"rec"`` raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -15,25 +15,32 @@ import torch
 from .attention import apply_attention, decode_attention, init_attention, init_kv_cache
 from .common import rms_norm, tree_map
 from .mlp import apply_mlp, apply_mlp_replicated, init_mlp
+from .ssm import apply_ssm, decode_ssm, init_ssm, init_ssm_cache
 
-#: what the block kinds outside the slice raise with
+#: the block kinds the port runs
+KINDS = ("attn", "ssm")
+#: what the block kinds outside the port raise with
 KIND_ROADMAP = {
     "moe": "MoE blocks wait for their slice (ROADMAP.md §1, item 10)",
-    "ssm": "Mamba2 (ssm) blocks and kernel F wait for slice 4 (ROADMAP.md §1, item 8)",
     "rec": "RG-LRU (rec) blocks wait for their slice (ROADMAP.md §1, item 11)",
 }
 
 
 def _check_kind(kind: str):
-    if kind != "attn":
+    if kind not in KINDS:
         raise NotImplementedError(KIND_ROADMAP.get(kind, f"unknown block kind {kind!r}"))
 
 
 def init_block(generator, kind: str, cfg, ctx, dtype=None):
+    """``{"norm1", "attn", "norm2", "mlp"}`` for an attention block,
+    ``{"norm1", "ssm"}`` (no MLP) for an SSM block."""
     _check_kind(kind)
     D = cfg.d_model
     dt = torch.float32 if dtype is None else dtype
     dev = generator.device
+    if kind == "ssm":
+        return {"norm1": torch.ones((D,), dtype=dt, device=dev),
+                "ssm": init_ssm(generator, cfg, ctx, dtype)}
     return {"norm1": torch.ones((D,), dtype=dt, device=dev),
             "attn": init_attention(generator, cfg, ctx, dtype),
             "norm2": torch.ones((D,), dtype=dt, device=dev),
@@ -41,9 +48,13 @@ def init_block(generator, kind: str, cfg, ctx, dtype=None):
 
 
 def apply_block(p, kind: str, x, cfg, ctx, *, use_kernel=None):
-    """One block over x (B, S, D).  (The reference also returns the MoE
-    load-balancing loss, which a dense block does not have.)"""
+    """One block over x (B, S, D); ``use_kernel`` goes to the attention
+    (kernel E) or the SSD scan (kernel F).  (The reference also returns the
+    MoE load-balancing loss, which these blocks do not have.)"""
     _check_kind(kind)
+    if kind == "ssm":
+        return x + apply_ssm(p["ssm"], rms_norm(x, p["norm1"], cfg.norm_eps), cfg, ctx,
+                             use_kernel=use_kernel)
     x = x + apply_attention(p["attn"], rms_norm(x, p["norm1"], cfg.norm_eps), cfg, ctx,
                             use_kernel=use_kernel)
     return x + apply_mlp(p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps), cfg, ctx)
@@ -51,12 +62,17 @@ def apply_block(p, kind: str, x, cfg, ctx, *, use_kernel=None):
 
 def init_block_cache(kind: str, cfg, B: int, capacity: int, ctx, dtype, device=None):
     _check_kind(kind)
+    if kind == "ssm":
+        return init_ssm_cache(cfg, B, ctx, dtype, device)
     cap = capacity if cfg.local_window is None else min(capacity, cfg.local_window)
     return init_kv_cache(cfg, B, cap, ctx, dtype, device)
 
 
 def decode_block(p, kind: str, x, cache, pos, cfg, ctx):
     _check_kind(kind)
+    if kind == "ssm":
+        y, cache = decode_ssm(p["ssm"], rms_norm(x, p["norm1"], cfg.norm_eps), cache, cfg, ctx)
+        return x + y, cache
     y, cache = decode_attention(p["attn"], rms_norm(x, p["norm1"], cfg.norm_eps), cache, pos,
                                 cfg, ctx)
     x = x + y

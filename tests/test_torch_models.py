@@ -1,13 +1,16 @@
-"""The port's dense model path against the reference's, on the CPU.
+"""The port's dense and Mamba2 model paths against the reference's, on the
+CPU.
 
 Weights come from the reference's ``init_lm`` (its norm weights and biases,
-ones and zeros at init, perturbed with numpy noise so that they count) and
+ones and zeros at init, and the SSM's ``A_log``, ``dt_bias``, ``D_skip`` and
+grouped norm ``gn``, perturbed with numpy noise so that they count) and
 cross to the port through ``params_from_reference``; inputs come from
 ``numpy.random.RandomState``.  Configurations: the ``smoke()`` sizes of
-yi-6b, glm4-9b (qkv bias), minitron-4b (GELU) and yi-6b with ``qk_norm``
-and a 16-token local window.  Tolerance, float32: the largest difference
-is at most 1e-5 of the largest reference magnitude (the two sum the same
-terms in another order).
+yi-6b, glm4-9b (qkv bias), minitron-4b (GELU), yi-6b with ``qk_norm`` and a
+16-token local window, and mamba2-2.7b (prefills of 200 and 300 tokens, so
+the SSD scan pads and carries its state across chunks).  Tolerance,
+float32: the largest difference is at most 1e-5 of the largest reference
+magnitude (the two sum the same terms in another order).
 """
 
 from dataclasses import asdict
@@ -25,12 +28,14 @@ from repro.models import attention as ref_attn
 from repro.models import common as ref_common
 from repro.models import mlp as ref_mlp
 from repro.models import model as ref_model
+from repro.models import ssm as ref_ssm
 from repro_torch import configs
 from repro_torch.interop import params_from_reference
 from repro_torch.kernels.common import cdiv, pad_to
 from repro_torch.mesh.api import ParallelCtx, make_ctx
 from repro_torch.models import attention, common, init_lm, lm_caches, lm_decode_step, lm_prefill
 from repro_torch.models import mlp as port_mlp
+from repro_torch.models import ssm
 from repro_torch.models.common import tree_leaves_with_path
 
 RTOL = 1e-5
@@ -41,11 +46,15 @@ CFGS = {
     "minitron-4b": ("minitron-4b", {}),
     "yi-6b-qknorm-window": ("yi-6b", dict(qk_norm=True, local_window=16)),
 }
+#: the Mamba2 configuration (``"ssm"`` blocks, no attention)
+SSM = "mamba2-2.7b"
+#: the SSM's per-head and norm parameters, perturbed as the norms are
+SSM_NOISY = ("A_log", "dt_bias", "D_skip", "gn")
 
 
 def _cfgs(name):
     """(reference config, port config) of one test configuration."""
-    arch, kw = CFGS[name]
+    arch, kw = CFGS.get(name, (name, {}))
     return (ref_configs.smoke(ref_configs.get_arch(arch)).scaled(**kw),
             configs.smoke(configs.get_arch(arch)).scaled(**kw))
 
@@ -67,7 +76,7 @@ def _ref_params(cfg, seed=0):
     def perturb(path, leaf):
         a = np.asarray(leaf)
         name = str(getattr(path[-1], "key", ""))
-        if "norm" in name or name in ("bq", "bk", "bv"):
+        if "norm" in name or name in ("bq", "bk", "bv") + SSM_NOISY:
             a = a + 0.1 * rng.randn(*a.shape).astype(a.dtype)
         return a
 
@@ -251,10 +260,116 @@ def test_lm_decode_step_matches_reference(name):
         _close(got, want, f"step {step}")
 
 
+# -- the Mamba2 (ssm) block -------------------------------------------------------
+
+
+def test_softplus_and_causal_conv_match_reference():
+    x = np.concatenate([np.linspace(-40, 40, 161), _randn((64,), 20)]).astype(np.float32)
+    _close(ssm.softplus(torch.from_numpy(x)), jax.nn.softplus(jnp.asarray(x)), "softplus")
+    # above 20 both are log(1 + exp(x)), not PyTorch's softplus threshold
+    assert float(ssm.softplus(torch.tensor([30.0]))) == float(jax.nn.softplus(30.0))
+    xb = _randn((2, 11, 24), 21)
+    w = _randn((4, 24), 22)
+    _close(ssm._causal_conv(torch.from_numpy(xb), torch.from_numpy(w)),
+           ref_ssm._causal_conv(jnp.asarray(xb), jnp.asarray(w)), "causal_conv")
+
+
+def _ssm_block_params(seed=3):
+    ref_cfg, cfg = _cfgs(SSM)
+    p = jax.tree.map(np.asarray, ref_ssm.init_ssm(jax.random.PRNGKey(seed), ref_cfg, RefCtx()))
+    rng = np.random.RandomState(seed)
+    p = {k: (v + 0.1 * rng.randn(*v.shape).astype(np.float32) if k in SSM_NOISY else v)
+         for k, v in p.items()}
+    return ref_cfg, cfg, p, {k: torch.from_numpy(v.copy()) for k, v in p.items()}
+
+
+def test_init_ssm_layout_matches_reference():
+    ref_cfg, cfg, p, _ = _ssm_block_params()
+    got = ssm.init_ssm(torch.Generator().manual_seed(0), cfg, ParallelCtx())
+    assert {k: tuple(v.shape) for k, v in got.items()} == {k: v.shape for k, v in p.items()}
+    assert (got["A_log"] == 0).all() and (got["D_skip"] == 1).all() and (got["gn"] == 1).all()
+
+
+@pytest.mark.parametrize("S", [40, 200])
+def test_apply_ssm_matches_reference(S):
+    ref_cfg, cfg, p, tp = _ssm_block_params()
+    x = _randn((2, S, cfg.d_model), 23)
+    want = ref_ssm.apply_ssm(p, jnp.asarray(x), ref_cfg, RefCtx())
+    _close(ssm.apply_ssm(tp, torch.from_numpy(x), cfg, ParallelCtx()), want, "apply_ssm")
+
+
+def test_decode_ssm_matches_reference():
+    """Twelve steps (the conv window fills and shifts); outputs and the
+    conv windows and state of the cache equal at every step."""
+    ref_cfg, cfg, p, tp = _ssm_block_params(seed=4)
+    B = 3
+    rcache = ref_ssm.init_ssm_cache(ref_cfg, B, RefCtx(), jnp.float32)
+    cache = ssm.init_ssm_cache(cfg, B, ParallelCtx(), torch.float32)
+    assert {k: tuple(v.shape) for k, v in cache.items()} == \
+        {k: v.shape for k, v in rcache.items()}
+    for step in range(12):
+        x = _randn((B, 1, cfg.d_model), 200 + step)
+        want, rcache = ref_ssm.decode_ssm(p, jnp.asarray(x), rcache, ref_cfg, RefCtx())
+        got, cache = ssm.decode_ssm(tp, torch.from_numpy(x), cache, cfg, ParallelCtx())
+        _close(got, want, f"step {step}")
+        for k in ("conv_x", "conv_bc", "state"):
+            _close(cache[k], rcache[k], f"step {step} {k}")
+
+
+def test_ssm_init_lm_layout_matches_reference():
+    ref_cfg, cfg = _cfgs(SSM)
+    want = jax.eval_shape(lambda: ref_model.init_lm(jax.random.PRNGKey(0), ref_cfg, RefCtx()))
+    got = init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+    flat = [(path, tuple(t.shape)) for path, t in tree_leaves_with_path(got)]
+    ref_flat = [(tuple(getattr(k, "key", getattr(k, "idx", None)) for k in path),
+                 tuple(leaf.shape)) for path, leaf in jax.tree_util.tree_leaves_with_path(want)]
+    assert flat == ref_flat
+    assert set(got["stack"]["periods"][0]) == {"norm1", "ssm"}
+
+
+@pytest.mark.parametrize("S", [200, 300])
+def test_ssm_lm_prefill_matches_reference(S):
+    """S = 200 and 300 pad the scan to 256 and 384 (chunks of 128) and
+    carry the state across two and three chunks.  The reference runs the
+    Pallas scan in interpret mode; the port its CPU dispatch."""
+    ref_cfg, cfg = _cfgs(SSM)
+    np_params = _ref_params(ref_cfg)
+    tokens = np.random.RandomState(24).randint(0, cfg.vocab_size, (2, S)).astype(np.int32)
+    want = jax.jit(lambda p, t: ref_model.lm_prefill(p, t, ref_cfg, RefCtx(), capacity=S,
+                                                     interp=True))(np_params, tokens)
+    params = params_from_reference(np_params, cfg, device="cpu")
+    got = lm_prefill(params, torch.from_numpy(tokens), cfg, ParallelCtx(), capacity=S)
+    _close(got, want, "lm_prefill")
+
+
+def test_ssm_lm_decode_step_matches_reference():
+    """Twenty decode steps through the (conv window, state) caches; logits
+    equal at every step."""
+    ref_cfg, cfg = _cfgs(SSM)
+    np_params = _ref_params(ref_cfg, seed=1)
+    params = params_from_reference(np_params, cfg, device="cpu")
+    B = 2
+    rcaches = ref_model.lm_caches(ref_cfg, B, 12, RefCtx())
+    caches = lm_caches(cfg, B, 12, ParallelCtx(), device="cpu")
+    step_fn = jax.jit(lambda p, c, t, pos: ref_model.lm_decode_step(p, c, t, pos, ref_cfg,
+                                                                    RefCtx()))
+    rng = np.random.RandomState(25)
+    for step in range(20):
+        tok = rng.randint(0, cfg.vocab_size, (B,)).astype(np.int32)
+        pos = np.array([step, step + 2], np.int32)
+        want, rcaches = step_fn(np_params, rcaches, tok, pos)
+        got, caches = lm_decode_step(params, caches, torch.from_numpy(tok), torch.from_numpy(pos),
+                                     cfg, ParallelCtx())
+        _close(got, want, f"step {step}")
+    for (path, leaf), want_leaf in zip(tree_leaves_with_path(caches), jax.tree.leaves(rcaches),
+                                       strict=True):
+        _close(leaf, want_leaf, f"cache {path}")
+
+
 # -- what the slice does not run -------------------------------------------------
 
 
-@pytest.mark.parametrize("name", ["mamba2-2.7b", "recurrentgemma-9b", "qwen3-moe-30b-a3b",
+@pytest.mark.parametrize("name", ["recurrentgemma-9b", "qwen3-moe-30b-a3b",
                                   "llama4-scout-17b-a16e", "musicgen-medium"])
 def test_out_of_slice_families_raise(name):
     cfg = configs.smoke(configs.get_arch(name))

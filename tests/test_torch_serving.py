@@ -1,12 +1,14 @@
 """The port's serving engines against the reference's, on the CPU.
 
 Both packages get the reference's ``init_lm`` weights (carried by
-``params_from_reference``) and the same requests; greedy tokens, admission
-and completion ticks must be equal exactly.  The cache helpers
+``params_from_reference``) and the same requests, on the smoke configs of
+yi-6b, minitron-4b and mamba2-2.7b (SSM decode caches); greedy tokens,
+admission and completion ticks must be equal exactly.  The cache helpers
 (``reset_slot``, ``pack_slot``/``unpack_slot``, ``copy_slot``) are held to
 the reference's bytes.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -43,6 +45,9 @@ from repro_torch.serving import (
 
 ROOT = Path(__file__).resolve().parent.parent
 ARCHS = ("yi-6b", "minitron-4b")
+#: the archs the engines and the cache helpers are held on: the dense ones
+#: and mamba2, whose caches are conv windows and an SSD state
+ENGINE_ARCHS = ARCHS + ("mamba2-2.7b",)
 
 
 def _cfgs(arch):
@@ -77,7 +82,7 @@ ARRIVALS = {"queued": None, "scheduled": [0, 0, 3, 4, 11, 30]}
 
 @pytest.mark.parametrize("arrivals", sorted(ARRIVALS))
 @pytest.mark.parametrize("engine", ["wave", "continuous"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ENGINE_ARCHS)
 def test_engines_match_reference(arch, engine, arrivals):
     ref_cfg, cfg, np_params, params = _params(arch)
     prompts = _prompts(cfg, 6)
@@ -91,7 +96,7 @@ def test_engines_match_reference(arch, engine, arrivals):
     assert got == want
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ENGINE_ARCHS)
 def test_wave_and_continuous_emit_the_same_tokens(arch):
     _, cfg, _, params = _params(arch, seed=2)
     prompts = _prompts(cfg, 7, seed=5)
@@ -133,7 +138,7 @@ def _assert_caches_close(pc, rc):
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * max(1.0, np.abs(want).max()))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ENGINE_ARCHS)
 def test_reset_slot_matches_reference(arch):
     rc, pc = _filled_caches(arch)
     _assert_caches_close(pc, rc)
@@ -141,10 +146,14 @@ def test_reset_slot_matches_reference(arch):
         rc = ref_cont.reset_slot(rc, slot)
         pc = reset_slot(pc, slot)
         _assert_caches_close(pc, rc)
-    assert (_leaves(pc)[1][:, 0] == -1).all() and (_leaves(pc)[1][:, 2] >= -1).all()
+    # every leaf's rows of the reset slots: slot_pos -1, all other state 0
+    for path, leaf in tree_leaves_with_path(pc):
+        for slot in (0, 1):
+            rows = leaf.select(1 if "periods" in path else 0, slot)
+            assert (rows == (-1 if "slot_pos" in path else 0)).all(), (path, slot)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ENGINE_ARCHS)
 def test_pack_unpack_round_trip(arch):
     rc, pc = _filled_caches(arch)
     image = pack_slot(pc, 2)
@@ -167,7 +176,7 @@ def test_pack_unpack_round_trip(arch):
         unpack_slot(pc, image[:-4], 1)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ENGINE_ARCHS)
 def test_migration_keeps_tokens(arch):
     """A request moved to another slot mid-generation emits the tokens it
     would have emitted in place."""
@@ -199,6 +208,18 @@ def test_serve_cli_smoke_on_cpu():
                          timeout=300)
     assert res.returncode == 0, res.stderr
     assert "completed 4/4 requests" in res.stdout
+
+
+def test_serve_cli_mamba2_engines_agree_on_cpu(tmp_path):
+    from repro_torch.launch import serve
+
+    outs = []
+    for engine in ("wave", "continuous"):
+        out = tmp_path / f"{engine}.json"
+        assert serve.main(["--arch", "mamba2-2.7b", "--smoke", "--device", "cpu", "--engine",
+                           engine, "--json", str(out)]) == 0
+        outs.append(json.loads(out.read_text())["out"])
+    assert outs[0] == outs[1] and len(outs[0]) == 4
 
 
 @pytest.mark.parametrize("argv", [["--mesh", "1,8"], ["--validate-comm"]])

@@ -1,0 +1,249 @@
+"""Kernel F (the SSD chunked scan) and the SSD entry points against the
+reference.
+
+On the CPU, :func:`ssd_scan_plain` (what kernel F's wrapper runs on a CPU
+tensor) is held against the Pallas kernel ``ssd_pallas`` in interpret mode,
+called outside ``shard_map``, and against the reference's chunked CPU
+dispatch ``_ssd_chunked_jnp``, within 2e-5; both, and the port's
+sequential ``ssd_ref``, against the reference's ``ssd_ref`` within 2e-4 (the
+chunked and the sequential forms sum in different orders).  Inputs follow
+the reference's own tests: x, B and C ``0.5 * randn``, dt uniform in
+[0.05, 0.55), A ``-exp(0.3 * randn)``, from ``numpy.random.RandomState``.
+bfloat16 inputs (float32 arithmetic, a bfloat16 output) are held within
+1.6e-2 of the largest reference magnitude, two bfloat16 steps.
+
+The cases marked ``cuda`` hold kernel F against the plain version on the
+card and skip where there is none.  The reference (JAX) is imported only in
+the CPU cases, so on a machine with a card and no JAX they run alone:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_ssd.py
+"""
+
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.ssd import (
+    ssd_decode_step,
+    ssd_ref,
+    ssd_scan,
+    ssd_scan_kernel,
+    ssd_scan_plain,
+)
+
+TOL = {"float32": 2e-5, "bfloat16": 1.6e-2}
+
+
+@pytest.fixture
+def ref():
+    """The reference's SSD functions (imports JAX)."""
+    import jax.numpy as jnp
+
+    from repro.kernels.ssd import ssd_decode_step as ref_decode_step
+    from repro.kernels.ssd import ssd_ref as ref_ssd_ref
+    from repro.kernels.ssd import ssd_scan as ref_ssd_scan
+    from repro.kernels.ssd.ops import _ssd_chunked_jnp
+
+    return SimpleNamespace(jnp=jnp, scan=ref_ssd_scan, chunked=_ssd_chunked_jnp,
+                           seq=ref_ssd_ref, decode_step=ref_decode_step)
+
+
+@pytest.fixture
+def cuda_device():
+    """The first CUDA device; skips the test where there is none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernel F has no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def _inputs(BH, S, Dh, Dst, seed, G=None):
+    """x, dt, B, C, A as float32 numpy arrays; B and C have ``G`` rows
+    (``BH`` unless named)."""
+    rng = np.random.RandomState(seed)
+    G = BH if G is None else G
+    x = rng.randn(BH, S, Dh) * 0.5
+    dt = rng.rand(BH, S) * 0.5 + 0.05
+    B = rng.randn(G, S, Dst) * 0.5
+    C = rng.randn(G, S, Dst) * 0.5
+    A = -np.exp(rng.randn(BH, 1) * 0.3)
+    return [a.astype(np.float32) for a in (x, dt, B, C, A)]
+
+
+def _torch(arrays, dtype="float32"):
+    return [torch.from_numpy(a.copy()).to(getattr(torch, dtype)) for a in arrays]
+
+
+def _jax(ref, arrays, dtype="float32"):
+    return [ref.jnp.asarray(a, getattr(ref.jnp, dtype)) for a in arrays]
+
+
+def _close(got, want, tol):
+    got = got.float().numpy() if isinstance(got, torch.Tensor) else np.asarray(got, np.float32)
+    want = np.asarray(want).astype(np.float32)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    scale = max(float(np.abs(want).max()), 1.0)
+    err = float(np.abs(got - want).max())
+    assert err <= tol * scale, f"max abs err {err} > {tol} * {scale}"
+
+
+# (BH, S, Dh, Dst, chunk): the reference's test shapes (tests/test_kernels.py),
+# S = 200 at chunk 64 pads; then mamba2's head and state dims
+SCAN_CASES = {
+    "s128_c64": (4, 128, 16, 8, 64),
+    "s256_c128": (4, 256, 16, 8, 128),
+    "s200_c64_pads": (4, 200, 16, 8, 64),
+    "s192_c64": (2, 192, 8, 4, 64),
+    "mamba2_dims_s300": (2, 300, 64, 128, 128),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(SCAN_CASES))
+def test_plain_matches_pallas_interpret_and_chunked(ref, case, dtype):
+    BH, S, Dh, Dst, chunk = SCAN_CASES[case]
+    arrays = _inputs(BH, S, Dh, Dst, 5)
+    want = ref.scan(*_jax(ref, arrays, dtype), chunk=chunk, interpret=True)
+    got = ssd_scan_plain(*_torch(arrays, dtype), chunk=chunk)
+    assert got.dtype == getattr(torch, dtype) and tuple(got.shape) == (BH, S, Dh)
+    _close(got, want, TOL[dtype])
+    _close(got, ref.chunked(*_jax(ref, arrays, dtype), chunk=chunk), TOL[dtype])
+    # the CPU dispatch of the entry point is the plain version
+    assert torch.equal(ssd_scan(*_torch(arrays, dtype), chunk=chunk), got)
+
+
+@pytest.mark.parametrize("case", sorted(SCAN_CASES))
+def test_scan_matches_sequential_reference(ref, case):
+    BH, S, Dh, Dst, chunk = SCAN_CASES[case]
+    arrays = _inputs(BH, S, Dh, Dst, 6)
+    want = ref.seq(*_jax(ref, arrays))
+    _close(ssd_scan(*_torch(arrays), chunk=chunk), want, 2e-4)
+    _close(ssd_ref(*_torch(arrays)), want, 1e-5)
+
+
+def test_kernel_wrapper_on_cpu_is_the_plain_version():
+    arrays = _torch(_inputs(4, 256, 16, 8, 7))
+    before = ssd_scan_kernel.launches
+    assert torch.equal(ssd_scan_kernel(*arrays, chunk=128), ssd_scan_plain(*arrays, chunk=128))
+    assert ssd_scan_kernel.launches == before
+
+
+@pytest.mark.parametrize("G", [1, 2])
+def test_shared_rows_equal_the_broadcast_layout(G):
+    """B and C as ``G`` rows shared by ``BH // G`` heads compute what the
+    reference's layout (each row copied to every head) computes."""
+    x, dt, B, C, A = _torch(_inputs(6, 200, 16, 8, 8, G=G))
+    rep = 6 // G
+    got = ssd_scan(x, dt, B, C, A, chunk=64)
+    want = ssd_scan(x, dt, B.repeat_interleave(rep, 0), C.repeat_interleave(rep, 0), A, chunk=64)
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+
+
+def test_strong_decay_stays_finite():
+    """dt * |A| of 25 a step: within a chunk cum falls to -3200, so the
+    masked exponents above the diagonal would overflow; they are selected
+    away before the exp and the result is finite and equal to the
+    sequential recurrence."""
+    x, dt, B, C, A = _torch(_inputs(2, 256, 8, 4, 9))
+    dt, A = torch.full_like(dt, 5.0), torch.full_like(A, -5.0)
+    got = ssd_scan(x, dt, B, C, A, chunk=128)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, ssd_ref(x, dt, B, C, A), atol=1e-5, rtol=1e-5)
+
+
+def test_decode_step_matches_reference(ref):
+    rng = np.random.RandomState(10)
+    BH, Dst, Dh = 6, 8, 16
+    h = rng.randn(BH, Dst, Dh).astype(np.float32)
+    xt = rng.randn(BH, Dh).astype(np.float32)
+    dtt = (rng.rand(BH) * 0.5 + 0.05).astype(np.float32)
+    Bt, Ct = (rng.randn(BH, Dst).astype(np.float32) for _ in range(2))
+    A = -np.exp(rng.randn(BH, 1) * 0.3).astype(np.float32)
+    arrays = (h, xt, dtt, Bt, Ct, A)
+    want_h, want_y = ref.decode_step(*_jax(ref, arrays))
+    got_h, got_y = ssd_decode_step(*_torch(arrays))
+    assert got_h.dtype == torch.float32 and got_y.dtype == torch.float32
+    _close(got_h, want_h, 1e-5)
+    _close(got_y, want_y, 1e-5)
+
+
+def test_decode_steps_reproduce_the_scan():
+    """Decoding token by token carries the state as the scan does: every
+    step's output equals the scan's row, the padded tail included."""
+    x, dt, B, C, A = _torch(_inputs(2, 70, 8, 4, 11))
+    want = ssd_scan(x, dt, B, C, A, chunk=64)
+    h = torch.zeros((2, 4, 8))
+    ys = []
+    for t in range(70):
+        h, y = ssd_decode_step(h, x[:, t], dt[:, t], B[:, t], C[:, t], A)
+        ys.append(y)
+    torch.testing.assert_close(torch.stack(ys, dim=1), want, atol=2e-4, rtol=0)
+
+
+def test_use_kernel_on_cpu_raises():
+    arrays = _torch(_inputs(2, 64, 8, 4, 12))
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_scan(*arrays, use_kernel=True)
+
+
+@pytest.mark.parametrize("bad", ["ragged_s", "groups", "A", "dt"])
+def test_kernel_wrapper_rejects_bad_shapes(bad):
+    x, dt, B, C, A = _torch(_inputs(4, 128, 8, 4, 13))
+    if bad == "ragged_s":
+        x, dt, B, C = x[:, :100], dt[:, :100], B[:, :100], C[:, :100]
+    elif bad == "groups":
+        B, C = B[:3], C[:3]
+    elif bad == "A":
+        A = A[:2]
+    else:
+        dt = dt[:, :64]
+    with pytest.raises(ValueError):
+        ssd_scan_kernel(x, dt, B, C, A, chunk=128)
+
+
+# -- on the card: kernel F against its plain version ---------------------------
+
+CUDA_CASES = {
+    # (BH, S, Dh, Dst, G, chunk, dtype)
+    "f32_mamba2_dims": (16, 1024, 64, 128, 16, 128, torch.float32),
+    "f32_shared_rows": (16, 512, 64, 128, 2, 128, torch.float32),
+    "bf16_shared_rows": (80, 1024, 64, 128, 1, 128, torch.bfloat16),
+    "f32_chunk64_small_dims": (4, 256, 16, 8, 4, 64, torch.float32),
+    "bf16_chunk64": (8, 512, 64, 128, 8, 64, torch.bfloat16),
+}
+
+
+def _card_inputs(dev, BH, S, Dh, Dst, G, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((BH, S, Dh), generator=g, device=dev) * 0.5
+    dt = torch.rand((BH, S), generator=g, device=dev) * 0.5 + 0.05
+    B, C = (torch.randn((G, S, Dst), generator=g, device=dev) * 0.5 for _ in range(2))
+    A = -torch.exp(torch.randn((BH, 1), generator=g, device=dev) * 0.3)
+    return [t.to(dtype) for t in (x, dt, B, C, A)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CUDA_CASES))
+def test_kernel_matches_plain_on_card(cuda_device, case):
+    BH, S, Dh, Dst, G, chunk, dtype = CUDA_CASES[case]
+    arrays = _card_inputs(cuda_device, BH, S, Dh, Dst, G, dtype, 14)
+    before = ssd_scan_kernel.launches
+    got = ssd_scan_kernel(*arrays, chunk=chunk)
+    want = ssd_scan_plain(*arrays, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan_kernel.launches == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == (BH, S, Dh) and torch.isfinite(got).all()
+    tol = 1e-4 if dtype == torch.float32 else 1.6e-2
+    assert float((got.float() - want.float()).abs().max()) <= tol * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_entry_point_pads_and_matches_sequential_on_card(cuda_device):
+    x, dt, B, C, A = _card_inputs(cuda_device, 4, 200, 16, 8, 4, torch.float32, 15)
+    before = ssd_scan_kernel.launches
+    got = ssd_scan(x, dt, B, C, A, chunk=64)
+    want = ssd_ref(x, dt, B, C, A)
+    torch.cuda.synchronize()
+    assert ssd_scan_kernel.launches == before + 1 and tuple(got.shape) == (4, 200, 16)
+    assert float((got - want).abs().max()) <= 2e-4 * float(want.abs().max())
