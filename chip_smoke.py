@@ -72,10 +72,30 @@ non-zero):
     noise of two plain runs); ms per prefill, tokens/s, kernel F's share of
     the profiled device time, and a decode tick's wall/device split;
 17. phase 14's serving run with ``--arch mamba2-2.7b``: wave and continuous
-    tokens equal.
+    tokens equal;
+18. kernel D (``matmul``, the overlap engine's per-chunk GEMM) against its
+    plain version ``matmul_ref`` within 2e-5 (float32) and 2e-2 (bfloat16)
+    of the largest magnitude: the yi-6b TP prefill's four ring-step shapes
+    at P = 8 in bfloat16 (Q, MLP-up with the ragged N = 1376, MLP-down with
+    the ragged K = 1376, the out-projection), the MLP-up shape in float32,
+    ragged 2-D products, a strided batch and a shared weight; at the MLP-up
+    shape D, its plain version and ``torch.matmul`` (cuBLAS) are timed
+    beside D's bound;
+19. yi-6b at full width and depth, tensor-parallel over P = 8 ranks stacked
+    on the card, ``smi:static``, one sequence of 4096 tokens, bfloat16,
+    kernel D injected with ``make_ctx(..., matmul_fn=matmul)``: D launched
+    1,280 times (5 projections x 8 ring steps x 32 layers) and E 32 times;
+    the hidden states within a row cosine of 0.999 of the same TP prefill
+    with ``matmul_fn=None`` (``build_prefill``) and of the tp = 1 prefill of
+    the same weights; the ledger's per-tag bytes equal to their closed
+    form; ms and tokens/s of the three prefills, and the profiled device
+    time split by kernel;
+20. the same prefill at 4 layers over ``smi:fused``: bit-equal to
+    ``smi:static`` (kernel A folds the reduce-scatters as ``torch.add``
+    would), and A must launch.
 
-A ``{"kernels": [...]}`` line carries the rows of phases 6, 7, 12 and 15.
-Each phase prints its seconds.
+A ``{"kernels": [...]}`` line carries the rows of phases 6, 7, 12, 15 and
+18.  Each phase prints its seconds.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository around it, the script exits non-zero and prints
@@ -162,13 +182,14 @@ def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S) -> tuple[
 
 def reset_counts():
     from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.matmul import matmul
     from repro_torch.kernels.router import router_run
     from repro_torch.kernels.ssd import ssd_scan_kernel
     from repro_torch.kernels.stencil import stencil_sweep
     from repro_torch.transport.fused import fused_accumulate
 
     stencil_sweep.launches = fused_accumulate.launches = router_run.launches = 0
-    flash_attention_kernel.launches = ssd_scan_kernel.launches = 0
+    flash_attention_kernel.launches = ssd_scan_kernel.launches = matmul.launches = 0
 
 
 def phase_build():
@@ -1051,6 +1072,259 @@ def phase_ssd_kernel(dev) -> tuple[float, dict]:
     return max(worst.values()), row
 
 
+# -- tensor parallelism: the per-chunk GEMM (kernel D) and the TP prefill ---------------
+
+#: kernel D's cases: (name, x shape, w shape, dtype, strided); the first four
+#: are the yi-6b TP prefill's ring steps at P = 8 (512 rows a rank): Q,
+#: MLP-up (ragged N = 1376), MLP-down (ragged K = 1376) and the
+#: out-projection; ``strided`` hands D views (every other rank row of a
+#: buffer, a transposed weight)
+MM_CASES = (
+    ("mlp_up_bf16", (8, 512, 4096), (8, 4096, 1376), "bfloat16", False),
+    ("q_bf16", (8, 512, 4096), (8, 4096, 512), "bfloat16", False),
+    ("mlp_down_bf16", (8, 512, 1376), (8, 1376, 4096), "bfloat16", False),
+    ("out_bf16", (8, 512, 512), (8, 512, 4096), "bfloat16", False),
+    ("mlp_up_f32", (8, 512, 4096), (8, 4096, 1376), "float32", False),
+    ("ragged_2d_f32", (100, 70), (70, 50), "float32", False),
+    ("ragged_2d_bf16", (1000, 130), (130, 333), "bfloat16", False),
+    ("strided_batch_bf16", (8, 512, 1024), (8, 1024, 1376), "bfloat16", True),
+    ("shared_w_bf16", (8, 512, 1024), (1024, 1376), "bfloat16", False),
+)
+MM_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+#: the TP prefill's tensor-parallel degree: the paper's 8-rank testbed
+TP = 8
+
+
+def _mm_bound(x, w, out) -> tuple[float, str]:
+    """The least time for one product: each operand read once and the
+    output written once, against 2 M N K operations per batch entry on the
+    bf16 tensor cores (or float32 outside them)."""
+    Bt = x.shape[0] if x.dim() == 3 else 1
+    ops = 2 * Bt * x.shape[-2] * x.shape[-1] * w.shape[-1]
+    nbytes = sum(t.numel() * t.element_size() for t in (x, w, out))
+    return bound(nbytes, ops, F32_OPS_PER_S if x.element_size() == 4 else BF16_OPS_PER_S)
+
+
+def phase_matmul_kernel(dev) -> tuple[float, dict]:
+    """Kernel D against its plain version on the cases of ``MM_CASES``;
+    returns the worst relative error and the MLP-up timing row (D, the plain
+    version and ``torch.matmul``, CUDA events), with the other ring-step
+    shapes' times beside it."""
+    import torch
+
+    from repro_torch.kernels.matmul import matmul, matmul_ref
+
+    g = torch.Generator(device=dev).manual_seed(18)
+    worst, row, shapes_ms = {}, None, {}
+    for name, xs, ws, dtype, strided in MM_CASES:
+        dt = getattr(torch, dtype)
+        if strided:
+            x = torch.randn((2 * xs[0],) + xs[1:], generator=g, device=dev).to(dt)[::2]
+            w = torch.randn(ws[:1] + ws[:0:-1], generator=g, device=dev).to(dt).transpose(1, 2)
+        else:
+            x = torch.randn(xs, generator=g, device=dev).to(dt)
+            w = torch.randn(ws, generator=g, device=dev).to(dt)
+        before = matmul.launches
+        got = matmul(x, w)
+        want = matmul_ref(x, w)
+        torch.cuda.synchronize()
+        if matmul.launches != before + 1:
+            raise AssertionError(f"matmul {name}: kernel D was not launched")
+        mag = float(want.abs().max())
+        err = max_abs_err(got, want)
+        if got.shape != want.shape or got.dtype != dt or not torch.isfinite(got).all() \
+                or err > MM_TOL[dtype] * mag:
+            raise AssertionError(f"matmul {name}: kernel != plain (max abs err {err}, "
+                                 f"tolerance {MM_TOL[dtype]} x {mag})")
+        worst[dtype] = max(worst.get(dtype, 0.0), err / mag)
+        log(f"matmul {name:>20}: max abs err {err:.3e} of {mag:.4g} (tolerance "
+            f"{MM_TOL[dtype]} of it)")
+        if name.endswith("_bf16") and x.dim() == 3 and not strided and name != "shared_w_bf16":
+            ms = time_ms(lambda: matmul(x, w), reps=20)
+            lib_ms = time_ms(lambda: torch.matmul(x, w), reps=20)
+            t_bound, by = _mm_bound(x, w, got)
+            shapes_ms[name] = dict(ms=ms, library_ms=lib_ms, bound_ms=t_bound,
+                                   tflops=2 * x.numel() * w.shape[-1] / ms / 1e9)
+            log(f"matmul {name} {list(x.shape)} @ {list(w.shape)} bf16: kernel {ms:.4f} ms "
+                f"({shapes_ms[name]['tflops']:.1f} TFLOP/s), torch.matmul {lib_ms:.4f} ms, "
+                f"bound {t_bound:.4f} ms ({by})")
+            if name == "mlp_up_bf16":
+                plain_ms = time_ms(lambda: matmul_ref(x, w), reps=5, warmup=1)
+                row = dict(name="matmul", route="cuda", source="src/repro_torch/csrc/matmul.cu",
+                           replaces="src/repro/kernels/matmul/kernel.py:38", launches=0,
+                           max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=t_bound,
+                           bound_by=by, library_ms=lib_ms, shape=[list(x.shape), list(w.shape)],
+                           dtype=dtype)
+                log(f"matmul MLP-up plain version: {plain_ms:.4f} ms")
+        del x, w, got, want
+    row["max_rel_err_by_dtype"] = worst
+    row["ring_step_shapes"] = shapes_ms
+    return max(worst.values()), row
+
+
+def _tp_closed_form(cfg, P: int, tokens: int) -> dict:
+    """Per tag, one rank's (steps, bytes) over one TP prefill of ``tokens``
+    tokens: every streamed call moves P - 1 ring steps of one rank's rows
+    (tokens / P) of the model width in the model dtype.  Per layer: Q
+    (tp.attn.qkv), the K/V gather (tp.attn.kv), the out-projection
+    (tp.attn.out), gate and up (tp.mlp.up, two calls) and down
+    (tp.mlp.down); the embedding's reduce-scatter (tp.embed) once.  E.g.
+    tp.mlp.up = 2 x 7 x 512 x 4096 x 2 bytes a layer at P = 8."""
+    step_bytes = (P - 1) * (tokens // P) * cfg.d_model * 2
+    calls = {"tp.attn.qkv": 1, "tp.attn.kv": 1, "tp.attn.out": 1, "tp.mlp.up": 2,
+             "tp.mlp.down": 1}
+    want = {t: {"steps": (P - 1) * n * cfg.n_layers, "bytes": step_bytes * n * cfg.n_layers}
+            for t, n in calls.items()}
+    want["tp.embed"] = {"steps": P - 1, "bytes": step_bytes}
+    return want
+
+
+def _profile_split(rows) -> dict:
+    """Device ms by kind: kernel D, kernel E, cuBLAS GEMMs, the ring's index
+    copies and fills, and the elementwise rest."""
+    kinds = {"D": ("matmul_bf16_kernel",), "E": ("flash_attention",),
+             "gemm": ("gemm", "nvjet", "xmma", "cutlass", "cublas"),
+             "copies": ("index", "copy", "Copy", "gather", "scatter", "fill", "cat")}
+    split = {k: 0.0 for k in (*kinds, "elementwise")}
+    for name, ms in rows:
+        kind = next((k for k, keys in kinds.items() if any(s in name for s in keys)),
+                    "elementwise")
+        split[kind] += ms
+    return split
+
+
+def phase_tp_prefill(dev, seed: int = 19) -> tuple[int, dict, object]:
+    """yi-6b at full width and depth, P = 8 ranks over ``smi:static``,
+    kernel D injected; see the module docstring (phase 19).  Returns D's
+    launches, the results and the rank-stacked params (for phase 20)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.interop import shard_params
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.launch.steps import build_prefill
+    from repro_torch.mesh.api import make_ctx
+    from repro_torch.models import gather_hidden, init_lm, lm_prefill
+    from repro_torch.models.model import model_dtype
+    from repro_torch.parallel import ledger
+
+    cfg = get_arch("yi-6b")
+    shape = ShapeConfig("prefill_4k", PREFILL_TOKENS, 1, "prefill")
+    t0 = time.perf_counter()
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(seed), dev,
+                     dtype=model_dtype(cfg))
+    tokens = torch.from_numpy(np.random.RandomState(seed).randint(0, cfg.vocab_size,
+                                                                  (1, PREFILL_TOKENS))).to(dev)
+    plain_step = build_prefill(cfg, shape, mesh=(1, TP), comm_mode="smi:static", device=dev)
+    tp_params = shard_params(params, cfg, plain_step.ctx)
+    torch.cuda.synchronize()
+    log(f"tp prefill: {cfg.name} params drawn and split over {TP} ranks in "
+        f"{time.perf_counter() - t0:.1f}s")
+    ctx_d = make_ctx((1, TP), comm_mode="smi:static", matmul_fn=matmul, device=dev)
+
+    def run_d():
+        return gather_hidden(lm_prefill(tp_params, tokens, cfg, ctx_d,
+                                        capacity=PREFILL_TOKENS))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    with ledger.capture() as led:
+        run_d()  # warm-up, its wire traffic captured
+    torch.cuda.synchronize()
+    reset_counts()
+    hidden, ms_d = timed(run_d)
+    launches_d, launches_e = matmul.launches, flash_attention_kernel.launches
+    want_d = 5 * TP * cfg.n_layers
+    if launches_d != want_d or launches_e != cfg.n_layers:
+        raise AssertionError(f"TP prefill launched kernel D {launches_d} times (not {want_d}) "
+                             f"and E {launches_e} times (not {cfg.n_layers})")
+    if tuple(hidden.shape) != (1, PREFILL_TOKENS, cfg.d_model) or not torch.isfinite(hidden).all():
+        raise AssertionError(f"TP prefill hidden states {tuple(hidden.shape)} not finite or "
+                             f"not (1, {PREFILL_TOKENS}, {cfg.d_model})")
+    want_led = _tp_closed_form(cfg, TP, PREFILL_TOKENS)
+    if led.by_tag != want_led:
+        raise AssertionError(f"TP prefill ledger {led.by_tag} != closed form {want_led}")
+    log(f"tp prefill ledger per tag equals the closed form: {json.dumps(led.tag_bytes())}")
+
+    plain_step(tp_params, tokens)
+    h_none, ms_none = timed(lambda: plain_step(tp_params, tokens))
+    tp1 = build_prefill(cfg, shape, device=dev)
+    tp1(params, tokens)
+    h_tp1, ms_tp1 = timed(lambda: tp1(params, tokens))
+    cos_none = float(_row_cos(hidden, h_none).min())
+    cos_tp1 = float(_row_cos(hidden, h_tp1).min())
+    cos_none_tp1 = float(_row_cos(h_none, h_tp1).min())
+    log(f"tp prefill: D injected {ms_d:.3f} ms ({PREFILL_TOKENS / ms_d * 1e3:.1f} tok/s), "
+        f"matmul_fn=None {ms_none:.3f} ms ({PREFILL_TOKENS / ms_none * 1e3:.1f} tok/s), "
+        f"tp = 1 {ms_tp1:.3f} ms ({PREFILL_TOKENS / ms_tp1 * 1e3:.1f} tok/s); D launched "
+        f"{launches_d} times, E {launches_e}")
+    log(f"tp prefill min row cosine: D vs matmul_fn=None {cos_none:.6f}, D vs tp = 1 "
+        f"{cos_tp1:.6f} (matmul_fn=None vs tp = 1 {cos_none_tp1:.6f})")
+    if min(cos_none, cos_tp1) < 0.999:
+        raise AssertionError(f"TP prefill with D disagrees: min row cosine {cos_none} against "
+                             f"matmul_fn=None, {cos_tp1} against tp = 1")
+    del h_none, h_tp1, params, tp1
+    torch.cuda.empty_cache()
+    busy, rows = _profile_device_ms(run_d)
+    split = _profile_split(rows)
+    log(f"tp prefill profiled device time {busy:.3f} ms: " + ", ".join(
+        f"{k} {v:.3f} ms ({v / busy:.1%})" for k, v in split.items()))
+    for name, t in rows[:12]:
+        log(f"tp prefill profile: {t:9.3f} ms  {name[:90]}")
+    res = dict(ms_d=ms_d, tok_per_s_d=PREFILL_TOKENS / ms_d * 1e3, ms_matmul_fn_none=ms_none,
+               tok_per_s_matmul_fn_none=PREFILL_TOKENS / ms_none * 1e3, ms_tp1=ms_tp1,
+               tok_per_s_tp1=PREFILL_TOKENS / ms_tp1 * 1e3, launches_d=launches_d,
+               launches_e=launches_e, min_cos_vs_none=cos_none, min_cos_vs_tp1=cos_tp1,
+               device_ms=busy, device_split_ms=split, ledger_bytes=led.tag_bytes())
+    return launches_d, res, tp_params
+
+
+def phase_tp_fused(dev, tp_params, n_layers: int = 4, seed: int = 20) -> int:
+    """Phase 19's prefill cut to ``n_layers`` layers over ``smi:fused``
+    against ``smi:static``, both with D: bit for bit; kernel A launches.
+    Returns A's launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.mesh.api import make_ctx
+    from repro_torch.models import gather_hidden, lm_prefill
+    from repro_torch.models.common import tree_map
+    from repro_torch.transport.fused import fused_accumulate
+
+    cfg = get_arch("yi-6b").scaled(n_layers=n_layers)
+    params = dict(tp_params, stack={"periods": tree_map(lambda t: t[:n_layers],
+                                                        tp_params["stack"]["periods"]),
+                                    "rem": tp_params["stack"]["rem"]})
+    tokens = torch.from_numpy(np.random.RandomState(seed).randint(0, cfg.vocab_size,
+                                                                  (1, PREFILL_TOKENS))).to(dev)
+    out = {}
+    for mode in ("smi:static", "smi:fused"):
+        ctx = make_ctx((1, TP), comm_mode=mode, matmul_fn=matmul, device=dev)
+        reset_counts()
+        out[mode] = gather_hidden(lm_prefill(params, tokens, cfg, ctx, capacity=PREFILL_TOKENS))
+        torch.cuda.synchronize()
+        out[mode + ":A"] = fused_accumulate.launches
+    if not same_bits(out["smi:fused"], out["smi:static"]):
+        raise AssertionError(f"TP prefill over smi:fused differs from smi:static (max abs diff "
+                             f"{max_abs_err(out['smi:fused'], out['smi:static'])})")
+    launches_a = out["smi:fused:A"]
+    if launches_a == 0 or out["smi:static:A"] != 0:
+        raise AssertionError(f"kernel A launched {launches_a} times over smi:fused and "
+                             f"{out['smi:static:A']} over smi:static")
+    log(f"tp prefill {n_layers} layers: smi:fused bit-equal to smi:static, kernel A launched "
+        f"{launches_a} times")
+    return launches_a
+
+
 def main() -> int:
     import torch
 
@@ -1140,6 +1414,24 @@ def main() -> int:
     row_f["launches"] = launches_f
     rows.append(row_f)
 
+    t0 = time.perf_counter()
+    _err_d, row_d = phase_matmul_kernel(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"phase 18 (kernel D vs plain): {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    launches_d, tp_prefill, tp_params = phase_tp_prefill(dev)
+    torch.cuda.synchronize()
+    log(f"phase 19 (yi-6b TP prefill, P = {TP}): {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    tp_prefill["launches_a_fused_4_layers"] = phase_tp_fused(dev, tp_params)
+    del tp_params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"phase 20 (TP prefill over smi:fused): {time.perf_counter() - t0:.1f}s")
+    row_d["launches"] = launches_d
+    rows.append(row_d)
+
     log("stencil_wall_per_step_ms: " + json.dumps(
         {k: v["wall_per_step_s"] * 1e3 for k, v in stencil.items()}))
     log("packet_stencil_wall_per_step_ms: " + json.dumps(
@@ -1151,6 +1443,7 @@ def main() -> int:
                                                               "decode_steps", "tokens")}
                                       for k, v in res.items()}))
     log("prefill_mamba2_4096: " + json.dumps(ssm_prefill))
+    log("tp_prefill_yi6b_4096_p8: " + json.dumps(tp_prefill))
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

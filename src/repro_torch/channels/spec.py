@@ -4,8 +4,9 @@ The paper configures every transfer at channel-open time: peer, port,
 communicator (§2.2–§2.4).  :class:`ChannelSpec` folds the port's
 equivalents — transport backend, wire format, message tag, tuning plan —
 into that open-time descriptor.  This slice ports the descriptor and its
-transport resolution, which the halo exchange rides on; the element-level
-push/pop channels, port claims and channel pools come with a later slice.
+transport resolution, which the halo exchange and the tensor-parallel
+layers ride on; the element-level push/pop channels, port claims and
+channel pools come with a later slice.
 """
 
 from __future__ import annotations
@@ -31,6 +32,10 @@ class ChannelSpec:
     wire: str = "raw"
     tag: str | None = None
     plan: object = field(default=None, compare=False)
+    #: the reduction a reducing channel folds with (``None``: a plain add)
+    op: object = field(default=None, compare=False)
+    #: chunks a message is pipelined in
+    n_chunks: int = 1
 
     def __post_init__(self):
         if self.kind not in KINDS:

@@ -42,9 +42,14 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def _put(x: torch.Tensor, idx: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Copy of ``x`` with ``x[r, idx[r]] = v[r]`` for every rank r."""
-    out = x.clone()
-    out[torch.arange(x.shape[0], device=x.device), idx] = v
-    return out
+    return _put_(x.clone(), idx, v)
+
+
+def _put_(x: torch.Tensor, idx: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """:func:`_put` in place: ``x[r, idx[r]] = v[r]`` for every rank r, on
+    a buffer the caller owns; returns ``x``."""
+    x[torch.arange(x.shape[0], device=x.device), idx] = v
+    return x
 
 
 def _chunks(x: torch.Tensor, n_chunks: int) -> torch.Tensor:
@@ -94,8 +99,8 @@ def stream_allgather(x: torch.Tensor, comm: Communicator, *, bidir: bool = False
     P = comm.size
     r = comm.rank()
     t = _resolve(transport, comm)
-    out = x.new_zeros((x.shape[0], P) + tuple(x.shape[1:]))
-    out = _put(out, r, x)
+    # a fresh buffer, filled in place (one copy of each arriving shard)
+    out = _put_(x.new_empty((x.shape[0], P) + tuple(x.shape[1:])), r, x)
 
     def flat(o):
         return o.reshape((o.shape[0], P * x.shape[1]) + tuple(x.shape[2:]))
@@ -106,34 +111,47 @@ def stream_allgather(x: torch.Tensor, comm: Communicator, *, bidir: bool = False
         buf = x
         for s in range(1, P):
             buf = t.shift(buf, comm, +1)  # buf now originated at rank r - s
-            out = _put(out, (r - s) % P, buf)
+            _put_(out, (r - s) % P, buf)
     else:
         up = down = x
         n_up = (P - 1 + 1) // 2  # ceil((P-1)/2)
         n_down = (P - 1) // 2
         for s in range(1, n_up + 1):
             up = t.shift(up, comm, +1)
-            out = _put(out, (r - s) % P, up)
+            _put_(out, (r - s) % P, up)
             if s <= n_down:
                 down = t.shift(down, comm, -1)
-                out = _put(out, (r + s) % P, down)
+                _put_(out, (r + s) % P, down)
     return flat(out)
 
 
-def stream_reduce_scatter(x: torch.Tensor, comm: Communicator, *, transport=None):
+def stream_reduce_scatter(x: torch.Tensor | None, comm: Communicator, *,
+                          compute_chunk=None, transport=None):
     """Ring reduce-scatter.  Each rank's ``(P*m, ...)`` partials ->
     ``(m, ...)``: block ``r`` summed over ranks, on rank ``r``.  The inner
     step is the transport's ``shift_accumulate`` (the add kernel on the
-    fused backend)."""
+    fused backend).
+
+    ``compute_chunk(blk)`` produces the partial blocks just in time, one
+    ring step before they are needed, in place of ``x`` (the streamed
+    matmul + reduce-scatter of :mod:`~repro_torch.core.overlap`).  Ranks are
+    stacked, so ``blk`` is a ``(P,)`` tensor: rank ``r`` asks for block
+    ``blk[r]``, and the call returns the rank-stacked ``(P, m, ...)``
+    blocks."""
     P = comm.size
     r = comm.rank()
     t = _resolve(transport, comm)
-    xb = _chunks(x, P)
-    acc = _take(xb, (r - 1) % P)
+    if compute_chunk is None:
+        xb = _chunks(x, P)
+
+        def compute_chunk(blk):
+            return _take(xb, blk)
+
+    acc = compute_chunk((r - 1) % P)
     if P == 1:
         return acc
     for s in range(1, P):
-        acc = t.shift_accumulate(acc, _take(xb, (r - s - 1) % P), comm, +1)
+        acc = t.shift_accumulate(acc, compute_chunk((r - s - 1) % P), comm, +1)
     return acc
 
 

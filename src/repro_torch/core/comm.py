@@ -51,13 +51,38 @@ def _pair_index(pairs: tuple, device: torch.device) -> tuple[torch.Tensor, torch
     return src, dst
 
 
+@functools.lru_cache(maxsize=1024)
+def _full_gather(pairs: tuple, n: int, device: torch.device):
+    """How a permutation that delivers to every rank ``0..n-1`` exactly once
+    is one gather: ``("roll", k)`` when it is the ring rotation ``out[d] =
+    x[(d - k) % n]``, else ``("index", the source of each rank)``; ``None``
+    for a permutation that leaves a rank without data."""
+    srcs = dict((d, s) for s, d in pairs)
+    if len(pairs) != n or sorted(srcs) != list(range(n)):
+        return None
+    order = [srcs[d] for d in range(n)]
+    k = -order[0] % n
+    if all(order[d] == (d - k) % n for d in range(n)):
+        return "roll", k
+    return "index", torch.tensor(order, device=device)
+
+
 def ppermute(x: torch.Tensor, pairs) -> torch.Tensor:
     """Move rank rows of ``x`` along (src, dst) pairs: ``out[dst] = x[src]``,
     zeros on every rank that is no destination (``lax.ppermute``'s
-    semantics).  ``x`` is not modified."""
+    semantics).  A permutation that reaches every rank is one copy (a ring
+    shift copies two contiguous slices); any other fills zeros and copies
+    the rows that move.  ``x`` is not modified."""
+    pairs = tuple(pairs)
+    full = _full_gather(pairs, x.shape[0], x.device) if pairs else None
+    if full is not None:
+        kind, arg = full
+        if kind == "index":
+            return x.index_select(0, arg)
+        return torch.cat((x[x.shape[0] - arg:], x[:x.shape[0] - arg])) if arg else x.clone()
     out = torch.zeros_like(x)
     if pairs:
-        src, dst = _pair_index(tuple(pairs), x.device)
+        src, dst = _pair_index(pairs, x.device)
         out.index_copy_(0, dst, x.index_select(0, src))
     return out
 

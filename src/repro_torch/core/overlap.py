@@ -1,9 +1,27 @@
-"""Halo exchange (the paper's stencil application, §5.4.2).
+"""Collective-compute overlap (the paper's core idea) and the halo exchange.
 
-The start/finish split of the reference's ``core/overlap.py``: the four
-neighbour permutes are issued first, the caller runs the interior update,
-and only then is the padded tile assembled.  Tensors are rank-stacked:
-``x`` is ``(P, Nx, Ny, ...)``, row ``r`` rank ``r``'s tile.
+SMI's streaming messages exist so that communication happens *during*
+pipelined computation rather than before or after it.  Applied to a GEMM
+that is the *collective matmul* family (``repro.core.overlap``): each ring
+step's shift is interleaved with the per-chunk product, so the transfer of
+chunk i+1 overlaps the multiply of chunk i.
+
+* :func:`stream_allgather_matmul` — the column-parallel linear after
+  sequence sharding: ``AG(x) @ W`` with the all-gather streamed through the
+  GEMM;
+* :func:`stream_matmul_reducescatter` — the row-parallel linear:
+  ``RS(x @ W)`` with each row block's partial product computed just in
+  time;
+* :func:`halo_exchange_2d_start` / :func:`halo_exchange_2d_finish` — the
+  paper's stencil halo pattern, split so that the caller runs the interior
+  update between the two.
+
+Tensors are rank-stacked: row ``r`` of every ``(P, ...)`` tensor is rank
+``r``'s buffer.  ``matmul`` is injectable, so kernel D
+(:func:`repro_torch.kernels.matmul.matmul`) multiplies each ring step of
+all P ranks in one launch; the default is ``torch.matmul`` cast back to the
+input's dtype.  The reference's ``stream_ring_attention`` is not ported
+(``opt_ring_attn`` raises in ``mesh.api.make_ctx``).
 """
 
 from __future__ import annotations
@@ -11,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from ..netsim.schedule import halo_pairs as halo_perm
+from .collectives import _chunks, _put_, _take, stream_reduce_scatter
 from .comm import Communicator
 
 
@@ -18,6 +37,75 @@ def _resolve(transport, comm: Communicator):
     from ..transport.registry import resolve_transport
 
     return resolve_transport(transport, comm)
+
+
+def _default_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(a, b).to(a.dtype)
+
+
+def stream_allgather_matmul(x: torch.Tensor, w: torch.Tensor, comm: Communicator, *,
+                            matmul=None, bidir: bool = False, return_gathered: bool = False,
+                            transport=None):
+    """``concat_p(x) @ w`` with the all-gather streamed through the GEMM.
+
+    x: ``(P, m, K)`` — each rank's row block (its sequence shard);
+    w: ``(P, K, N)`` — each rank's resident weight (a column shard);
+    returns ``(P, P*m, N)``: full rows, local columns, on every rank.
+
+    Per ring step every rank shifts the block it holds one rank on and
+    multiplies the block that just arrived: one ``matmul`` call over all P
+    ranks.  Rank ``r``'s product of the block that originated at rank
+    ``(r - s) % P`` lands in place in row ``(r - s) % P`` of its output.
+    ``return_gathered`` also returns the gathered input ``(P, P*m, K)``,
+    free on the ring (every shard passes through every rank); ``bidir``
+    streams both ring directions."""
+    mm = matmul or _default_mm
+    P = comm.size
+    r = comm.rank()
+    t = _resolve(transport, comm)
+    Pr, m = x.shape[0], x.shape[1]
+    out = _put_(x.new_empty((Pr, P, m, w.shape[-1])), r, mm(x, w))
+    gat = _put_(x.new_empty((Pr, P) + tuple(x.shape[1:])), r, x) if return_gathered else None
+
+    def land(buf, slot):
+        _put_(out, slot, mm(buf, w))
+        if return_gathered:
+            _put_(gat, slot, buf)
+
+    if P > 1 and not bidir:
+        buf = x
+        for s in range(1, P):
+            buf = t.shift(buf, comm, +1)  # originated at rank r - s
+            land(buf, (r - s) % P)
+    elif P > 1:
+        up = down = x
+        n_up, n_down = P // 2, (P - 1) // 2
+        for s in range(1, n_up + 1):
+            up = t.shift(up, comm, +1)
+            land(up, (r - s) % P)
+            if s <= n_down:
+                down = t.shift(down, comm, -1)
+                land(down, (r + s) % P)
+    y = out.reshape(Pr, P * m, -1)
+    return (y, gat.reshape(Pr, P * m, -1)) if return_gathered else y
+
+
+def stream_matmul_reducescatter(x: torch.Tensor, w: torch.Tensor, comm: Communicator, *,
+                                matmul=None, transport=None):
+    """``reduce_scatter(x @ w)`` with per-block partial GEMMs just in time.
+
+    x: ``(P, P*m, K_local)`` — each rank's full rows, contraction-sharded
+    columns; w: ``(P, K_local, N)`` — the matching row shards of the
+    weight; returns ``(P, m, N)``: each rank's fully reduced row block.
+    Each ring step multiplies the row block every rank needs next, all P
+    ranks in one ``matmul`` call."""
+    mm = matmul or _default_mm
+    xb = _chunks(x, comm.size)
+
+    def compute_chunk(blk):
+        return mm(_take(xb, blk), w)
+
+    return stream_reduce_scatter(None, comm, compute_chunk=compute_chunk, transport=transport)
 
 
 def halo_exchange_2d_start(

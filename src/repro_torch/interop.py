@@ -96,3 +96,39 @@ def params_from_reference(np_params, cfg, device=None):
     if tuple(params["embed"].shape) != want:
         raise ValueError(f"embed {tuple(params['embed'].shape)} is not {cfg.name}'s {want}")
     return params
+
+
+def shard_params(params, cfg, ctx):
+    """Global params (the port's ``init_lm``, or :func:`params_from_reference`'s)
+    as the rank-stacked params of ``ctx``'s tensor-parallel degree P, by
+    :func:`~repro_torch.models.lm_specs`: a leaf split over the model axis
+    along one dimension becomes its P blocks stacked on a new leading rank
+    dimension — after the layer dimension for the leaves of a period, so
+    they lie ``(L, P, ...)`` and a layer's slice is rank-stacked and
+    contiguous.  A replicated leaf stays the one global copy (broadcasting
+    hands it to every rank).  At tp = 1 the params come back as they are."""
+    if ctx.tp == 1:
+        return params
+    from .models.model import lm_specs
+
+    P, m = ctx.tp, ctx.model_axis
+
+    def split(t, spec, stacked):
+        dims = tuple(spec) + (None,) * (t.dim() - len(tuple(spec)))
+        axes = [i for i, d in enumerate(dims) if d == m]
+        if not axes:
+            return t
+        (d,) = axes
+        if t.shape[d] % P:
+            raise ValueError(f"dimension {d} of a {tuple(t.shape)} leaf does not split "
+                             f"into {P} ranks")
+        return t.unflatten(d, (P, t.shape[d] // P)).movedim(d, int(stacked)).contiguous()
+
+    def walk(t, spec, stacked=False):
+        if isinstance(t, dict):
+            return {k: walk(v, spec[k], stacked or k == "periods") for k, v in t.items()}
+        if isinstance(t, (tuple, list)):
+            return tuple(walk(v, s, stacked) for v, s in zip(t, spec, strict=True))
+        return None if t is None else split(t, spec, stacked)
+
+    return walk(params, lm_specs(cfg, ctx))

@@ -7,8 +7,8 @@ all started together — and linked into one shared library, loaded with
 of the checkout, keyed on a hash of the sources and flags, so a changed
 source builds anew and an unchanged one loads at once.  ``--fmad=false``
 keeps every multiply and add separately rounded, which the bit-for-bit
-contract with the plain PyTorch versions needs; kernels E and F, held to a
-tolerance instead, fuse with explicit ``fmaf``.
+contract with the plain PyTorch versions needs; kernels D, E and F, held
+to a tolerance instead, fuse with explicit ``fmaf``.
 
 Nothing here runs at import: :func:`library` builds on its first call.  A
 missing ``nvcc`` or a failed build raises.
@@ -28,7 +28,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("accumulate.cu", "stencil.cu", "router.cu", "flash_attention.cu", "ssd.cu")
+SOURCES = ("accumulate.cu", "stencil.cu", "router.cu", "flash_attention.cu", "ssd.cu",
+           "matmul.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_NAME = "libsmi_kernels.so"
 #: where the CUDA toolkit puts nvcc when neither CUDA_HOME nor PATH names it
@@ -121,6 +122,8 @@ def library() -> ctypes.CDLL:
     lib.smi_flash_attention.restype = i32
     lib.smi_ssd_scan.argtypes = [p] * 6 + [i32] * 5 + [p]
     lib.smi_ssd_scan.restype = i32
+    lib.smi_matmul.argtypes = [p] * 3 + [i32] * 4 + [i64] * 2 + [i32] * 2 + [p]
+    lib.smi_matmul.restype = i32
     lib.smi_error_string.argtypes = [i32]
     lib.smi_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,0 +1,49 @@
+"""The public matmul entry point: layout, checks, dispatch
+(``repro.kernels.matmul.ops``)."""
+
+from __future__ import annotations
+
+import torch
+
+from .kernel import MATMUL_DTYPES, launch_matmul
+from .ref import matmul_ref
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor, *, out_dtype=None,
+           use_kernel: bool | None = None) -> torch.Tensor:
+    """``(M, K) @ (K, N) -> (M, N)``, or one launch over a leading batch
+    dimension: ``(Bt, M, K) @ (Bt, K, N)`` or ``(Bt, M, K) @ (K, N)`` ->
+    ``(Bt, M, N)``; any sizes (the kernel guards ragged edges).  Float32
+    accumulation, the result in ``out_dtype`` (x's dtype unless named).
+
+    ``use_kernel`` mirrors the reference's ``use_pallas``: ``None`` launches
+    kernel D on CUDA tensors and runs :func:`matmul_ref` on CPU tensors;
+    ``True`` on CPU tensors raises (kernel D has no CPU mode); ``False``
+    runs :func:`matmul_ref` anywhere, which on the card is for comparisons
+    only.  ``matmul.launches`` counts kernel launches."""
+    on_cuda = x.device.type == "cuda"
+    if use_kernel is None:
+        use_kernel = on_cuda
+    if not use_kernel:
+        return matmul_ref(x, w, out_dtype=out_dtype)
+    if not on_cuda or w.device != x.device:
+        raise ValueError(f"kernel D runs on one CUDA device (it has no CPU mode); got x on "
+                         f"{x.device}, w on {w.device}")
+    out_dtype = out_dtype or x.dtype
+    if x.dtype not in MATMUL_DTYPES or w.dtype != x.dtype or out_dtype not in MATMUL_DTYPES:
+        raise TypeError(f"kernel D takes float32 or bfloat16 operands alike and gives float32 "
+                        f"or bfloat16, not {x.dtype} @ {w.dtype} -> {out_dtype}")
+    if x.dim() not in (2, 3) or w.dim() not in (2, x.dim()) or x.shape[-1] != w.shape[-2] \
+            or (w.dim() == 3 and w.shape[0] != x.shape[0]):
+        raise ValueError(f"kernel D takes (M, K) @ (K, N), (Bt, M, K) @ (Bt, K, N) or "
+                         f"(Bt, M, K) @ (K, N); got {tuple(x.shape)} @ {tuple(w.shape)}")
+    x3 = (x if x.dim() == 3 else x.unsqueeze(0)).contiguous()
+    w3 = (w if w.dim() == 3 else w.unsqueeze(0)).contiguous()
+    out = torch.empty(x3.shape[:2] + (w3.shape[2],), dtype=out_dtype, device=x.device)
+    if out.numel():
+        launch_matmul(x3, w3, out)
+        matmul.launches += 1
+    return out if x.dim() == 3 else out[0]
+
+
+matmul.launches = 0

@@ -64,6 +64,8 @@ def main(argv=None) -> int:
     dims = tuple(int(x) for x in args.mesh.split(","))
     if args.validate_comm:
         raise NotImplementedError(f"--validate-comm: {TP_ROADMAP}")
+    if any(d > 1 for d in dims):
+        raise NotImplementedError(f"--mesh {args.mesh}: {TP_ROADMAP}")
     ctx = make_ctx(dims)
     cfg = get_arch(args.arch)
     if args.smoke:

@@ -1,3 +1,3 @@
-from .api import ParallelCtx, make_ctx
+from .api import ParallelCtx, PartitionSpec, make_ctx
 
-__all__ = ["ParallelCtx", "make_ctx"]
+__all__ = ["ParallelCtx", "PartitionSpec", "make_ctx"]

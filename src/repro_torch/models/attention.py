@@ -1,13 +1,19 @@
-"""GQA attention (``repro.models.attention``) at tensor-parallel degree 1:
-prefill through kernel E, decode over a ring-buffer KV cache.
+"""GQA attention (``repro.models.attention``): prefill through kernel E at
+any tensor-parallel degree, decode over a ring-buffer KV cache at tp = 1.
 
-Prefill expands the KV heads to the query heads (``take(kv_idx)``) before
-:func:`~repro_torch.kernels.flash_attention.flash_attention`, as the
-reference does, so the model path launches kernel E with ``H == Hkv``.
-Decode is a plain masked softmax over the cache.  Unlike the reference,
-:func:`decode_attention` writes the new key and value into the cache in
-place (JAX returns a new cache; PyTorch saves the copy) and returns the
-same cache dict.
+Tensor-parallel layout (the reference's): ``wq``/``wo`` are head-sharded,
+the head count padded up to a multiple of tp and the padded heads
+hard-masked; ``wk``/``wv`` are replicated; the residual stream is
+sequence-sharded.  Prefill runs Q through the column-parallel GEMM, gathers
+the sequence for K/V, expands each rank's KV heads to its query heads
+(``take(kv_idx)``) and runs kernel E over the P·B·H_loc query rows of all
+ranks in one launch, then the out-projection through the row-parallel GEMM.
+At tp = 1 the same steps collapse to plain products.
+
+Decode is a plain masked softmax over the cache at tp = 1.  Unlike the
+reference, :func:`decode_attention` writes the new key and value into the
+cache in place (JAX returns a new cache; PyTorch saves the copy) and
+returns the same cache dict.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels.flash_attention import flash_attention
+from ..mesh.api import PartitionSpec as PS
 from ..parallel import (
     column_parallel_linear,
     gather_sequence,
@@ -25,12 +32,18 @@ from ..parallel import (
 from .common import rms_norm, rope, rope_batched, trunc_normal
 
 
+def _pad_heads(H: int, tp: int) -> int:
+    return ((H + tp - 1) // tp) * tp
+
+
 def init_attention(generator, cfg, ctx, dtype=None):
-    """Attention params: ``wq`` (D, H*hd), ``wk``/``wv`` (D, Hkv*hd), ``wo``
-    (H*hd, D), the qkv biases and q/k norms where the config has them;
-    float32 unless ``dtype`` names another."""
+    """Global-shape attention params: ``wq`` (D, Hp*hd), ``wk``/``wv`` (D,
+    Hkv*hd), ``wo`` (Hp*hd, D), the qkv biases and q/k norms where the
+    config has them, with the head count padded to ``Hp``, a multiple of
+    ``ctx.tp`` (the padded heads are masked); float32 unless ``dtype`` names
+    another."""
     D, hd = cfg.d_model, cfg.hd
-    H = cfg.n_heads  # no head padding at tp = 1
+    H = _pad_heads(cfg.n_heads, ctx.tp)
     dev = generator.device
     dt = torch.float32 if dtype is None else dtype
     s_in = D ** -0.5
@@ -50,6 +63,29 @@ def init_attention(generator, cfg, ctx, dtype=None):
     return p
 
 
+def attention_specs(cfg, ctx):
+    """How each attention leaf lies over the mesh: Q and the out-projection
+    split by heads, K and V replicated."""
+    m = ctx.model_axis
+    sp = {"wq": PS(None, m), "wk": PS(None, None), "wv": PS(None, None), "wo": PS(m, None)}
+    if cfg.qkv_bias:
+        sp.update(bq=PS(m), bk=PS(None), bv=PS(None))
+    if cfg.qk_norm:
+        sp.update(q_norm=PS(None), k_norm=PS(None))
+    return sp
+
+
+def _head_mask_and_kv_map(cfg, ctx):
+    """Every rank's ``(P, H_loc)`` mask of real heads (1.0, 0.0 for the
+    padded ones) and KV head index per local head."""
+    Hp = _pad_heads(cfg.n_heads, ctx.tp)
+    H_loc = Hp // ctx.tp
+    g = max(cfg.n_heads // cfg.n_kv_heads, 1)
+    r = ctx.rank(2)
+    gh = r * H_loc + torch.arange(H_loc, device=r.device)           # global head ids
+    return (gh < cfg.n_heads).float(), (gh // g).clamp(0, cfg.n_kv_heads - 1)
+
+
 def kv_idx_full(cfg, Hp: int, device=None) -> torch.Tensor:
     """The KV head each of the ``Hp`` query heads reads."""
     g = max(cfg.n_heads // cfg.n_kv_heads, 1)
@@ -62,16 +98,23 @@ def mask_full(cfg, Hp: int, device=None) -> torch.Tensor:
 
 
 def apply_attention(p, x, cfg, ctx, *, use_kernel=None):
-    """Prefill.  x: (B, S, D) -> same.  ``use_kernel`` goes to
+    """Prefill.  x: (B, S, D) at tp = 1, the sequence-sharded (P, B, S/P, D)
+    at tp = P > 1; returns the same shape.  ``use_kernel`` goes to
     :func:`flash_attention` (``None``: kernel E on the card, the refs on the
     CPU)."""
+    if ctx.tp > 1:
+        return _apply_attention_tp(p, x, cfg, ctx, use_kernel=use_kernel)
     B, S, D = x.shape
     hd = cfg.hd
     H = p["wq"].shape[1] // hd
 
     x2d = x.reshape(B * S, D)
-    q = column_parallel_linear(x2d, p["wq"], ctx, tag="tp.attn.qkv")
-    xf = gather_sequence(x2d, ctx, tag="tp.attn.kv")
+    if ctx.opt_shared_gather:
+        q, xf = column_parallel_linear(x2d, p["wq"], ctx, tag="tp.attn.qkv",
+                                       return_gathered=True)
+    else:
+        q = column_parallel_linear(x2d, p["wq"], ctx, tag="tp.attn.qkv")
+        xf = gather_sequence(x2d, ctx, tag="tp.attn.kv")
     k = xf @ p["wk"]
     v = xf @ p["wv"]
     if cfg.qkv_bias:
@@ -95,6 +138,62 @@ def apply_attention(p, x, cfg, ctx, *, use_kernel=None):
     o = o * mask_full(cfg, H, x.device)[None, None, :, None].to(o.dtype)
     y = row_parallel_linear(o.reshape(B * S, H * hd), p["wo"], ctx, tag="tp.attn.out")
     return y.reshape(B, S, D)
+
+
+def _apply_attention_tp(p, x, cfg, ctx, *, use_kernel=None):
+    """Prefill at tp = P > 1 over the rank-stacked (P, B, S_loc, D)."""
+    P, B, S_loc, D = x.shape
+    S = S_loc * P
+    hd = cfg.hd
+    H_loc = p["wq"].shape[-1] // hd
+    if p["wq"].shape[-1] % hd or H_loc * P != _pad_heads(cfg.n_heads, P):
+        raise ValueError(f"each of the {P} ranks needs whole heads: draw the global params "
+                         f"with the TP context (init_lm(..., ctx=)), which pads "
+                         f"{cfg.n_heads} heads to a multiple of {P}")
+    mask, kv_idx = _head_mask_and_kv_map(cfg, ctx)                  # (P, H_loc) each
+
+    x2d = x.reshape(P, B * S_loc, D)
+    # column-parallel Q (head-sharded); replicated K and V of the gathered rows
+    if ctx.opt_shared_gather:
+        q, xf = column_parallel_linear(x2d, p["wq"], ctx, tag="tp.attn.qkv",
+                                       return_gathered=True)
+    else:
+        q = column_parallel_linear(x2d, p["wq"], ctx, tag="tp.attn.qkv")  # (P, P*B*S_loc, ..)
+        xf = gather_sequence(x2d, ctx, tag="tp.attn.kv")
+    k = xf @ p["wk"]
+    v = xf @ p["wv"]
+    if cfg.qkv_bias:
+        q = q + p["bq"][:, None, :]
+        k = k + p["bk"]
+        v = v + p["bv"]
+
+    def to_bshd(t, H):
+        """Gathered rows, shard-major (P_src, B, S_loc), to (B, S) order."""
+        return t.reshape(P, P, B, S_loc, H, hd).transpose(1, 2).reshape(P, B, S, H, hd)
+
+    q = to_bshd(q, H_loc)
+    k = to_bshd(k, cfg.n_kv_heads)
+    v = to_bshd(v, cfg.n_kv_heads)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    pos = torch.arange(S, device=x.device)
+    q = rope(q, pos, cfg.rope_theta)
+    k = rope(k, pos, cfg.rope_theta)
+
+    # each rank's local query heads attend their mapped KV heads
+    idx = kv_idx.view(P, 1, 1, H_loc, 1).expand(P, B, S, H_loc, hd)
+    k_sel = torch.gather(k, 3, idx)
+    v_sel = torch.gather(v, 3, idx)
+    # kernel E over every rank's rows at once: the ranks join the batch
+    o = flash_attention(q.reshape(P * B, S, H_loc, hd), k_sel.reshape(P * B, S, H_loc, hd),
+                        v_sel.reshape(P * B, S, H_loc, hd), causal=True,
+                        window=cfg.local_window, use_kernel=use_kernel)
+    o = o.reshape(P, B, S, H_loc, hd) * mask.view(P, 1, 1, H_loc, 1).to(o.dtype)
+    # row-parallel out-projection, reduce-scattered back to sequence shards
+    o2d = o.reshape(P, B, P, S_loc, H_loc * hd).transpose(1, 2).reshape(P, P * B * S_loc, -1)
+    y = row_parallel_linear(o2d, p["wo"], ctx, tag="tp.attn.out")    # (P, B*S_loc, D)
+    return y.reshape(P, B, S_loc, D)
 
 
 # ------------------------------------------------------------------ decode

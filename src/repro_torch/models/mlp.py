@@ -1,19 +1,25 @@
 """Feed-forward blocks (``repro.models.mlp``): SwiGLU and GELU, as
-column- then row-parallel projections (one matrix product each at tp = 1)."""
+column- then row-parallel projections with the collectives streamed through
+the GEMMs (one matrix product each at tp = 1).  The up-projections are split
+by columns of ``d_ff``, the down-projection by rows."""
 
 from __future__ import annotations
 
 import torch.nn.functional as F
 
+from ..mesh.api import PartitionSpec as PS
 from ..parallel import all_reduce, column_parallel_linear, row_parallel_linear
 from .common import silu, trunc_normal
 
 
 def init_mlp(generator, cfg, ctx, d_ff: int | None = None, dtype=None):
-    """MLP params: ``w_gate`` (SwiGLU only), ``w_up`` (D, ff), ``w_down``
-    (ff, D), float32 unless ``dtype`` names another."""
+    """Global-shape MLP params: ``w_gate`` (SwiGLU only), ``w_up`` (D, ff),
+    ``w_down`` (ff, D), float32 unless ``dtype`` names another; ``ff`` must
+    divide by the TP degree."""
     D = cfg.d_model
     ff = d_ff or cfg.d_ff
+    if ff % ctx.tp:
+        raise ValueError(f"d_ff={ff} not divisible by tp={ctx.tp}")
     kw = {} if dtype is None else {"dtype": dtype}
     p = {}
     if cfg.mlp_type == "swiglu":
@@ -27,18 +33,32 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
 
 
-def apply_mlp(p, x, cfg, ctx):
-    """x: (B, S, D) -> same."""
-    B, S, D = x.shape
-    x2d = x.reshape(B * S, D)
+def mlp_specs(cfg, ctx):
+    m = ctx.model_axis
+    sp = {"w_up": PS(None, m), "w_down": PS(m, None)}
     if cfg.mlp_type == "swiglu":
-        g = column_parallel_linear(x2d, p["w_gate"], ctx, tag="tp.mlp.up")
-        u = column_parallel_linear(x2d, p["w_up"], ctx, tag="tp.mlp.up")
+        sp["w_gate"] = PS(None, m)
+    return sp
+
+
+def apply_mlp(p, x, cfg, ctx):
+    """x: (B, S, D) at tp = 1, the sequence-sharded (P, B, S/P, D) at
+    tp = P > 1 -> the same shape."""
+    lead, (B, S, D) = x.shape[:-3], x.shape[-3:]
+    x2d = x.reshape(lead + (B * S, D))
+    if cfg.mlp_type == "swiglu":
+        if ctx.opt_shared_gather:
+            g, xf = column_parallel_linear(x2d, p["w_gate"], ctx, tag="tp.mlp.up",
+                                           return_gathered=True)
+            u = xf @ p["w_up"]  # ring-free: reuse the gathered input
+        else:
+            g = column_parallel_linear(x2d, p["w_gate"], ctx, tag="tp.mlp.up")
+            u = column_parallel_linear(x2d, p["w_up"], ctx, tag="tp.mlp.up")
         h = silu(g) * u
     else:
         h = _gelu(column_parallel_linear(x2d, p["w_up"], ctx, tag="tp.mlp.up"))
     y = row_parallel_linear(h, p["w_down"], ctx, tag="tp.mlp.down")
-    return y.reshape(B, S, D)
+    return y.reshape(lead + (B, S, D))
 
 
 def apply_mlp_replicated(p, x, cfg, ctx):

@@ -1,5 +1,11 @@
 """LM wrapper (``repro.models.model``): embedding -> block stack -> final
-norm; prefill and one decode step, at tensor-parallel degree 1.
+norm; prefill at any tensor-parallel degree, one decode step at tp = 1.
+
+At tp = P > 1 the residual stream is sequence-sharded and rank-stacked,
+``(P, B, S/P, D)``: the vocab-parallel embedding fuses its sum over the
+vocabulary shards into the reduce-scatter onto sequence shards, and
+:func:`lm_prefill` returns the sharded hidden states, which
+:func:`gather_hidden` assembles into ``(B, S, D)``.
 
 The vocabulary stays padded to a multiple of 256 (``cfg.padded_vocab``):
 greedy decoding takes the argmax over every padded column, as the reference
@@ -12,10 +18,11 @@ from __future__ import annotations
 import torch
 
 from ..core.comm import resolve_device
-from ..mesh.api import make_ctx
-from ..parallel import parallel_embedding_partial, psum_tagged
+from ..mesh.api import TP_ROADMAP, make_ctx
+from ..mesh.api import PartitionSpec as PS
+from ..parallel import parallel_embedding_partial, psum_tagged, reduce_scatter_sequence
 from .common import rms_norm, tree_map, trunc_normal
-from .transformer import apply_stack, decode_stack, init_stack, init_stack_cache
+from .transformer import apply_stack, decode_stack, init_stack, init_stack_cache, stack_specs
 
 CODEBOOK_ROADMAP = ("codebook streams (n_codebooks > 1) and frontend embeddings wait for the "
                     "VLM/audio frontend slice (ROADMAP.md §1, item 12)")
@@ -26,16 +33,23 @@ def _check_lm(cfg):
         raise NotImplementedError(CODEBOOK_ROADMAP)
 
 
+def _check_decode(ctx):
+    if ctx.tp > 1:
+        raise NotImplementedError(f"decode at tp = {ctx.tp}: {TP_ROADMAP}")
+
+
 def model_dtype(cfg) -> torch.dtype:
     """The dtype the model computes in: bfloat16 or float32, from the config."""
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def init_lm(cfg, generator: torch.Generator | None = None, device=None, dtype=None):
-    """LM params on ``device`` (``cuda`` unless named; drawn from
-    ``generator``, seeded 0 on that device when none is given), float32 as
-    in the reference unless ``dtype`` names another: the full-width run
-    passes the model dtype, and each layer is drawn in float32 and cast."""
+def init_lm(cfg, generator: torch.Generator | None = None, device=None, dtype=None, ctx=None):
+    """Global-shape LM params on ``device`` (``cuda`` unless named; drawn
+    from ``generator``, seeded 0 on that device when none is given), float32
+    as in the reference unless ``dtype`` names another: the full-width run
+    passes the model dtype, and each layer is drawn in float32 and cast.
+    ``ctx`` (tp = 1 unless given) pads the attention heads to a multiple of
+    its tp; :func:`~repro_torch.interop.shard_params` splits the result."""
     _check_lm(cfg)
     dev = resolve_device(device)
     if generator is None:
@@ -44,13 +58,27 @@ def init_lm(cfg, generator: torch.Generator | None = None, device=None, dtype=No
         raise ValueError(f"generator on {generator.device}, params asked on {dev}")
     D, V = cfg.d_model, cfg.padded_vocab
     dt = torch.float32 if dtype is None else dtype
-    ctx = make_ctx()
+    ctx = ctx or make_ctx()
+    if V % ctx.tp:
+        raise ValueError(f"padded vocabulary {V} not divisible by tp={ctx.tp}")
     p = {"final_norm": torch.ones((D,), dtype=dt, device=dev),
          "embed": trunc_normal(generator, (V, D), 0.02, dt),
          "stack": init_stack(generator, cfg, ctx, dtype)}
     if not cfg.tie_embeddings:
         p["head"] = trunc_normal(generator, (D, V), D ** -0.5, dt)
     return p
+
+
+def lm_specs(cfg, ctx):
+    """How each leaf of the LM params lies over the mesh: the embedding
+    split by vocabulary rows, the head by vocabulary columns, the final norm
+    replicated."""
+    _check_lm(cfg)
+    m = ctx.model_axis
+    sp = {"final_norm": PS(None), "stack": stack_specs(cfg, ctx), "embed": PS(m, None)}
+    if not cfg.tie_embeddings:
+        sp["head"] = PS(None, m)
+    return sp
 
 
 def _cast(p, dtype):
@@ -60,24 +88,42 @@ def _cast(p, dtype):
 
 
 def embed_tokens_sp(params, tokens, cfg, ctx, extra_embeds=None):
-    """tokens (B, S) -> (B, S, D) in the model dtype."""
+    """tokens (B, S) -> (B, S, D) in the model dtype; at tp = P > 1 the
+    sequence shards (P, B, S/P, D)."""
     _check_lm(cfg)
     if extra_embeds is not None:
         raise NotImplementedError(CODEBOOK_ROADMAP)
     emb = parallel_embedding_partial(params["embed"], tokens, ctx)
+    if ctx.tp > 1:
+        # the vocab psum fused into the sequence scatter: each rank's partial
+        # laid out shard-major, (P_dst, B, S_loc) on the rows
+        P, B, S, D = emb.shape
+        blocks = emb.reshape(P, B, P, S // P, D).transpose(1, 2).reshape(P, S * B, D)
+        emb = reduce_scatter_sequence(blocks, ctx, tag="tp.embed").reshape(P, B, S // P, D)
     return emb.to(model_dtype(cfg))
 
 
 def lm_prefill(params, tokens, cfg, ctx, *, capacity: int, use_kernel=None):
     """Prefill: the full forward over ``tokens`` (B, S); returns the final
-    hidden states (B, S, D).  Like the reference, it fills no cache (the
-    serving engines replay prompts through decode).  ``use_kernel`` goes to
-    every attention and SSM block (``None``: kernels E and F on the card;
-    ``False``: their plain versions, for comparisons)."""
+    hidden states, (B, S, D) at tp = 1 and the sequence shards (P, B, S/P, D)
+    at tp = P > 1 (:func:`gather_hidden` assembles them).  ``params`` are
+    the global ones at tp = 1 and :func:`~repro_torch.interop.shard_params`'s
+    at tp > 1.  Like the reference, it fills no cache (the serving engines
+    replay prompts through decode).  ``use_kernel`` goes to every attention
+    and SSM block (``None``: kernels E and F on the card; ``False``: their
+    plain versions, for comparisons)."""
     pf = _cast(params, model_dtype(cfg))
     x = embed_tokens_sp(pf, tokens, cfg, ctx)
     x = apply_stack(pf["stack"], x, cfg, ctx, use_kernel=use_kernel)
     return rms_norm(x, pf["final_norm"], cfg.norm_eps)
+
+
+def gather_hidden(h: torch.Tensor) -> torch.Tensor:
+    """Rank-stacked sequence shards (P, B, S/P, D) -> (B, S, D), rank r's
+    shard at positions r*S/P.. (the reference's ``out_specs=P(batch,
+    "model", None)``)."""
+    P, B, S_loc, D = h.shape
+    return h.transpose(0, 1).reshape(B, P * S_loc, D)
 
 
 def lm_decode_step(params, caches, token, pos, cfg, ctx):
@@ -85,6 +131,7 @@ def lm_decode_step(params, caches, token, pos, cfg, ctx):
     Returns (float32 logits (B, padded_vocab), caches) with the caches
     updated in place."""
     _check_lm(cfg)
+    _check_decode(ctx)
     pf = _cast(params, model_dtype(cfg))
     emb = parallel_embedding_partial(pf["embed"], token, ctx)
     x = psum_tagged(emb, ctx, "tp.embed")[:, None, :].to(model_dtype(cfg))  # (B, 1, D)
@@ -99,4 +146,5 @@ def lm_decode_step(params, caches, token, pos, cfg, ctx):
 def lm_caches(cfg, B: int, capacity: int, ctx, device=None):
     """Empty decode caches for ``B`` slots of ``capacity`` positions, in the
     model dtype, on ``device`` (``cuda`` unless named)."""
+    _check_decode(ctx)
     return init_stack_cache(cfg, B, capacity, ctx, model_dtype(cfg), resolve_device(device))

@@ -4,17 +4,28 @@ block and the Mamba2 ``"ssm"`` block, stacked per pattern period.
 Parameters keep the reference's layout: ``{"periods": tuple of per-position
 block trees whose leaves carry a leading layer dim, "rem": tuple of
 remainder blocks}``.  The periods run as a Python loop over that dim (the
-reference's ``lax.scan``; there is no remat to port).  The block kinds
-``"moe"`` and ``"rec"`` raise ``NotImplementedError``.
+reference's ``lax.scan``; there is no remat to port).  At tp > 1 the
+activations are the rank-stacked ``(P, B, S/P, D)`` and the sharded leaves
+of a period are laid out ``(L, P, ...)`` (``interop.shard_params``), so a
+layer's slice is rank-stacked and contiguous.  The block kinds ``"moe"``
+and ``"rec"`` raise ``NotImplementedError``, and so does ``"ssm"`` at
+tp > 1.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .attention import apply_attention, decode_attention, init_attention, init_kv_cache
+from ..mesh.api import PartitionSpec as PS
+from .attention import (
+    apply_attention,
+    attention_specs,
+    decode_attention,
+    init_attention,
+    init_kv_cache,
+)
 from .common import rms_norm, tree_map
-from .mlp import apply_mlp, apply_mlp_replicated, init_mlp
+from .mlp import apply_mlp, apply_mlp_replicated, init_mlp, mlp_specs
 from .ssm import apply_ssm, decode_ssm, init_ssm, init_ssm_cache
 
 #: the block kinds the port runs
@@ -24,11 +35,16 @@ KIND_ROADMAP = {
     "moe": "MoE blocks wait for their slice (ROADMAP.md §1, item 10)",
     "rec": "RG-LRU (rec) blocks wait for their slice (ROADMAP.md §1, item 11)",
 }
+#: what an ``"ssm"`` block at tp > 1 raises with
+SSM_TP_ROADMAP = ("the ssm (Mamba2) block at tp > 1, with its column-parallel ssm.in and "
+                  "ssm.gather layers, waits for its slice (ROADMAP.md §1, item 14)")
 
 
-def _check_kind(kind: str):
+def _check_kind(kind: str, ctx=None):
     if kind not in KINDS:
         raise NotImplementedError(KIND_ROADMAP.get(kind, f"unknown block kind {kind!r}"))
+    if kind == "ssm" and ctx is not None and ctx.tp > 1:
+        raise NotImplementedError(SSM_TP_ROADMAP)
 
 
 def init_block(generator, kind: str, cfg, ctx, dtype=None):
@@ -47,11 +63,22 @@ def init_block(generator, kind: str, cfg, ctx, dtype=None):
             "mlp": init_mlp(generator, cfg, ctx, dtype=dtype)}
 
 
-def apply_block(p, kind: str, x, cfg, ctx, *, use_kernel=None):
-    """One block over x (B, S, D); ``use_kernel`` goes to the attention
-    (kernel E) or the SSD scan (kernel F).  (The reference also returns the
-    MoE load-balancing loss, which these blocks do not have.)"""
+def block_specs(kind: str, cfg, ctx):
+    """How each leaf of a block lies over the mesh (the norms replicated).
+    The ``"ssm"`` block's layout is not ported: it raises."""
     _check_kind(kind)
+    if kind == "ssm":
+        raise NotImplementedError(SSM_TP_ROADMAP)
+    return {"norm1": PS(None), "attn": attention_specs(cfg, ctx), "norm2": PS(None),
+            "mlp": mlp_specs(cfg, ctx)}
+
+
+def apply_block(p, kind: str, x, cfg, ctx, *, use_kernel=None):
+    """One block over x, (B, S, D) at tp = 1 or (P, B, S/P, D) at tp > 1;
+    ``use_kernel`` goes to the attention (kernel E) or the SSD scan (kernel
+    F).  (The reference also returns the MoE load-balancing loss, which
+    these blocks do not have.)"""
+    _check_kind(kind, ctx)
     if kind == "ssm":
         return x + apply_ssm(p["ssm"], rms_norm(x, p["norm1"], cfg.norm_eps), cfg, ctx,
                              use_kernel=use_kernel)
@@ -107,6 +134,20 @@ def init_stack(generator, cfg, ctx, dtype=None):
         del blocks
     remainder = tuple(init_block(generator, pattern[j], cfg, ctx, dtype) for j in range(rem))
     return {"periods": stacked, "rem": remainder}
+
+
+def stack_specs(cfg, ctx):
+    """``{"periods", "rem"}`` specs; a period's leaves gain the leading
+    (unsharded) layer dimension."""
+    pattern, period, n_full, rem = _layout(cfg)
+
+    def prepend(tree):
+        return tree_map(lambda sp: PS(None, *sp), tree)
+
+    stacked = (tuple(prepend(block_specs(pattern[j], cfg, ctx)) for j in range(period))
+               if n_full > 0 else None)
+    return {"periods": stacked, "rem": tuple(block_specs(pattern[j], cfg, ctx)
+                                             for j in range(rem))}
 
 
 def apply_stack(params, x, cfg, ctx, *, use_kernel=None):

@@ -2,12 +2,15 @@ from .layers import (
     all_reduce,
     column_parallel_linear,
     gather_sequence,
+    layer_spec,
     parallel_embedding,
     parallel_embedding_partial,
     pmax_tagged,
     psum_tagged,
+    reduce_scatter_sequence,
     row_parallel_linear,
 )
 
-__all__ = ["all_reduce", "column_parallel_linear", "gather_sequence", "parallel_embedding",
-           "parallel_embedding_partial", "pmax_tagged", "psum_tagged", "row_parallel_linear"]
+__all__ = ["all_reduce", "column_parallel_linear", "gather_sequence", "layer_spec",
+           "parallel_embedding", "parallel_embedding_partial", "pmax_tagged", "psum_tagged",
+           "reduce_scatter_sequence", "row_parallel_linear"]

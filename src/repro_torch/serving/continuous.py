@@ -110,6 +110,8 @@ class ContinuousEngine:
         self.device = params_device(params)
         self.eos = eos
         self.ctx = ctx or ParallelCtx()
+        if self.ctx.tp > 1:
+            raise NotImplementedError(f"serving at tp = {self.ctx.tp}: {TP_ROADMAP}")
         self.B = B = batch_slots
         self.capacity = capacity
         self.caches = lm_caches(cfg, B, capacity, self.ctx, self.device)

@@ -15,7 +15,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..mesh.api import ParallelCtx
+from ..mesh.api import TP_ROADMAP, ParallelCtx
 from ..models import lm_caches, lm_decode_step
 from ..models.common import tree_leaves_with_path
 from ..models.model import _cast, model_dtype
@@ -43,6 +43,8 @@ class ServeEngine:
                  capacity: int = 128, eos: int | None = None):
         self.cfg = cfg
         self.ctx = ctx or ParallelCtx()
+        if self.ctx.tp > 1:
+            raise NotImplementedError(f"serving at tp = {self.ctx.tp}: {TP_ROADMAP}")
         self.params = _cast(params, model_dtype(cfg))
         self.device = params_device(params)
         self.B = batch_slots

@@ -89,6 +89,8 @@ def test_entry_points_default_to_cuda():
               lambda: get_transport("packet").device,
               lambda: Communicator.create("x", (8,)).device,
               lambda: build_prefill(cfg, SHAPES["prefill_32k"]).device,
+              lambda: build_prefill(cfg, SHAPES["prefill_32k"], mesh=(1, 8),
+                                    comm_mode="smi:static").ctx.model_comm.device,
               lambda: init_lm(cfg)["embed"].device,
               lambda: lm_caches(cfg, 2, 8, ParallelCtx())["periods"][0]["k"].device]
     if torch.cuda.is_available():

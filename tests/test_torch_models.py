@@ -377,12 +377,28 @@ def test_out_of_slice_families_raise(name):
         init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=(1, 8)), dict(mesh=(2, 4)), dict(comm_mode="smi"),
-                                dict(comm_mode="bulk"), dict(opt_ring_attn=True)])
+def _ssm_specs_at_tp4():
+    from repro_torch.models import lm_specs
+
+    lm_specs(configs.smoke(configs.get_arch(SSM)),
+             make_ctx((1, 4), comm_mode="smi:static", device="cpu"))
+
+
+@pytest.mark.parametrize("kw", [
+    lambda: make_ctx((2, 4)),                                   # a data axis (item 9)
+    lambda: make_ctx((2, 4), comm_mode="smi:static"),           # the same with a comm mode
+    lambda: make_ctx((1, 4), comm_mode="smi", plan="auto", device="cpu"),  # the tuner (item 3)
+    _ssm_specs_at_tp4,                                          # mamba2 at tp > 1 (item 14)
+    lambda: make_ctx(opt_ring_attn=True),                       # ring attention (item 9)
+])
 def test_tensor_parallel_options_raise(kw):
+    """What tensor parallelism does not run yet raises, naming its ROADMAP
+    item; a mesh without a model axis, and any comm mode without a mesh,
+    is tensor-parallel degree 1."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_ctx(**kw)
+        kw()
     assert make_ctx((1, 1)).tp == 1 and make_ctx().rank() == 0
+    assert make_ctx(comm_mode="smi").tp == 1 and make_ctx(comm_mode="bulk").tp == 1
 
 
 def test_extra_embeds_raise():
