@@ -44,15 +44,19 @@ non-zero):
     the snake bus, equal bit for bit to ``static`` with no loss; kernel C
     must launch;
 12. kernel E (``flash_attention_kernel``) against its plain version within
-    1e-4 (float32) and 1.6e-2 (bfloat16) on unit normals: yi-6b's prefill
-    shape (32 heads x 4096 x 128, bfloat16, causal, where E, its plain
-    version and ``scaled_dot_product_attention`` are timed), GQA 32/4 in
-    float32 at 1000 real keys, Sq 256 != Skv 1024, a 2048-token window at
-    head dim 256, and non-causal;
+    1e-4 (float32, the FMA kernel) and 1.6e-2 (bfloat16, the wgmma kernel)
+    on unit normals, each case asserting which path ran: yi-6b's prefill
+    shape (32 heads x 4096 x 128, bfloat16, causal, where E, the FMA
+    kernel on the same bfloat16 inputs, its plain version and
+    ``scaled_dot_product_attention`` are timed), GQA 32/4 at 1000 real
+    keys, Sq 256 != Skv 1024, a 2048-token window at head dim 256 and
+    non-causal, each in both dtypes, and in bfloat16 head dim 16 (padded
+    to 64) and Sq = 4032 (a multiple of 64, not of 128);
 13. yi-6b at full width and depth through ``build_prefill`` on 4096 tokens:
-    kernel E launched once per layer (32), hidden states finite and within
-    a row cosine of 0.999 of the same prefill with the plain refs; ms per
-    prefill, tokens/s and kernel E's share of the profiled device time;
+    kernel E launched once per layer (32), every launch on the wgmma path,
+    hidden states finite and within a row cosine of 0.999 of the same
+    prefill with the plain refs; ms per prefill, tokens/s and kernel E's
+    share of the profiled device time;
 14. ``python -m repro_torch.launch.serve --arch yi-6b --requests 8
     --max-new 16 --slots 4 --capacity 256`` with ``--engine wave`` and
     ``continuous``: every request's tokens equal across the two engines;
@@ -75,16 +79,20 @@ non-zero):
     tokens equal;
 18. kernel D (``matmul``, the overlap engine's per-chunk GEMM) against its
     plain version ``matmul_ref`` within 2e-5 (float32) and 2e-2 (bfloat16)
-    of the largest magnitude: the yi-6b TP prefill's four ring-step shapes
-    at P = 8 in bfloat16 (Q, MLP-up with the ragged N = 1376, MLP-down with
-    the ragged K = 1376, the out-projection), the MLP-up shape in float32,
-    ragged 2-D products, a strided batch and a shared weight; at the MLP-up
-    shape D, its plain version and ``torch.matmul`` (cuBLAS) are timed
-    beside D's bound;
+    of the largest magnitude, each case asserting which path ran: the yi-6b
+    TP prefill's four ring-step shapes at P = 8 in bfloat16 (Q, MLP-up with
+    the ragged N = 1376, MLP-down with the ragged K = 1376, the
+    out-projection), a strided batch and a shared weight on the wgmma
+    path; the MLP-up shape in float32, ragged 2-D products and an odd K on
+    the mma.sync path.  At each ring-step shape D on both paths and
+    ``torch.matmul`` (cuBLAS) are timed beside D's bound, and the wgmma
+    path's two grids (persistent, one CTA a tile); at MLP-up also the plain
+    version;
 19. yi-6b at full width and depth, tensor-parallel over P = 8 ranks stacked
     on the card, ``smi:static``, one sequence of 4096 tokens, bfloat16,
     kernel D injected with ``make_ctx(..., matmul_fn=matmul)``: D launched
-    1,280 times (5 projections x 8 ring steps x 32 layers) and E 32 times;
+    1,280 times (5 projections x 8 ring steps x 32 layers) and E 32 times,
+    every launch of both on the wgmma path;
     the hidden states within a row cosine of 0.999 of the same TP prefill
     with ``matmul_fn=None`` (``build_prefill``) and of the tp = 1 prefill of
     the same weights; the ledger's per-tag bytes equal to their closed
@@ -95,7 +103,10 @@ non-zero):
     would), and A must launch.
 
 A ``{"kernels": [...]}`` line carries the rows of phases 6, 7, 12, 15 and
-18.  Each phase prints its seconds.
+18, each with the path its kernel ran (``simt``, ``fma`` or ``wgmma``); the
+rows of E and D add ``ms_before``, the time in this run of the kernel that
+ran their bfloat16 calls before the wgmma one.  Each phase prints its
+seconds.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository around it, the script exits non-zero and prints
@@ -190,6 +201,7 @@ def reset_counts():
 
     stencil_sweep.launches = fused_accumulate.launches = router_run.launches = 0
     flash_attention_kernel.launches = ssd_scan_kernel.launches = matmul.launches = 0
+    flash_attention_kernel.wgmma_launches = matmul.wgmma_launches = 0
 
 
 def phase_build():
@@ -368,7 +380,7 @@ def phase_kernel_table(dev, launches_a, launches_b, err_a, err_b) -> list[dict]:
     b = torch.randn((P, REDUCE_ELEMS // P), generator=g, device=dev)
     t_bound, by = bound(3 * a.numel() * a.element_size(), a.numel())
     rows.append(dict(
-        name="accumulate", route="cuda", source="src/repro_torch/csrc/accumulate.cu",
+        name="accumulate", route="cuda", path="simt", source="src/repro_torch/csrc/accumulate.cu",
         replaces="src/repro/transport/fused.py:35", launches=launches_a,
         max_abs_err=err_a, ms=time_ms(lambda: fused_accumulate(a, b)),
         plain_ms=time_ms(lambda: accumulate_plain(a, b)), bound_ms=t_bound, bound_by=by,
@@ -389,7 +401,7 @@ def phase_kernel_table(dev, launches_a, launches_b, err_a, err_b) -> list[dict]:
     x4 = x.view(P, 1, 4096, 2048)
     t_bound, by = bound(2 * x.numel() * x.element_size(), 5 * x.numel())
     rows.append(dict(
-        name="stencil_sweep", route="cuda", source="src/repro_torch/csrc/stencil.cu",
+        name="stencil_sweep", route="cuda", path="simt", source="src/repro_torch/csrc/stencil.cu",
         replaces="src/repro/kernels/stencil/kernel.py:43", launches=launches_b,
         max_abs_err=err_b, ms=time_ms(lambda: stencil_sweep(x)),
         plain_ms=time_ms(lambda: stencil_sweep_plain(x)), bound_ms=t_bound, bound_by=by,
@@ -516,7 +528,8 @@ def phase_router_kernel(dev) -> tuple[float, dict]:
     log(f"router halo shape: {packets} packets, {ticks} of {n_steps} ticks run, "
         f"kernel {ms:.4f} ms ({ms / ticks * 1e3:.3f} us/tick), plain {plain_ms:.4f} ms, "
         f"bound {t_bound:.6f} ms")
-    row = dict(name="router_run", route="cuda", source="src/repro_torch/csrc/router.cu",
+    row = dict(name="router_run", route="cuda", path="simt",
+               source="src/repro_torch/csrc/router.cu",
                replaces="src/repro/kernels/router/kernel.py:83", launches=0, max_abs_err=worst,
                ms=ms, plain_ms=plain_ms, bound_ms=t_bound, bound_by="bytes", library_ms=None,
                ticks=ticks, tick_budget=n_steps, us_per_tick=ms / ticks * 1e3,
@@ -665,13 +678,22 @@ def phase_packet_reductions(dev) -> int:
 #: 32 query heads over KV heads expanded to 32 (the model path), head dim 128
 PREFILL_TOKENS = 4096
 #: kernel E's cases: (name, BH, H, Hkv, Sq, Skv, skv_actual, D, causal, window,
-#: dtype); Sq and Skv are the wrapper's padded lengths
+#: dtype); Sq and Skv are the wrapper's padded lengths.  bfloat16 runs on the
+#: wgmma kernel, float32 on the FMA one: each bfloat16 shape is there in
+#: float32 too, and D = 16 (padded to 64) and an Sq that is a multiple of 64
+#: but not of 128 (the wgmma kernel's query block) are bfloat16 only
 FA_CASES = (
     ("prefill_bf16_causal", 32, 32, 32, 4096, 4096, 4096, 128, True, None, "bfloat16"),
     ("gqa_32_4_f32_ragged", 32, 32, 4, 1024, 1024, 1000, 128, True, None, "float32"),
     ("sq256_skv1024_f32", 32, 32, 32, 256, 1024, 1024, 128, True, None, "float32"),
     ("window2048_d256_f32", 16, 16, 16, 4096, 4096, 4096, 256, True, 2048, "float32"),
     ("noncausal_f32", 32, 32, 32, 1024, 1024, 1024, 128, False, None, "float32"),
+    ("gqa_32_4_bf16_ragged", 32, 32, 4, 1024, 1024, 1000, 128, True, None, "bfloat16"),
+    ("sq256_skv1024_bf16", 32, 32, 32, 256, 1024, 1024, 128, True, None, "bfloat16"),
+    ("window2048_d256_bf16", 16, 16, 16, 4096, 4096, 4096, 256, True, 2048, "bfloat16"),
+    ("noncausal_bf16", 32, 32, 32, 1024, 1024, 1024, 128, False, None, "bfloat16"),
+    ("d16_padded_bf16", 32, 32, 8, 1024, 1024, 1000, 16, True, None, "bfloat16"),
+    ("sq4032_bf16", 32, 32, 32, 4032, 4032, 4032, 128, True, None, "bfloat16"),
 )
 FA_TOL = {"float32": 1e-4, "bfloat16": 1.6e-2}
 
@@ -691,13 +713,17 @@ def _fa_inputs(dev, g, BH, Hkv_rows, Sq, Skv, skv, D, dtype):
 
 
 def phase_flash_kernel(dev) -> tuple[float, dict]:
-    """Kernel E against its plain version on the cases of ``FA_CASES``;
-    returns the worst error and the prefill-shape timing row (kernel E, the
-    plain version and ``scaled_dot_product_attention``, CUDA events)."""
+    """Kernel E against its plain version on the cases of ``FA_CASES``, each
+    on the path its dtype picks (the wgmma counter moves for exactly the
+    bfloat16 cases); returns the worst error and the prefill-shape timing
+    row (CUDA events): kernel E on its wgmma path, the FMA kernel that ran
+    bfloat16 before it on the same inputs (``ms_before``), the plain version
+    and ``scaled_dot_product_attention``."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention_kernel, flash_attention_plain
+    from repro_torch.kernels.flash_attention.kernel import launch_flash_attention
 
     g = torch.Generator(device=dev).manual_seed(12)
     worst = {}
@@ -706,21 +732,31 @@ def phase_flash_kernel(dev) -> tuple[float, dict]:
         q, k, v = _fa_inputs(dev, g, BH, BH // H * Hkv, Sq, Skv, skv, D, dtype)
         kw = dict(n_q_heads=H, n_kv_heads=Hkv, scale=D ** -0.5, causal=causal, window=window,
                   skv_actual=skv)
+        path = "wgmma" if dtype == "bfloat16" else "fma"
+        before = flash_attention_kernel.wgmma_launches
         got = flash_attention_kernel(q, k, v, **kw)
         want = flash_attention_plain(q, k, v, **kw)
         torch.cuda.synchronize()
+        if flash_attention_kernel.wgmma_launches != before + (path == "wgmma"):
+            raise AssertionError(f"flash_attention {name}: the {path} path was not taken")
         err = max_abs_err(got, want)
         if not torch.isfinite(got).all() or err > FA_TOL[dtype]:
             raise AssertionError(f"flash_attention {name}: kernel != plain (max abs err {err}, "
                                  f"tolerance {FA_TOL[dtype]})")
         worst[dtype] = max(worst.get(dtype, 0.0), err)
-        log(f"flash_attention {name:>22}: max abs err {err:.3e} (tolerance {FA_TOL[dtype]})")
+        log(f"flash_attention {name:>22} ({path}): max abs err {err:.3e} "
+            f"(tolerance {FA_TOL[dtype]})")
         if name == "prefill_bf16_causal":
-            ms = time_ms(lambda: flash_attention_kernel(q, k, v, **kw), reps=10)
+            ms = time_ms(lambda: flash_attention_kernel(q, k, v, **kw), reps=20)
+            out = torch.empty_like(q)
+            ms_fma = time_ms(lambda: launch_flash_attention(
+                q, k, v, out, n_q_heads=H, n_kv_heads=Hkv, scale=D ** -0.5, causal=True,
+                window=None, skv=skv, path="fma"), reps=5, warmup=1)
+            err_fma = max_abs_err(out, want)
             plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, **kw), reps=3, warmup=1)
             q4, k4, v4 = (t.view(1, BH, Sq, D) for t in (q, k, v))
             sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True),
-                              reps=10)
+                              reps=20)
             # this run's data: every query sees the keys at or before it
             pairs = BH * Sq * (Sq + 1) // 2
             t_bound, by = bound(4 * q.numel() * q.element_size(), 4 * D * pairs, BF16_OPS_PER_S)
@@ -728,9 +764,12 @@ def phase_flash_kernel(dev) -> tuple[float, dict]:
                        source="src/repro_torch/csrc/flash_attention.cu",
                        replaces="src/repro/kernels/flash_attention/kernel.py:88", launches=0,
                        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=t_bound, bound_by=by,
-                       library_ms=sdpa_ms, shape=list(q.shape), dtype=dtype, causal=True)
-            log(f"flash_attention prefill shape {list(q.shape)} bf16 causal: kernel {ms:.4f} ms, "
+                       library_ms=sdpa_ms, path="wgmma", ms_before=ms_fma,
+                       max_abs_err_before=err_fma, shape=list(q.shape), dtype=dtype, causal=True)
+            log(f"flash_attention prefill shape {list(q.shape)} bf16 causal: wgmma {ms:.4f} ms "
+                f"({4 * D * pairs / ms / 1e9:.1f} TFLOP/s), the FMA kernel {ms_fma:.4f} ms, "
                 f"plain {plain_ms:.4f} ms, sdpa {sdpa_ms:.4f} ms, bound {t_bound:.4f} ms ({by})")
+            del out
         del q, k, v, got, want
     row["max_abs_err_by_dtype"] = worst
     return max(worst.values()), row
@@ -801,9 +840,13 @@ def phase_prefill(dev, arch: str = "yi-6b", kernel: str = "E", seed: int = 13
     if launches != cfg.n_layers:
         raise AssertionError(f"{cfg.name} prefill launched kernel {kernel} {launches} times, "
                              f"not {cfg.n_layers}")
+    if kernel == "E" and wrapper.wgmma_launches != launches:
+        raise AssertionError(f"{cfg.name} prefill: {wrapper.wgmma_launches} of kernel E's "
+                             f"{launches} launches took the wgmma path")
     if tuple(hidden.shape) != (1, PREFILL_TOKENS, cfg.d_model) or not torch.isfinite(hidden).all():
         raise AssertionError(f"prefill hidden states {tuple(hidden.shape)} not finite or "
                              f"not (1, {PREFILL_TOKENS}, {cfg.d_model})")
+    on_wgmma = f" ({wrapper.wgmma_launches} on wgmma)" if kernel == "E" else ""
     busy, rows = _profile_device_ms(lambda: prefill(params, tokens))
     k_ms = sum(t for name, t in rows if kernel_name in name)
     plain = prefill(params, tokens, use_kernel=False)
@@ -811,7 +854,8 @@ def phase_prefill(dev, arch: str = "yi-6b", kernel: str = "E", seed: int = 13
     cos = F.cosine_similarity(hidden[0].float(), plain[0].float(), dim=-1)
     err = max_abs_err(hidden, plain)
     log(f"prefill: {cfg.name} {ms:.3f} ms for {PREFILL_TOKENS} tokens "
-        f"({PREFILL_TOKENS / ms * 1e3:.1f} tok/s), kernel {kernel} launched {launches} times; "
+        f"({PREFILL_TOKENS / ms * 1e3:.1f} tok/s), kernel {kernel} launched {launches} times"
+        f"{on_wgmma}; "
         f"profiled device time {busy:.3f} ms, kernel {kernel} {k_ms:.3f} ms ({k_ms / busy:.1%})")
     for name, t in rows[:8]:
         log(f"prefill profile: {t:9.3f} ms  {name[:90]}")
@@ -1060,7 +1104,8 @@ def phase_ssd_kernel(dev) -> tuple[float, dict]:
             plain_ms = time_ms(lambda: ssd_scan_plain(x, dt, B, C, A, chunk=chunk), reps=3,
                                warmup=1)
             t_bound, by = _ssd_bound(x, dt, B, C, A, chunk)
-            row = dict(name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd.cu",
+            row = dict(name="ssd_scan", route="cuda", path="fma",
+                       source="src/repro_torch/csrc/ssd.cu",
                        replaces="src/repro/kernels/ssd/kernel.py:80", launches=0,
                        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=t_bound, bound_by=by,
                        library_ms=None, shape=list(x.shape), state=Dst, bc_rows=G, chunk=chunk,
@@ -1074,21 +1119,23 @@ def phase_ssd_kernel(dev) -> tuple[float, dict]:
 
 # -- tensor parallelism: the per-chunk GEMM (kernel D) and the TP prefill ---------------
 
-#: kernel D's cases: (name, x shape, w shape, dtype, strided); the first four
-#: are the yi-6b TP prefill's ring steps at P = 8 (512 rows a rank): Q,
+#: kernel D's cases: (name, x shape, w shape, dtype, strided, path); the first
+#: four are the yi-6b TP prefill's ring steps at P = 8 (512 rows a rank): Q,
 #: MLP-up (ragged N = 1376), MLP-down (ragged K = 1376) and the
 #: out-projection; ``strided`` hands D views (every other rank row of a
-#: buffer, a transposed weight)
+#: buffer, a transposed weight); ``path`` is the kernel ``matmul_path`` picks
+#: (bfloat16 with K and N multiples of 8 on wgmma, the rest on mma.sync)
 MM_CASES = (
-    ("mlp_up_bf16", (8, 512, 4096), (8, 4096, 1376), "bfloat16", False),
-    ("q_bf16", (8, 512, 4096), (8, 4096, 512), "bfloat16", False),
-    ("mlp_down_bf16", (8, 512, 1376), (8, 1376, 4096), "bfloat16", False),
-    ("out_bf16", (8, 512, 512), (8, 512, 4096), "bfloat16", False),
-    ("mlp_up_f32", (8, 512, 4096), (8, 4096, 1376), "float32", False),
-    ("ragged_2d_f32", (100, 70), (70, 50), "float32", False),
-    ("ragged_2d_bf16", (1000, 130), (130, 333), "bfloat16", False),
-    ("strided_batch_bf16", (8, 512, 1024), (8, 1024, 1376), "bfloat16", True),
-    ("shared_w_bf16", (8, 512, 1024), (1024, 1376), "bfloat16", False),
+    ("mlp_up_bf16", (8, 512, 4096), (8, 4096, 1376), "bfloat16", False, "wgmma"),
+    ("q_bf16", (8, 512, 4096), (8, 4096, 512), "bfloat16", False, "wgmma"),
+    ("mlp_down_bf16", (8, 512, 1376), (8, 1376, 4096), "bfloat16", False, "wgmma"),
+    ("out_bf16", (8, 512, 512), (8, 512, 4096), "bfloat16", False, "wgmma"),
+    ("mlp_up_f32", (8, 512, 4096), (8, 4096, 1376), "float32", False, "mma_sync"),
+    ("ragged_2d_f32", (100, 70), (70, 50), "float32", False, "mma_sync"),
+    ("ragged_2d_bf16", (1000, 130), (130, 333), "bfloat16", False, "mma_sync"),
+    ("odd_k_bf16", (3, 65, 131), (3, 131, 33), "bfloat16", False, "mma_sync"),
+    ("strided_batch_bf16", (8, 512, 1024), (8, 1024, 1376), "bfloat16", True, "wgmma"),
+    ("shared_w_bf16", (8, 512, 1024), (1024, 1376), "bfloat16", False, "wgmma"),
 )
 MM_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 #: the TP prefill's tensor-parallel degree: the paper's 8-rank testbed
@@ -1106,17 +1153,21 @@ def _mm_bound(x, w, out) -> tuple[float, str]:
 
 
 def phase_matmul_kernel(dev) -> tuple[float, dict]:
-    """Kernel D against its plain version on the cases of ``MM_CASES``;
-    returns the worst relative error and the MLP-up timing row (D, the plain
-    version and ``torch.matmul``, CUDA events), with the other ring-step
-    shapes' times beside it."""
+    """Kernel D against its plain version on the cases of ``MM_CASES``, each
+    on its path (the wgmma counter moves for exactly the wgmma cases);
+    returns the worst relative error and the MLP-up timing row (CUDA
+    events): D on its wgmma path, the mma.sync kernel that ran it before on
+    the same operands (``ms_before``), the plain version and
+    ``torch.matmul``; beside it every ring-step shape's time on both paths
+    and on the wgmma path's two grids (persistent, one CTA a tile)."""
     import torch
 
     from repro_torch.kernels.matmul import matmul, matmul_ref
+    from repro_torch.kernels.matmul.kernel import launch_matmul
 
     g = torch.Generator(device=dev).manual_seed(18)
     worst, row, shapes_ms = {}, None, {}
-    for name, xs, ws, dtype, strided in MM_CASES:
+    for name, xs, ws, dtype, strided, path in MM_CASES:
         dt = getattr(torch, dtype)
         if strided:
             x = torch.randn((2 * xs[0],) + xs[1:], generator=g, device=dev).to(dt)[::2]
@@ -1124,12 +1175,13 @@ def phase_matmul_kernel(dev) -> tuple[float, dict]:
         else:
             x = torch.randn(xs, generator=g, device=dev).to(dt)
             w = torch.randn(ws, generator=g, device=dev).to(dt)
-        before = matmul.launches
+        before, before_wg = matmul.launches, matmul.wgmma_launches
         got = matmul(x, w)
         want = matmul_ref(x, w)
         torch.cuda.synchronize()
-        if matmul.launches != before + 1:
-            raise AssertionError(f"matmul {name}: kernel D was not launched")
+        if matmul.launches != before + 1 or \
+                matmul.wgmma_launches != before_wg + (path == "wgmma"):
+            raise AssertionError(f"matmul {name}: kernel D's {path} path was not launched")
         mag = float(want.abs().max())
         err = max_abs_err(got, want)
         if got.shape != want.shape or got.dtype != dt or not torch.isfinite(got).all() \
@@ -1137,29 +1189,65 @@ def phase_matmul_kernel(dev) -> tuple[float, dict]:
             raise AssertionError(f"matmul {name}: kernel != plain (max abs err {err}, "
                                  f"tolerance {MM_TOL[dtype]} x {mag})")
         worst[dtype] = max(worst.get(dtype, 0.0), err / mag)
-        log(f"matmul {name:>20}: max abs err {err:.3e} of {mag:.4g} (tolerance "
+        log(f"matmul {name:>20} ({path}): max abs err {err:.3e} of {mag:.4g} (tolerance "
             f"{MM_TOL[dtype]} of it)")
-        if name.endswith("_bf16") and x.dim() == 3 and not strided and name != "shared_w_bf16":
+        if name in ("mlp_up_bf16", "q_bf16", "mlp_down_bf16", "out_bf16"):
+            out = torch.empty_like(got)
+            flops = 2 * x.numel() * w.shape[-1]
+            variant_ms = {k: time_ms(lambda: launch_matmul(x, w, out, persistent=p), reps=20)
+                          for k, p in (("persistent", True), ("per_tile", False))}
             ms = time_ms(lambda: matmul(x, w), reps=20)
+            ms_mma = time_ms(lambda: launch_matmul(x, w, out, path="mma_sync"), reps=20)
             lib_ms = time_ms(lambda: torch.matmul(x, w), reps=20)
             t_bound, by = _mm_bound(x, w, got)
-            shapes_ms[name] = dict(ms=ms, library_ms=lib_ms, bound_ms=t_bound,
-                                   tflops=2 * x.numel() * w.shape[-1] / ms / 1e9)
-            log(f"matmul {name} {list(x.shape)} @ {list(w.shape)} bf16: kernel {ms:.4f} ms "
-                f"({shapes_ms[name]['tflops']:.1f} TFLOP/s), torch.matmul {lib_ms:.4f} ms, "
-                f"bound {t_bound:.4f} ms ({by})")
+            shapes_ms[name] = dict(ms=ms, ms_mma_sync=ms_mma, library_ms=lib_ms,
+                                   bound_ms=t_bound, tflops=flops / ms / 1e9,
+                                   wgmma_grid_ms=variant_ms)
+            log(f"matmul {name} {list(x.shape)} @ {list(w.shape)} bf16: wgmma {ms:.4f} ms "
+                f"({flops / ms / 1e9:.1f} TFLOP/s), mma.sync {ms_mma:.4f} ms, torch.matmul "
+                f"{lib_ms:.4f} ms ({ms / lib_ms:.2f}x its time), bound {t_bound:.4f} ms ({by}); "
+                f"wgmma grids: " + ", ".join(f"{k} {v:.4f}" for k, v in variant_ms.items()))
             if name == "mlp_up_bf16":
                 plain_ms = time_ms(lambda: matmul_ref(x, w), reps=5, warmup=1)
                 row = dict(name="matmul", route="cuda", source="src/repro_torch/csrc/matmul.cu",
                            replaces="src/repro/kernels/matmul/kernel.py:38", launches=0,
                            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=t_bound,
-                           bound_by=by, library_ms=lib_ms, shape=[list(x.shape), list(w.shape)],
-                           dtype=dtype)
+                           bound_by=by, library_ms=lib_ms, path="wgmma", ms_before=ms_mma,
+                           shape=[list(x.shape), list(w.shape)], dtype=dtype)
                 log(f"matmul MLP-up plain version: {plain_ms:.4f} ms")
+            del out
         del x, w, got, want
     row["max_rel_err_by_dtype"] = worst
     row["ring_step_shapes"] = shapes_ms
+    row["host_us_per_call"] = _host_us_per_call(dev)
     return max(worst.values()), row
+
+
+def _host_us_per_call(dev, n: int = 2000) -> dict:
+    """Host microseconds a call of kernel D's entry point and of
+    ``torch.matmul`` cost, on a product small enough that the device waits
+    for the host (host clock over ``n`` calls ending in a synchronize): what
+    each of the TP prefill's 1,280 launches costs the host."""
+    import torch
+
+    from repro_torch.kernels.matmul import matmul
+
+    x = torch.ones((1, 128, 64), device=dev, dtype=torch.bfloat16)
+    w = torch.ones((1, 64, 128), device=dev, dtype=torch.bfloat16)
+    res = {}
+    for name, fn in (("matmul", lambda: matmul(x, w)),
+                     ("torch.matmul", lambda: torch.matmul(x, w))):
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        res[name] = (time.perf_counter() - t0) / n * 1e6
+    log("host us per call at (1, 128, 64) @ (1, 64, 128) bf16: " +
+        ", ".join(f"{k} {v:.2f}" for k, v in res.items()))
+    return res
 
 
 def _tp_closed_form(cfg, P: int, tokens: int) -> dict:
@@ -1182,7 +1270,7 @@ def _tp_closed_form(cfg, P: int, tokens: int) -> dict:
 def _profile_split(rows) -> dict:
     """Device ms by kind: kernel D, kernel E, cuBLAS GEMMs, the ring's index
     copies and fills, and the elementwise rest."""
-    kinds = {"D": ("matmul_bf16_kernel",), "E": ("flash_attention",),
+    kinds = {"D": ("matmul_bf16_kernel", "matmul_wgmma_kernel"), "E": ("flash_attention",),
              "gemm": ("gemm", "nvjet", "xmma", "cutlass", "cublas"),
              "copies": ("index", "copy", "Copy", "gather", "scatter", "fill", "cat")}
     split = {k: 0.0 for k in (*kinds, "elementwise")}
@@ -1241,10 +1329,14 @@ def phase_tp_prefill(dev, seed: int = 19) -> tuple[int, dict, object]:
     reset_counts()
     hidden, ms_d = timed(run_d)
     launches_d, launches_e = matmul.launches, flash_attention_kernel.launches
+    wgmma_d, wgmma_e = matmul.wgmma_launches, flash_attention_kernel.wgmma_launches
     want_d = 5 * TP * cfg.n_layers
     if launches_d != want_d or launches_e != cfg.n_layers:
         raise AssertionError(f"TP prefill launched kernel D {launches_d} times (not {want_d}) "
                              f"and E {launches_e} times (not {cfg.n_layers})")
+    if (wgmma_d, wgmma_e) != (launches_d, launches_e):
+        raise AssertionError(f"TP prefill: {wgmma_d} of D's {launches_d} and {wgmma_e} of E's "
+                             f"{launches_e} launches took the wgmma path")
     if tuple(hidden.shape) != (1, PREFILL_TOKENS, cfg.d_model) or not torch.isfinite(hidden).all():
         raise AssertionError(f"TP prefill hidden states {tuple(hidden.shape)} not finite or "
                              f"not (1, {PREFILL_TOKENS}, {cfg.d_model})")
@@ -1264,7 +1356,7 @@ def phase_tp_prefill(dev, seed: int = 19) -> tuple[int, dict, object]:
     log(f"tp prefill: D injected {ms_d:.3f} ms ({PREFILL_TOKENS / ms_d * 1e3:.1f} tok/s), "
         f"matmul_fn=None {ms_none:.3f} ms ({PREFILL_TOKENS / ms_none * 1e3:.1f} tok/s), "
         f"tp = 1 {ms_tp1:.3f} ms ({PREFILL_TOKENS / ms_tp1 * 1e3:.1f} tok/s); D launched "
-        f"{launches_d} times, E {launches_e}")
+        f"{launches_d} times ({wgmma_d} on wgmma), E {launches_e} ({wgmma_e} on wgmma)")
     log(f"tp prefill min row cosine: D vs matmul_fn=None {cos_none:.6f}, D vs tp = 1 "
         f"{cos_tp1:.6f} (matmul_fn=None vs tp = 1 {cos_none_tp1:.6f})")
     if min(cos_none, cos_tp1) < 0.999:
@@ -1281,7 +1373,8 @@ def phase_tp_prefill(dev, seed: int = 19) -> tuple[int, dict, object]:
     res = dict(ms_d=ms_d, tok_per_s_d=PREFILL_TOKENS / ms_d * 1e3, ms_matmul_fn_none=ms_none,
                tok_per_s_matmul_fn_none=PREFILL_TOKENS / ms_none * 1e3, ms_tp1=ms_tp1,
                tok_per_s_tp1=PREFILL_TOKENS / ms_tp1 * 1e3, launches_d=launches_d,
-               launches_e=launches_e, min_cos_vs_none=cos_none, min_cos_vs_tp1=cos_tp1,
+               launches_e=launches_e, wgmma_launches_d=wgmma_d, wgmma_launches_e=wgmma_e,
+               min_cos_vs_none=cos_none, min_cos_vs_tp1=cos_tp1,
                device_ms=busy, device_split_ms=split, ledger_bytes=led.tag_bytes())
     return launches_d, res, tp_params
 

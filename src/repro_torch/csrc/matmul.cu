@@ -34,10 +34,14 @@
 //     fmaf.
 //   * a 16-byte copy is taken only where K and N are multiples of 8 and the
 //     operands are 16-byte aligned; every other element is loaded alone.
-// wgmma, TMA and warp specialisation are later work.
+// This mma.sync kernel is the path for float32 operands and for bfloat16
+// whose K or N is not a multiple of 8; bfloat16 with both multiples of 8 (the
+// TP prefill's shapes) runs on the wgmma kernel at the end of the file.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -336,5 +340,249 @@ extern "C" int smi_matmul(const void* x, const void* w, void* out, int batch, in
     if (out_dtype == 0)
       return launch_f32<float>(x, w, out, batch, M, N, K, x_stride, w_stride, s);
   }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ================================================== bfloat16 on wgmma (sm_90a)
+//
+// The redesign for Hopper of the bfloat16 path, the one the overlap engine
+// runs (the kernel above stays for float32 operands and for K or N that is
+// not a multiple of 8, which TMA cannot stride).  Same function: out[b] =
+// x[b] @ w[b], float32 accumulate, one rounding to the output type.
+//   * A CTA of three warpgroups owns 128 x 128 output tiles: the last
+//     warpgroup is the producer (one thread issues TMA loads into a ring of
+//     kStages K-slices of 64), the other two are consumers, each multiplying
+//     its 64 rows with wgmma m64n128k16 (shared-shared) into 64 float32
+//     registers a thread.  Full/empty mbarriers hand the stages over; a
+//     consumer keeps one wgmma group in flight and releases a stage when the
+//     group after it has been issued.
+//   * x is read through a 3-D tensor map (K, M, Bt), so a box past M inside
+//     one batch entry is zero-filled rather than taken from the next entry;
+//     w (K, N) row-major is the MN-major B operand (the transpose flag), read
+//     as two 64-column boxes a stage through a 3-D map, or a 2-D map with no
+//     batch coordinate when one w is shared.  Ragged K and N (1376 = d_ff / 8
+//     in the TP prefill) are TMA's zero fill; nothing is padded or copied.
+//   * A persistent grid (one CTA an SM walking the tiles) overlaps a tile's
+//     epilogue with the next tile's loads (one CTA a tile is kept as a
+//     launch option, for chip_smoke.py's comparison).  The epilogue stages
+//     each warpgroup's 64 x 128 tile in swizzled shared memory and one
+//     thread stores it by TMA, clipped at M and N: faster at every ring
+//     step than storing from registers, which was measured and removed.
+namespace wgmma_path {
+
+using namespace hopper;
+
+constexpr int kBM = 128, kBN = 128, kBK = 64, kStages = 5;
+constexpr int kConsumers = 2;                     // warpgroups of 64 output rows
+constexpr int kThreads = 128 * (kConsumers + 1);  // and one producer warpgroup
+constexpr int kTileA = kBM * kBK * 2;             // 128 rows of 128 bytes
+constexpr int kBoxB = kBK * 64 * 2;               // one 64-column box of w: 64 rows of 128 bytes
+constexpr int kTileB = 2 * kBoxB;
+
+template <typename TO>
+__host__ __device__ constexpr int staging_bytes() {
+  return kBM * kBN * static_cast<int>(sizeof(TO));
+}
+template <typename TO>
+__host__ __device__ constexpr int smem_bytes() {
+  return 1024 + kStages * (kTileA + kTileB) + staging_bytes<TO>() + 2 * kStages * 8;
+}
+
+__device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+template <typename TO>
+__global__ void __launch_bounds__(kThreads, 1)
+matmul_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
+                    const __grid_constant__ CUtensorMap map_w,
+                    const __grid_constant__ CUtensorMap map_out, int K, int w_batched,
+                    int tiles_m, int tiles_n, int n_tiles) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sA = align_1024(smem_raw);
+  uint8_t* sB = sA + kStages * kTileA;
+  uint8_t* sOut = sB + kStages * kTileB;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sOut + staging_bytes<TO>());
+  uint64_t* empty = full + kStages;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int nk = (K + kBK - 1) / kBK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers * 4);  // lane 0 of every consumer warp
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // ---- producer: one thread keeps the ring full, tile after tile
+    setmaxnreg_dec<40>();
+    if (tid == 0) {
+      tma_prefetch(&map_x);
+      tma_prefetch(&map_w);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+        const int tm = t % tiles_m, tn = (t / tiles_m) % tiles_n, b = t / (tiles_m * tiles_n);
+        for (int kt = 0; kt < nk; ++kt) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_arrive_expect_tx(&full[stage], kTileA + kTileB);
+          tma_load_3d(sA + stage * kTileA, &map_x, &full[stage], kt * kBK, tm * kBM, b);
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            uint8_t* dst = sB + stage * kTileB + c * kBoxB;
+            if (w_batched)
+              tma_load_3d(dst, &map_w, &full[stage], tn * kBN + 64 * c, kt * kBK, b);
+            else
+              tma_load_2d(dst, &map_w, &full[stage], tn * kBN + 64 * c, kt * kBK);
+          }
+          if (++stage == kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 rows each
+    setmaxnreg_inc<232>();
+    const int warp = tid / 32, lane = tid % 32;
+    int stage = 0;
+    uint32_t phase = 0;
+    float acc[kBN / 2];
+    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+      const int tm = t % tiles_m, tn = (t / tiles_m) % tiles_n, b = t / (tiles_m * tiles_n);
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i) acc[i] = 0.0f;
+      int prev = -1;
+      for (int kt = 0; kt < nk; ++kt) {
+        mbar_wait(&full[stage], phase);
+        const uint8_t* a = sA + stage * kTileA + wg * 64 * 128;
+        const uint8_t* bt = sB + stage * kTileB;
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk)
+          wgmma_ss<1>(acc, sw128_desc(a + kk * 32, 16, kSw128Atom),
+                      sw128_desc(bt + kk * 16 * 128, kBoxB, kSw128Atom), 1);
+        wgmma_commit();
+        fence_regs(acc);
+        wgmma_wait<1>();  // the group before this one is done: its stage is free
+        fence_regs(acc);
+        if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+        prev = stage;
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+
+      // stage the warpgroup's 64 x 128 tile as boxes of 128-byte rows with the
+      // 128-byte swizzle (conflict-free: a warp's 8 rows land in 8 distinct
+      // 16-byte groups), then one thread stores them, clipped at M and N
+      const int r = warp * 16 + lane / 4;  // this thread's rows r and r + 8 of the warpgroup's 64
+      constexpr int kCols = 128 / static_cast<int>(sizeof(TO));  // columns per box
+      uint8_t* st = sOut + wg * 64 * kBN * static_cast<int>(sizeof(TO));
+      if (tid == 0) tma_store_wait_read();  // the previous tile's stores have read st
+      named_barrier(1 + wg, 128);
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j) {
+        const int col = 8 * j + 2 * (lane % 4);
+        const int byte = (col % kCols) * static_cast<int>(sizeof(TO));
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = r + 8 * h;
+          uint8_t* p = st + (col / kCols) * 64 * 128 + row * 128 +
+                       (((byte / 16) ^ (row % 8)) * 16) + byte % 16;
+          store_pair(reinterpret_cast<TO*>(p), acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        }
+      }
+      fence_async_shared();
+      named_barrier(1 + wg, 128);
+      if (tid == 0) {
+#pragma unroll
+        for (int c = 0; c < kBN / kCols; ++c)
+          tma_store_3d(&map_out, st + c * 64 * 128, tn * kBN + c * kCols, tm * kBM + wg * 64, b);
+        tma_store_commit();
+      }
+    }
+    if (tid == 0) tma_store_wait_all();
+  }
+}
+
+template <typename TO>
+__host__ __device__ constexpr CUtensorMapDataType map_dtype() {
+  return sizeof(TO) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+}
+
+template <typename TO>
+int launch(const void* x, const void* w, void* out, int batch, int M, int N, int K,
+           int w_batched, int persistent, cudaStream_t s) {
+  constexpr int sz = static_cast<int>(sizeof(TO));
+  CUtensorMap mx, mw, mo;
+  const cuuint64_t xd[3] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(M),
+                            static_cast<cuuint64_t>(batch)};
+  const cuuint64_t xs[2] = {static_cast<cuuint64_t>(K) * 2, static_cast<cuuint64_t>(M) * K * 2};
+  const cuuint32_t xb[3] = {64, kBM, 1};
+  int err = make_tensor_map(&mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, 3, xd, xs, xb);
+  if (err) return err;
+  const cuuint64_t wd[3] = {static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(K),
+                            static_cast<cuuint64_t>(batch)};
+  const cuuint64_t ws[2] = {static_cast<cuuint64_t>(N) * 2, static_cast<cuuint64_t>(K) * N * 2};
+  const cuuint32_t wb[3] = {64, kBK, 1};
+  err = make_tensor_map(&mw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, w, w_batched ? 3 : 2, wd, ws, wb);
+  if (err) return err;
+  const cuuint64_t od[3] = {static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(M),
+                            static_cast<cuuint64_t>(batch)};
+  const cuuint64_t os[2] = {static_cast<cuuint64_t>(N) * sz, static_cast<cuuint64_t>(M) * N * sz};
+  const cuuint32_t ob[3] = {128 / sz, 64, 1};
+  err = make_tensor_map(&mo, map_dtype<TO>(), out, 3, od, os, ob);
+  if (err) return err;
+  const int tiles_m = (M + kBM - 1) / kBM, tiles_n = (N + kBN - 1) / kBN;
+  const int64_t n_tiles = static_cast<int64_t>(tiles_m) * tiles_n * batch;
+  if (n_tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  int grid = static_cast<int>(n_tiles);
+  if (persistent) {
+    const int sms = sm_count();
+    if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+    grid = grid < sms ? grid : sms;
+  }
+  auto kernel = matmul_wgmma_kernel<TO>;
+  constexpr int smem = smem_bytes<TO>();
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<grid, kThreads, smem, s>>>(mx, mw, mo, K, w_batched, tiles_m, tiles_n,
+                                      static_cast<int>(n_tiles));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wgmma_path
+
+// The bfloat16 path on wgmma: out (batch, M, N) = x (batch, M, K) @ w, w
+// (batch, K, N) when w_batched, else one (K, N) for every entry; all
+// contiguous and 16-byte aligned, K and N multiples of 8, K > 0.  out_dtype:
+// 0 float32, 1 bfloat16.  persistent: one CTA an SM walking the tiles (else
+// one CTA a tile).  Returns the CUDA error of the launch (0 on success).
+extern "C" int smi_matmul_wgmma(const void* x, const void* w, void* out, int batch, int M, int N,
+                                int K, int w_batched, int out_dtype, int persistent,
+                                void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
+  if (batch <= 0 || M <= 0 || N <= 0 || K <= 0 || K % 8 || N % 8 || misaligned(x) ||
+      misaligned(w) || misaligned(out))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (out_dtype == 1)
+    return wgmma_path::launch<bf16>(x, w, out, batch, M, N, K, w_batched, persistent, s);
+  if (out_dtype == 0)
+    return wgmma_path::launch<float>(x, w, out, batch, M, N, K, w_batched, persistent, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -4,11 +4,12 @@ The sources under ``src/repro_torch/csrc/`` expose a plain C interface and
 are compiled by ``nvcc`` for ``sm_90a`` (Hopper) — one ``nvcc`` per source,
 all started together — and linked into one shared library, loaded with
 ``ctypes``.  The build lands in ``build/repro_torch/<hash>/`` at the root
-of the checkout, keyed on a hash of the sources and flags, so a changed
-source builds anew and an unchanged one loads at once.  ``--fmad=false``
-keeps every multiply and add separately rounded, which the bit-for-bit
-contract with the plain PyTorch versions needs; kernels D, E and F, held
-to a tolerance instead, fuse with explicit ``fmaf``.
+of the checkout, keyed on a hash of every file under ``csrc/`` (the sources
+and the headers they include, :data:`HEADERS`) and the flags, so a changed
+source or header builds anew and an unchanged tree loads at once.
+``--fmad=false`` keeps every multiply and add separately rounded, which the
+bit-for-bit contract with the plain PyTorch versions needs; kernels D, E and
+F, held to a tolerance instead, fuse with explicit ``fmaf``.
 
 Nothing here runs at import: :func:`library` builds on its first call.  A
 missing ``nvcc`` or a failed build raises.
@@ -30,6 +31,9 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("accumulate.cu", "stencil.cu", "router.cu", "flash_attention.cu", "ssd.cu",
            "matmul.cu")
+#: headers the sources include (the Hopper building blocks of kernels D and E);
+#: like every file under ``csrc/`` they are part of the build's hash
+HEADERS = ("hopper.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_NAME = "libsmi_kernels.so"
 #: where the CUDA toolkit puts nvcc when neither CUDA_HOME nor PATH names it
@@ -57,11 +61,13 @@ def _nvcc() -> str:
                        "the port's CUDA kernels cannot be built")
 
 
-def _digest() -> str:
+def _digest(csrc: Path = CSRC) -> str:
+    """The build's key: the flags and every file under ``csrc`` (by relative
+    path), so an edit to a header rebuilds as an edit to a source does."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+    for path in sorted(p for p in csrc.rglob("*") if p.is_file()):
+        h.update(path.relative_to(csrc).as_posix().encode())
+        h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
@@ -72,6 +78,9 @@ def build() -> Path:
     if lib.exists():
         return lib
     nvcc = _nvcc()
+    missing = [f for f in SOURCES + HEADERS if not (CSRC / f).is_file()]
+    if missing:
+        raise RuntimeError(f"kernel sources missing from {CSRC}: {missing}")
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = Path(tempfile.mkdtemp(dir=out_dir))
     try:
@@ -124,6 +133,11 @@ def library() -> ctypes.CDLL:
     lib.smi_ssd_scan.restype = i32
     lib.smi_matmul.argtypes = [p] * 3 + [i32] * 4 + [i64] * 2 + [i32] * 2 + [p]
     lib.smi_matmul.restype = i32
+    lib.smi_matmul_wgmma.argtypes = [p] * 3 + [i32] * 7 + [p]
+    lib.smi_matmul_wgmma.restype = i32
+    lib.smi_flash_attention_wgmma.argtypes = ([p] * 4 + [i32] * 6 + [ctypes.c_float] + [i32] * 3
+                                              + [p])
+    lib.smi_flash_attention_wgmma.restype = i32
     lib.smi_error_string.argtypes = [i32]
     lib.smi_error_string.restype = ctypes.c_char_p
     return lib
@@ -137,5 +151,7 @@ def check_launch(err: int, kernel: str):
 
 
 def current_stream(t: torch.Tensor) -> int:
-    """The raw handle of PyTorch's current stream on ``t``'s device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of PyTorch's current stream on ``t``'s device, read as
+    PyTorch's own generated kernels read it: building a ``torch.cuda.Stream``
+    to read its handle costs the host more than launching a small kernel."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)

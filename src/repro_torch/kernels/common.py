@@ -1,5 +1,6 @@
 """Shared kernel utilities: padding to a block multiple, ceiling division
-(the parts of ``repro.kernels.common`` the port's wrappers use)."""
+(the parts of ``repro.kernels.common`` the port's wrappers use), and the
+16-byte alignment TMA needs."""
 
 from __future__ import annotations
 
@@ -21,3 +22,9 @@ def pad_to(x: torch.Tensor, multiple: int, axis: int) -> tuple[torch.Tensor, int
 
 def cdiv(a: int, b: int) -> int:
     return (a + b - 1) // b
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it when its data does not start on 16 bytes (a
+    view into another tensor): TMA reads and writes 16-byte-aligned bases."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()

@@ -14,6 +14,12 @@ and computes the same function on the same padded ``(B*H, S, D)`` layout:
 * masked scores are ``-1e30``, masked probabilities 0, and the normaliser is
   clamped at ``1e-30`` before the divide, so padded query rows are finite;
 * query row ``bh`` reads KV row ``(bh // H) * Hkv + (bh % H) // (H // Hkv)``.
+
+Two CUDA kernels compute it, and :func:`flash_attention_path` picks one by
+dtype and head dim alone: bfloat16 runs on Hopper's wgmma fed by TMA
+(``"wgmma"``), float32 on float32 FMAs (``"fma"``).  The pick is not a
+fallback: a call the dispatch sends to a path launches that path's kernel
+or raises.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import ctypes
 import torch
 
 from ..build import DTYPE_CODES, check_launch, current_stream, library
+from ..common import aligned16
 
 NEG_INF = -1e30
 #: dtypes the kernel takes (float32 arithmetic inside, output in q's dtype)
@@ -35,6 +42,17 @@ PLAIN_BLOCK_K = 128
 #: query rows and keys per tile of the CUDA kernel: the padded lengths must
 #: be multiples of it
 KERNEL_TILE = 64
+WGMMA, FMA = "wgmma", "fma"
+
+
+def flash_attention_path(dtype: torch.dtype, head_dim: int) -> str:
+    """Which kernel E runs q, k, v of ``dtype`` and ``head_dim`` (at most the
+    largest of :data:`KERNEL_HEAD_DIMS`, to which it is padded):
+    :data:`WGMMA` for bfloat16, :data:`FMA` for float32."""
+    if head_dim > KERNEL_HEAD_DIMS[-1] or dtype not in FA_DTYPES:
+        raise ValueError(f"kernel E takes float32 or bfloat16 with head dims up to "
+                         f"{KERNEL_HEAD_DIMS[-1]}, not {dtype} at {head_dim}")
+    return WGMMA if dtype == torch.bfloat16 else FMA
 
 
 def _kv_rows(BH: int, H: int, Hkv: int, device) -> torch.Tensor:
@@ -79,6 +97,38 @@ def flash_attention_plain(q, k, v, *, n_q_heads: int, n_kv_heads: int, scale: fl
     return (acc / l.clamp_min(1e-30)).to(q.dtype)
 
 
+def launch_flash_attention(q, k, v, out, *, n_q_heads: int, n_kv_heads: int, scale: float,
+                           causal: bool, window: int | None, skv: int,
+                           path: str | None = None) -> str:
+    """One launch of kernel E on the kernel's layout (contiguous CUDA
+    tensors, ``Sq`` and ``Skv`` multiples of :data:`KERNEL_TILE`, the head dim
+    one of :data:`KERNEL_HEAD_DIMS`), writing ``out``.  ``path`` names the
+    kernel (default :func:`flash_attention_path`'s pick; the FMA kernel also
+    takes bfloat16, which ``chip_smoke.py`` times beside the wgmma one).
+    Returns the path taken; raises on a failed launch."""
+    BH, Sq, Dk = q.shape
+    Skv = k.shape[1]
+    path = path or flash_attention_path(q.dtype, Dk)
+    lib = library()
+    window = -1 if window is None else int(window)
+    with torch.cuda.device(q.device):
+        if path == WGMMA:
+            q, k, v = (aligned16(t) for t in (q, k, v))
+            err = lib.smi_flash_attention_wgmma(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, Sq, Skv, Dk,
+                n_q_heads, n_kv_heads, ctypes.c_float(scale), int(causal), window, skv,
+                current_stream(q))
+        elif path == FMA:
+            err = lib.smi_flash_attention(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, Sq, Skv, Dk,
+                n_q_heads, n_kv_heads, ctypes.c_float(scale), int(causal), window, skv,
+                DTYPE_CODES[q.dtype], current_stream(q))
+        else:
+            raise ValueError(f"kernel E has the paths {WGMMA!r} and {FMA!r}, not {path!r}")
+    check_launch(err, f"flash_attention ({path})")
+    return path
+
+
 def flash_attention_kernel(q, k, v, *, n_q_heads: int, n_kv_heads: int, scale: float,
                            causal: bool = True, window: int | None = None,
                            skv_actual: int | None = None) -> torch.Tensor:
@@ -87,7 +137,8 @@ def flash_attention_kernel(q, k, v, *, n_q_heads: int, n_kv_heads: int, scale: f
     bfloat16, contiguous, with ``Sq`` and ``Skv`` multiples of
     :data:`KERNEL_TILE` and ``D <= 256``.  Raises on anything the kernel
     does not take and on a failed launch.  ``flash_attention_kernel.launches``
-    counts launches."""
+    counts launches, and ``flash_attention_kernel.wgmma_launches`` those that
+    took the wgmma path (:func:`flash_attention_path`)."""
     if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
         raise ValueError(f"flash_attention_kernel takes q (BH, Sq, D) and k, v (BKV, Skv, D); "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -125,15 +176,12 @@ def flash_attention_kernel(q, k, v, *, n_q_heads: int, n_kv_heads: int, scale: f
         q, k, v = (torch.nn.functional.pad(t, pad) for t in (q, k, v))
     q, k, v = (t.contiguous() for t in (q, k, v))
     out = torch.empty_like(q)
-    lib = library()
-    with torch.cuda.device(q.device):
-        err = lib.smi_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, Sq, Skv, Dk, H, Hkv,
-            ctypes.c_float(scale), int(causal), -1 if window is None else int(window), skv,
-            DTYPE_CODES[q.dtype], current_stream(q))
-    check_launch(err, "flash_attention")
+    path = launch_flash_attention(q, k, v, out, n_q_heads=H, n_kv_heads=Hkv, scale=scale,
+                                  causal=causal, window=window, skv=skv)
     flash_attention_kernel.launches += 1
+    flash_attention_kernel.wgmma_launches += int(path == WGMMA)
     return out[..., :D] if Dk != D else out
 
 
 flash_attention_kernel.launches = 0
+flash_attention_kernel.wgmma_launches = 0

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from .kernel import MATMUL_DTYPES, launch_matmul
+from .kernel import MATMUL_DTYPES, WGMMA, launch_matmul
 from .ref import matmul_ref
 
 
@@ -13,15 +13,17 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *, out_dtype=None,
            use_kernel: bool | None = None) -> torch.Tensor:
     """``(M, K) @ (K, N) -> (M, N)``, or one launch over a leading batch
     dimension: ``(Bt, M, K) @ (Bt, K, N)`` or ``(Bt, M, K) @ (K, N)`` ->
-    ``(Bt, M, N)``; any sizes (the kernel guards ragged edges).  Float32
-    accumulation, the result in ``out_dtype`` (x's dtype unless named).
+    ``(Bt, M, N)``; any sizes (nothing is padded).  Float32 accumulation,
+    the result in ``out_dtype`` (x's dtype unless named).
 
     ``use_kernel`` mirrors the reference's ``use_pallas``: ``None`` launches
     kernel D on CUDA tensors and runs :func:`matmul_ref` on CPU tensors;
     ``True`` on CPU tensors raises (kernel D has no CPU mode); ``False``
     runs :func:`matmul_ref` anywhere, which on the card is for comparisons
-    only.  ``matmul.launches`` counts kernel launches."""
-    on_cuda = x.device.type == "cuda"
+    only.  ``matmul.launches`` counts kernel launches, and
+    ``matmul.wgmma_launches`` those that took the wgmma path
+    (:func:`~.kernel.matmul_path`)."""
+    on_cuda = x.is_cuda
     if use_kernel is None:
         use_kernel = on_cuda
     if not use_kernel:
@@ -41,9 +43,11 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *, out_dtype=None,
     w3 = (w if w.dim() == 3 else w.unsqueeze(0)).contiguous()
     out = torch.empty(x3.shape[:2] + (w3.shape[2],), dtype=out_dtype, device=x.device)
     if out.numel():
-        launch_matmul(x3, w3, out)
+        path = launch_matmul(x3, w3, out)
         matmul.launches += 1
+        matmul.wgmma_launches += int(path == WGMMA)
     return out if x.dim() == 3 else out[0]
 
 
 matmul.launches = 0
+matmul.wgmma_launches = 0

@@ -184,20 +184,29 @@ def test_kernel_wrapper_rejects_bad_shapes(bad):
 
 # -- on the card: kernel E against its plain version -------------------------
 
+#: (BH, H, Hkv, Sq, Skv, skv, D, causal, window, dtype); bfloat16 runs on the
+#: wgmma kernel, float32 on the FMA one (``flash_attention_path``)
 CUDA_CASES = {
-    # (BH, H, Hkv, Sq, Skv, skv, D, causal, window, dtype)
     "bf16_causal_d128": (8, 8, 8, 512, 512, 512, 128, True, None, torch.bfloat16),
     "f32_gqa_ragged": (32, 32, 4, 1024, 1024, 1000, 128, True, None, torch.float32),
     "f32_sq_ne_skv": (4, 4, 4, 256, 1024, 1024, 64, True, None, torch.float32),
     "f32_window_d256": (2, 2, 1, 1024, 1024, 1024, 256, True, 200, torch.float32),
     "f32_noncausal_d16": (4, 2, 1, 128, 256, 200, 16, False, None, torch.float32),
     "bf16_window_noncausal_d64": (4, 4, 2, 256, 256, 256, 64, False, 100, torch.bfloat16),
+    "bf16_gqa_ragged": (32, 32, 4, 1024, 1024, 1000, 128, True, None, torch.bfloat16),
+    "bf16_sq_ne_skv": (32, 32, 32, 256, 1024, 1024, 128, True, None, torch.bfloat16),
+    "bf16_window2048_d256": (4, 4, 4, 4096, 4096, 4096, 256, True, 2048, torch.bfloat16),
+    "bf16_noncausal": (8, 8, 8, 1024, 1024, 1024, 128, False, None, torch.bfloat16),
+    "bf16_noncausal_d16": (4, 2, 1, 128, 256, 200, 16, False, None, torch.bfloat16),
+    "bf16_sq_odd_64s": (8, 8, 2, 320, 320, 300, 128, True, None, torch.bfloat16),
 }
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(CUDA_CASES))
 def test_kernel_matches_plain_on_card(cuda_device, case):
+    """Each case against the plain version; the wgmma counter moves for
+    exactly the bfloat16 cases."""
     BH, H, Hkv, Sq, Skv, skv, D, causal, window, dtype = CUDA_CASES[case]
     g = torch.Generator(device=cuda_device).manual_seed(7)
     q = torch.randn((BH, Sq, D), generator=g, device=cuda_device).to(dtype)
@@ -205,11 +214,12 @@ def test_kernel_matches_plain_on_card(cuda_device, case):
             for _ in range(2))
     kw = dict(n_q_heads=H, n_kv_heads=Hkv, scale=D ** -0.5, causal=causal, window=window,
               skv_actual=skv)
-    before = flash_attention_kernel.launches
+    before, before_wg = flash_attention_kernel.launches, flash_attention_kernel.wgmma_launches
     got = flash_attention_kernel(q, k, v, **kw)
     want = flash_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
     assert flash_attention_kernel.launches == before + 1
+    assert flash_attention_kernel.wgmma_launches == before_wg + (dtype == torch.bfloat16)
     assert got.dtype == dtype and torch.isfinite(got).all()
     tol = 1e-4 if dtype == torch.float32 else 1.6e-2
     assert float((got.float() - want.float()).abs().max()) <= tol

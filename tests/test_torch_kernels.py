@@ -165,6 +165,90 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     assert not (tmp_path / "build").exists() or not any((tmp_path / "build").rglob("*.so"))
 
 
+def test_build_digest_follows_every_file_under_csrc(tmp_path):
+    """An edit to a header the sources include (as ``hopper.cuh`` is by
+    kernels D and E) changes the build's key, so a stale library is never
+    loaded; an unchanged tree keeps its key."""
+    from repro_torch.kernels import build
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text('#include "hopper.cuh"\n')
+    (csrc / "hopper.cuh").write_text("// v1\n")
+    first = build._digest(csrc)
+    assert build._digest(csrc) == first
+    (csrc / "hopper.cuh").write_text("// v2\n")
+    second = build._digest(csrc)
+    assert second != first
+    (csrc / "extra.cuh").write_text("// new\n")
+    assert build._digest(csrc) not in (first, second)
+    assert set(build.HEADERS) <= {p.name for p in build.CSRC.iterdir()}
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (its top level imports the standard
+    library only), for its case tables."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_cases", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _matmul_cases():
+    """(id, K, N, dtype, path) of every card case of kernel D: the cuda
+    tests' and ``chip_smoke.py``'s."""
+    from test_torch_matmul import CARD_CASES
+
+    cases = [(f"test:{name}", xs[-1], ws[-1], dtype, path)
+             for name, xs, ws, dtype, path in CARD_CASES]
+    cases += [(f"chip_smoke:{name}", xs[-1], ws[-1], dtype, path)
+              for name, xs, ws, dtype, _strided, path in _chip_smoke().MM_CASES]
+    return cases
+
+
+def _attention_cases():
+    """(id, dtype, head dim) of every card case of kernel E: the cuda tests'
+    and ``chip_smoke.py``'s."""
+    from test_torch_flash_attention import CUDA_CASES
+
+    cases = [(f"test:{name}", c[9], c[6]) for name, c in CUDA_CASES.items()]
+    cases += [(f"chip_smoke:{c[0]}", getattr(torch, c[10]), c[7]) for c in _chip_smoke().FA_CASES]
+    return cases
+
+
+@pytest.mark.parametrize("case", _matmul_cases(), ids=lambda c: c[0])
+def test_matmul_dispatch_sends_card_cases_to_their_path(case):
+    from repro_torch.kernels.matmul import matmul_path
+
+    _, K, N, dtype, path = case
+    dt = getattr(torch, dtype)
+    assert matmul_path(K, N, dt) == path
+    # the rule: bfloat16 whose K and N TMA can stride (16-byte rows)
+    assert (path == "wgmma") == (dt == torch.bfloat16 and K % 8 == 0 and N % 8 == 0)
+
+
+@pytest.mark.parametrize("case", _attention_cases(), ids=lambda c: c[0])
+def test_attention_dispatch_sends_card_cases_to_their_path(case):
+    from repro_torch.kernels.flash_attention import flash_attention_path
+
+    _, dtype, D = case
+    padded = next(d for d in (64, 128, 256) if d >= D)
+    assert flash_attention_path(dtype, padded) == ("wgmma" if dtype == torch.bfloat16 else "fma")
+
+
+def test_attention_dispatch_refuses_what_no_kernel_takes():
+    from repro_torch.kernels.flash_attention import flash_attention_path
+
+    with pytest.raises(ValueError):
+        flash_attention_path(torch.bfloat16, 512)
+    with pytest.raises(ValueError):
+        flash_attention_path(torch.float16, 128)
+
+
 # -- on the card -------------------------------------------------------------------
 
 

@@ -106,20 +106,24 @@ def test_use_kernel_on_cpu_raises():
 
 # -- kernel D on the card -------------------------------------------------------------
 
-#: (name, x shape, w shape, dtype): the yi-6b TP prefill's ring steps at P = 8
-#: (512 rows a rank; Q, MLP-up with the ragged N = 1376, MLP-down with the
-#: ragged K = 1376, the out-projection), float32 ones, a 2-D call, a shared
-#: weight and the reference's ragged shape
+#: (name, x shape, w shape, dtype, path): the yi-6b TP prefill's ring steps
+#: at P = 8 (512 rows a rank; Q, MLP-up with the ragged N = 1376, MLP-down
+#: with the ragged K = 1376, the out-projection), float32 ones, a 2-D call, a
+#: shared weight, the reference's ragged shape, and edges inside a tile; the
+#: path is the kernel ``matmul_path`` sends them to (bfloat16 with K and N
+#: multiples of 8 on wgmma, the rest on mma.sync)
 CARD_CASES = [
-    ("q_bf16", (8, 512, 4096), (8, 4096, 512), "bfloat16"),
-    ("mlp_up_bf16", (8, 512, 4096), (8, 4096, 1376), "bfloat16"),
-    ("mlp_down_bf16", (8, 512, 1376), (8, 1376, 4096), "bfloat16"),
-    ("out_bf16", (8, 512, 512), (8, 512, 4096), "bfloat16"),
-    ("mlp_up_f32", (8, 512, 1024), (8, 1024, 1376), "float32"),
-    ("ragged_2d_f32", (100, 70), (70, 50), "float32"),
-    ("ragged_2d_bf16", (100, 70), (70, 50), "bfloat16"),
-    ("odd_k_bf16", (3, 65, 131), (3, 131, 33), "bfloat16"),
-    ("shared_w_bf16", (4, 256, 512), (512, 384), "bfloat16"),
+    ("q_bf16", (8, 512, 4096), (8, 4096, 512), "bfloat16", "wgmma"),
+    ("mlp_up_bf16", (8, 512, 4096), (8, 4096, 1376), "bfloat16", "wgmma"),
+    ("mlp_down_bf16", (8, 512, 1376), (8, 1376, 4096), "bfloat16", "wgmma"),
+    ("out_bf16", (8, 512, 512), (8, 512, 4096), "bfloat16", "wgmma"),
+    ("mlp_up_f32", (8, 512, 1024), (8, 1024, 1376), "float32", "mma_sync"),
+    ("ragged_2d_f32", (100, 70), (70, 50), "float32", "mma_sync"),
+    ("ragged_2d_bf16", (100, 70), (70, 50), "bfloat16", "mma_sync"),
+    ("odd_k_bf16", (3, 65, 131), (3, 131, 33), "bfloat16", "mma_sync"),
+    ("shared_w_bf16", (4, 256, 512), (512, 384), "bfloat16", "wgmma"),
+    ("m_n_edges_bf16", (3, 100, 72), (3, 72, 40), "bfloat16", "wgmma"),
+    ("edges_2d_bf16", (1000, 136), (136, 336), "bfloat16", "wgmma"),
 ]
 
 
@@ -133,17 +137,41 @@ def _card_close(got, want, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", CARD_CASES, ids=[c[0] for c in CARD_CASES])
 def test_kernel_matches_plain_on_card(cuda_device, case):
-    _, xs, ws, dtype = case
+    """Each output dtype; the case's path takes the launch (the wgmma
+    counter moves for exactly the wgmma cases)."""
+    _, xs, ws, dtype, path = case
     g = torch.Generator(device=cuda_device).manual_seed(16)
     dt = getattr(torch, dtype)
     x = torch.randn(xs, generator=g, device=cuda_device).to(dt)
     w = torch.randn(ws, generator=g, device=cuda_device).to(dt)
-    before = matmul.launches
+    before, before_wg = matmul.launches, matmul.wgmma_launches
     got = matmul(x, w)
     assert matmul.launches == before + 1 and got.dtype == dt
+    assert matmul.wgmma_launches == before_wg + (path == "wgmma")
     _card_close(got, matmul_ref(x, w), dtype)
     got32 = matmul(x, w, out_dtype=torch.float32)
     _card_close(got32, matmul_ref(x, w, out_dtype=torch.float32), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", ["bfloat16", "float32"])
+def test_wgmma_grids_agree_on_card(cuda_device, out_dtype):
+    """The wgmma path's two grids (persistent, one CTA a tile) give the same
+    bits, at the MLP-up ring step, whose N = 1376 ends inside a tile."""
+    from repro_torch.kernels.matmul.kernel import launch_matmul
+
+    g = torch.Generator(device=cuda_device).manual_seed(18)
+    x = torch.randn((8, 512, 4096), generator=g, device=cuda_device).to(torch.bfloat16)
+    w = torch.randn((8, 4096, 1376), generator=g, device=cuda_device).to(torch.bfloat16)
+    od = getattr(torch, out_dtype)
+    outs = []
+    for persistent in (True, False):
+        out = torch.full((8, 512, 1376), float("nan"), dtype=od, device=cuda_device)
+        assert launch_matmul(x, w, out, persistent=persistent) == "wgmma"
+        outs.append(out)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    _card_close(outs[1], matmul_ref(x, w, out_dtype=od), "bfloat16")
 
 
 @pytest.mark.cuda
