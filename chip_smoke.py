@@ -7,9 +7,14 @@ Phases (each ends in ``torch.cuda.synchronize()``; any failure exits
 non-zero):
 
 1. print the card's name and power limit (``nvidia-smi``), build the CUDA
-   kernels from ``src/repro_torch/csrc``;
+   kernels from ``src/repro_torch/csrc`` and, beside them, this script's own
+   two (:data:`SMOKE_CU`: kernel C's tick floor and kernel A's scalar
+   predecessor), and print what ``ptxas -v`` says of every kernel;
 2. kernel A (``accumulate``) against its plain PyTorch version, bit for bit,
-   in float32, bfloat16 and int32 at a ragged size and at 64 MiB;
+   in float32, bfloat16 and int32 at a ragged size and at 64 MiB, and its
+   gather-fused form (``shift_accumulate``) on the same sizes as 8 rank
+   rows, a ring shift and a partial permutation, x aligned and one element
+   off;
 3. kernel B (``stencil_sweep``) against its plain version, bit for bit, on
    a (8, 4096, 2048) float32 stack and a ragged bfloat16 stack;
 4. the stencil path: ``python -m repro_torch.launch.stencil --grid 2x4
@@ -19,30 +24,44 @@ non-zero):
    then ``torch.profiler`` splits a warm step's device time by kernel;
 5. the reduction path: ``allreduce``, ``reduce_scatter`` and ``reduce`` of
    8 x 16 Mi float32 on ``smi:fused`` against ``smi:static``, on ring(1x8)
-   and torus(2x4), bit for bit; kernel A must launch;
+   and torus(2x4), bit for bit with equal stats; A's gather-fused form must
+   launch once per ring step and its plain add on the rooted folds; each
+   reduction timed on both wires in turns (static, fused, fused, static),
+   by CUDA events and by its device time;
 6. per kernel its launches on its path, time per launch (CUDA events,
-   after warm-up, at the path's shapes), the bound (bytes moved over 3.35
-   TB/s), the plain version's time and one PyTorch library call's time
-   (timed here only, never used by the port);
-7. kernel C (``router_run``) against both plain routers (``impl="vector"``
-   and ``"scalar"``), bit for bit on (out_pay, out_cnt, overflow, t_done):
-   the reference's four equivalence configurations on torus(2x4) and the
-   snake bus, the out_cap overrun, the step-budget flood and the halo shape
-   (4096 float32 at 32 per packet: 128 packets, a 133-tick budget), which
-   is also where kernel C is timed;
+   after warm-up, at the path's shapes; for A and C their device time under
+   ``torch.profiler``, since their wrappers' host work can outlast their
+   kernels), the bound (bytes moved over 3.35 TB/s), the plain version's
+   time and one PyTorch library call's time (timed here only, never used
+   by the port); A beside its scalar predecessor
+   (``ms_before``) at (8, 2 Mi) and (8, 16 Mi), its gather-fused form
+   beside the unfused ``ppermute`` + ``torch.add``;
+7. kernel C (``router_run``), both its paths (``warp``, a rank on a warp's
+   lanes, and ``thread``, one thread a rank), against both plain routers (``impl="vector"``
+   and ``"scalar"``), bit for bit on (out_pay, out_cnt, overflow, t_done)
+   with equal ticks: the reference's four equivalence configurations on
+   torus(2x4) and the snake bus, the out_cap overrun, the step-budget flood,
+   an undersized transit that must count overflow, and the halo shape (4096
+   float32 at 32 per packet: 128 packets, a 133-tick budget), where both
+   paths are timed in turns beside the tick floor (the same number of empty
+   ticks of the warp path's barrier in a block of its shape);
 8. one RouterConfig re-routed from the torus table to the snake-bus table:
    everything delivered, nothing lost, the kernel library neither rebuilt
    nor reloaded;
 9. the paper's Tab. 4 injection workload (R in 1, 4, 8, 16, switch bubble,
-   two saturated ports): delivered packets, drain ticks (equal to the plain
-   router's), ticks per packet, microseconds per run;
+   two saturated ports): both paths equal to the plain routers; delivered
+   packets, drain ticks, ticks per packet, microseconds per run of each path
+   in turns;
 10. the stencil path over ``smi:packet`` (overlapped and not), equal bit for
     bit to the single-rank sweep, with 12,928 halo steps and 1,572,864 bytes
-    per rank; kernels C and B must launch;
+    per rank; kernels C (every launch on its warp path) and B must launch;
+    then ``torch.profiler`` over 4 overlapped steps: device time by kernel
+    and the host ops' self time;
 11. ``allreduce``, ``reduce_scatter`` and ``reduce`` of 8 x 16 Mi float32
     over ``packet`` (2048 float32 per packet) on ring(1x8), torus(2x4) and
-    the snake bus, equal bit for bit to ``static`` with no loss; kernel C
-    must launch;
+    the snake bus, equal bit for bit to ``static`` with no loss, every
+    launch of kernel C on its warp path; then an ``allreduce`` on a 64-rank
+    torus(8x8), past the warp path's 32 ranks: kernel C's thread path;
 12. kernel E (``flash_attention_kernel``) against its plain version within
     1e-4 (float32, the FMA kernel) and 1.6e-2 (bfloat16, the wgmma kernel)
     on unit normals, each case asserting which path ran: yi-6b's prefill
@@ -99,14 +118,16 @@ non-zero):
     form; ms and tokens/s of the three prefills, and the profiled device
     time split by kernel;
 20. the same prefill at 4 layers over ``smi:fused``: bit-equal to
-    ``smi:static`` (kernel A folds the reduce-scatters as ``torch.add``
-    would), and A must launch.
+    ``smi:static`` (kernel A's gather-fused form folds the reduce-scatters
+    as ``ppermute`` + ``torch.add`` would), A launched once per
+    reduce-scatter ring step.
 
 A ``{"kernels": [...]}`` line carries the rows of phases 6, 7, 12, 15 and
-18, each with the path its kernel ran (``simt``, ``fma`` or ``wgmma``); the
-rows of E and D add ``ms_before``, the time in this run of the kernel that
-ran their bfloat16 calls before the wgmma one.  Each phase prints its
-seconds.
+18, each with the path its kernel ran (``simt``, ``vector``, ``warp``,
+``thread``, ``fma`` or ``wgmma``); the rows of A, C, E and D add
+``ms_before``, the time in this run of the kernel their calls ran before
+(for A, its scalar predecessor; for C's warp row, the thread path); C's rows add
+``tick_floor_ms`` and ``us_per_tick``.  Each phase prints its seconds.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository around it, the script exits non-zero and prints
@@ -143,6 +164,8 @@ PACKET_STENCIL_ARGS = STENCIL_ARGS[:-1] + ["smi:packet"]
 #: repro.netsim.predict_halo_stats gives for the packet wire
 PACKET_HALO = (32 * 404, 32 * 49152)
 DIMS = (2, 4)
+#: a partial permutation of the P ranks: ranks 2 and 5 receive nothing
+PARTIAL_PERM = [(0, 3), (1, 0), (3, 1), (4, 7), (6, 4), (7, 6)]
 #: the reference's router equivalence configurations (tests/test_router.py)
 EQ_CFGS = {
     "r1": dict(n_ports=1, R=1, switch_bubble=False, tick_batch=1),
@@ -154,6 +177,87 @@ EQ_CFGS = {
 
 def log(msg: str):
     print(f"[chip_smoke] {msg}", flush=True)
+
+
+#: kernels this script times beside the port's, never used by the port:
+#: the tick floor of kernel C's warp path (its block of 1024 threads, its
+#: ticking warps and its one named barrier a tick, with no work), and kernel
+#: A's scalar predecessor (one float32 a thread, 16 blocks of 256 a SM), the
+#: kernel the vector one replaced
+SMOKE_CU = r"""
+#include <cuda_runtime.h>
+#include <cstdint>
+
+// the warp path's tick with no work: a block of 1024 threads of which the
+// first `ticking` take one named barrier (with its count) a tick
+__global__ void tick_floor_kernel(int n, int ticking, int* ran) {
+  if (static_cast<int>(threadIdx.x) >= ticking) return;
+  int t = 0, count = 1;
+  while (t < n && count) {
+    ++t;
+    const unsigned go = (threadIdx.x & 31) == 0 && t < n;
+    asm volatile("{\n\t.reg .pred p;\n\tsetp.ne.u32 p, %2, 0;\n\t"
+                 "bar.red.popc.u32 %0, 1, %1, p;\n\t}"
+                 : "=r"(count) : "r"(ticking), "r"(go) : "memory");
+  }
+  if (threadIdx.x == 0) ran[0] = t;
+}
+
+__global__ void accumulate_scalar_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                                       float* __restrict__ out, int64_t n) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+       i += stride)
+    out[i] = a[i] + b[i];
+}
+
+extern "C" int smoke_tick_floor(int n, int ticking, void* ran, void* stream) {
+  tick_floor_kernel<<<1, 1024, 0, static_cast<cudaStream_t>(stream)>>>(n, ticking,
+                                                                       static_cast<int*>(ran));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int smoke_accumulate_scalar(const void* a, const void* b, void* out, int64_t n,
+                                     void* stream) {
+  int64_t blocks = (n + 255) / 256;
+  if (blocks > 132 * 16) blocks = 132 * 16;
+  accumulate_scalar_kernel<<<static_cast<unsigned>(blocks), 256, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(out), n);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+_SMOKE_LIB = {}
+
+
+def _start_smoke_build():
+    """Start ``nvcc`` on :data:`SMOKE_CU` into ``build/chip_smoke/<hash>/``;
+    returns (process or None when built, library path)."""
+    import hashlib
+
+    from repro_torch.kernels import build
+
+    out = ROOT / "build" / "chip_smoke" / hashlib.sha256(SMOKE_CU.encode()).hexdigest()[:16]
+    lib = out / "libsmoke.so"
+    if lib.exists():
+        return None, lib
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "smoke.cu").write_text(SMOKE_CU)
+    proc = subprocess.Popen([build._nvcc(), *build.ARCH, "-O3", "-std=c++17", "-shared",
+                             "-Xcompiler", "-fPIC", "-Xptxas=-v", str(out / "smoke.cu"), "-o",
+                             str(lib)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, lib
+
+
+def smoke_lib():
+    """The loaded library of :data:`SMOKE_CU` (built in phase 1)."""
+    return _SMOKE_LIB["lib"]
+
+
+def smoke_launch(err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
 
 
 def same_bits(a, b) -> bool:
@@ -183,6 +287,35 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Mean device milliseconds per call of ``fn``: its kernels' own time
+    under ``torch.profiler`` over ``reps`` calls, after warm-up.  Where the
+    host takes longer to issue a call than the card to run it (a short
+    kernel behind a Python wrapper), CUDA events around back-to-back calls
+    time the host; this times the kernels."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    busy, _ = _profile_device_ms(lambda: [fn() for _ in range(reps)])
+    return busy / reps
+
+
+def graph_ms(fn, reps: int = 50) -> float:
+    """Mean milliseconds per call of ``fn`` captured once in a CUDA graph and
+    replayed: CUDA events around ``reps`` replays, no host work between the
+    kernels (a second measure of device time beside :func:`device_ms`)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(graph.replay, reps=reps)
+
+
 def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
     """(least ms, what bounds it): bytes over the memory rate against
     operations over the card's peak rate for their type (float32 unless
@@ -197,9 +330,10 @@ def reset_counts():
     from repro_torch.kernels.router import router_run
     from repro_torch.kernels.ssd import ssd_scan_kernel
     from repro_torch.kernels.stencil import stencil_sweep
-    from repro_torch.transport.fused import fused_accumulate
+    from repro_torch.transport.fused import fused_accumulate, fused_shift_accumulate
 
     stencil_sweep.launches = fused_accumulate.launches = router_run.launches = 0
+    fused_shift_accumulate.launches = router_run.warp_launches = 0
     flash_attention_kernel.launches = ssd_scan_kernel.launches = matmul.launches = 0
     flash_attention_kernel.wgmma_launches = matmul.wgmma_launches = 0
 
@@ -212,19 +346,41 @@ def phase_build():
                          check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     t0 = time.perf_counter()
+    proc, smoke = _start_smoke_build()
     lib = build.build()
     build.library()
+    if proc is not None:
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on chip_smoke's own kernels:\n{out}")
+    import ctypes
+
+    slib = ctypes.CDLL(str(smoke))
+    p, i32 = ctypes.c_void_p, ctypes.c_int
+    slib.smoke_tick_floor.argtypes = [i32, i32, p, p]
+    slib.smoke_accumulate_scalar.argtypes = [p, p, p, ctypes.c_int64, p]
+    _SMOKE_LIB["lib"] = slib
     log(f"kernels built in {time.perf_counter() - t0:.1f}s -> {lib}")
+    # every kernel's registers, stack and spills; each entry's name first
     for line in (lib.parent / "build.log").read_text().splitlines() if \
             (lib.parent / "build.log").exists() else []:
-        if "registers" in line or "error" in line.lower():
-            log(f"ptxas: {line.strip()}")
+        if "Compiling entry" in line:
+            entry = line.split("'")[1] if "'" in line else line
+            log(f"ptxas: {entry[:110]}")
+        elif "registers" in line or "stack frame" in line or "error" in line.lower():
+            log(f"ptxas:   {line.strip()}")
 
 
 def phase_accumulate(dev) -> float:
     import torch
 
-    from repro_torch.transport.fused import accumulate_plain, fused_accumulate
+    from repro_torch.transport.fused import (
+        accumulate_plain,
+        fused_accumulate,
+        fused_shift_accumulate,
+        shift_accumulate_plain,
+        source_index,
+    )
 
     g = torch.Generator(device=dev).manual_seed(1)
     worst = 0.0
@@ -246,6 +402,31 @@ def phase_accumulate(dev) -> float:
                                      f"(max abs err {max_abs_err(got, want)})")
             worst = max(worst, max_abs_err(got, want))
             log(f"accumulate {str(dtype):>14} n={n:>9}: bit-equal to plain")
+            # the gather-fused form on the same sizes as P rank rows (an odd
+            # row length at the ragged size, so that rows sit at different
+            # offsets modulo 16 bytes), a ring shift and a partial permutation
+            # whose ranks 2 and 5 receive nothing (a -0.0 addend there), with
+            # x from the start of its buffer and one element into it
+            m = -(-n // P)
+            flat = torch.cat((a, b))[:P * m + 1]
+            for offset in (0, 1):
+                x = flat[offset:offset + P * m].view(P, m)
+                addend = torch.cat((b, a))[:P * m].view(P, m).clone()
+                if dtype != torch.int32:
+                    addend[2] = -0.0
+                for pname, pairs in (("ring+1", [(i, (i + 1) % P) for i in range(P)]),
+                                     ("partial", PARTIAL_PERM)):
+                    src = source_index(tuple(pairs), P, dev)
+                    before = fused_shift_accumulate.launches
+                    got = fused_shift_accumulate(x, addend, src)
+                    want = shift_accumulate_plain(x, addend, src)
+                    torch.cuda.synchronize()
+                    if fused_shift_accumulate.launches != before + 1 or not same_bits(got, want):
+                        raise AssertionError(f"shift_accumulate {dtype} ({P}, {m}) offset "
+                                             f"{offset} {pname}: kernel != plain")
+                    worst = max(worst, max_abs_err(got, want))
+            log(f"shift_accumulate {str(dtype):>8} ({P}, {m:>7}): bit-equal to plain "
+                f"(ring shift and partial permutation, aligned and at an odd offset)")
     return worst
 
 
@@ -293,20 +474,24 @@ def phase_stencil_path() -> tuple[int, dict]:
     return launches, results
 
 
-def phase_stencil_profile(dev, n_steps: int = 8):
+def phase_stencil_profile(dev, n_steps: int = 8, comm_mode: str = "smi:static",
+                          schedules=(True, False)) -> dict:
     """Where a stencil step's time goes: ``torch.profiler`` over ``n_steps``
-    warm steps of each schedule at the path's shape; device time by kernel
-    per step, and the device's idle share of the wall time."""
+    warm steps of each schedule at the path's shape over ``comm_mode``;
+    device time by kernel per step, the device's idle share of the wall
+    time, and the host ops that hold the most host time (self time; over the
+    packet wire, the packetising around each router launch)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.apps import DistributedStencil
 
-    app = DistributedStencil.create((2, 4), comm_mode="smi:static", device=dev)
+    app = DistributedStencil.create((2, 4), comm_mode=comm_mode, device=dev)
     g = torch.Generator(device=dev).manual_seed(5)
     x = app.scatter(torch.randn((8192, 8192), generator=g, device=dev))
-    for overlapped in (True, False):
+    out = {}
+    for overlapped in schedules:
         t = app.halo_schedule.resolve_transport()
         app.run(x, 2, overlapped=overlapped, transport=t)
         torch.cuda.synchronize()
@@ -315,26 +500,43 @@ def phase_stencil_profile(dev, n_steps: int = 8):
             app.run(x, n_steps, overlapped=overlapped, transport=t)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+        events = prof.key_averages()
         # device events only: a CPU op's self device time repeats its kernels'
         rows = sorted(((e.key, e.self_device_time_total / 1e3 / n_steps)
-                       for e in prof.key_averages()
+                       for e in events
                        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
                       key=lambda kv: -kv[1])
+        host = sorted(((e.key, e.self_cpu_time_total / 1e3 / n_steps, e.count / n_steps)
+                       for e in events
+                       if e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0),
+                      key=lambda kv: -kv[1])
         busy = sum(ms for _, ms in rows)
-        sched = "overlapped" if overlapped else "reference"
+        host_ms = sum(ms for _, ms, _ in host)
+        sched = f"{comm_mode} {'overlapped' if overlapped else 'reference'}"
         log(f"profile {sched}: wall {wall_ms:.4f} ms/step, device busy {busy:.4f} ms/step "
-            f"(idle {max(0.0, 1 - busy / wall_ms):.1%}), {n_steps} steps")
-        for name, ms in rows[:8]:
+            f"(idle {max(0.0, 1 - busy / wall_ms):.1%}), host ops' self time {host_ms:.4f} "
+            f"ms/step, {n_steps} steps")
+        for name, ms in rows[:10]:
             log(f"profile {sched}:   {ms:.4f} ms/step  {name[:90]}")
+        for name, ms, calls in host[:10]:
+            log(f"profile {sched}: host {ms:.4f} ms/step in {calls:.0f} calls  {name[:70]}")
+        out[sched] = dict(wall_ms=wall_ms, device_ms=busy, host_ms=host_ms, device=rows[:10],
+                          host=host[:10])
+    return out
 
 
-def phase_reductions(dev) -> int:
+def phase_reductions(dev) -> tuple[dict, dict]:
+    """Phase 5: the fused reductions bit-equal to the static ones, with equal
+    stats; each ring step one launch of the gather-fused add, the rooted
+    folds on the add kernel; then each reduction timed over ``smi:static``
+    and ``smi:fused`` in turns (static, fused, fused, static).  Returns the
+    launches of both entry points of A and the times."""
     import torch
 
     from repro_torch.core import Communicator
     from repro_torch.core.collectives import allreduce, reduce, stream_reduce_scatter
     from repro_torch.transport import get_transport
-    from repro_torch.transport.fused import fused_accumulate
+    from repro_torch.transport.fused import fused_accumulate, fused_shift_accumulate
 
     g = torch.Generator(device=dev).manual_seed(3)
     x = torch.randn((P, REDUCE_ELEMS), generator=g, device=dev)
@@ -342,57 +544,144 @@ def phase_reductions(dev) -> int:
     ops = {"allreduce": lambda v, c, t: allreduce(v, c, transport=t),
            "reduce_scatter": lambda v, c, t: stream_reduce_scatter(v, c, transport=t),
            "reduce": lambda v, c, t: reduce(v, c, root=3, transport=t)}
+    #: launches of the gather-fused add a call makes: one per ring step
+    ring_steps = {"allreduce": P - 1, "reduce_scatter": P - 1, "reduce": 0}
     reset_counts()
+    times, launches = {}, {"shift": 0, "fold": 0}
     for names, sizes in ((("x",), (8,)), (("x", "y"), (2, 4))):
         comm = Communicator.create(names, sizes, device=dev)
         for name, op in ops.items():
             ts, tf = get_transport("static", device=dev), get_transport("fused", device=dev)
-            want, got = op(x, comm, ts), op(x, comm, tf)
+            want = op(x, comm, ts)
+            before = (fused_shift_accumulate.launches, fused_accumulate.launches)
+            got = op(x, comm, tf)
             torch.cuda.synchronize()
+            shifts = fused_shift_accumulate.launches - before[0]
+            folds = fused_accumulate.launches - before[1]
+            launches["shift"] += shifts
+            launches["fold"] += folds
             if not same_bits(got, want) or not torch.isfinite(got).all():
                 raise AssertionError(f"{name} on {sizes}: smi:fused != smi:static")
             if (tf.stats.steps, tf.stats.bytes_moved) != (ts.stats.steps, ts.stats.bytes_moved):
                 raise AssertionError(f"{name} on {sizes}: stats differ")
+            if shifts != ring_steps[name] or (name == "reduce") != (folds > 0):
+                raise AssertionError(f"{name} on {sizes}: {shifts} gather-fused launches (not "
+                                     f"{ring_steps[name]}) and {folds} plain folds")
             log(f"{name:>14} on {str(sizes):>7}: smi:fused bit-equal to smi:static "
-                f"({tf.stats.steps} steps, {tf.stats.bytes_moved} B per rank)")
+                f"({tf.stats.steps} steps, {tf.stats.bytes_moved} B per rank; A launched "
+                f"{shifts} times gather-fused, {folds} as the plain add)")
+            del want, got
+            ms, dev_ms = {}, {}
+            for mode in ("static", "fused", "fused", "static"):
+                t = ts if mode == "static" else tf
+                ms.setdefault(mode, []).append(time_ms(lambda: op(x, comm, t), reps=10,
+                                                       warmup=2))
+                dev_ms.setdefault(mode, []).append(device_ms(lambda: op(x, comm, t), reps=5,
+                                                             warmup=1))
+            key = f"{name}/{'ring(1x8)' if len(sizes) == 1 else 'torus(2x4)'}"
+            times[key] = {m: sum(v) / len(v) for m, v in ms.items()} | {
+                f"device_{m}": sum(v) / len(v) for m, v in dev_ms.items()} | {"turns_ms": ms}
+            tk = times[key]
+            log(f"{name:>14} on {str(sizes):>7}: smi:static {tk['static']:.4f} ms, smi:fused "
+                f"{tk['fused']:.4f} ms ({tk['fused'] / tk['static'] - 1:+.1%}; turns "
+                f"{', '.join(f'{v:.4f}' for v in ms['static'][:1] + ms['fused'] + ms['static'][1:])}"
+                f"); device time {tk['device_static']:.4f} and {tk['device_fused']:.4f} ms "
+                f"({tk['device_fused'] / tk['device_static'] - 1:+.1%})")
     if not same_bits(x, x_before):
         raise AssertionError("a reduction modified its input")
-    launches = fused_accumulate.launches
-    if launches == 0:
-        raise AssertionError("the fused reductions never launched the accumulate kernel")
-    log(f"reduction path: kernel A launched {launches} times")
-    return launches
+    if min(launches.values()) == 0:
+        raise AssertionError(f"the fused reductions launched kernel A {launches}")
+    log(f"reduction path: kernel A launched {launches['shift']} times gather-fused and "
+        f"{launches['fold']} times as the plain add (the checked runs; the timed runs come "
+        f"after)")
+    return launches, times
 
 
 def phase_kernel_table(dev, launches_a, launches_b, err_a, err_b) -> list[dict]:
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.core.comm import ppermute
+    from repro_torch.kernels.build import current_stream
     from repro_torch.kernels.stencil import stencil_sweep, stencil_sweep_plain
-    from repro_torch.transport.fused import accumulate_plain, fused_accumulate
+    from repro_torch.transport.fused import (
+        accumulate_plain,
+        fused_accumulate,
+        fused_shift_accumulate,
+        shift_accumulate_plain,
+        source_index,
+    )
 
     torch.backends.cudnn.allow_tf32 = False  # the library stencil stays in float32
     g = torch.Generator(device=dev).manual_seed(4)
     rows = []
 
-    # A at the all-reduce's fold shape: one (P, 16Mi/P) block per step
-    a = torch.randn((P, REDUCE_ELEMS // P), generator=g, device=dev)
-    b = torch.randn((P, REDUCE_ELEMS // P), generator=g, device=dev)
-    t_bound, by = bound(3 * a.numel() * a.element_size(), a.numel())
+    def scalar_add(a, b):
+        """Kernel A's scalar predecessor on the same inputs (``ms_before``)."""
+        out = torch.empty_like(a)
+        smoke_launch(smoke_lib().smoke_accumulate_scalar(a.data_ptr(), b.data_ptr(),
+                                                       out.data_ptr(), a.numel(),
+                                                       current_stream(a)), "scalar accumulate")
+        return out
+
+    # A at the all-reduce's fold shape, one (P, 16Mi/P) block per step, and
+    # at the rooted reduce's (P, 16Mi); its scalar predecessor and torch.add
+    # on the same inputs, in turns, each by its device time
+    per_shape = {}
+    for shape in ((P, REDUCE_ELEMS // P), (P, REDUCE_ELEMS)):
+        a = torch.randn(shape, generator=g, device=dev)
+        b = torch.randn(shape, generator=g, device=dev)
+        if not same_bits(scalar_add(a, b), fused_accumulate(a, b)):
+            raise AssertionError(f"the scalar accumulate kernel disagrees at {shape}")
+        t = {k: [] for k in ("ms", "ms_before", "library_ms")}
+        for _ in range(2):
+            t["ms"].append(device_ms(lambda: fused_accumulate(a, b)))
+            t["ms_before"].append(device_ms(lambda: scalar_add(a, b)))
+            t["library_ms"].append(device_ms(lambda: torch.add(a, b)))
+        t = {k: sum(v) / len(v) for k, v in t.items()}
+        t["bound_ms"] = bound(3 * a.numel() * a.element_size(), a.numel())[0]
+        t["plain_ms"] = time_ms(lambda: accumulate_plain(a, b))
+        per_shape[shape] = t
+        log(f"accumulate at {list(shape)} f32: {t['ms']:.4f} ms (the scalar predecessor "
+            f"{t['ms_before']:.4f} ms, torch.add {t['library_ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms: "
+            f"{t['bound_ms'] / t['ms']:.1%} of the bytes rate)")
+        del a, b
+    t = per_shape[(P, REDUCE_ELEMS // P)]
     rows.append(dict(
-        name="accumulate", route="cuda", path="simt", source="src/repro_torch/csrc/accumulate.cu",
-        replaces="src/repro/transport/fused.py:35", launches=launches_a,
-        max_abs_err=err_a, ms=time_ms(lambda: fused_accumulate(a, b)),
-        plain_ms=time_ms(lambda: accumulate_plain(a, b)), bound_ms=t_bound, bound_by=by,
-        library_ms=time_ms(lambda: torch.add(a, b)), shape=list(a.shape), dtype="float32"))
-    # A at the rooted reduce's fold shape, on its own line
-    a2 = torch.randn((P, REDUCE_ELEMS), generator=g, device=dev)
-    b2 = torch.randn((P, REDUCE_ELEMS), generator=g, device=dev)
-    log(f"accumulate at {list(a2.shape)} f32: "
-        f"{time_ms(lambda: fused_accumulate(a2, b2)):.4f} ms "
-        f"(plain {time_ms(lambda: accumulate_plain(a2, b2)):.4f} ms, "
-        f"bound {bound(3 * a2.numel() * 4, a2.numel())[0]:.4f} ms)")
-    del a2, b2
+        name="accumulate", route="cuda", path="vector",
+        source="src/repro_torch/csrc/accumulate.cu", replaces="src/repro/transport/fused.py:35",
+        launches=launches_a["fold"], max_abs_err=err_a, ms=t["ms"], plain_ms=t["plain_ms"],
+        bound_ms=t["bound_ms"], bound_by="bytes", library_ms=t["library_ms"],
+        ms_before=t["ms_before"], shape=[P, REDUCE_ELEMS // P], dtype="float32",
+        at_8x16mi={k: v for k, v in per_shape[(P, REDUCE_ELEMS)].items()}))
+
+    # A's gather-fused form at one ring step of the all-reduce: (P, 16Mi/P),
+    # a +1 ring shift; beside it the unfused composition (ppermute, then add)
+    x = torch.randn((P, REDUCE_ELEMS // P), generator=g, device=dev)
+    addend = torch.randn((P, REDUCE_ELEMS // P), generator=g, device=dev)
+    pairs = [(i, (i + 1) % P) for i in range(P)]
+    src = source_index(tuple(pairs), P, dev)
+    got = fused_shift_accumulate(x, addend, src)
+    if not same_bits(got, torch.add(ppermute(x, pairs), addend)):
+        raise AssertionError("shift_accumulate != ppermute + torch.add")
+    t = {k: [] for k in ("ms", "unfused_ms")}
+    for _ in range(2):
+        t["ms"].append(device_ms(lambda: fused_shift_accumulate(x, addend, src)))
+        t["unfused_ms"].append(device_ms(lambda: torch.add(ppermute(x, pairs), addend)))
+    t = {k: sum(v) / len(v) for k, v in t.items()}
+    t_bound, by = bound(3 * x.numel() * x.element_size(), x.numel())
+    plain_ms = time_ms(lambda: shift_accumulate_plain(x, addend, src))
+    log(f"shift_accumulate at {list(x.shape)} f32, ring +1: {t['ms']:.4f} ms (unfused "
+        f"ppermute + torch.add {t['unfused_ms']:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{t_bound:.4f} ms: {t['ms'] / t_bound:.2f}x the bound)")
+    rows.append(dict(
+        name="shift_accumulate", route="cuda", path="vector",
+        source="src/repro_torch/csrc/accumulate.cu", replaces="src/repro/transport/fused.py:35",
+        launches=launches_a["shift"], max_abs_err=err_a, ms=t["ms"], plain_ms=plain_ms,
+        bound_ms=t_bound, bound_by=by, library_ms=None, unfused_ms=t["unfused_ms"],
+        shape=list(x.shape), dtype="float32"))
+    del x, addend, got
 
     # B at the stencil path's shape: the (8, 4096, 2048) tile stack
     x = torch.randn((P, 4096, 2048), generator=g, device=dev)
@@ -454,11 +743,71 @@ def _halo_job(dev):
     return comm, tp.router_job(vec, comm, halo_pairs(DIMS, 0, +1))
 
 
-def phase_router_kernel(dev) -> tuple[float, dict]:
-    """Kernel C against the vector and scalar routers; returns the worst
-    error and the halo-shape timing row of the kernel table."""
-    import numpy as np
+def _router_paths(dev, cfg, comm, tbl, pay, dst, ln, n_steps, name):
+    """One router job through both paths of kernel C (the default one and
+    the other forced), each held bit for bit against the vector and scalar
+    routers, and the two paths' tick counts equal.  Returns the default
+    path's outputs and the ticks."""
     import torch
+
+    from repro_torch.core import run_router
+    from repro_torch.core.router import _fabric
+    from repro_torch.kernels.router import router_path, router_run, tick_spec_of
+
+    names = ("out_pay", "out_cnt", "overflow", "t_done")
+    _, link_ids, src = _fabric(tuple(cfg.dims), dev)
+    spec = tick_spec_of(cfg, comm.size, link_ids)
+    default = router_path(comm.size, cfg.n_ports, spec.n_links, cfg.fifo_cap, cfg.transit_cap)
+    before = (router_run.launches, router_run.warp_launches)
+    got = run_router(cfg, comm, tbl, pay, dst, ln, n_steps, impl="kernel")
+    torch.cuda.synchronize()
+    if (router_run.launches, router_run.warp_launches) != \
+            (before[0] + 1, before[1] + (default == "warp")):
+        raise AssertionError(f"router {name}: the {default} path's counter did not move")
+    outs = {default: got}
+    for path in ("warp", "thread"):
+        if path != default:
+            outs[path] = router_run(spec, tbl, src, pay, dst, ln, n_steps, path=path)[:4]
+    ticks = {path: int(router_run(spec, tbl, src, pay, dst, ln, n_steps, path=path)[4])
+             for path in outs}
+    for impl in ("vector", "scalar"):
+        want = run_router(cfg, comm, tbl, pay, dst, ln, n_steps, impl=impl)
+        torch.cuda.synchronize()
+        for path, out in outs.items():
+            for a, b, nm in zip(out, want, names):
+                if not same_bits(a, b):
+                    raise AssertionError(f"router {name}: the {path} path != {impl} on {nm}")
+    if len(set(ticks.values())) != 1:
+        raise AssertionError(f"router {name}: the paths ran different ticks {ticks}")
+    return got, ticks[default]
+
+
+def _tick_floor_ms(dev, ticks: int, threads: int) -> float:
+    """Milliseconds of ``ticks`` empty ticks of the warp path's barrier
+    pattern (one counting named barrier a tick over its ``threads`` ticking
+    threads, in a block of 1024): the least a run of that many ticks can
+    take on this card."""
+    import torch
+
+    from repro_torch.kernels.build import current_stream
+
+    ran = torch.zeros((1,), dtype=torch.int32, device=dev)
+
+    def launch():
+        smoke_launch(smoke_lib().smoke_tick_floor(ticks, threads, ran.data_ptr(),
+                                                  current_stream(ran)), "tick floor")
+
+    launch()
+    torch.cuda.synchronize()
+    if int(ran) != ticks:
+        raise AssertionError(f"the tick floor kernel ran {int(ran)} of {ticks} ticks")
+    return device_ms(launch, reps=50)
+
+
+def phase_router_kernel(dev) -> tuple[float, list[dict]]:
+    """Kernel C, both paths, against the vector and scalar routers; returns
+    the worst error and the halo-shape timing rows of the kernel table."""
+    import numpy as np
 
     from repro_torch.core import Communicator, RouterConfig, run_router
 
@@ -480,61 +829,80 @@ def phase_router_kernel(dev) -> tuple[float, dict]:
     cases.append(("step_budget", cfg, tables["torus"],
                   [(s, 0, (s + 1 + k) % P, float(10 * s + k)) for s in range(P) for k in range(4)],
                   5))
+    cfg = RouterConfig(dims=DIMS, n_ports=2, fifo_cap=6, transit_cap=1, out_cap=16, pkt_elems=4,
+                       R=4)
+    cases.append(("transit_cap_1", cfg, tables["torus"],
+                  [(s, p, (s + 2 + 3 * p) % P, float(10 * s + p)) for s in range(P)
+                   for p in range(2) for _ in range(3)], 64))
     worst = 0.0
-    names = ("out_pay", "out_cnt", "overflow", "t_done")
     for name, cfg, tbl, msgs, n_steps in cases:
-        args = (cfg, comm, tbl, *_stage(dev, cfg.n_ports, cfg.fifo_cap, cfg.pkt_elems, msgs),
-                n_steps)
-        got = run_router(*args, impl="kernel")
-        for impl in ("vector", "scalar"):
-            want = run_router(*args, impl=impl)
-            torch.cuda.synchronize()
-            for a, b, nm in zip(got, want, names):
-                if not same_bits(a, b):
-                    raise AssertionError(f"router {name}: kernel != {impl} on {nm}")
-        log(f"router {name:>26}: kernel bit-equal to vector and scalar "
-            f"(delivered {int(got[1].sum())}, overflow {int(got[2].sum())})")
+        staged = _stage(dev, cfg.n_ports, cfg.fifo_cap, cfg.pkt_elems, msgs)
+        got, ticks = _router_paths(dev, cfg, comm, tbl, *staged, n_steps, name)
+        log(f"router {name:>26}: warp and thread paths bit-equal to vector and scalar "
+            f"(delivered {int(got[1].sum())}, overflow {int(got[2].sum())}, {ticks} ticks)")
         if name == "out_cap_overrun" and (int(got[1][0, 0]), int(got[2].sum())) != (2, 2):
             raise AssertionError("out_cap overrun: expected 2 delivered and 2 counted")
+        if name == "transit_cap_1" and int(got[2].sum()) == 0:
+            raise AssertionError("an undersized transit counted no overflow")
 
-    # the halo shape: also where kernel C is timed
-    from repro_torch.kernels.router import router_run, tick_spec_of
+    # the halo shape: also where kernel C is timed, both paths in turns
     from repro_torch.core.router import _fabric
+    from repro_torch.kernels.router import router_run, tick_spec_of
+    from repro_torch.kernels.router.kernel import warp_lanes
 
     comm, (cfg, tbl, pay, dst, ln, n_steps) = _halo_job(dev)
     args = (cfg, comm, tbl, pay, dst, ln, n_steps)
-    got = run_router(*args, impl="kernel")
+    got, ticks = _router_paths(dev, *args[:3], pay, dst, ln, n_steps, "halo shape")
     for impl in ("vector", "scalar"):
-        want = run_router(*args, impl=impl)
-        torch.cuda.synchronize()
-        for a, b, nm in zip(got, want, names):
-            if not same_bits(a, b):
-                raise AssertionError(f"router halo shape: kernel != {impl} on {nm}")
-        worst = max(worst, max_abs_err(got[0], want[0]))
+        worst = max(worst, max_abs_err(got[0], run_router(*args, impl=impl)[0]))
     links, link_ids, src = _fabric(DIMS, dev)
     spec = tick_spec_of(cfg, P, link_ids)
-    ticks = int(router_run(spec, tbl, src, pay, dst, ln, n_steps)[4])
     packets = int(ln.sum())
     if int(got[1].sum()) != packets or int(got[2].sum()) != 0:
         raise AssertionError("router halo shape: packets lost")
-    ms = time_ms(lambda: run_router(*args, impl="kernel"))
+    # device time: the host issues a warp-path call more slowly than the card
+    # runs it, so CUDA events around back-to-back calls would time the host;
+    # measured two ways, the kernels' time under the profiler and a CUDA
+    # graph of one call replayed
+    turns, graph_turns = {"warp": [], "thread": []}, {"warp": [], "thread": []}
+    for path in ("warp", "thread", "thread", "warp"):
+        run = lambda: router_run(spec, tbl, src, pay, dst, ln, n_steps, path=path)  # noqa: E731
+        turns[path].append(device_ms(run))
+        graph_turns[path].append(graph_ms(run))
+    ms = {k: sum(v) / len(v) for k, v in turns.items()}
+    wall_ms = time_ms(lambda: router_run(spec, tbl, src, pay, dst, ln, n_steps))
+    log("router halo shape, turns (warp, thread, thread, warp) in ms: profiler " + ", ".join(
+        f"{p} {v:.4f}" for p, vs in turns.items() for v in vs) + "; graph replay " + ", ".join(
+        f"{p} {v:.4f}" for p, vs in graph_turns.items() for v in vs))
+    lanes = warp_lanes(cfg.n_ports, len(links))
+    ticking = 2 * 32 * -(-P // (32 // lanes))  # the ranks' control and delivery warps
+    floor_ms = _tick_floor_ms(dev, ticks, ticking)
     plain_ms = time_ms(lambda: run_router(*args, impl="vector"), reps=3, warmup=1)
     # bytes: each staged packet and header read once, the lengths, route
     # table and exchange table read once, every output written once
     E, itemsize = cfg.pkt_elems, 4
     nbytes = itemsize * (packets * (E + 1) + ln.numel() + tbl.numel() + src.numel() + len(links)
                          + got[0].numel() + got[1].numel() + got[2].numel() + got[3].numel())
-    t_bound, _ = bound(nbytes, 0)
-    log(f"router halo shape: {packets} packets, {ticks} of {n_steps} ticks run, "
-        f"kernel {ms:.4f} ms ({ms / ticks * 1e3:.3f} us/tick), plain {plain_ms:.4f} ms, "
-        f"bound {t_bound:.6f} ms")
-    row = dict(name="router_run", route="cuda", path="simt",
-               source="src/repro_torch/csrc/router.cu",
-               replaces="src/repro/kernels/router/kernel.py:83", launches=0, max_abs_err=worst,
-               ms=ms, plain_ms=plain_ms, bound_ms=t_bound, bound_by="bytes", library_ms=None,
-               ticks=ticks, tick_budget=n_steps, us_per_tick=ms / ticks * 1e3,
-               shape=list(pay.shape), dtype="float32")
-    return worst, row
+    bytes_ms, _ = bound(nbytes, 0)
+    log(f"router halo shape: {packets} packets, {ticks} of {n_steps} ticks run; warp path "
+        f"{ms['warp']:.4f} ms ({ms['warp'] / ticks * 1e3:.3f} us/tick), thread path "
+        f"{ms['thread']:.4f} ms ({ms['thread'] / ticks * 1e3:.3f} us/tick), tick floor "
+        f"{floor_ms:.4f} ms ({floor_ms / ticks * 1e3:.3f} us/tick, {ticking} threads), all "
+        f"device time; back-to-back calls {wall_ms:.4f} ms a call (CUDA events); plain "
+        f"{plain_ms:.4f} ms, bytes {bytes_ms:.6f} ms")
+    rows = []
+    for path in ("warp", "thread"):
+        rows.append(dict(
+            name="router_run", route="cuda", path=path, source="src/repro_torch/csrc/router.cu",
+            replaces="src/repro/kernels/router/kernel.py:83", launches=0, max_abs_err=worst,
+            ms=ms[path], plain_ms=plain_ms, bound_ms=bytes_ms, bound_by="bytes",
+            tick_floor_ms=floor_ms, tick_floor_by="tick chain", library_ms=None, ticks=ticks,
+            tick_budget=n_steps, events_ms_per_call=wall_ms if path == "warp" else None,
+            graph_ms=sum(graph_turns[path]) / len(graph_turns[path]),
+            us_per_tick=ms[path] / ticks * 1e3, floor_us_per_tick=floor_ms / ticks * 1e3,
+            shape=list(pay.shape), dtype="float32"))
+    rows[0]["ms_before"] = ms["thread"]
+    return worst, rows
 
 
 def phase_router_reroute(dev):
@@ -564,13 +932,15 @@ def phase_router_reroute(dev):
 
 def phase_injection(dev) -> list[dict]:
     """The paper's Tab. 4 (benchmarks/injection.py): both FIFOs of every
-    rank saturated toward the same +y link, switch bubble on."""
-    import torch
-
-    from repro_torch.core import Communicator, RouterConfig, run_router
+    rank saturated toward the same +y link, switch bubble on; both paths of
+    kernel C checked against the plain routers and timed in turns."""
+    from repro_torch.core import Communicator, RouterConfig
+    from repro_torch.core.router import _fabric
+    from repro_torch.kernels.router import router_run, tick_spec_of
 
     comm = Communicator.create(("x", "y"), DIMS, device=dev)
     tbl = _tables(dev)["torus"]
+    _, link_ids, src = _fabric(DIMS, dev)
     rows = []
     for R in (1, 4, 8, 16):
         cfg = RouterConfig(dims=DIMS, n_ports=2, fifo_cap=8, out_cap=32, transit_cap=32, R=R,
@@ -580,21 +950,24 @@ def phase_injection(dev) -> list[dict]:
             row, col = divmod(r, 4)
             msgs += [(r, 0, row * 4 + (col + 1) % 4, 0.0)] * 8   # +y, 1 hop
             msgs += [(r, 1, row * 4 + (col + 2) % 4, 0.0)] * 8   # +y twice, 2 hops
-        args = (cfg, comm, tbl, *_stage(dev, 2, 8, cfg.pkt_elems, msgs), 96)
-        got = run_router(*args, impl="kernel")
-        want = run_router(*args, impl="vector")
-        torch.cuda.synchronize()
-        if not all(same_bits(a, b) for a, b in zip(got, want)):
-            raise AssertionError(f"injection R={R}: kernel != vector")
+        staged = _stage(dev, 2, 8, cfg.pkt_elems, msgs)
+        got, ticks = _router_paths(dev, cfg, comm, tbl, *staged, 96, f"injection R={R}")
         delivered, lost = int(got[1].sum()), int(got[2].sum())
         drain = int(got[3].max()) + 1
-        if drain != int(want[3].max()) + 1 or lost:
-            raise AssertionError(f"injection R={R}: drain or loss differs")
-        us = time_ms(lambda: run_router(*args, impl="kernel")) * 1e3
-        rows.append(dict(R=R, delivered=delivered, drain_ticks=drain,
-                         ticks_per_packet=drain / (delivered / P), us_per_run=us))
-        log(f"injection R={R:>2}: delivered {delivered}, drain {drain} ticks, "
-            f"{drain / (delivered / P):.2f} ticks/packet, {us:.1f} us/run, overflow {lost}")
+        if lost:
+            raise AssertionError(f"injection R={R}: {lost} packets lost")
+        spec = tick_spec_of(cfg, P, link_ids)
+        us = {"warp": [], "thread": []}
+        for path in ("warp", "thread", "thread", "warp"):
+            us[path].append(device_ms(lambda: router_run(spec, tbl, src, *staged, 96,
+                                                         path=path)) * 1e3)
+        us = {k: sum(v) / len(v) for k, v in us.items()}
+        rows.append(dict(R=R, delivered=delivered, drain_ticks=drain, ticks=ticks,
+                         ticks_per_packet=drain / (delivered / P), us_per_run_warp=us["warp"],
+                         us_per_run_thread=us["thread"]))
+        log(f"injection R={R:>2}: delivered {delivered}, drain {drain} ticks ({ticks} run), "
+            f"{drain / (delivered / P):.2f} ticks/packet, device time warp {us['warp']:.1f} "
+            f"us/run, thread {us['thread']:.1f} us/run, overflow {lost}")
     return rows
 
 
@@ -620,18 +993,20 @@ def phase_packet_stencil() -> tuple[int, dict]:
                                      f"{res['halo_bytes_per_rank']} B, expected {PACKET_HALO}")
             results[sched] = res
         launches_c, launches_b = router_run.launches, stencil_sweep.launches
-    if launches_c == 0 or launches_b == 0:
-        raise AssertionError(f"packet stencil path launched kernel C {launches_c} and "
-                             f"kernel B {launches_b} times")
+        warp_c = router_run.warp_launches
+    if launches_c == 0 or launches_b == 0 or warp_c != launches_c:
+        raise AssertionError(f"packet stencil path launched kernel C {launches_c} times "
+                             f"({warp_c} on the warp path) and kernel B {launches_b} times")
     for sched, res in results.items():
         log(f"packet stencil {sched}: {res['wall_per_step_s'] * 1e3:.4f} ms/step, halo "
             f"{res['halo_steps']} steps / {res['halo_bytes_per_rank']} B per rank, equal to "
             f"the single-rank sweep")
-    log(f"packet stencil path: kernel C launched {launches_c} times, kernel B {launches_b}")
+    log(f"packet stencil path: kernel C launched {launches_c} times (all on the warp path), "
+        f"kernel B {launches_b}")
     return launches_c, results
 
 
-def phase_packet_reductions(dev) -> int:
+def phase_packet_reductions(dev) -> dict:
     import torch
 
     from repro_torch.core import Communicator, snake_bus
@@ -665,11 +1040,31 @@ def phase_packet_reductions(dev) -> int:
                 raise AssertionError(f"{name} on {cname}: packets lost")
             log(f"{name:>14} on {cname:>14}: smi:packet bit-equal to smi:static, overflow 0, "
                 f"{tp.stats.steps} router ticks budgeted, {secs * 1e3:.1f} ms")
-    launches = router_run.launches
-    if launches == 0:
-        raise AssertionError("the packet reductions never launched kernel C")
-    log(f"packet reduction path: kernel C launched {launches} times")
-    return launches
+    launches, warp = router_run.launches, router_run.warp_launches
+    if launches == 0 or warp != launches:
+        raise AssertionError(f"the packet reductions launched kernel C {launches} times, "
+                             f"{warp} on the warp path")
+    # 64 ranks, past the warp path's 32: the thread path
+    comm = Communicator.create(("x", "y"), (8, 8), device=dev)
+    x64 = torch.randn((64, 64 * 1024), generator=g, device=dev)
+    tp = get_transport("packet", device=dev, pkt_elems=2048)
+    t0 = time.perf_counter()
+    got = allreduce(x64, comm, transport=tp)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if not same_bits(got, allreduce(x64, comm, transport=get_transport("static", device=dev))):
+        raise AssertionError("allreduce on torus(8x8): smi:packet != smi:static")
+    if int(tp.stats.overflow.sum()) != 0:
+        raise AssertionError("allreduce on torus(8x8): packets lost")
+    thread = router_run.launches - launches
+    if thread == 0 or router_run.warp_launches != warp:
+        raise AssertionError(f"the 64-rank allreduce launched kernel C {thread} times, "
+                             f"{router_run.warp_launches - warp} on the warp path")
+    log(f"     allreduce on     torus(8x8): smi:packet bit-equal to smi:static, overflow 0, "
+        f"{tp.stats.steps} router ticks budgeted, {secs * 1e3:.1f} ms")
+    log(f"packet reduction path: kernel C launched {launches} times on the warp path (8 ranks) "
+        f"and {thread} times on the thread path (64 ranks)")
+    return {"warp": launches, "thread": thread}
 
 
 # -- the dense model: flash attention (kernel E), prefill, serving ---------------------
@@ -1379,10 +1774,11 @@ def phase_tp_prefill(dev, seed: int = 19) -> tuple[int, dict, object]:
     return launches_d, res, tp_params
 
 
-def phase_tp_fused(dev, tp_params, n_layers: int = 4, seed: int = 20) -> int:
+def phase_tp_fused(dev, tp_params, n_layers: int = 4, seed: int = 20) -> dict:
     """Phase 19's prefill cut to ``n_layers`` layers over ``smi:fused``
-    against ``smi:static``, both with D: bit for bit; kernel A launches.
-    Returns A's launches."""
+    against ``smi:static``, both with D: bit for bit; kernel A's gather-fused
+    form launched once per reduce-scatter ring step (the ledger's closed
+    form), its plain add never.  Returns A's launches."""
     import numpy as np
     import torch
 
@@ -1391,7 +1787,7 @@ def phase_tp_fused(dev, tp_params, n_layers: int = 4, seed: int = 20) -> int:
     from repro_torch.mesh.api import make_ctx
     from repro_torch.models import gather_hidden, lm_prefill
     from repro_torch.models.common import tree_map
-    from repro_torch.transport.fused import fused_accumulate
+    from repro_torch.transport.fused import fused_accumulate, fused_shift_accumulate
 
     cfg = get_arch("yi-6b").scaled(n_layers=n_layers)
     params = dict(tp_params, stack={"periods": tree_map(lambda t: t[:n_layers],
@@ -1405,17 +1801,22 @@ def phase_tp_fused(dev, tp_params, n_layers: int = 4, seed: int = 20) -> int:
         reset_counts()
         out[mode] = gather_hidden(lm_prefill(params, tokens, cfg, ctx, capacity=PREFILL_TOKENS))
         torch.cuda.synchronize()
-        out[mode + ":A"] = fused_accumulate.launches
+        out[mode + ":A"] = (fused_shift_accumulate.launches, fused_accumulate.launches)
     if not same_bits(out["smi:fused"], out["smi:static"]):
         raise AssertionError(f"TP prefill over smi:fused differs from smi:static (max abs diff "
                              f"{max_abs_err(out['smi:fused'], out['smi:static'])})")
-    launches_a = out["smi:fused:A"]
-    if launches_a == 0 or out["smi:static:A"] != 0:
-        raise AssertionError(f"kernel A launched {launches_a} times over smi:fused and "
+    # the reduce-scatters: the out-projection and MLP-down of every layer and
+    # the embedding's, each P - 1 ring steps
+    closed = _tp_closed_form(cfg, TP, PREFILL_TOKENS)
+    ring_steps = sum(closed[t]["steps"] for t in ("tp.attn.out", "tp.mlp.down", "tp.embed"))
+    shifts, folds = out["smi:fused:A"]
+    if (shifts, folds) != (ring_steps, 0) or out["smi:static:A"] != (0, 0):
+        raise AssertionError(f"kernel A launched {shifts} times gather-fused (not {ring_steps}) "
+                             f"and {folds} as the plain add over smi:fused, "
                              f"{out['smi:static:A']} over smi:static")
     log(f"tp prefill {n_layers} layers: smi:fused bit-equal to smi:static, kernel A launched "
-        f"{launches_a} times")
-    return launches_a
+        f"{shifts} times gather-fused, once per reduce-scatter ring step")
+    return {"shift": shifts, "fold": folds}
 
 
 def main() -> int:
@@ -1441,7 +1842,7 @@ def main() -> int:
     phase_stencil_profile(dev)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    launches_a = phase_reductions(dev)
+    launches_a, reduce_times = phase_reductions(dev)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     rows = phase_kernel_table(dev, launches_a, launches_b, err_a, err_b)
@@ -1450,7 +1851,7 @@ def main() -> int:
     log(f"phases 1-6: {time.perf_counter() - t_start:.1f}s")
 
     t0 = time.perf_counter()
-    _err_c, row_c = phase_router_kernel(dev)
+    _err_c, rows_c = phase_router_kernel(dev)
     torch.cuda.synchronize()
     log(f"phase 7 (kernel C vs plain): {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
@@ -1465,15 +1866,21 @@ def main() -> int:
     launches_c, packet_stencil = phase_packet_stencil()
     torch.cuda.synchronize()
     log(f"phase 10 (packet stencil): {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    packet_profile = phase_stencil_profile(dev, n_steps=4, comm_mode="smi:packet",
+                                           schedules=(True,))
+    torch.cuda.synchronize()
+    log(f"phase 10 (packet stencil profile): {time.perf_counter() - t0:.1f}s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     launches_c_red = phase_packet_reductions(dev)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     log(f"phase 11 (packet reductions): {time.perf_counter() - t0:.1f}s")
-    row_c["launches"] = launches_c
-    row_c["launches_reductions"] = launches_c_red
-    rows.append(row_c)
+    rows_c[0]["launches"] = launches_c
+    rows_c[0]["launches_reductions"] = launches_c_red["warp"]
+    rows_c[1]["launches"] = launches_c_red["thread"]
+    rows.extend(rows_c)
 
     t0 = time.perf_counter()
     _err_e, row_e = phase_flash_kernel(dev)
@@ -1517,7 +1924,10 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"phase 19 (yi-6b TP prefill, P = {TP}): {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
-    tp_prefill["launches_a_fused_4_layers"] = phase_tp_fused(dev, tp_params)
+    tp_fused = phase_tp_fused(dev, tp_params)
+    tp_prefill["launches_a_fused_4_layers"] = tp_fused
+    next(r for r in rows if r["name"] == "shift_accumulate")["launches_tp_prefill_fused"] = \
+        tp_fused["shift"]
     del tp_params
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1529,6 +1939,8 @@ def main() -> int:
         {k: v["wall_per_step_s"] * 1e3 for k, v in stencil.items()}))
     log("packet_stencil_wall_per_step_ms: " + json.dumps(
         {k: v["wall_per_step_s"] * 1e3 for k, v in packet_stencil.items()}))
+    log("packet_stencil_profile: " + json.dumps(packet_profile))
+    log("reductions_static_vs_fused_ms: " + json.dumps(reduce_times))
     log("injection_tab4: " + json.dumps(injection))
     log("prefill_yi6b_4096: " + json.dumps(prefill))
     for name, res in (("serving_yi6b", serving), ("serving_mamba2", ssm_serving)):

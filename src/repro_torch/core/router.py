@@ -24,7 +24,7 @@ Three implementations of the same tick, equal bit for bit on
   the whole-state tick of ``kernels/router/ref.py`` with a gather exchange
   between ticks and an early exit once the network drains;
 * ``impl="kernel"`` — kernel C (``csrc/router.cu``): the whole run in one
-  CUDA launch.
+  CUDA launch, on the kernel ``kernels.router.router_path`` picks by shape.
 
 ``impl=None`` takes ``kernel`` on a CUDA tensor and ``vector`` on a CPU
 tensor, as the reference takes Pallas on a TPU and ``vector`` elsewhere.

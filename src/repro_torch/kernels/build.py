@@ -123,10 +123,14 @@ def library() -> ctypes.CDLL:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.smi_accumulate.argtypes = [p, p, p, i64, i32, p]
     lib.smi_accumulate.restype = i32
+    lib.smi_shift_accumulate.argtypes = [p, p, p, p, i32, i64, i32, p]
+    lib.smi_shift_accumulate.restype = i32
     lib.smi_stencil_sweep.argtypes = [p, p, i64, i64, i64, i32, p]
     lib.smi_stencil_sweep.restype = i32
     lib.smi_router_run.argtypes = [p] * 13 + [i32] * 11 + [p]
     lib.smi_router_run.restype = i32
+    lib.smi_router_run_warp.argtypes = [p] * 12 + [i32] * 10 + [p]
+    lib.smi_router_run_warp.restype = i32
     lib.smi_flash_attention.argtypes = [p] * 4 + [i32] * 6 + [ctypes.c_float] + [i32] * 4 + [p]
     lib.smi_flash_attention.restype = i32
     lib.smi_ssd_scan.argtypes = [p] * 6 + [i32] * 5 + [p]

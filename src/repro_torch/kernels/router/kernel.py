@@ -5,11 +5,19 @@ plain version :func:`~.ref.router_run_ref` on CPU tensors.  It replaces the
 Pallas kernel ``router_tick_pallas`` of
 ``src/repro/kernels/router/kernel.py``, which runs one tick of one rank per
 ``pallas_call`` inside a ``lax.scan`` with an ``all_to_all`` between ticks.
-Here one thread block runs every tick of every rank, with the router's
-control state in shared memory and the exchange a read of the neighbour's
-send slot; it is bound by the chain of dependent ticks, not by bytes (see
-the source's note).  The route table is a runtime input, so a new table
-builds and loads nothing.
+Here one thread block runs every tick of every rank, with the exchange a
+read of the neighbour's send slot; it is bound by the chain of dependent
+ticks, not by bytes (see the source's note).  The route table is a runtime
+input, so a new table builds and loads nothing.
+
+Two CUDA kernels compute it, and :func:`router_path` picks one by shape
+alone: :data:`WARP` (a rank on a warp's lanes, several ranks a warp when
+they fit, the tick a chain of shared-memory and warp operations, payloads
+gathered once after the run) for P <= 32 when its shared memory fits,
+:data:`THREAD` (the first kernel, one thread per rank, the staged headers,
+transit ring and payload copies in device memory) for the rest.  The pick
+is not a fallback: a call the dispatch sends to a path launches that
+path's kernel or raises.
 """
 
 from __future__ import annotations
@@ -21,8 +29,52 @@ import torch
 from ..build import check_launch, current_stream, library
 from .ref import I32, TickSpec, router_run_ref
 
-#: most input FIFOs per rank the kernel takes (n_ports + 1 candidates <= 16)
+#: most input FIFOs per rank the thread path takes (n_ports + 1 candidates <= 16)
 MAX_PORTS = 15
+WARP, THREAD = "warp", "thread"
+#: most ranks, and most candidates or links a rank, the warp path takes (a lane each)
+WARP_MAX_RANKS = WARP_MAX_LANES = 32
+#: warps of the warp path's block: its ranks' control and delivery warps
+WARP_MAX_WARPS = 32
+#: the warp path packs a packet's origin (its row of the staged input) in 20 bits
+WARP_MAX_ORIGINS = 1 << 20
+#: shared memory a block can have on an H100 (227 KB)
+MAX_SHARED_BYTES = 232448
+
+
+def warp_shared_bytes(P: int, n_ports: int, n_links: int, fifo_cap: int,
+                      transit_cap: int) -> int:
+    """Shared memory of the warp path (``csrc/router.cu`` computes the same):
+    two sets of send slots, the route table and the deliveries' overflow, 4
+    bytes each; the transit rings, an origin each (2 bytes while the staged
+    packets number at most 2^16, else 4); the staged headers, a byte each."""
+    origins = P * n_ports * fifo_cap
+    ring = 2 if origins <= 1 << 16 else 4
+    return 4 * (2 * P * n_links + P * P + P) + ring * P * transit_cap + origins
+
+
+def warp_lanes(n_ports: int, n_links: int) -> int:
+    """Lanes a rank takes on the warp path: the power of two that holds its
+    candidates (the FIFO heads and the transit head) and its links."""
+    lanes = 1
+    while lanes < max(n_ports + 1, n_links):
+        lanes *= 2
+    return lanes
+
+
+def router_path(P: int, n_ports: int, n_links: int, fifo_cap: int, transit_cap: int) -> str:
+    """Which kernel C runs a router of ``P`` ranks with this shape:
+    :data:`WARP` for ``P <= 32`` when a lane holds each candidate and each
+    link, the ranks' control and delivery warps fit a block, the staged
+    packets fit the 20-bit origin and the warp path's shared memory fits a
+    block; :data:`THREAD` for the rest."""
+    lanes = warp_lanes(n_ports, n_links)
+    fits = (P <= WARP_MAX_RANKS and lanes <= WARP_MAX_LANES
+            and 2 * -(-P // (32 // lanes)) <= WARP_MAX_WARPS
+            and P * n_ports * fifo_cap < WARP_MAX_ORIGINS
+            and warp_shared_bytes(P, n_ports, n_links, fifo_cap, transit_cap)
+            <= MAX_SHARED_BYTES)
+    return WARP if fits else THREAD
 
 
 @functools.lru_cache(maxsize=64)
@@ -40,17 +92,19 @@ def _threads(P: int, NL: int, E: int) -> int:
 
 
 def router_run(spec: TickSpec, route_tbl, src, inq_pay, inq_dst, inq_len, n_steps: int,
-               tick_batch: int = 4):
+               tick_batch: int = 4, path: str | None = None):
     """Up to ``n_steps`` router ticks on every rank: the CUDA kernel on CUDA
     tensors, the plain version on CPU tensors (``tick_batch`` is the plain
-    version's drain-check period; the kernel checks every tick).
+    version's drain-check period; the kernels check every tick).
 
     ``route_tbl (P, P)``, ``src (P, NL)``, ``inq_dst (P, NP, fifo_cap)`` and
     ``inq_len (P, NP)`` are int32; ``inq_pay (P, NP, fifo_cap, E)`` is
-    float32.  Returns ``(out_pay, out_cnt, overflow, t_done, ticks)``; on
-    the card ``ticks`` is a ``(1,)`` int32 tensor (no host sync), on the CPU
-    a Python int.  Raises on anything the kernel does not take and on a
-    failed launch.  ``router_run.launches`` counts kernel launches.
+    float32; the link ids are distinct.  ``path`` names the kernel (default
+    :func:`router_path`'s pick).  Returns ``(out_pay, out_cnt, overflow,
+    t_done, ticks)``; on the card ``ticks`` is a ``(1,)`` int32 tensor (no
+    host sync), on the CPU a Python int.  Raises on anything the kernel does
+    not take and on a failed launch.  ``router_run.launches`` counts kernel
+    launches, ``router_run.warp_launches`` those of the warp path.
     """
     args = (route_tbl, src, inq_pay, inq_dst, inq_len)
     dev = inq_pay.device
@@ -74,28 +128,55 @@ def router_run(spec: TickSpec, route_tbl, src, inq_pay, inq_dst, inq_len, n_step
         if tuple(a.shape) != shapes[name]:
             raise ValueError(f"router_run: {name} has shape {tuple(a.shape)}, "
                              f"expected {shapes[name]}")
-    if spec.n != P or NL == 0 or not 1 <= NP <= MAX_PORTS or min(FC, spec.transit_cap) < 1:
+    TC, OC = spec.transit_cap, spec.out_cap
+    if spec.n != P or NL == 0 or NP < 1 or min(FC, TC, OC) < 1:
         raise ValueError(f"router_run kernel does not take {spec} on {P} ranks")
+    if len(set(spec.link_ids)) != NL:
+        raise ValueError(f"router_run kernel needs distinct link ids, not {spec.link_ids}")
+    path = path or router_path(P, NP, NL, FC, TC)
+    if path == WARP and router_path(P, NP, NL, FC, TC) != WARP:
+        raise ValueError(f"the warp path of router_run does not take {spec} on {P} ranks")
+    if path == THREAD and NP > MAX_PORTS:
+        raise ValueError(f"the thread path of router_run takes at most {MAX_PORTS} ports, "
+                         f"not {NP}")
+    if path not in (WARP, THREAD):
+        raise ValueError(f"kernel C has the paths {WARP!r} and {THREAD!r}, not {path!r}")
 
-    out_pay = torch.zeros((P, NP, spec.out_cap, E), dtype=torch.float32, device=dev)
     out_cnt = torch.empty((P, NP), dtype=I32, device=dev)
     overflow = torch.empty((P,), dtype=I32, device=dev)
     t_done = torch.empty((P,), dtype=I32, device=dev)
     ticks = torch.empty((1,), dtype=I32, device=dev)
-    tr_pay = torch.empty((P, spec.transit_cap + 1, E), dtype=torch.float32, device=dev)
-    tr_ctl = torch.empty((2, P, spec.transit_cap + 1), dtype=I32, device=dev)
     link_ids = _link_ids(spec.link_ids, dev)
     lib = library()
-    with torch.cuda.device(dev):
-        err = lib.smi_router_run(
-            inq_pay.data_ptr(), inq_dst.data_ptr(), inq_len.data_ptr(), route_tbl.data_ptr(),
-            src.data_ptr(), link_ids.data_ptr(), out_pay.data_ptr(), out_cnt.data_ptr(),
-            overflow.data_ptr(), t_done.data_ptr(), ticks.data_ptr(), tr_pay.data_ptr(),
-            tr_ctl.data_ptr(), P, NP, FC, spec.transit_cap, spec.out_cap, E, NL, spec.R,
-            int(spec.switch_bubble), int(n_steps), _threads(P, NL, E), current_stream(inq_pay))
-    check_launch(err, "router_run")
+    if path == WARP:
+        # every slot is written by the payload gather: no zero fill
+        out_pay = torch.empty((P, NP, OC, E), dtype=torch.float32, device=dev)
+        org = torch.empty((P, NP, OC), dtype=I32, device=dev)
+        with torch.cuda.device(dev):
+            err = lib.smi_router_run_warp(
+                inq_pay.data_ptr(), inq_dst.data_ptr(), inq_len.data_ptr(),
+                route_tbl.data_ptr(), src.data_ptr(), link_ids.data_ptr(), out_pay.data_ptr(),
+                out_cnt.data_ptr(), overflow.data_ptr(), t_done.data_ptr(), ticks.data_ptr(),
+                org.data_ptr(), P, NP, FC, TC, OC, E, NL, spec.R, int(spec.switch_bubble),
+                int(n_steps), current_stream(inq_pay))
+        check_launch(err, "router_run (warp)")
+        router_run.warp_launches += 1
+    else:
+        out_pay = torch.zeros((P, NP, OC, E), dtype=torch.float32, device=dev)
+        tr_pay = torch.empty((P, TC + 1, E), dtype=torch.float32, device=dev)
+        tr_ctl = torch.empty((2, P, TC + 1), dtype=I32, device=dev)
+        with torch.cuda.device(dev):
+            err = lib.smi_router_run(
+                inq_pay.data_ptr(), inq_dst.data_ptr(), inq_len.data_ptr(),
+                route_tbl.data_ptr(), src.data_ptr(), link_ids.data_ptr(), out_pay.data_ptr(),
+                out_cnt.data_ptr(), overflow.data_ptr(), t_done.data_ptr(), ticks.data_ptr(),
+                tr_pay.data_ptr(), tr_ctl.data_ptr(), P, NP, FC, TC, OC, E, NL, spec.R,
+                int(spec.switch_bubble), int(n_steps), _threads(P, NL, E),
+                current_stream(inq_pay))
+        check_launch(err, "router_run (thread)")
     router_run.launches += 1
     return out_pay, out_cnt, overflow, t_done, ticks
 
 
 router_run.launches = 0
+router_run.warp_launches = 0

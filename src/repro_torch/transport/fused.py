@@ -2,16 +2,21 @@
 
 The ring collectives' hot path is ``acc = shift(acc) + partial`` repeated
 P-1 times, and the rooted reductions fold each arrival the same way.  On
-this backend every such plain-add fold goes through :func:`fused_accumulate`
-— the hand-written CUDA kernel ``csrc/accumulate.cu`` on a CUDA tensor, its
-plain PyTorch version :func:`accumulate_plain` on a CPU tensor.  The two are
-equal bit for bit, so results match the static backend exactly.  Fusing the
-rank-shift gather into the add (one pass over device memory instead of two)
-is later work.
+this backend each ring step is ONE pass over device memory,
+:func:`fused_shift_accumulate` (``out[r] = x[src[r]] + addend[r]``: the
+shift is a gather of another rank's row, read inside the add, so the
+shifted copy is never written), and every other plain-add fold goes through
+:func:`fused_accumulate`.  Both are the hand-written CUDA kernel
+``csrc/accumulate.cu`` on a CUDA tensor and their plain PyTorch versions
+(:func:`shift_accumulate_plain`, :func:`accumulate_plain`) on a CPU tensor.
+Kernel and plain version are equal bit for bit, and the stats tally what
+the static backend tallies, so results and counters match it exactly.
+Operands go through ``.contiguous()`` (a no-op on the ring's own tensors).
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -62,15 +67,98 @@ def fused_accumulate(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 fused_accumulate.launches = 0
 
 
+@functools.lru_cache(maxsize=512)
+def source_index(pairs: tuple, n: int, device: torch.device) -> torch.Tensor:
+    """The ``(n,)`` int32 source rank of every rank under the partial
+    permutation ``pairs`` (-1 for a rank that receives nothing), made once
+    per (pairs, n, device): a copy from host memory to the card would
+    synchronise every ring step."""
+    src = [-1] * n
+    for s, d in pairs:
+        if src[d] != -1:
+            raise ValueError(f"rank {d} receives twice in {list(pairs)}")
+        src[d] = s
+    return torch.tensor(src, dtype=torch.int32, device=device)
+
+
+def shift_accumulate_plain(x: torch.Tensor, addend: torch.Tensor,
+                           src_idx: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of the gather-fused kernel, ``ppermute``
+    then add written out: row ``r`` is ``x[src_idx[r]] + addend[r]``, and
+    ``0 + addend[r]`` (a real add of zero, so -0.0 becomes +0.0) where
+    ``src_idx[r] < 0``."""
+    shifted = torch.zeros_like(x)
+    recv = src_idx >= 0
+    shifted[recv] = x[src_idx[recv].long()]
+    return shifted + addend
+
+
+def fused_shift_accumulate(x: torch.Tensor, addend: torch.Tensor,
+                           src_idx: torch.Tensor) -> torch.Tensor:
+    """``out[r] = x[src_idx[r]] + addend[r]`` over the rank-stacked ``(P,
+    ...)`` operands, zeros in place of ``x``'s row where ``src_idx[r] < 0``:
+    one launch of the CUDA kernel on CUDA tensors, the plain version on CPU
+    tensors.
+
+    Takes contiguous ``x`` and ``addend`` of one shape and dtype (float32,
+    bfloat16, float16 or int32) and a ``(P,)`` int32 ``src_idx``, all on one
+    device; raises on anything else, and on a failed launch.
+    ``fused_shift_accumulate.launches`` counts kernel launches.
+    """
+    if x.shape != addend.shape or x.dtype != addend.dtype or x.device != addend.device:
+        raise ValueError(
+            f"fused_shift_accumulate needs operands of one shape, dtype and device; got "
+            f"{tuple(x.shape)}/{x.dtype}/{x.device} and "
+            f"{tuple(addend.shape)}/{addend.dtype}/{addend.device}")
+    if x.dim() == 0 or src_idx.shape != (x.shape[0],) or src_idx.device != x.device:
+        raise ValueError(f"fused_shift_accumulate needs a ({x.shape[0] if x.dim() else 0},) "
+                         f"src_idx on {x.device}, got {tuple(src_idx.shape)} on {src_idx.device}")
+    if x.device.type == "cpu":
+        return shift_accumulate_plain(x, addend, src_idx)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_shift_accumulate runs on cuda or cpu, not {x.device}")
+    if x.dtype not in DTYPE_CODES or src_idx.dtype != torch.int32:
+        raise TypeError(f"fused_shift_accumulate kernel does not take {x.dtype} operands "
+                        f"with a {src_idx.dtype} src_idx")
+    if not (x.is_contiguous() and addend.is_contiguous() and src_idx.is_contiguous()):
+        raise ValueError("fused_shift_accumulate kernel needs contiguous operands")
+    P = x.shape[0]
+    if P > 65535:
+        raise ValueError(f"fused_shift_accumulate kernel takes at most 65535 ranks, not {P}")
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    if x.numel() == 0:
+        return out
+    lib = library()
+    with torch.cuda.device(x.device):
+        err = lib.smi_shift_accumulate(x.data_ptr(), addend.data_ptr(), src_idx.data_ptr(),
+                                       out.data_ptr(), P, x.numel() // P, DTYPE_CODES[x.dtype],
+                                       current_stream(x))
+    check_launch(err, "shift_accumulate")
+    fused_shift_accumulate.launches += 1
+    return out
+
+
+fused_shift_accumulate.launches = 0
+
+
 @register_transport("fused")
 @dataclass
 class FusedTransport(StaticTransport):
-    """Static schedules with every plain-add fold on the add kernel
-    (``shift_accumulate`` = ``accumulate(shift(x), addend)``, inherited)."""
+    """Static schedules with each ring step on the gather-fused kernel and
+    every other plain-add fold on the add kernel."""
 
     def accumulate(self, a, b):
         """Every reduction-combine the collective layer routes through
-        :meth:`Transport.accumulate` lands on the kernel, not just the
-        shift-adjacent one."""
+        :meth:`Transport.accumulate` (the rooted folds) lands on the add
+        kernel."""
         self._check(a)
         return fused_accumulate(a.contiguous(), b.contiguous())
+
+    def shift_accumulate(self, x, addend, comm, step: int = 1):
+        """``shift(x) + addend`` in one launch: tallies one step carrying one
+        rank row of ``x``, as :meth:`StaticTransport.permute` does for the
+        shift, so the stats equal the static backend's."""
+        self._check(x)
+        self.account(x)
+        src = source_index(tuple(comm.ring_perm(step)), x.shape[0], x.device)
+        return fused_shift_accumulate(x.contiguous(), addend.contiguous(), src)

@@ -13,8 +13,11 @@ every output is equal bit for bit.
   reference's equivalence configurations, the ``out_cap`` overrun and the
   step budget;
 * the link lists and route tables equal the reference's;
-* kernel C against the plain router on the card (``cuda`` cases, skipped
-  where there is none):
+* ``router_path`` sends every fabric of up to 32 ranks to the warp path
+  and larger ones to the thread path;
+* kernel C, each of its two paths, against the plain routers on the card
+  (``cuda`` cases, skipped where there is none), each case asserting which
+  counter moved:
 
     python -m pytest --noconftest -m cuda tests/test_torch_router.py
 """
@@ -27,9 +30,10 @@ import torch
 
 from repro_torch.core import Communicator, RouterConfig, Topology, make_links, make_router_tables
 from repro_torch.core import run_router, snake_bus
-from repro_torch.core.router import _exchange_tables
+from repro_torch.core.router import _exchange_tables, _fabric
 from repro_torch.interop import router_inputs_from_reference
-from repro_torch.kernels.router import TickSpec, router_run, router_tick
+from repro_torch.kernels.router import TickSpec, router_path, router_run, router_tick, tick_spec_of
+from repro_torch.kernels.router.kernel import THREAD, WARP, warp_lanes, warp_shared_bytes
 
 DIMS = (2, 4)
 N = 8
@@ -404,3 +408,139 @@ def test_kernel_refuses_bad_input_on_the_card(cuda_device):
         run_router(cfg, comm, tbl, pay.double(), dst, ln, 8, impl="kernel")
     with pytest.raises(ValueError):
         run_router(cfg, comm, tbl, pay[:, :, :2], dst, ln, 8, impl="kernel")
+
+
+# -- the two kernel paths ------------------------------------------------------------
+
+#: every fabric the suite knows, with the path kernel C takes on it
+FABRIC_PATHS = {(2, 4): WARP, (8,): WARP, (4, 4): WARP, (2, 2, 2): WARP, (1, 8): WARP,
+                (4, 8): WARP, (8, 8): THREAD}
+
+
+@pytest.mark.parametrize("dims", sorted(FABRIC_PATHS), ids=str)
+def test_router_path_picks_warp_up_to_32_ranks(dims):
+    P, NL = int(np.prod(dims)), len(make_links(dims))
+    assert router_path(P, 2, NL, 6, 8) == FABRIC_PATHS[dims]
+    # the halo permute's router shape (128 packets a rank, transit 4)
+    assert router_path(P, 1, NL, 128, 4) == FABRIC_PATHS[dims]
+
+
+def test_router_path_takes_the_packet_reductions_at_8_ranks():
+    """The packet reductions' router shapes at 8 ranks, 2,048 float32 a
+    packet: the ring steps (1,024 packets a rank, transit 1,026) and the
+    rooted reduce's whole rows (8,192 packets, transit 8,194: 2^16 origins,
+    16-bit rings, 196 KB of shared memory)."""
+    assert router_path(8, 1, 3, 1024, 1026) == WARP
+    assert warp_shared_bytes(8, 1, 3, 8192, 8194) == 4 * (48 + 64 + 8) + 2 * 8 * 8194 + 65536
+    assert router_path(8, 1, 3, 8192, 8194) == WARP
+
+
+def test_router_path_falls_to_thread_where_the_warp_cannot_hold_the_shape():
+    assert router_path(8, 31, 3, 4, 4) == WARP  # 32 candidates: a lane each
+    assert router_path(8, 32, 3, 4, 4) == THREAD
+    assert router_path(33, 1, 4, 4, 4) == THREAD
+    # 32 lanes a rank: 32 control and 32 delivery warps do not fit a block
+    assert router_path(16, 31, 3, 4, 4) == WARP
+    assert router_path(17, 31, 3, 4, 4) == THREAD
+    assert [warp_lanes(1, 3), warp_lanes(2, 4), warp_lanes(4, 6), warp_lanes(31, 3)] == \
+        [4, 4, 8, 32]
+    assert router_path(8, 1, 3, 1 << 17, 4) == THREAD  # 2^20 origins
+    assert warp_shared_bytes(8, 1, 3, 4, 15000) > 232448
+    assert router_path(8, 1, 3, 4, 15000) == THREAD
+    assert warp_shared_bytes(8, 1, 3, 1 << 14, 8) == 4 * (48 + 64 + 8) + 4 * 8 * 8 + (1 << 17)
+
+
+def _card_run(dims, topo, cfg_kw, msgs, n_steps, path, device):
+    """One router job on the card through ``path``, the vector and the scalar
+    routers: (kernel outputs with ticks, [vector outputs, scalar outputs])."""
+    P = int(np.prod(dims))
+    names = ("x", "y", "z")[:len(dims)]
+    comm = Communicator.create(names, dims, device=device)
+    cfg = RouterConfig(dims=dims, **cfg_kw)
+    pay = np.zeros((P, cfg.n_ports, cfg.fifo_cap, cfg.pkt_elems), np.float32)
+    dst = np.zeros((P, cfg.n_ports, cfg.fifo_cap), np.int32)
+    ln = np.zeros((P, cfg.n_ports), np.int32)
+    for s, p, d, val in msgs:
+        if ln[s, p] < cfg.fifo_cap:
+            pay[s, p, ln[s, p]], dst[s, p, ln[s, p]] = val, d
+            ln[s, p] += 1
+    tbl = make_router_tables(topo, dims)
+    args = [torch.from_numpy(a).to(device) for a in (tbl, pay, dst, ln)]
+    _, link_ids, src = _fabric(tuple(dims), device)
+    spec = tick_spec_of(cfg, P, link_ids)
+    before = (router_run.launches, router_run.warp_launches)
+    got = router_run(spec, args[0], src, args[1], args[2], args[3], n_steps, path=path)
+    torch.cuda.synchronize()
+    assert (router_run.launches, router_run.warp_launches) == \
+        (before[0] + 1, before[1] + (path == WARP)), f"the {path} counter did not move"
+    want = [[o.cpu().numpy() for o in run_router(cfg, comm, *args, n_steps, impl=impl)]
+            for impl in ("vector", "scalar")]
+    for w, impl in zip(want, ("vector", "scalar")):
+        _assert_outs_equal(got[:4], w, f"{path} vs {impl}")
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", [WARP, THREAD])
+@pytest.mark.parametrize("cfg_name", sorted(EQ_CFGS))
+@pytest.mark.parametrize("topo", ["torus", "snake_bus"])
+def test_kernel_paths_match_plain_routers(topo, cfg_name, path, cuda_device):
+    kw = _cfg(**EQ_CFGS[cfg_name])
+    msgs = _rand_msgs(kw["n_ports"], np.random.RandomState(len(cfg_name) + 7))
+    t = Topology.torus(DIMS) if topo == "torus" else snake_bus(DIMS)
+    _card_run(DIMS, t, kw, msgs, 64, path, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", [WARP, THREAD])
+def test_kernel_paths_count_the_out_cap_overrun(path, cuda_device):
+    kw = dict(n_ports=1, fifo_cap=8, transit_cap=16, out_cap=2, pkt_elems=4)
+    got, _ = _card_run(DIMS, Topology.torus(DIMS), kw,
+                       [(s, 0, 0, float(10 + s)) for s in (1, 2, 4, 5)], 64, path, cuda_device)
+    assert int(got[1][0, 0]) == 2 and int(got[2].sum()) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", [WARP, THREAD])
+def test_kernel_paths_respect_the_step_budget(path, cuda_device):
+    kw = dict(n_ports=1, fifo_cap=8, transit_cap=8, out_cap=8, pkt_elems=4)
+    msgs = [(s, 0, (s + 1 + k) % N, float(10 * s + k)) for s in range(N) for k in range(4)]
+    got, _ = _card_run(DIMS, Topology.torus(DIMS), kw, msgs, 5, path, cuda_device)
+    assert int(got[4]) == 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", [WARP, THREAD])
+def test_kernel_paths_count_an_undersized_transit(path, cuda_device):
+    """transit_cap 1 under traffic that forwards several packets through the
+    same ranks: the parks past the cap drop and count."""
+    kw = dict(n_ports=2, fifo_cap=6, transit_cap=1, out_cap=16, pkt_elems=4, R=4)
+    msgs = [(s, p, (s + 2 + 3 * p) % N, float(s * 10 + p)) for s in range(N) for p in range(2)
+            for _ in range(3)]
+    got, _ = _card_run(DIMS, Topology.torus(DIMS), kw, msgs, 64, path, cuda_device)
+    assert int(got[2].sum()) > 0
+
+
+#: (dims, topology) of the seeded traffic cases: every fabric the suite knows
+TRAFFIC = [((2, 4), "torus"), ((2, 4), "snake_bus"), ((8,), "torus"), ((4, 4), "torus"),
+           ((2, 2, 2), "torus"), ((1, 8), "torus"), ((4, 8), "torus"), ((8, 8), "torus")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", [WARP, THREAD])
+@pytest.mark.parametrize("case", TRAFFIC, ids=lambda c: f"{c[1]}{c[0]}")
+def test_kernel_paths_on_seeded_traffic(case, path, cuda_device):
+    dims, topo = case
+    P = int(np.prod(dims))
+    if path == WARP and FABRIC_PATHS[dims] != WARP:
+        with pytest.raises(ValueError, match="warp path"):
+            _card_run(dims, Topology.torus(dims), _cfg(n_ports=1), [], 8, path, cuda_device)
+        return
+    rng = np.random.RandomState(P + len(dims) + (topo == "snake_bus"))
+    kw = dict(n_ports=2, fifo_cap=6, transit_cap=12, out_cap=12, pkt_elems=8, R=4,
+              switch_bubble=bool(P % 3))
+    msgs = [(s, p, int(rng.randint(0, P)), float(rng.randint(1, 999)))
+            for s in range(P) for p in range(2) for _ in range(rng.randint(0, 7))]
+    t = Topology.torus(dims) if topo == "torus" else snake_bus(dims)
+    got, _ = _card_run(dims, t, kw, msgs, 96, path, cuda_device)
+    assert int(got[1].sum()) > 0
