@@ -1,4 +1,4 @@
-// Building blocks of the port's Hopper (sm_90a) kernels D and E: TMA tensor
+// Building blocks of the port's Hopper (sm_90a) kernels D, E and F: TMA tensor
 // maps and copies, mbarriers, wgmma shared-memory descriptors and the wgmma
 // instructions they issue, in plain inline PTX.
 //
@@ -225,8 +225,9 @@ __device__ __forceinline__ void fence_regs(uint32_t (&d)[R][4]) {
 // d (64 x N, float32) += A (64 x 16, bf16) B (16 x N, bf16), N = 2 x the
 // size of d; scale_d = 0 overwrites d.  wgmma_ss reads A and B from shared
 // memory (N = 64, 128), wgmma_rs A from registers, 4 a thread (N = 64, 128,
-// 256).  TransB = 1 reads B MN-major.
-template <int TransB>
+// 256).  TransB = 1 reads B MN-major; TransA = 1 reads a shared-memory A
+// M-major (its descriptor as an MN-major B's: 16 rows a k16 step).
+template <int TransB, int TransA = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
                                          int scale_d) {
   asm volatile(
@@ -234,13 +235,13 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
       "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, %35;\n}\n"
+      "%32, %33, p, 1, 1, %36, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransB));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransB), "n"(TransA));
 }
 
 template <int TransB>
@@ -260,7 +261,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TransB));
 }
 
-template <int TransB>
+template <int TransB, int TransA = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
                                          int scale_d) {
   asm volatile(
@@ -270,7 +271,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a, uint64
       "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
       "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
       "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, %67;\n}\n"
+      "%64, %65, p, 1, 1, %68, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
@@ -282,7 +283,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a, uint64
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransB));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransB), "n"(TransA));
 }
 
 template <int TransB>

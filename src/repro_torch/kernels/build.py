@@ -31,7 +31,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("accumulate.cu", "stencil.cu", "router.cu", "flash_attention.cu", "ssd.cu",
            "matmul.cu")
-#: headers the sources include (the Hopper building blocks of kernels D and E);
+#: headers the sources include (the Hopper building blocks of kernels D, E and F);
 #: like every file under ``csrc/`` they are part of the build's hash
 HEADERS = ("hopper.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -135,6 +135,8 @@ def library() -> ctypes.CDLL:
     lib.smi_flash_attention.restype = i32
     lib.smi_ssd_scan.argtypes = [p] * 6 + [i32] * 5 + [p]
     lib.smi_ssd_scan.restype = i32
+    lib.smi_ssd_scan_wgmma.argtypes = [p] * 6 + [i32] * 3 + [p]
+    lib.smi_ssd_scan_wgmma.restype = i32
     lib.smi_matmul.argtypes = [p] * 3 + [i32] * 4 + [i64] * 2 + [i32] * 2 + [p]
     lib.smi_matmul.restype = i32
     lib.smi_matmul_wgmma.argtypes = [p] * 3 + [i32] * 7 + [p]

@@ -9,6 +9,14 @@ dtype, for ``A < 0`` and ``dt > 0``.  One extension: B and C may come as
 ``G`` rows, each shared by ``BH // G`` consecutive head rows (``G == BH`` is
 the Pallas kernel's layout; the model passes one row per sequence, which
 Mamba2 shares across its heads, rather than a copy broadcast to each head).
+
+Two CUDA kernels compute it, and :func:`ssd_path` picks one by dtype and
+dims alone: bfloat16 at mamba2's dims (head dim 64, state 128, chunk 128)
+runs on Hopper's wgmma (``"wgmma"``), everything else on float32 FMAs
+(``"fma"``: float32 inputs, and smaller dims zero-padded); both walk a head
+row's chunks in one CTA with the float32 state carried.  The pick is not a
+fallback: a call the dispatch sends to a path launches that path's kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -25,6 +33,24 @@ KERNEL_CHUNKS = (64, 128)
 #: head dim and state dim the CUDA kernel is built for; smaller ones are
 #: zero-padded up to them (zero columns add nothing and stay zero)
 KERNEL_DH, KERNEL_DST = 64, 128
+WGMMA, FMA = "wgmma", "fma"
+#: the wgmma path's chunk
+WGMMA_CHUNK = 128
+
+
+def ssd_path(dtype: torch.dtype, Dh: int, Dst: int, chunk: int) -> str:
+    """Which kernel F runs x, B, C of ``dtype`` at head dim ``Dh``, state
+    ``Dst`` and ``chunk``: :data:`WGMMA` for bfloat16 at exactly
+    (:data:`KERNEL_DH`, :data:`KERNEL_DST`, :data:`WGMMA_CHUNK`), :data:`FMA`
+    for float32 and for smaller (padded) dims or chunks of 64."""
+    if dtype not in SSD_DTYPES or Dh > KERNEL_DH or Dst > KERNEL_DST \
+            or chunk not in KERNEL_CHUNKS:
+        raise ValueError(f"kernel F takes float32 or bfloat16 with Dh <= {KERNEL_DH}, "
+                         f"Dst <= {KERNEL_DST} and chunks of {KERNEL_CHUNKS}, not {dtype} at "
+                         f"({Dh}, {Dst}, {chunk})")
+    if dtype == torch.bfloat16 and (Dh, Dst, chunk) == (KERNEL_DH, KERNEL_DST, WGMMA_CHUNK):
+        return WGMMA
+    return FMA
 
 
 def _check(x, dt, B, C, A):
@@ -94,13 +120,68 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _check_layout(x, dt, B, C, A, out, chunk: int):
+    """Raises unless the tensors are on the kernel's layout: the kernels
+    read raw pointers (the wgmma one through tensor maps built for dense
+    strides), so a strided view or a wrong dtype would read the wrong
+    memory without an error."""
+    BH, S = x.shape[:2]
+    G = B.shape[0]
+    want = {"x": (x, (BH, S, KERNEL_DH), x.dtype), "out": (out, (BH, S, KERNEL_DH), x.dtype),
+            "B": (B, (G, S, KERNEL_DST), x.dtype), "C": (C, (G, S, KERNEL_DST), x.dtype),
+            "dt": (dt, (BH, S), torch.float32), "A": (A, (BH,), torch.float32)}
+    for name, (t, shape, dtype) in want.items():
+        if t.device != x.device or tuple(t.shape) != shape or t.dtype != dtype \
+                or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"launch_ssd_scan takes {name} contiguous, 16-byte aligned, "
+                             f"{shape} {dtype} on {x.device}; got {tuple(t.shape)} {t.dtype} "
+                             f"on {t.device}, strides {t.stride()}, address {t.data_ptr():#x}")
+    if x.dtype not in SSD_DTYPES or G == 0 or BH % G or chunk not in KERNEL_CHUNKS or S % chunk:
+        raise ValueError(f"launch_ssd_scan takes x in {SSD_DTYPES}, G dividing BH and S a "
+                         f"multiple of a chunk of {KERNEL_CHUNKS}; got {x.dtype}, G {G}, BH "
+                         f"{BH}, S {S}, chunk {chunk}")
+
+
+def launch_ssd_scan(x, dt, B, C, A, out, *, chunk: int, path: str | None = None) -> str:
+    """One call of kernel F on the kernel's layout (contiguous, 16-byte
+    aligned CUDA tensors: x and ``out`` ``(BH, S, 64)``, B/C ``(G, S, 128)``
+    alike in dtype, dt ``(BH, S)`` and A ``(BH,)`` float32, ``S`` a multiple
+    of ``chunk``), writing ``out``; raises on any other layout.  ``path``
+    names the kernel (default :func:`ssd_path`'s pick; the FMA kernel also
+    takes bfloat16, which ``chip_smoke.py`` times beside the wgmma one).
+    Returns the path taken; raises on a failed launch."""
+    _check_layout(x, dt, B, C, A, out, chunk)
+    BH, S, _ = x.shape
+    G = B.shape[0]
+    path = path or ssd_path(x.dtype, x.shape[-1], B.shape[-1], chunk)
+    lib = library()
+    with torch.cuda.device(x.device):
+        if path == WGMMA:
+            if x.dtype != torch.bfloat16 or chunk != WGMMA_CHUNK:
+                raise ValueError(f"kernel F's wgmma path takes bfloat16 in chunks of "
+                                 f"{WGMMA_CHUNK}, not {x.dtype} in chunks of {chunk}")
+            err = lib.smi_ssd_scan_wgmma(x.data_ptr(), dt.data_ptr(), B.data_ptr(),
+                                         C.data_ptr(), A.data_ptr(), out.data_ptr(), BH, G, S,
+                                         current_stream(x))
+        elif path == FMA:
+            err = lib.smi_ssd_scan(x.data_ptr(), dt.data_ptr(), B.data_ptr(), C.data_ptr(),
+                                   A.data_ptr(), out.data_ptr(), BH, G, S, chunk,
+                                   DTYPE_CODES[x.dtype], current_stream(x))
+        else:
+            raise ValueError(f"kernel F has the paths {WGMMA!r} and {FMA!r}, not {path!r}")
+    check_launch(err, f"ssd_scan ({path})")
+    return path
+
+
 def ssd_scan_kernel(x, dt, B, C, A, *, chunk: int = 128) -> torch.Tensor:
     """Kernel F on CUDA tensors, :func:`ssd_scan_plain` on CPU tensors.
     x ``(BH, S, Dh)`` and B/C ``(G, S, Dst)`` float32 or bfloat16 alike, dt
     ``(BH, S)`` and A ``(BH, 1)`` of a float type; ``S`` a multiple of
     ``chunk`` (64 or 128), ``Dh <= 64``, ``Dst <= 128``, ``G`` dividing
     ``BH``.  Raises on anything the kernel does not take and on a failed
-    launch.  ``ssd_scan_kernel.launches`` counts launches."""
+    launch.  ``ssd_scan_kernel.launches`` counts calls that launched, and
+    ``ssd_scan_kernel.wgmma_launches`` those that took the wgmma path
+    (:func:`ssd_path`)."""
     _check(x, dt, B, C, A)
     BH, S, Dh = x.shape
     G, Dst = B.shape[0], B.shape[-1]
@@ -124,6 +205,7 @@ def ssd_scan_kernel(x, dt, B, C, A, *, chunk: int = 128) -> torch.Tensor:
                          f"not {Dh}, {Dst}")
     if BH == 0 or S == 0:
         return torch.empty_like(x)
+    path = ssd_path(x.dtype, Dh, Dst, chunk)
     if Dh != KERNEL_DH:
         x = F.pad(x, (0, KERNEL_DH - Dh))
     if Dst != KERNEL_DST:
@@ -131,14 +213,11 @@ def ssd_scan_kernel(x, dt, B, C, A, *, chunk: int = 128) -> torch.Tensor:
     x, B, C = (_aligned(t) for t in (x, B, C))
     dt, A = (_aligned(t.float()) for t in (dt, A.reshape(BH)))
     out = torch.empty_like(x)
-    lib = library()
-    with torch.cuda.device(x.device):
-        err = lib.smi_ssd_scan(x.data_ptr(), dt.data_ptr(), B.data_ptr(), C.data_ptr(),
-                               A.data_ptr(), out.data_ptr(), BH, G, S, chunk,
-                               DTYPE_CODES[x.dtype], current_stream(x))
-    check_launch(err, "ssd_scan")
+    launch_ssd_scan(x, dt, B, C, A, out, chunk=chunk, path=path)
     ssd_scan_kernel.launches += 1
+    ssd_scan_kernel.wgmma_launches += int(path == WGMMA)
     return out[..., :Dh] if Dh != KERNEL_DH else out
 
 
 ssd_scan_kernel.launches = 0
+ssd_scan_kernel.wgmma_launches = 0

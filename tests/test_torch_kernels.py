@@ -220,6 +220,21 @@ def _attention_cases():
     return cases
 
 
+def _ssd_cases():
+    """(id, dtype, Dh, Dst, chunk, path) of every card case of kernel F (the
+    cuda tests' and ``chip_smoke.py``'s, each naming its path) and of the
+    dims around mamba2's that go to the FMA kernel."""
+    from test_torch_ssd import CUDA_CASES
+
+    cases = [(f"test:{name}", c[6], c[2], c[3], c[5], c[7]) for name, c in CUDA_CASES.items()]
+    cases += [(f"chip_smoke:{c[0]}", getattr(torch, c[7]), c[3], c[4], c[6], c[9])
+              for c in _chip_smoke().SSD_CASES]
+    cases += [(f"dims:{dtype}_{dh}_{dst}_{chunk}", getattr(torch, dtype), dh, dst, chunk, "fma")
+              for dtype, dh, dst, chunk in [("bfloat16", 16, 128, 128), ("bfloat16", 64, 8, 128),
+                                            ("float32", 16, 8, 64)]]
+    return cases
+
+
 @pytest.mark.parametrize("case", _matmul_cases(), ids=lambda c: c[0])
 def test_matmul_dispatch_sends_card_cases_to_their_path(case):
     from repro_torch.kernels.matmul import matmul_path
@@ -238,6 +253,14 @@ def test_attention_dispatch_sends_card_cases_to_their_path(case):
     _, dtype, D = case
     padded = next(d for d in (64, 128, 256) if d >= D)
     assert flash_attention_path(dtype, padded) == ("wgmma" if dtype == torch.bfloat16 else "fma")
+
+
+@pytest.mark.parametrize("case", _ssd_cases(), ids=lambda c: c[0])
+def test_ssd_dispatch_sends_card_cases_to_their_path(case):
+    from repro_torch.kernels.ssd import ssd_path
+
+    _, dtype, Dh, Dst, chunk, path = case
+    assert ssd_path(dtype, Dh, Dst, chunk) == path
 
 
 def test_attention_dispatch_refuses_what_no_kernel_takes():
