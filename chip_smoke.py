@@ -129,10 +129,33 @@ non-zero):
 20. the same prefill at 4 layers over ``smi:fused``: bit-equal to
     ``smi:static`` (kernel A's gather-fused form folds the reduce-scatters
     as ``ppermute`` + ``torch.add`` would), A launched once per
-    reduce-scatter ring step.
+    reduce-scatter ring step;
+21. channel latency (paper Tab. 3, ``repro_torch.launch.channels``): on an
+    8-rank bus at 1, 4 and 7 hops over ``smi:static``, ``smi:fused`` and
+    ``smi:packet``, ``open_channel(...).transfer`` of 8 float32 at
+    ``n_chunks=1`` and a push/pop loop of 64 elements whose first element
+    must arrive on the hops-th pop and whose destination must pop 64; µs
+    per transfer and per pop; kernel C launched by the packet wire;
+22. channel bandwidth (paper Fig. 9): the same bus at 16 KiB, 256 KiB, 4 MiB
+    and 64 MiB per rank, 1, 4 and 7 hops, ``n_chunks=16``, over static,
+    fused, packet (to 4 MiB) and ``compressed:static`` beside the
+    unpipelined ``staged_p2p``, every delivery checked; GB/s;
+23. GESUMMV (paper §5.4.1): ``y = 1.5 A x + 2.5 B x`` over two stacked
+    ranks meeting through a channel, within 2e-4 of the single rank at N =
+    1024 and 2048; both timed at N = 16384 in float32, GB/s beside the
+    memory rate (both ranks share one card's memory: no 2x);
+24. collective channels at 8 x 16 Mi float32 on ring(1x8) and torus(2x4)
+    over ``smi:static`` and ``smi:fused``: the five kinds' ``transfer``
+    bit-equal to the direct collectives, kernel A launched by the reduce
+    channels' folds and the all-reduce channels' ring steps, the reduce and
+    all-reduce channels timed beside the direct calls by device time; an
+    all-reduce over ``compressed:static`` whose int8 wire and result equal
+    the CPU's bits; a ``ChannelPool`` spec serving 1,000 all-reduces on one
+    claim.
 
 A ``{"kernels": [...]}`` line carries the rows of phases 6, 7, 12, 15 and
-18, each with the path its kernel ran (``simt``, ``vector``, ``warp``,
+18 (A's and C's rows add ``launches_channels``, their launches in phases
+21-24), each with the path its kernel ran (``simt``, ``vector``, ``warp``,
 ``thread``, ``fma`` or ``wgmma``); the rows of A, C, E, F's wgmma path and
 D add ``ms_before``, the time in this run of the kernel their calls ran
 before (for A, its scalar predecessor; for C's warp row, the thread path;
@@ -1917,6 +1940,231 @@ def phase_tp_fused(dev, tp_params, n_layers: int = 4, seed: int = 20) -> dict:
     return {"shift": shifts, "fold": folds}
 
 
+# -- slice 6: channels and the int8 wire (phases 21-24) ---------------------------------
+
+#: the bandwidth phase's sizes per rank (KiB): the reference's three and 64 MiB,
+#: where the 8 ranks hold 512 MiB, ten times the 50 MB L2
+CHANNEL_BW_KIB = (16, 256, 4096, 65536)
+#: GESUMMV: the sizes checked against the single-rank result, and the timed one
+GESUMMV_CHECK_N = (1024, 2048)
+GESUMMV_N = 16384
+#: the compressed all-reduce held against the CPU on the same inputs, per rank
+COMPRESSED_ELEMS = 1 << 20
+POOL_TRANSFERS = 1000
+
+
+def phase_channel_latency(dev) -> tuple[list[dict], dict]:
+    """Phase 21 (paper Tab. 3): ``launch.channels.latency`` on an 8-rank bus
+    at 1, 4 and 7 hops over static, fused and packet: a transfer of 8
+    float32 at n_chunks=1 (checked) and a push/pop loop of 64 elements whose
+    first element must arrive on the hops-th pop and whose destination must
+    pop 64; µs per transfer and per pop.  Kernel C launches once per packet
+    pop and transfer."""
+    from repro_torch.kernels.router import router_run
+    from repro_torch.launch.channels import _line, latency
+
+    reset_counts()
+    rows = latency(dev, count=64, reps=20)
+    launches = {"C": router_run.launches, "C_warp": router_run.warp_launches}
+    if launches["C"] == 0:
+        raise AssertionError("the channel latency phase never launched kernel C")
+    for row in rows:
+        log(_line(row))
+    log(f"channel latency: kernel C launched {launches['C']} times "
+        f"({launches['C_warp']} on the warp path)")
+    return rows, launches
+
+
+def phase_channel_bandwidth(dev) -> tuple[list[dict], dict]:
+    """Phase 22 (paper Fig. 9): ``launch.channels.bandwidth`` on the same bus
+    at 16 KiB, 256 KiB, 4 MiB and 64 MiB per rank, 1, 4 and 7 hops,
+    n_chunks=16, over static, fused, packet (to 4 MiB) and compressed:static
+    beside the unpipelined ``staged_p2p``; every delivery checked; GB/s."""
+    from repro_torch.kernels.router import router_run
+    from repro_torch.launch.channels import _line, bandwidth
+
+    reset_counts()
+    rows = bandwidth(dev, sizes_kib=CHANNEL_BW_KIB, reps=5)
+    launches = {"C": router_run.launches, "C_warp": router_run.warp_launches}
+    if launches["C"] == 0:
+        raise AssertionError("the channel bandwidth phase never launched kernel C")
+    for row in rows:
+        log(_line(row))
+    log(f"channel bandwidth: kernel C launched {launches['C']} times "
+        f"({launches['C_warp']} on the warp path)")
+    return rows, launches
+
+
+def phase_gesummv(dev) -> dict:
+    """Phase 23 (paper §5.4.1, Fig. 13): GESUMMV on one rank and over two
+    stacked ranks whose partial GEMVs meet through a channel; equal within
+    2e-4 at N = 1024 and 2048 (the reference's gate); at N = 16384 in float32
+    (1 GiB a matrix) both timed by CUDA events and by device time (the
+    channel's eager host work shows in the first), GB/s beside the memory
+    rate.
+    Both ranks read one card's memory: no 2x is expected or claimed."""
+    import torch
+
+    from repro_torch.apps import gesummv, gesummv_two_ranks
+    from repro_torch.core import Communicator
+
+    comm = Communicator.create("x", (2,), device=dev)
+    g = torch.Generator(device=dev).manual_seed(23)
+    res = {}
+    for N in (*GESUMMV_CHECK_N, GESUMMV_N):
+        AB = torch.randn((2, N, N), generator=g, device=dev)
+        x = torch.randn(N, generator=g, device=dev)
+        one = gesummv(AB[0], AB[1], x)
+        two = gesummv_two_ranks(AB, x, comm)
+        torch.cuda.synchronize()
+        scale = max(float(one.abs().max()), 1.0)
+        err = float((two[1] - one).abs().max())
+        if not (torch.isfinite(two).all() and err <= 2e-4 * scale and not two[0].any()):
+            raise AssertionError(f"gesummv N={N}: two ranks off the single rank by {err}")
+        row = {"max_abs_err": err, "scale": scale}
+        if N == GESUMMV_N:
+            nbytes = 2 * N * N * 4
+            for name, fn in (("single", lambda: gesummv(AB[0], AB[1], x)),
+                             ("two_ranks", lambda: gesummv_two_ranks(AB, x, comm))):
+                ms, dev_ms = time_ms(fn, reps=10), device_ms(fn, reps=10)
+                row[name] = {"ms": ms, "gb_per_s": nbytes / (ms * 1e-3) / 1e9,
+                             "device_ms": dev_ms, "device_gb_per_s": nbytes / (dev_ms * 1e-3) / 1e9}
+            row["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+            for name, r in (("single rank", row["single"]),
+                            ("two ranks over a channel", row["two_ranks"])):
+                log(f"gesummv N={N} float32, {name}: {r['ms']:.4f} ms by CUDA events "
+                    f"({r['gb_per_s']:.1f} GB/s), {r['device_ms']:.4f} ms of device time "
+                    f"({r['device_gb_per_s']:.1f} GB/s); memory rate "
+                    f"{HBM_BYTES_PER_S / 1e9:.0f} GB/s, bound {row['bound_ms']:.4f} ms")
+        else:
+            log(f"gesummv N={N}: two ranks within {err:.3e} of the single rank (scale {scale:.1f})")
+        res[N] = row
+        del AB, x
+    return res
+
+
+def phase_collective_channels(dev) -> tuple[dict, dict]:
+    """Phase 24: at 8 x 16 Mi float32 on ring(1x8) and torus(2x4), over
+    smi:static and smi:fused, each of the five channel kinds' ``transfer``
+    bit-equal to the direct collective; kernel A launched by the reduce
+    channel's folds and the all-reduce's ring steps on smi:fused; the reduce
+    and all-reduce channels timed beside the direct calls by device time in
+    turns (direct, channel, channel, direct).  Then an all-reduce over
+    compressed:static whose int8 wire and result are the CPU plain result's
+    bits, and a ChannelPool spec serving 1,000 all-reduces on one claim."""
+    import dataclasses
+
+    import torch
+
+    import repro_torch.channels as ch
+    from repro_torch.core import Communicator
+    from repro_torch.core import collectives as C
+    from repro_torch.mesh.api import make_ctx
+    from repro_torch.parallel import layers
+    from repro_torch.transport.compressed import _pack_wire, _quantize_rows
+    from repro_torch.transport.fused import fused_accumulate, fused_shift_accumulate
+
+    g = torch.Generator(device=dev).manual_seed(24)
+    x = torch.randn((P, REDUCE_ELEMS), generator=g, device=dev)
+    xg = torch.randn((P, REDUCE_ELEMS // P), generator=g, device=dev)
+    pairs = {
+        "bcast": (lambda c, t: ch.open_bcast_channel(c, root=1, port=None,
+                                                     transport=t).transfer(x),
+                  lambda c, t: C._stream_bcast_impl(x, c, root=1, transport=t)),
+        "reduce": (lambda c, t: ch.open_reduce_channel(c, root=3, port=None,
+                                                       transport=t).transfer(x),
+                   lambda c, t: C.reduce(x, c, root=3, transport=t)),
+        "gather": (lambda c, t: ch.open_gather_channel(c, root=0, port=None,
+                                                       transport=t).transfer(xg),
+                   lambda c, t: C._stream_gather_impl(xg, c, root=0, transport=t)),
+        "scatter": (lambda c, t: ch.open_scatter_channel(c, root=0, port=None,
+                                                         transport=t).transfer(x),
+                    lambda c, t: C._stream_scatter_impl(x, c, root=0, transport=t)),
+        "allreduce": (lambda c, t: ch.open_allreduce_channel(c, port=None,
+                                                             transport=t).transfer(x),
+                      lambda c, t: C.allreduce(x, c, transport=t)),
+    }
+    reset_counts()
+    res, launched = {"times": {}}, {"fold": 0, "shift": 0}
+    for names, sizes in ((("x",), (8,)), (("x", "y"), DIMS)):
+        comm = Communicator.create(names, sizes, device=dev)
+        cname = "ring(1x8)" if len(sizes) == 1 else "torus(2x4)"
+        for wire in ("static", "fused"):
+            for kind, (chan, direct) in pairs.items():
+                before = (fused_accumulate.launches, fused_shift_accumulate.launches)
+                got = chan(comm, wire)
+                after = (fused_accumulate.launches, fused_shift_accumulate.launches)
+                want = direct(comm, wire)
+                torch.cuda.synchronize()
+                if not same_bits(got, want) or not torch.isfinite(got).all():
+                    raise AssertionError(f"{kind} channel on {cname} over smi:{wire} differs "
+                                         "from the direct call")
+                launched["fold"] += after[0] - before[0]
+                launched["shift"] += after[1] - before[1]
+                del got, want
+            log(f"collective channels on {cname} over smi:{wire}: all five bit-equal to the "
+                f"direct calls")
+        for kind in ("reduce", "allreduce"):
+            chan, direct = pairs[kind]
+            turns = {"direct": [], "channel": []}
+            for who in ("direct", "channel", "channel", "direct"):
+                fn = direct if who == "direct" else chan
+                turns[who].append(device_ms(lambda: fn(comm, "fused"), reps=5, warmup=1))
+            t = {k: sum(v) / len(v) for k, v in turns.items()}
+            res["times"][f"{kind}/{cname}/fused"] = t | {"turns_ms": turns}
+            log(f"{kind} on {cname} over smi:fused: channel {t['channel']:.4f} ms, direct "
+                f"{t['direct']:.4f} ms of device time ({t['channel'] / t['direct'] - 1:+.2%})")
+    counts = {"A_fold": fused_accumulate.launches, "A_shift": fused_shift_accumulate.launches}
+    if launched["fold"] == 0 or launched["shift"] == 0:
+        raise AssertionError(f"the collective channels launched kernel A {launched}")
+    log(f"collective channels: kernel A launched {launched['fold']} times as the reduce "
+        f"channels' plain add and {launched['shift']} times gather-fused by the all-reduce "
+        f"channels (the checked transfers; {counts} with the timed ones)")
+    del x, xg
+
+    # the int8 wire: the card's codes, scales and all-reduce are the CPU's bits
+    xc = torch.randn((P, COMPRESSED_ELEMS), generator=g, device=dev) * 10
+    xh = xc.cpu()
+    if not same_bits(_pack_wire(*_quantize_rows(xc, 256)).cpu(),
+                     _pack_wire(*_quantize_rows(xh, 256))):
+        raise AssertionError("the int8 wire's bits differ between the card and the CPU")
+    card = ch.open_allreduce_channel(Communicator.create("x", (8,), device=dev), port=None,
+                                     transport="compressed:static").transfer(xc)
+    cpu = ch.open_allreduce_channel(Communicator.create("x", (8,), device="cpu"), port=None,
+                                    transport="compressed:static").transfer(xh)
+    if not same_bits(card.cpu(), cpu):
+        raise AssertionError("the compressed all-reduce differs between the card and the CPU")
+    err = float((card.double() - xc.double().sum(0)).abs().max())
+    res["compressed"] = {"elems": COMPRESSED_ELEMS, "max_abs_err_vs_f32_sum": err}
+    log(f"compressed:static all-reduce of 8 x {COMPRESSED_ELEMS} float32: the card's wire and "
+        f"result equal the CPU's bit for bit; max abs err {err:.4f} against the exact sum")
+    del xc, xh, card, cpu
+
+    # the persistent pool: one claim serves every call
+    ctx = make_ctx((1, P), comm_mode="smi:fused", device=dev)
+    with ch.ChannelPool(ctx.model_comm) as pool:
+        pctx = dataclasses.replace(ctx, channels=pool)
+        xs = torch.randn((P, 4096), generator=g, device=dev)
+        want = layers.all_reduce(xs, ctx)
+        if not same_bits(layers.all_reduce(xs, pctx), want):
+            raise AssertionError("an all-reduce through the pool differs")
+        claims = [(r["port"], r["tag"], id(r["owner"])) for r in pool.claims()]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(POOL_TRANSFERS):
+            layers.all_reduce(xs, pctx)
+        torch.cuda.synchronize()
+        us = (time.perf_counter() - t0) * 1e6 / POOL_TRANSFERS
+        after = [(r["port"], r["tag"], id(r["owner"])) for r in pool.claims()]
+        if after != claims or len(claims) != 1:
+            raise AssertionError(f"the pool's claims moved: {claims} -> {after}")
+    res["pool"] = {"transfers": POOL_TRANSFERS, "us_per_transfer": us, "claims": len(claims),
+                   "port": claims[0][0], "tag": claims[0][1]}
+    log(f"ChannelPool: {POOL_TRANSFERS} all-reduces of (8, 4096) float32 over smi:fused on one "
+        f"claim (port {claims[0][0]}, {claims[0][1]}), {us:.1f} us each")
+    return res, launched
+
+
 def main() -> int:
     import torch
 
@@ -2034,6 +2282,33 @@ def main() -> int:
     row_d["launches"] = launches_d
     rows.append(row_d)
 
+    t0 = time.perf_counter()
+    latency_rows, lat_c = phase_channel_latency(dev)
+    torch.cuda.synchronize()
+    log(f"phase 21 (channel latency): {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    bandwidth_rows, bw_c = phase_channel_bandwidth(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"phase 22 (channel bandwidth): {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    gesummv_res = phase_gesummv(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"phase 23 (GESUMMV): {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    coll, coll_a = phase_collective_channels(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"phase 24 (collective channels): {time.perf_counter() - t0:.1f}s")
+    by_name = {r["name"]: r for r in rows}
+    by_name["accumulate"]["launches_channels"] = coll_a["fold"]
+    by_name["shift_accumulate"]["launches_channels"] = coll_a["shift"]
+    c_warp = next(r for r in rows if r["name"] == "router_run" and r["path"] == "warp")
+    c_thread = next(r for r in rows if r["name"] == "router_run" and r["path"] == "thread")
+    c_warp["launches_channels"] = lat_c["C_warp"] + bw_c["C_warp"]
+    c_thread["launches_channels"] = lat_c["C"] - lat_c["C_warp"] + bw_c["C"] - bw_c["C_warp"]
+
     log("stencil_wall_per_step_ms: " + json.dumps(
         {k: v["wall_per_step_s"] * 1e3 for k, v in stencil.items()}))
     log("packet_stencil_wall_per_step_ms: " + json.dumps(
@@ -2048,6 +2323,10 @@ def main() -> int:
                                       for k, v in res.items()}))
     log("prefill_mamba2_4096: " + json.dumps(ssm_prefill))
     log("tp_prefill_yi6b_4096_p8: " + json.dumps(tp_prefill))
+    log("channel_latency: " + json.dumps(latency_rows))
+    log("channel_bandwidth: " + json.dumps(bandwidth_rows))
+    log("gesummv: " + json.dumps(gesummv_res))
+    log("collective_channels: " + json.dumps(coll))
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

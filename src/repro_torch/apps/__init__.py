@@ -5,9 +5,13 @@
 * :class:`~repro_torch.apps.stencil.DistributedStencil` — 2D heat diffusion
   (paper §5.4.2): a pipelined step that runs the interior update while the
   halo slabs fly, plus the non-overlapped reference it matches bit for bit.
+* :func:`~repro_torch.apps.gesummv.gesummv` and
+  :func:`~repro_torch.apps.gesummv.gesummv_two_ranks` — GESUMMV (paper
+  §5.4.1) on one rank and as the two-rank decomposition over a channel.
 """
 
+from .gesummv import gesummv, gesummv_two_ranks
 from .halo import HALO_TAG, HaloExchange
 from .stencil import DistributedStencil
 
-__all__ = ["HALO_TAG", "HaloExchange", "DistributedStencil"]
+__all__ = ["HALO_TAG", "HaloExchange", "DistributedStencil", "gesummv", "gesummv_two_ranks"]

@@ -11,7 +11,10 @@ equal the reference's bit for bit and step for step.
 * ring AllGather / ReduceScatter / AllReduce / AllToAll;
 * binomial-tree and host-staged Bcast/Reduce;
 * the ``bcast``/``reduce``/``allreduce`` dispatchers, driven by a
-  :class:`~repro_torch.netsim.Plan` (``plan=None`` is the static default).
+  :class:`~repro_torch.netsim.Plan` (``plan=None`` is the static default);
+* the once-quantised reduce-scatter of a lossy (int8) wire, and
+  :func:`make_int8_codec` for the deprecated ``quantize=`` keywords;
+* the deprecated ``stream_*`` collective shims over transient channels.
 
 A per-rank index (``lax.axis_index`` arithmetic in the reference) is a
 tensor over the rank dimension here: :func:`_take` and :func:`_put` are the
@@ -23,6 +26,9 @@ stay outside the hook.  Inputs are never modified.
 
 from __future__ import annotations
 
+import functools
+import warnings
+
 import torch
 
 from .comm import Communicator
@@ -33,6 +39,25 @@ def _resolve(transport, comm: Communicator):
     from ..transport.registry import resolve_transport
 
     return resolve_transport(transport, comm)
+
+
+def _codec_shim(t, quantize, dequantize):
+    """The deprecated ``quantize=``/``dequantize=`` keywords: ``t`` wrapped
+    in a :class:`~repro_torch.transport.compressed.CompressedTransport`
+    carrying the caller's codec, the same error-feedback wire as
+    ``transport="compressed"``."""
+    warnings.warn(
+        "quantize=/dequantize= kwargs are deprecated; pass transport='compressed' (or "
+        "'compressed:<inner>') instead — the compressed transport carries blockwise int8 "
+        "scales, per-hop error feedback and byte-accurate wire stats",
+        DeprecationWarning, stacklevel=3)
+    from ..transport.compressed import CompressedTransport
+
+    return CompressedTransport(inner=t, codec=(quantize, dequantize))
+
+
+def _is_lossy(t) -> bool:
+    return bool(getattr(t, "lossy_wire", False))
 
 
 def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -126,11 +151,19 @@ def stream_allgather(x: torch.Tensor, comm: Communicator, *, bidir: bool = False
 
 
 def stream_reduce_scatter(x: torch.Tensor | None, comm: Communicator, *,
-                          compute_chunk=None, transport=None):
+                          compute_chunk=None, quantize=None, dequantize=None, transport=None):
     """Ring reduce-scatter.  Each rank's ``(P*m, ...)`` partials ->
     ``(m, ...)``: block ``r`` summed over ranks, on rank ``r``.  The inner
     step is the transport's ``shift_accumulate`` (the add kernel on the
     fused backend).
+
+    A lossy wire (``transport="compressed"``, or the deprecated
+    ``quantize=``/``dequantize=`` keywords, which wrap the transport in it)
+    takes the once-quantised schedule instead: round ``s`` quantises each
+    rank's contribution to block ``(r + s) % P`` once, with the transport's
+    error-feedback residual (zero at the start of every call), and ships it
+    straight home with a distance-``s`` ring permute; the sums stay float32
+    and are never re-rounded, so the error does not grow with P.
 
     ``compute_chunk(blk)`` produces the partial blocks just in time, one
     ring step before they are needed, in place of ``x`` (the streamed
@@ -141,11 +174,24 @@ def stream_reduce_scatter(x: torch.Tensor | None, comm: Communicator, *,
     P = comm.size
     r = comm.rank()
     t = _resolve(transport, comm)
+    if quantize is not None:
+        t = _codec_shim(t, quantize, dequantize)
     if compute_chunk is None:
         xb = _chunks(x, P)
 
         def compute_chunk(blk):
             return _take(xb, blk)
+
+    if _is_lossy(t):
+        t.reset_state()
+        own = compute_chunk(r)
+        if P == 1:
+            return own
+        acc = own.float()
+        for s in range(1, P):
+            # the contribution to block (r + s) % P, arriving at its home rank
+            acc = acc + t.send_contribution(compute_chunk((r + s) % P), comm, +s)
+        return acc.to(own.dtype)
 
     acc = compute_chunk((r - 1) % P)
     if P == 1:
@@ -155,24 +201,34 @@ def stream_reduce_scatter(x: torch.Tensor | None, comm: Communicator, *,
     return acc
 
 
-def _stream_allreduce_impl(x: torch.Tensor, comm: Communicator, *, bidir: bool = False,
-                           transport=None):
-    """Ring all-reduce (RS + AG) of each rank's arbitrary-shaped buffer."""
+def _stream_allreduce_impl(x: torch.Tensor, comm: Communicator, *, quantize=None,
+                           dequantize=None, bidir: bool = False, transport=None):
+    """Ring all-reduce (RS + AG) of each rank's arbitrary-shaped buffer.  A
+    lossy wire needs a floating dtype (casting approximate sums back to an
+    integer type would corrupt them silently).  The deprecated
+    ``quantize=``/``dequantize=`` keywords compress the reduce-scatter only;
+    ``transport="compressed"`` compresses both phases."""
     P = comm.size
     if P == 1:
         return x
-    shape = x.shape
+    shape, dtype = x.shape, x.dtype
     t = _resolve(transport, comm)
+    rs_t = t if quantize is None else _codec_shim(t, quantize, dequantize)
+    if _is_lossy(rs_t) and not dtype.is_floating_point:
+        raise TypeError(
+            f"compressed/quantized all-reduce of {dtype} payload: the lossy wire yields "
+            "approximate floats and casting back would silently corrupt integer data; use a "
+            "raw transport for integer reduces")
     flat = x.reshape(shape[0], -1)
     orig = flat.shape[1]
     pad = (-orig) % P
     if pad:
         flat = torch.nn.functional.pad(flat, (0, pad))
-    red = stream_reduce_scatter(flat, comm, transport=t)
+    red = stream_reduce_scatter(flat, comm, transport=rs_t)
     full = stream_allgather(red, comm, bidir=bidir, transport=t)
     if pad:
         full = full[:, :orig]
-    return full.reshape(shape)
+    return full.reshape(shape).to(dtype)
 
 
 def stream_alltoall(x: torch.Tensor, comm: Communicator, *, transport=None):
@@ -324,6 +380,91 @@ def _stream_scatter_impl(x: torch.Tensor, comm: Communicator, *, root: int = 0,
 
 
 # ---------------------------------------------------------------------------
+# Deprecated stream_* entry points: thin shims over transient channels.  Each
+# opens an anonymous-port collective channel carrying the call's config and
+# transfers through it, so results and stats equal the schedules above;
+# new code opens a tagged channel (repro_torch.channels) or calls the
+# parallel layers.
+# ---------------------------------------------------------------------------
+
+
+def _deprecated(alt: str):
+    """Make a function a deprecated shim: every call warns, naming ``alt``."""
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def shim(*args, **kw):
+            warnings.warn(
+                f"{fn.__name__} is a deprecated transient-channel shim: untagged, untuned comm "
+                f"invisible to the per-tag step accounting.  Use {alt} (see "
+                "repro_torch.parallel), or open a tagged channel via repro_torch.channels.",
+                DeprecationWarning, stacklevel=2)
+            return fn(*args, **kw)
+
+        return shim
+
+    return deco
+
+
+# each shim's def line names it: the reference's lint (SMI001) flags the names
+# outside its own definition site, so these lines carry its suppression
+
+
+@_deprecated("a tagged bcast channel")
+def stream_bcast(x: torch.Tensor, comm: Communicator, *, root: int = 0,  # smilint: ignore[SMI001]
+                 n_chunks: int = 1, transport=None):
+    """Pipelined chain broadcast (:func:`_stream_bcast_impl`) through a
+    transient broadcast channel."""
+    from ..channels import open_bcast_channel
+
+    return open_bcast_channel(comm, root=root, port=None, transport=transport,
+                              n_chunks=n_chunks).transfer(x)
+
+
+@_deprecated("a tagged reduce channel")
+def stream_reduce(x: torch.Tensor, comm: Communicator, *, root: int = 0,  # smilint: ignore[SMI001]
+                  n_chunks: int = 1, op=None, transport=None):
+    """Pipelined chain reduction to ``root`` (:func:`_stream_reduce_impl`)
+    through a transient reduce channel."""
+    from ..channels import open_reduce_channel
+
+    return open_reduce_channel(comm, root=root, port=None, op=op, transport=transport,
+                               n_chunks=n_chunks).transfer(x)
+
+
+@_deprecated("repro_torch.parallel.gather_sequence")
+def stream_gather(x: torch.Tensor, comm: Communicator, *,  # smilint: ignore[SMI001]
+                  root: int = 0, transport=None):
+    """Convoy gather (:func:`_stream_gather_impl`) through a transient
+    gather channel."""
+    from ..channels import open_gather_channel
+
+    return open_gather_channel(comm, root=root, port=None, transport=transport).transfer(x)
+
+
+@_deprecated("repro_torch.parallel.reduce_scatter_sequence")
+def stream_scatter(x: torch.Tensor, comm: Communicator, *,  # smilint: ignore[SMI001]
+                   root: int = 0, transport=None):
+    """Convoy scatter (:func:`_stream_scatter_impl`) through a transient
+    scatter channel."""
+    from ..channels import open_scatter_channel
+
+    return open_scatter_channel(comm, root=root, port=None, transport=transport).transfer(x)
+
+
+@_deprecated("repro_torch.parallel.all_reduce")
+def stream_allreduce(x: torch.Tensor, comm: Communicator, *,  # smilint: ignore[SMI001]
+                     quantize=None, dequantize=None, bidir: bool = False, transport=None):
+    """Ring all-reduce (:func:`_stream_allreduce_impl`) through a transient
+    all-reduce channel; the deprecated ``quantize=``/``dequantize=`` reach
+    the schedule's codec shim unchanged."""
+    from ..channels import open_allreduce_channel
+
+    return open_allreduce_channel(comm, port=None, transport=transport).transfer(
+        x, quantize=quantize, dequantize=dequantize, bidir=bidir)
+
+
+# ---------------------------------------------------------------------------
 # Beyond-paper: binomial trees (the paper's explicit future work)
 # ---------------------------------------------------------------------------
 
@@ -467,3 +608,24 @@ def allreduce(x: torch.Tensor, comm: Communicator, *, plan=None, transport=None,
     p = _resolve_plan(plan, x)
     tp = transport if transport is not None else p.transport_key
     return _stream_allreduce_impl(x, comm, transport=tp, **kw)
+
+
+# ---------------------------------------------------------------------------
+# int8 codec for the deprecated quantize=/dequantize= keywords
+# ---------------------------------------------------------------------------
+
+
+def make_int8_codec(axis_elems: int | None = None):
+    """``(quantize, dequantize)``: the int8 codec of one rank's tensor, one
+    float32 scale per ``axis_elems`` flattened elements (``None``: one scale
+    a tensor).  New code passes ``transport="compressed"`` instead: the same
+    codec with error feedback and the wire's byte counts."""
+    from ..transport.compressed import dequantize_int8, quantize_int8
+
+    def quantize(v):
+        return quantize_int8(v, axis_elems)
+
+    def dequantize(wire):
+        return dequantize_int8(wire, axis_elems)
+
+    return quantize, dequantize

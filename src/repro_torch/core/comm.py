@@ -20,7 +20,8 @@ work; the schedules written against it do not change.
 from __future__ import annotations
 
 import functools
-from dataclasses import dataclass, replace
+import weakref
+from dataclasses import dataclass, field, replace
 
 import torch
 
@@ -176,3 +177,132 @@ class Communicator:
     def path_perm(self, path: list[int]) -> list[tuple[int, int]]:
         """Pipeline permutation along a routed path (each hop advances)."""
         return list(zip(path[:-1], path[1:]))
+
+
+@dataclass
+class PortAllocator:
+    """Ports name distinct hardware endpoints (paper §2.2); this allocator
+    hands out unique port ids per communicator and raises on reuse, the
+    software analogue of two kernels contending for one hardware FIFO.
+
+    :func:`repro_torch.channels.open_channel` claims through the package's
+    default allocator (``repro_torch.channels.PORTS``): opening a channel
+    claims its port, closing it (or leaving its ``with`` scope) releases
+    it.  A claim may carry an *owner*, the opening
+    :class:`~repro_torch.channels.ChannelSpec`, held by weak reference: in
+    the reference a claim lapses when the trace that opened it is
+    collected; here it lapses when the last channel object holding the spec
+    is, so a loop that opens channels without closing them does not poison
+    the allocator.  Ownerless claims (the bare ``claim(comm, port)``) last
+    until released.
+
+    A *persistent* claim (``claim(..., persistent=True)``, the
+    ``ChannelSpec(persistent=True)`` lifecycle of a
+    :class:`~repro_torch.channels.ChannelPool`) holds its owner strongly:
+    it outlives every channel that used it and goes only by an explicit
+    owner release or ``release_all``.
+
+    Claims are keyed per communicator *instance*: two communicators may both
+    use port 0 (different route fabrics), but one communicator's port 0 is
+    one endpoint.
+    """
+
+    #: id(comm) -> {port: owner weakref (transient) | owner (persistent) |
+    #: None (ownerless)}
+    used: dict = field(default_factory=dict)
+    #: id(comm) -> [weakrefs to anonymous (port=None) channel specs]: no
+    #: claim, but :meth:`claims` reports them while they live
+    anonymous: dict = field(default_factory=dict)
+
+    def _ports(self, comm: Communicator) -> dict:
+        key = id(comm)
+        if key not in self.used:
+            self.used[key] = {}
+            # drop the bucket when the communicator itself is collected
+            weakref.finalize(comm, self.used.pop, key, None)
+        return self.used[key]
+
+    @staticmethod
+    def _owner_of(entry):
+        """(live, owner) of a claim entry: ownerless entries are live with
+        no owner; weakref entries live while their referent does; strong
+        (persistent) entries always."""
+        if entry is None:
+            return True, None
+        if isinstance(entry, weakref.ref):
+            cur = entry()
+            return cur is not None, cur
+        return True, entry
+
+    def claim(self, comm: Communicator, port: int, owner=None,
+              persistent: bool = False) -> int:
+        ports = self._ports(comm)
+        if port in ports and self._owner_of(ports[port])[0]:
+            raise ValueError(
+                f"port {port} already claimed on communicator {comm.name!r}; SMI "
+                "ports identify distinct hardware endpoints and cannot be shared — "
+                "close the other channel (or pick another port) first")
+        if owner is None:
+            ports[port] = None
+        else:
+            ports[port] = owner if persistent else weakref.ref(owner)
+        return port
+
+    def release(self, comm: Communicator, port: int, owner=None) -> None:
+        """Release ``port``: only the claim ``owner`` holds (or, with
+        ``owner=None``, an ownerless or lapsed claim).  A stale release — a
+        second ``close()`` after another channel claimed the port — never
+        frees another owner's claim."""
+        ports = self.used.get(id(comm), {})
+        if port not in ports:
+            return
+        entry = ports[port]
+        _, cur = self._owner_of(entry)
+        if owner is not None:
+            if entry is None or (cur is not None and cur is not owner):
+                return  # ownerless, or another live owner holds the port now
+        elif cur is not None:
+            return  # a bare release frees only ownerless or lapsed claims
+        ports.pop(port, None)
+
+    def release_all(self, comm: Communicator) -> None:
+        self.used.pop(id(comm), None)
+
+    def in_use(self, comm: Communicator) -> tuple[int, ...]:
+        """Ports currently claimed (live owners or ownerless) on ``comm``."""
+        ports = self.used.get(id(comm), {})
+        return tuple(sorted(p for p, e in ports.items() if self._owner_of(e)[0]))
+
+    def note_anonymous(self, comm: Communicator, owner) -> None:
+        """Register an anonymous (``port=None``) channel's spec, weakly: it
+        holds no claim, but :meth:`claims` lists it while it lives."""
+        key = id(comm)
+        refs = self.anonymous.get(key)
+        if refs is None:
+            refs = self.anonymous[key] = []
+            weakref.finalize(comm, self.anonymous.pop, key, None)
+        refs[:] = [r for r in refs if r() is not None]  # prune the dead
+        refs.append(weakref.ref(owner))
+
+    def claims(self, comm: Communicator) -> tuple[dict, ...]:
+        """Every live claim on ``comm``, port-ordered, then one row per live
+        anonymous channel: ``{"port", "persistent", "anonymous", "tag",
+        "kind", "owner"}`` (``tag``/``kind`` from the owning spec; an
+        ownerless claim has ``owner=None``)."""
+
+        def row(port, persistent, anonymous, owner):
+            return {"port": port, "persistent": persistent, "anonymous": anonymous,
+                    "tag": getattr(owner, "stats_tag", getattr(owner, "tag", None)),
+                    "kind": getattr(owner, "kind", None), "owner": owner}
+
+        rows = []
+        for port, entry in sorted(self.used.get(id(comm), {}).items()):
+            live, owner = self._owner_of(entry)
+            if live:
+                persistent = entry is not None and not isinstance(entry, weakref.ref)
+                rows.append(row(port, persistent, False, owner))
+        for ref in self.anonymous.get(id(comm), []):
+            owner = ref()
+            if owner is not None:
+                rows.append(row(None, False, True, owner))
+        return tuple(rows)

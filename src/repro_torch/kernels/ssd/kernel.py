@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..build import DTYPE_CODES, check_launch, current_stream, library
+from ..common import on_calling_thread
 
 #: dtypes of x, B and C the kernel takes (dt and A are read as float32)
 SSD_DTYPES = (torch.float32, torch.bfloat16)
@@ -66,6 +67,11 @@ def _check(x, dt, B, C, A):
                          f"value a head row")
 
 
+def _exp(t: torch.Tensor) -> torch.Tensor:
+    """``torch.exp`` on the calling thread: the same bits on every call."""
+    return on_calling_thread(torch.exp, t)
+
+
 def ssd_scan_plain(x, dt, B, C, A, *, chunk: int = 128) -> torch.Tensor:
     """The plain PyTorch version of kernel F: the chunked math of the
     reference's ``_ssd_chunked_jnp`` in float32.  Within each chunk of
@@ -95,13 +101,13 @@ def ssd_scan_plain(x, dt, B, C, A, *, chunk: int = 128) -> torch.Tensor:
     tri = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
     # exp(cum_i - cum_j) for j <= i; above the diagonal the exponent is
     # positive and would overflow: select -inf there, so exp gives 0
-    decay = torch.exp(torch.where(tri, cum - cum.transpose(-1, -2), float("-inf")))
+    decay = _exp(torch.where(tri, cum - cum.transpose(-1, -2), float("-inf")))
     scores = (Cc @ Bc.transpose(-1, -2)) * decay                   # (G, rep, n, L, L)
     y1 = scores @ xd
 
     last = cum[..., -1:, :]                                        # (G, rep, n, 1, 1)
-    chunk_state = (Bc * torch.exp(last - cum)).transpose(-1, -2) @ xd   # (G, rep, n, Dst, Dh)
-    chunk_decay = torch.exp(last)
+    chunk_state = (Bc * _exp(last - cum)).transpose(-1, -2) @ xd   # (G, rep, n, Dst, Dh)
+    chunk_decay = _exp(last)
     h = torch.zeros((G, rep, 1, Dst, Dh), dtype=torch.float32, device=x.device)
     h_in = []
     for c in range(n):
@@ -109,7 +115,7 @@ def ssd_scan_plain(x, dt, B, C, A, *, chunk: int = 128) -> torch.Tensor:
         h = chunk_decay[:, :, c:c + 1] * h + chunk_state[:, :, c:c + 1]
     h_in = torch.cat(h_in, dim=2)                                  # (G, rep, n, Dst, Dh)
 
-    y2 = torch.exp(cum) * (Cc @ h_in)
+    y2 = _exp(cum) * (Cc @ h_in)
     return (y1 + y2).reshape(BH, n * L, Dh)[:, :S].to(x.dtype)
 
 

@@ -37,8 +37,8 @@ from ..core.comm import Communicator
 from ..transport.registry import resolve_comm_mode
 
 #: what tensor-parallel decode and serving raise with
-TP_ROADMAP = ("tensor-parallel decode and serving (tp > 1) wait for the channel slice "
-              "(ChannelPool) and the rest of the TP slice (ROADMAP.md §1, items 2 and 9)")
+TP_ROADMAP = ("tensor-parallel decode and serving (tp > 1) wait for the rest of the TP slice "
+              "(ROADMAP.md §1, item 9)")
 #: what ring attention raises with
 RING_ATTN_ROADMAP = "opt_ring_attn (ring attention) waits for its slice (ROADMAP.md §1, item 9)"
 #: what a mesh with a data axis of more than one rank raises with

@@ -9,15 +9,18 @@ import math
 
 import torch
 
+from ..kernels.common import on_calling_thread
+
 
 def trunc_normal(generator: torch.Generator, shape, scale: float, dtype=torch.float32):
     """``scale`` times a standard normal truncated to [-2, 2], drawn on the
     generator's device by inverting the normal CDF over the uniform band
-    that maps onto [-2, 2]."""
+    that maps onto [-2, 2] (on the CPU, on the calling thread: the same bits
+    on every call)."""
     lo, hi = (0.5 * (1.0 + math.erf(b / math.sqrt(2.0))) for b in (-2.0, 2.0))
     u = torch.empty(shape, dtype=torch.float32, device=generator.device)
     u.uniform_(2.0 * lo - 1.0, 2.0 * hi - 1.0, generator=generator)
-    x = u.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
+    x = on_calling_thread(torch.erfinv, u).mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
     return x.mul_(scale).to(dtype)
 
 

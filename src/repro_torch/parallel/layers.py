@@ -21,10 +21,13 @@ one (kernel D: one launch per ring step for all P ranks), else
 for bfloat16 and float32 inputs alike, as the reference's ``jnp.dot(...,
 preferred_element_type=float32)`` does.
 
-Not ported yet: tuned layer plans (``plan=`` raises, ROADMAP item 3), a
-persistent ``ChannelPool`` (``ctx.channels``, item 2), the lossy wire
-(``wire="int8"``), ring attention, the MoE, loss, gradient and pipeline
-layers.
+When the context carries a persistent
+:class:`~repro_torch.channels.ChannelPool` (``ctx.channels``), each layer's
+spec comes from the pool: the pool-prefixed tag and one persistent port
+claim a tag.  ``wire="int8"`` runs a layer over the compressed link.
+
+Not ported yet: tuned layer plans (``plan=`` raises, ROADMAP item 3), ring
+attention, the MoE, loss, gradient and pipeline layers.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ import torch
 from ..channels import ChannelSpec
 from ..core.collectives import _stream_allreduce_impl, stream_allgather, stream_reduce_scatter
 from ..core.overlap import _default_mm, stream_allgather_matmul, stream_matmul_reducescatter
-from ..mesh.api import PLAN_ROADMAP, TP_ROADMAP
+from ..mesh.api import PLAN_ROADMAP
 from ..transport.base import rank_bytes
 from . import ledger
 
@@ -51,15 +54,23 @@ def layer_spec(ctx, tag: str, *, kind: str = "allreduce", wire: str = "raw", pla
     """The ChannelSpec a parallel layer owns: the context's TP communicator
     and launch-selected backend, the layer's stats tag, and the call's wire
     override.  A tuning plan (the call's or the context's) raises until the
-    tuner is ported, and so does a persistent channel pool."""
+    tuner is ported.
+
+    When the context carries a persistent :class:`~repro_torch.channels.
+    ChannelPool` (``ctx.channels``, a serving runtime), the spec comes from
+    the pool: the same config under the pool-prefixed tag
+    (``"serve.tp.attn.qkv"``), its port claimed persistently, one spec a tag
+    for every later call."""
     if plan is None:
         plan = ctx.plan
     if plan is not None:
         raise NotImplementedError(f"plan={plan!r} on layer {tag!r}: {PLAN_ROADMAP}")
-    if ctx.channels is not None:
-        raise NotImplementedError(f"a persistent ChannelPool on layer {tag!r}: {TP_ROADMAP}")
     if transport is None:
         transport = ctx.transport
+    pool = ctx.channels
+    if pool is not None:
+        return pool.spec(tag, kind=kind, wire=wire, transport=transport, n_chunks=n_chunks,
+                         op=op)
     return ChannelSpec(comm=ctx.model_comm, kind=kind, tag=tag, wire=wire, plan=plan,
                        transport=transport, port=port, n_chunks=n_chunks, op=op)
 

@@ -6,8 +6,10 @@
   per-step cost counters.
 * :func:`~repro_torch.transport.registry.get_transport` — the string-keyed
   registry: ``"static"`` (index-copy schedules), ``"fused"`` (static
-  schedules whose folds run on a CUDA add kernel) and ``"packet"`` /
-  ``"packet:pallas"`` (every step through the packet router, kernel C).
+  schedules whose folds run on a CUDA add kernel), ``"packet"`` /
+  ``"packet:pallas"`` (every step through the packet router, kernel C) and
+  ``"compressed"`` / ``"compressed:<inner>"`` (an int8 wire over any of
+  them).
 * :func:`~repro_torch.transport.registry.resolve_comm_mode` — parses
   ``comm_mode`` strings (``"smi:fused"``).
 """

@@ -61,8 +61,12 @@ class TransportStats:
         self.overflow = ovf if self.overflow is None else self.overflow + ovf
 
 
-def rank_bytes(x: torch.Tensor) -> int:
-    """Wire bytes one rank's row of the rank-stacked ``x`` holds."""
+def rank_bytes(x) -> int:
+    """Wire bytes one rank's row of the rank-stacked ``x`` holds; a tuple of
+    rank-stacked tensors counts all its members (one step moving them
+    together, as the reference's pytree steps do)."""
+    if isinstance(x, tuple):
+        return sum(rank_bytes(v) for v in x)
     return x[0].numel() * x.element_size()
 
 
@@ -85,7 +89,11 @@ class Transport(abc.ABC):
     def __post_init__(self):
         self.device = resolve_device(self.device)
 
-    def _check(self, x: torch.Tensor):
+    def _check(self, x):
+        if isinstance(x, tuple):
+            for v in x:
+                self._check(v)
+            return
         if x.device.type != self.device.type:
             raise ValueError(
                 f"{type(self).__name__} on {self.device} was given a tensor "
@@ -98,7 +106,9 @@ class Transport(abc.ABC):
     def permute(self, x, comm, pairs):
         """Move rank rows of ``x`` along explicit (src, dst) pairs — one
         link step of the schedule.  Ranks absent as a destination receive
-        zeros (``lax.ppermute``'s semantics)."""
+        zeros (``lax.ppermute``'s semantics).  ``x`` may be a tuple of
+        rank-stacked tensors, moved as one step (the channels' pipe and
+        valid registers)."""
 
     def shift(self, x, comm, step: int = 1):
         """Ring shift of ``x`` by ``step`` along the linearised ranks."""
@@ -132,13 +142,20 @@ class Transport(abc.ABC):
     def tagged(self, tag: str):
         """Tag every step accounted inside the block (halo message
         tagging): the same counters are also bucketed into
-        ``stats.by_tag[tag]``."""
-        prev = self._tag
-        self._tag = tag
+        ``stats.by_tag[tag]``.  A wrapper backend (the compressed link)
+        passes the tag down its ``inner`` chain, since the inner backend
+        accounts the wire it moves."""
+        chain = [self]
+        while isinstance(getattr(chain[-1], "inner", None), Transport):
+            chain.append(chain[-1].inner)
+        prev = [t._tag for t in chain]
+        for t in chain:
+            t._tag = tag
         try:
             yield self
         finally:
-            self._tag = prev
+            for t, p in zip(chain, prev):
+                t._tag = p
 
     def tally(self, steps: int, nbytes: int):
         """Add raw (steps, bytes) to the counters, honouring the active tag
@@ -153,7 +170,8 @@ class Transport(abc.ABC):
             e["bytes"] += nbytes
 
     def account(self, x, steps: int = 1):
-        """Tally ``steps`` steps that each carry one rank row of ``x``."""
+        """Tally ``steps`` steps that each carry one rank row of ``x`` (of
+        each member of a tuple ``x``)."""
         self.tally(steps, rank_bytes(x) * steps)
 
     def reset_stats(self):

@@ -188,6 +188,8 @@ class PacketTransport(Transport):
         return cfg, self._route_table(comm), pay, inq_dst, inq_len, n_steps
 
     def permute(self, x, comm, pairs):
+        """One router run moving every rank row of ``x`` (the members of a
+        tuple ``x`` concatenated into one packet train a rank)."""
         from ..core.router import run_router
 
         self._check(x)
@@ -201,7 +203,9 @@ class PacketTransport(Transport):
         if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts):
             raise ValueError("packet transport moves partial permutations: unique "
                              f"srcs/dsts required, got {list(pairs)}")
-        vec = _encode(x)                                     # (P, T)
+        leaves = x if isinstance(x, tuple) else (x,)
+        parts = [_encode(v) for v in leaves]                 # (P, T_i) each
+        vec = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
         T = vec.shape[1]
         if T == 0:
             return x
@@ -213,14 +217,17 @@ class PacketTransport(Transport):
         # silently back-fill zeros below — fold the delivery shortfall into
         # the loss counter so the "overflow == 0" oracle catches it.
         K = cfg.fifo_cap
-        _, _, is_recv, keeps = _roles(pairs, n, K, x.device)
+        _, _, is_recv, keeps = _roles(pairs, n, K, vec.device)
         shortfall = torch.where(is_recv, K - out_cnt[:, 0], torch.zeros_like(out_cnt[:, 0]))
         self.stats.add_overflow(ovf + shortfall)
 
         got = out_pay[:, 0].reshape(n, K * cfg.pkt_elems)[:, :T]
         wire = torch.where(is_recv.view(-1, 1), got,
                            torch.where(keeps.view(-1, 1), vec, torch.zeros_like(vec)))
-        return _decode(wire, x.shape, x.dtype)
+        if not isinstance(x, tuple):
+            return _decode(wire, x.shape, x.dtype)
+        out = wire.split([p.shape[1] for p in parts], dim=1)
+        return tuple(_decode(w, v.shape, v.dtype) for w, v in zip(out, leaves))
 
     def p2p(self, x, *, src, dst, comm, n_chunks: int = 1):
         """Whole message as one packet train src -> dst through the router

@@ -3,9 +3,11 @@
 Call sites name their backend with a string carried in
 ``Communicator.transport`` or a ``comm_mode`` like ``"smi:fused"``; the
 same call site then runs over whichever backend the string selects.  The
-port has ``"static"``, ``"fused"``, ``"packet"`` and ``"packet:pallas"``.
-The reference's compressed keys name a backend that is not ported yet, and
-asking for one raises — it never falls back to another backend.
+port has ``"static"``, ``"fused"``, ``"packet"``, ``"packet:pallas"`` and
+``"compressed"``.  Wrapper backends compose by key: a class registered with
+a true ``wraps_inner`` attribute (``CompressedTransport``) takes
+``"<wrapper>:<inner>"`` keys — ``"compressed:packet"`` is the int8 wire over
+the packet router; comm modes spell it ``"smi:compressed:packet"``.
 """
 
 from __future__ import annotations
@@ -16,12 +18,6 @@ _REGISTRY: dict[str, type] = {}
 
 #: transport key used when a comm_mode / Communicator doesn't name one
 DEFAULT_TRANSPORT = "static"
-
-#: reference backends the port does not have yet, and the slice that adds each
-NOT_PORTED = {
-    "compressed": "the compressed-wire slice",
-}
-
 
 def register_transport(name: str):
     """Class decorator: register a Transport subclass under ``name``."""
@@ -37,7 +33,7 @@ def register_transport(name: str):
 def _ensure_builtins():
     # each module registers its keys when first imported; importing one of
     # them directly must not hide the others
-    from . import fused, packet, static  # noqa: F401
+    from . import compressed, fused, packet, static  # noqa: F401
 
 
 def available_transports() -> tuple[str, ...]:
@@ -45,15 +41,21 @@ def available_transports() -> tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 
 
-def _not_ported(key: str):
-    base = key if key in NOT_PORTED else key.partition(":")[0]
-    return NOT_PORTED.get(base)
+def _split_wrapper(key: str):
+    """``"compressed:packet"`` -> (wrapper class, ``"packet"``); None for any
+    other key."""
+    outer, _, inner = key.partition(":")
+    cls = _REGISTRY.get(outer)
+    if inner and cls is not None and getattr(cls, "wraps_inner", False) and inner in _REGISTRY:
+        return cls, inner
+    return None
 
 
 def is_transport_key(key: str) -> bool:
-    """True when ``key`` names a backend the port has."""
+    """True when ``key`` names a backend the port has, composed
+    ``"<wrapper>:<inner>"`` keys included."""
     _ensure_builtins()
-    return key in _REGISTRY
+    return key in _REGISTRY or _split_wrapper(key) is not None
 
 
 def get_transport(name: str | None = None, **kw):
@@ -63,13 +65,12 @@ def get_transport(name: str | None = None, **kw):
     key = name or DEFAULT_TRANSPORT
     if key in _REGISTRY:
         return _REGISTRY[key](**kw)
-    later = _not_ported(key)
-    if later is not None:
-        raise NotImplementedError(
-            f"transport {key!r} is not ported yet (it comes with {later}); "
-            f"available: {available_transports()}"
-        )
-    raise KeyError(f"unknown transport {key!r}; available: {available_transports()}")
+    wrapped = _split_wrapper(key)
+    if wrapped is not None:
+        cls, inner = wrapped
+        return cls(inner=inner, **kw)
+    raise KeyError(f"unknown transport {key!r}; available: {available_transports()} "
+                   "(wrapper backends compose as '<wrapper>:<inner>', e.g. 'compressed:packet')")
 
 
 def resolve_transport(transport, comm=None):
@@ -90,9 +91,9 @@ def resolve_comm_mode(mode: Union[str, None]) -> tuple[str, str]:
     """Split a comm_mode string into (base_mode, transport_key).
 
     ``"smi"`` -> ("smi", "static"); ``"smi:fused"`` -> ("smi", "fused");
-    ``"bulk"`` / ``"none"`` pass through with the default transport key.
-    Unknown bases or transports raise; a reference backend that is not
-    ported yet raises ``NotImplementedError``.
+    ``"smi:compressed:packet"`` -> ("smi", "compressed:packet"); ``"bulk"``
+    / ``"none"`` pass through with the default transport key.  Unknown
+    bases or transports raise.
     """
     if not mode:
         return "none", DEFAULT_TRANSPORT
@@ -106,12 +107,6 @@ def resolve_comm_mode(mode: Union[str, None]) -> tuple[str, str]:
             f"comm_mode {mode!r}: only 'smi' takes a transport backend"
         )
     if not is_transport_key(backend):
-        later = _not_ported(backend)
-        if later is not None:
-            raise NotImplementedError(
-                f"comm_mode {mode!r}: transport {backend!r} is not ported "
-                f"yet (it comes with {later})"
-            )
         raise ValueError(
             f"comm_mode {mode!r}: unknown transport {backend!r}; "
             f"available: {available_transports()}"

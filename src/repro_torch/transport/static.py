@@ -25,6 +25,8 @@ class StaticTransport(Transport):
     def permute(self, x, comm, pairs):
         self._check(x)
         self.account(x)
+        if isinstance(x, tuple):
+            return tuple(ppermute(v, pairs) for v in x)
         return ppermute(x, pairs)
 
     def p2p(self, x, *, src, dst, comm, n_chunks: int = 1):

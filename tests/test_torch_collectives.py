@@ -61,8 +61,9 @@ def test_dispatchers_default_to_static_and_refuse_auto():
         pc.allreduce(x, comm, plan="auto")
     with pytest.raises(NotImplementedError, match="tuner"):
         comm.plan("allreduce", 64)
-    with pytest.raises(NotImplementedError, match="compressed"):
-        pc.bcast(x, comm, plan=Plan("static", 1, "ring", wire="int8"))
+    # an int8 plan runs the compressed wire over the plan's backend
+    assert_bits_equal(pc.bcast(x, comm, plan=Plan("static", 1, "ring", wire="int8")),
+                      pc.bcast(x, comm, plan=None, transport="compressed:static"), "int8 plan")
 
 
 #: rank layouts other than the 8-rank testbed: (axis names, axis sizes)

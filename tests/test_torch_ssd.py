@@ -135,6 +135,54 @@ def test_scan_matches_sequential_reference(ref, case):
     _close(ssd_ref(*_torch(arrays)), want, 1e-5)
 
 
+#: one process of the subprocess test: the reference's interpret-mode scan,
+#: then the plain scan three times on the same inputs; prints the plain
+#: scan's errors and whether its three results have the same bits
+_FIRST_CALL_SCRIPT = """
+import json, sys
+import numpy as np, torch
+import jax.numpy as jnp
+from repro.kernels.ssd import ssd_scan
+from repro_torch.kernels.ssd import ssd_scan_plain
+sys.path.insert(0, "tests")
+from test_torch_ssd import SCAN_CASES, _inputs
+arrays = _inputs(*SCAN_CASES["mamba2_dims_s300"][:4], 5)
+want = np.asarray(ssd_scan(*[jnp.asarray(a) for a in arrays], chunk=128, interpret=True))
+outs = [ssd_scan_plain(*[torch.from_numpy(a.copy()) for a in arrays], chunk=128)
+        for _ in range(3)]
+print(json.dumps({"same_bits": all(torch.equal(o, outs[0]) for o in outs),
+                  "errs": [float(np.abs(o.numpy() - want).max()) for o in outs],
+                  "scale": max(float(np.abs(want).max()), 1.0)}))
+"""
+
+
+def test_plain_scan_same_bits_on_first_call_after_xla():
+    """The plain scan's first call in a process, after the reference's XLA
+    work under the test suite's 8 host devices, returns the bits of its
+    later calls and stays within the float32 gate.  A CPU ``torch.exp``
+    split over the OpenMP workers gave one worker's share 1.5e-4 relative
+    error on each worker's first exp (about one process in three failed the
+    gate); the plain scan now takes its exps on the calling thread.  Two
+    processes, since the fault showed on a fraction of them."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"), JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=8")
+    procs = [subprocess.Popen([sys.executable, "-c", _FIRST_CALL_SCRIPT], cwd=root, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for _ in range(2)]
+    for proc in procs:
+        out, err = proc.communicate(timeout=240)
+        assert proc.returncode == 0, err[-2000:]
+        res = json.loads(out.strip().splitlines()[-1])
+        assert res["same_bits"], res
+        assert max(res["errs"]) <= TOL["float32"] * res["scale"], res
+
+
 def test_kernel_wrapper_on_cpu_is_the_plain_version():
     arrays = _torch(_inputs(4, 256, 16, 8, 7))
     before = ssd_scan_kernel.launches

@@ -122,7 +122,7 @@ def test_registry_keys_and_resolution():
     env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent.parent / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          check=True, env=env, timeout=120).stdout
-    assert out.strip() == str(("fused", "packet", "packet:pallas", "static"))
+    assert out.strip() == str(("compressed", "fused", "packet", "packet:pallas", "static"))
     comm = port_comm("torus", transport="fused")
     assert type(resolve_transport(None, comm)).__name__ == "FusedTransport"
     assert resolve_transport("static", comm).device.type == "cpu"
@@ -135,11 +135,14 @@ def test_registry_keys_and_resolution():
     assert type(resolve_transport("packet:pallas", comm)) is PallasPacketTransport
     assert resolve_comm_mode("smi:packet") == ("smi", "packet")
     assert resolve_comm_mode("smi:packet:pallas") == ("smi", "packet:pallas")
-    for key in ("compressed", "compressed:packet"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            get_transport(key, device="cpu")
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            resolve_comm_mode(f"smi:{key}")
+    # the compressed wire composes with any inner backend by key
+    for key, inner in (("compressed", "static"), ("compressed:packet", "packet")):
+        t = get_transport(key, device="cpu")
+        assert type(t).__name__ == "CompressedTransport" and t.inner.name == inner
+        assert t.stats is t.inner.stats
+        assert resolve_comm_mode(f"smi:{key}") == ("smi", key)
+    with pytest.raises(KeyError):
+        get_transport("compressed:warp-drive", device="cpu")
     with pytest.raises(KeyError):
         get_transport("warp-drive", device="cpu")
     with pytest.raises(ValueError):
