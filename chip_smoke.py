@@ -151,11 +151,36 @@ non-zero):
     all-reduce channels timed beside the direct calls by device time; an
     all-reduce over ``compressed:static`` whose int8 wire and result equal
     the CPU's bits; a ``ChannelPool`` spec serving 1,000 all-reduces on one
-    claim.
+    claim;
+25. the card's link model (the reference's ``--validate-sim``,
+    ``launch.channels.validate_sim``): the static wire's Tab. 3 and Fig. 9
+    transfers on the 8-rank bus recorded by ``TransportStats.record``
+    (seconds the median of 15 readings, the shapes of a set in turns), each
+    set fitted and gated at 2x; ``unfused_add_latency`` from phase 5,
+    ``quant_latency`` from phase 22 and ``switch_cycles`` from phase 9;
+    the fitted ``LinkModel`` printed, and the committed default's worst
+    drift on these records (a reading);
+26. ``autotune`` of ring(1x8), torus(2x4) and the bus(8), timed, its
+    tables printed; ``bcast``, ``reduce`` and ``allreduce`` at one rank's 4
+    KiB, 256 KiB and 16 MiB with ``plan="auto"`` against ``plan=None``:
+    bcast bit for bit, reductions within 1e-6 of the largest magnitude
+    (bit for bit where the tuned algorithm is the default's), an int8 plan
+    within the codec's bound; timed in turns beside the tuner's predicted
+    ratio; then ``launch.stencil --grid 2x4 --domain 8192x8192 --steps 8
+    --plan auto`` equal to the single-rank sweep, kernel B launched;
+27. phase 19's yi-6b prefill through ``build_prefill``'s default launch
+    (bare ``"smi"``, ``plan="auto"``) with D injected: a backend recorded
+    for every layer tag, every D and E launch on ``wgmma``, the ledger
+    equal to the closed form on raw tags, within a row cosine of 0.999 of
+    ``smi:static`` (or int8 tags held alone to the wire's bound), timed in
+    turns with ``smi:static``.
+
+Earlier phases that time or check one schedule pass ``plan=None``.
 
 A ``{"kernels": [...]}`` line carries the rows of phases 6, 7, 12, 15 and
 18 (A's and C's rows add ``launches_channels``, their launches in phases
-21-24), each with the path its kernel ran (``simt``, ``vector``, ``warp``,
+21-24; A, B, D and E add ``launches_tuned``, theirs in phases 26-27), each
+with the path its kernel ran (``simt``, ``vector``, ``warp``,
 ``thread``, ``fma`` or ``wgmma``); the rows of A, C, E, F's wgmma path and
 D add ``ms_before``, the time in this run of the kernel their calls ran
 before (for A, its scalar predecessor; for C's warp row, the thread path;
@@ -577,9 +602,9 @@ def phase_reductions(dev) -> tuple[dict, dict]:
     g = torch.Generator(device=dev).manual_seed(3)
     x = torch.randn((P, REDUCE_ELEMS), generator=g, device=dev)
     x_before = x.clone()
-    ops = {"allreduce": lambda v, c, t: allreduce(v, c, transport=t),
+    ops = {"allreduce": lambda v, c, t: allreduce(v, c, plan=None, transport=t),
            "reduce_scatter": lambda v, c, t: stream_reduce_scatter(v, c, transport=t),
-           "reduce": lambda v, c, t: reduce(v, c, root=3, transport=t)}
+           "reduce": lambda v, c, t: reduce(v, c, root=3, plan=None, transport=t)}
     #: launches of the gather-fused add a call makes: one per ring step
     ring_steps = {"allreduce": P - 1, "reduce_scatter": P - 1, "reduce": 0}
     reset_counts()
@@ -1052,9 +1077,9 @@ def phase_packet_reductions(dev) -> dict:
 
     g = torch.Generator(device=dev).manual_seed(3)
     x = torch.randn((P, REDUCE_ELEMS), generator=g, device=dev)
-    ops = {"allreduce": lambda v, c, t: allreduce(v, c, transport=t),
+    ops = {"allreduce": lambda v, c, t: allreduce(v, c, plan=None, transport=t),
            "reduce_scatter": lambda v, c, t: stream_reduce_scatter(v, c, transport=t),
-           "reduce": lambda v, c, t: reduce(v, c, root=3, transport=t)}
+           "reduce": lambda v, c, t: reduce(v, c, root=3, plan=None, transport=t)}
     comms = {"ring(1x8)": Communicator.create(("x",), (8,), device=dev),
              "torus(2x4)": Communicator.create(("x", "y"), DIMS, device=dev),
              "snake_bus(2x4)": Communicator.create(("x", "y"), DIMS, topology=snake_bus(DIMS),
@@ -1085,10 +1110,11 @@ def phase_packet_reductions(dev) -> dict:
     x64 = torch.randn((64, 64 * 1024), generator=g, device=dev)
     tp = get_transport("packet", device=dev, pkt_elems=2048)
     t0 = time.perf_counter()
-    got = allreduce(x64, comm, transport=tp)
+    got = allreduce(x64, comm, plan=None, transport=tp)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    if not same_bits(got, allreduce(x64, comm, transport=get_transport("static", device=dev))):
+    if not same_bits(got, allreduce(x64, comm, plan=None,
+                                    transport=get_transport("static", device=dev))):
         raise AssertionError("allreduce on torus(8x8): smi:packet != smi:static")
     if int(tp.stats.overflow.sum()) != 0:
         raise AssertionError("allreduce on torus(8x8): packets lost")
@@ -2073,7 +2099,7 @@ def phase_collective_channels(dev) -> tuple[dict, dict]:
                   lambda c, t: C._stream_bcast_impl(x, c, root=1, transport=t)),
         "reduce": (lambda c, t: ch.open_reduce_channel(c, root=3, port=None,
                                                        transport=t).transfer(x),
-                   lambda c, t: C.reduce(x, c, root=3, transport=t)),
+                   lambda c, t: C.reduce(x, c, root=3, plan=None, transport=t)),
         "gather": (lambda c, t: ch.open_gather_channel(c, root=0, port=None,
                                                        transport=t).transfer(xg),
                    lambda c, t: C._stream_gather_impl(xg, c, root=0, transport=t)),
@@ -2082,7 +2108,7 @@ def phase_collective_channels(dev) -> tuple[dict, dict]:
                     lambda c, t: C._stream_scatter_impl(x, c, root=0, transport=t)),
         "allreduce": (lambda c, t: ch.open_allreduce_channel(c, port=None,
                                                              transport=t).transfer(x),
-                      lambda c, t: C.allreduce(x, c, transport=t)),
+                      lambda c, t: C.allreduce(x, c, plan=None, transport=t)),
     }
     reset_counts()
     res, launched = {"times": {}}, {"fold": 0, "shift": 0}
@@ -2163,6 +2189,350 @@ def phase_collective_channels(dev) -> tuple[dict, dict]:
     log(f"ChannelPool: {POOL_TRANSFERS} all-reduces of (8, 4096) float32 over smi:fused on one "
         f"claim (port {claims[0][0]}, {claims[0][1]}), {us:.1f} us each")
     return res, launched
+
+
+# -- slice 7: netsim, the card's link model, the tuner (phases 25-27) -------------------
+
+#: readings a calibration record's median is taken over (at least 9)
+CALIBRATION_READINGS = 15
+
+
+def unfused_add_latency(reduce_times: dict) -> float:
+    """Phase 5's static-minus-fused device time of ``allreduce`` over its
+    schedule's 2 (P - 1) ticks, seconds a tick, the mean over ring(1x8) and
+    torus(2x4): what the static wire's separate add costs a reduction tick."""
+    per_tick = [(t["device_static"] - t["device_fused"]) * 1e-3 / (2 * (P - 1))
+                for k, t in reduce_times.items() if k.startswith("allreduce/")]
+    return sum(per_tick) / len(per_tick)
+
+
+def quant_latency(bandwidth_rows: list, link_bw: float) -> float:
+    """Phase 22's ``compressed:static`` against ``static`` at equal size and
+    hops, seconds a tick, the median over the sizes and hops: the model's
+    compressed tick is ``hop_latency + quant_latency + wire_bytes(flit) /
+    link_bw`` and its raw tick ``hop_latency + flit / link_bw``, so each
+    pair gives ``(t_int8 - t_raw) / ticks + (flit - wire_bytes(flit)) /
+    link_bw``, ``ticks = n_chunks + hops - 1``."""
+    from repro_torch.netsim import LinkModel
+
+    by = {(r["kib"], r["hops"], r["wire"]): r for r in bandwidth_rows}
+    vals = []
+    for (kib, hops, wire), r in by.items():
+        raw = by.get((kib, hops, "static"))
+        if wire != "compressed:static" or raw is None:
+            continue
+        ticks = r["n_chunks"] + hops - 1
+        flit = kib * 1024 / r["n_chunks"]
+        saved = (flit - LinkModel().wire_bytes(flit, "int8")) / link_bw
+        vals.append((r["ms"] - raw["ms"]) * 1e-3 / ticks + saved)
+    vals.sort()
+    return vals[len(vals) // 2]
+
+
+def switch_cycles(injection_rows: list) -> float:
+    """Phase 9's ticks a packet at each R fitted to ``a + switch_cycles /
+    R`` by least squares (``a`` takes the saturated link's contention, which
+    R does not change; the model's ``injection_cycles(R) = 1 +
+    switch_cycles / R`` keeps only the R-dependent part)."""
+    import numpy as np
+
+    R = np.array([r["R"] for r in injection_rows], float)
+    c = np.array([r["ticks_per_packet"] for r in injection_rows], float)
+    (_, s), *_ = np.linalg.lstsq(np.stack([np.ones_like(R), 1.0 / R], 1), c, rcond=None)
+    return float(s)
+
+
+def phase_link_fit(dev, reduce_times: dict, injection: list, bandwidth_rows: list) -> dict:
+    """Phase 25: the reference's ``benchmarks/{latency,bandwidth}.py
+    --validate-sim`` on the port (``launch.channels.validate_sim``): the
+    static wire's Tab. 3 and Fig. 9 transfers on the 8-rank bus as
+    calibration records, each set fitted and gated at 2x; the fit of both
+    sets, with the three parameters ``fit`` leaves alone from phases 5, 22
+    and 9, is the card's link model.  Prints it, and the worst drift of the
+    committed default model on this run's records (a reading, not a gate)."""
+    from repro_torch.launch.channels import validate_sim
+    from repro_torch.netsim import LinkModel
+    from repro_torch.netsim.calibrate import drift_ratio
+
+    fitted, lat, bw = validate_sim(dev, CHANNEL_BW_KIB, reps=CALIBRATION_READINGS)
+    model = fitted.with_params(unfused_add_latency=unfused_add_latency(reduce_times),
+                               quant_latency=quant_latency(bandwidth_rows, fitted.link_bw),
+                               switch_cycles=switch_cycles(injection))
+    recs = lat + bw
+    worst = {name: max(drift_ratio(m.predict(r), r["seconds"]) for r in recs)
+             for name, m in (("fitted", model), ("committed_default", LinkModel()))}
+    log(f"link model fitted on this card: {model!r}")
+    log(f"worst drift on this run's {len(recs)} records: the fit of both sets "
+        f"{worst['fitted']:.3f}x, the committed default {worst['committed_default']:.3f}x")
+    return {"model": {k: getattr(model, k) for k in (
+        "hop_latency", "link_bw", "injection_base", "switch_cycles", "quant_latency",
+        "unfused_add_latency")}, "worst_drift": worst,
+        "records": [{k: r[k] for k in ("name", "steps", "bytes", "seconds")} for r in recs]}
+
+
+#: phase 26's rank layouts: (axis names, axis sizes, bus?)
+AUTO_LAYOUTS = {"ring(1x8)": (("x",), (8,), False), "torus(2x4)": (("x", "y"), DIMS, False),
+                "bus(8)": (("x",), (8,), True)}
+#: phase 26's message sizes, float32 elements a rank: 4 KiB, 256 KiB, 16 MiB
+AUTO_ELEMS = (1024, 64 * 1024, 4 * 1024 * 1024)
+AUTO_STENCIL_ARGS = ["--grid", "2x4", "--domain", "8192x8192", "--steps", "8", "--plan", "auto"]
+
+
+def _codec_bound(x, hops_quantised: int) -> float:
+    """The int8 wire's bound (tests/test_torch_compressed.py): ``hops``
+    roundings of data bounded by max|x|, half a step of max|x| / 127 each."""
+    return hops_quantised * float(x.abs().max()) / 254.0 * 1.05 + 1e-6
+
+
+def _table_lines(table) -> list[str]:
+    lines = []
+    for op in sorted({o for o, _ in table.entries}):
+        cells = []
+        for (o, size), e in sorted(table.entries.items()):
+            if o == op:
+                tag = "" if e["wire"] == "raw" else ":int8"
+                cells.append(f"{size >> 10}K {e['transport']}/{e['algo']}/{e['n_chunks']}{tag} "
+                             f"x{e['static_score'] / e['score']:.2f}")
+        lines.append(f"{op}: " + ", ".join(cells))
+    return lines
+
+
+def phase_tuned_collectives(dev) -> tuple[dict, dict]:
+    """Phase 26: on ring(1x8), torus(2x4) and the bus(8), each topology's
+    ``autotune`` seconds and table (plans, the tuner's predicted speed-up
+    over the static default); ``bcast``, ``reduce`` and ``allreduce`` at
+    one rank's 4 KiB, 256 KiB and 16 MiB of float32 with ``plan="auto"``
+    against ``plan=None``, checked (bcast bit for bit; reduce and allreduce
+    on a raw plan within 1e-6 of the largest magnitude, bit for bit where the
+    tuned algorithm is the default's; an int8 plan within the codec's bound)
+    and timed in turns (auto, default, default, auto) by CUDA events and
+    device time beside the tuner's predicted ratio.  Then ``launch.stencil
+    --plan auto`` at 8192x8192 on the 2x4 grid, equal to the single-rank
+    sweep bit for bit, kernel B launched.  Returns the results and the
+    kernel launches of the checked runs."""
+    import torch
+
+    from repro_torch.core import Communicator, Topology
+    from repro_torch.core import collectives as C
+    from repro_torch.kernels.stencil import stencil_sweep
+    from repro_torch.launch import stencil as launch_stencil
+    from repro_torch.netsim import DEFAULT_PLAN, tune
+    from repro_torch.transport.fused import fused_accumulate, fused_shift_accumulate
+
+    log("phase 26 runs plan='auto' on purpose: the collectives' default and the halo's")
+    g = torch.Generator(device=dev).manual_seed(26)
+    res = {"autotune_s": {}, "plans": {}, "ops": {}}
+    launched = {"A_fold": 0, "A_shift": 0, "B": 0}
+    calls = {"bcast": lambda x, c, **k: C.bcast(x, c, root=0, **k),
+             "reduce": lambda x, c, **k: C.reduce(x, c, root=0, **k),
+             "allreduce": lambda x, c, **k: C.allreduce(x, c, **k)}
+    for lname, (names, sizes, bus) in AUTO_LAYOUTS.items():
+        comm = Communicator.create(names, sizes, topology=Topology.bus(8) if bus else None,
+                                   device=dev)
+        tune.clear_cache()  # time the table's build
+        t0 = time.perf_counter()
+        table = tune.tuning_table_for(comm.topology, comm.route_table)
+        res["autotune_s"][lname] = time.perf_counter() - t0
+        log(f"autotune {lname}: {res['autotune_s'][lname]:.3f}s, model {table.model!r}")
+        for line in _table_lines(table):
+            log(f"  table {lname} {line}")
+        for elems in AUTO_ELEMS:
+            x = torch.randn((P, elems), generator=g, device=dev)
+            for op, call in calls.items():
+                plan = comm.plan(op, elems * 4)
+                key = f"{op}/{lname}/{elems * 4 >> 10}KiB"
+                res["plans"][key] = plan.to_dict()
+                before = (fused_accumulate.launches, fused_shift_accumulate.launches)
+                got = call(x, comm, plan="auto")
+                torch.cuda.synchronize()
+                launched["A_fold"] += fused_accumulate.launches - before[0]
+                launched["A_shift"] += fused_shift_accumulate.launches - before[1]
+                want = call(x, comm, plan=None)
+                if not torch.isfinite(got).all():
+                    raise AssertionError(f"{key}: tuned result not finite ({plan})")
+                err = max_abs_err(got, want)
+                if plan.wire == "int8":
+                    bound = _codec_bound(x, 1 if op == "bcast" else P)
+                    bound += 0.0 if op == "bcast" else _codec_bound(want, 1)
+                    gate = f"int8 within {bound:.4g}"
+                    ok = err <= bound
+                elif op == "bcast" or plan.algo == "ring":
+                    gate, ok = "bit-equal", same_bits(got, want)
+                else:
+                    bound = 1e-6 * float(want.abs().max())
+                    gate, ok = f"within {bound:.3g} (1e-6 of max)", err <= bound
+                if not ok:
+                    raise AssertionError(f"{key}: plan {plan} off the default by {err} ({gate})")
+                del got, want
+                reps, dreps = (5, 3) if elems >= AUTO_ELEMS[-1] else (20, 10)
+                ms, dev_ms = {"auto": [], "default": []}, {"auto": [], "default": []}
+                for who in ("auto", "default", "default", "auto"):
+                    kw = {"plan": "auto" if who == "auto" else None}
+                    ms[who].append(time_ms(lambda: call(x, comm, **kw), reps=reps, warmup=2))
+                    dev_ms[who].append(device_ms(lambda: call(x, comm, **kw), reps=dreps,
+                                                 warmup=1))
+                t = {k: sum(v) / len(v) for k, v in ms.items()}
+                d = {k: sum(v) / len(v) for k, v in dev_ms.items()}
+                predicted = (tune.score_plan(comm.topology, comm.route_table, op, elems * 4,
+                                             DEFAULT_PLAN, table.model)
+                             / tune.score_plan(comm.topology, comm.route_table, op, elems * 4,
+                                               plan, table.model))
+                res["ops"][key] = {"plan": plan.to_dict(), "gate": gate, "max_abs_err": err,
+                                   "ms": t, "device_ms": d, "turns_ms": ms,
+                                   "predicted_speedup": predicted,
+                                   "measured_speedup": t["default"] / t["auto"],
+                                   "measured_device_speedup": d["default"] / d["auto"]}
+                tag = "" if plan.wire == "raw" else ":int8"
+                log(f"{key:>28}: {plan.transport}/{plan.algo}/{plan.n_chunks}{tag} {gate}; auto "
+                    f"{t['auto']:.4f} ms, default {t['default']:.4f} ms (x{t['default'] / t['auto']:.2f}"
+                    f"; device {d['auto']:.4f} / {d['default']:.4f} ms, "
+                    f"x{d['default'] / d['auto']:.2f}); tuner predicted x{predicted:.2f}")
+            del x
+            torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "auto.json")
+        before = stencil_sweep.launches
+        rc = launch_stencil.main([*AUTO_STENCIL_ARGS, "--json", out])
+        torch.cuda.synchronize()
+        launched["B"] = stencil_sweep.launches - before
+        st = json.loads(Path(out).read_text())
+    if rc != 0 or not st["ok"] or st["max_err"] != 0.0 or launched["B"] == 0:
+        raise AssertionError(f"stencil --plan auto: rc={rc} result={st}, kernel B launched "
+                             f"{launched['B']} times")
+    res["stencil"] = st
+    log(f"stencil --plan auto ({st['comm_mode']}): halo backend {st['halo_backend']}, "
+        f"{st['wall_per_step_s'] * 1e3:.4f} ms/step, halo {st['halo_steps']} steps / "
+        f"{st['halo_bytes_per_rank']} B per rank, equal to the single-rank sweep; kernel B "
+        f"launched {launched['B']} times")
+    return res, launched
+
+
+def _int8_layer_checks(dev, ctx, plans: dict) -> dict:
+    """Each tag the tuner put on the int8 wire, held alone to the wire's
+    bound: its collective on a (P, 512, 4096) bfloat16 activation over the
+    tuned key against the raw wire (a gather: one int8 rounding; a
+    reduce-scatter: P, and the result's), plus the bfloat16 roundings of
+    the values (one a gathered value, one an add of the P-term sum, each
+    half an ulp, 2^-9 of the largest magnitude, counted as 2^-8)."""
+    import torch
+
+    from repro_torch.parallel import layers
+
+    g = torch.Generator(device=dev).manual_seed(27)
+    x = torch.randn((TP, PREFILL_TOKENS // TP, 4096), generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    out = {}
+    for tag, key in plans.items():
+        if not key.startswith("compressed"):
+            continue
+        if tag in ("tp.attn.out", "tp.mlp.down", "tp.embed"):
+            xs = torch.cat([x] * TP, dim=1)
+            raw = layers.reduce_scatter_sequence(xs, ctx, tag="probe", transport="static")
+            got = layers.reduce_scatter_sequence(xs, ctx, tag="probe", transport=key)
+            bound = (_codec_bound(xs.float(), TP) + _codec_bound(raw.float(), 1)
+                     + TP * float(raw.float().abs().max()) * 2 ** -8)
+        else:
+            raw = layers.gather_sequence(x, ctx, tag="probe", transport="static")
+            got = layers.gather_sequence(x, ctx, tag="probe", transport=key)
+            bound = _codec_bound(x.float(), 1) + float(x.float().abs().max()) * 2 ** -8
+        err = max_abs_err(got, raw)
+        if err > bound:
+            raise AssertionError(f"{tag} over {key}: off the raw wire by {err} > {bound}")
+        out[tag] = {"max_abs_err": err, "bound": bound}
+        log(f"tp auto: {tag} over {key} within the int8 bound ({err:.4g} <= {bound:.4g})")
+    return out
+
+
+def phase_tp_auto(dev, tp_params, seed: int = 19) -> dict:
+    """Phase 27: yi-6b at full width and depth, P = 8, 4096 tokens, through
+    ``build_prefill``'s default launch (bare ``"smi"``: the config's
+    ``comm_plan="auto"``) with kernel D injected: ``make_ctx((1, 8),
+    comm_mode="smi", plan="auto", matmul_fn=matmul)``.  Gates: a registry
+    key recorded for every TP layer tag; every D and E launch on ``wgmma``;
+    the ledger equal to phase 19's closed form for each tag on ``static`` or
+    ``fused``; finite hidden states within a row cosine of 0.999 of phase
+    19's ``smi:static`` prefill (run again here, in turns with the tuned one)
+    when every plan is raw, else the int8 tags held alone to the wire's
+    bound.  ms and tokens/s of both."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.mesh.api import make_ctx
+    from repro_torch.models import gather_hidden, lm_prefill
+    from repro_torch.parallel import ledger
+    from repro_torch.transport import is_transport_key
+
+    cfg = get_arch("yi-6b")
+    log(f"phase 27 runs plan={cfg.comm_plan!r} on purpose: the config's comm_plan under a "
+        "bare comm_mode='smi'")
+    tokens = torch.from_numpy(np.random.RandomState(seed).randint(0, cfg.vocab_size,
+                                                                  (1, PREFILL_TOKENS))).to(dev)
+    ctxs = {"auto": make_ctx((1, TP), comm_mode="smi", plan=cfg.comm_plan, matmul_fn=matmul,
+                             device=dev),
+            "static": make_ctx((1, TP), comm_mode="smi:static", matmul_fn=matmul, device=dev)}
+
+    def run(ctx):
+        return gather_hidden(lm_prefill(tp_params, tokens, cfg, ctx, capacity=PREFILL_TOKENS))
+
+    with ledger.capture() as led:
+        run(ctxs["auto"])  # warm-up, its wire traffic and plans captured
+    torch.cuda.synchronize()
+    reset_counts()
+    hidden = run(ctxs["auto"])
+    torch.cuda.synchronize()
+    launches = {"D": matmul.launches, "D_wgmma": matmul.wgmma_launches,
+                "E": flash_attention_kernel.launches,
+                "E_wgmma": flash_attention_kernel.wgmma_launches}
+    from repro_torch.transport.fused import fused_accumulate, fused_shift_accumulate
+
+    launches |= {"A_fold": fused_accumulate.launches, "A_shift": fused_shift_accumulate.launches}
+    if launches["D"] != 5 * TP * cfg.n_layers or launches["E"] != cfg.n_layers or \
+            launches["D_wgmma"] != launches["D"] or launches["E_wgmma"] != launches["E"]:
+        raise AssertionError(f"tp auto prefill launches {launches}")
+    if set(led.plans) != set(led.by_tag) or not all(is_transport_key(k)
+                                                    for k in led.plans.values()):
+        raise AssertionError(f"tp auto prefill: plans {led.plans} for tags {sorted(led.by_tag)}")
+    closed = _tp_closed_form(cfg, TP, PREFILL_TOKENS)
+    exact = {t for t, k in led.plans.items() if k in ("static", "fused")}
+    for tag in sorted(led.by_tag):
+        if tag in exact and led.by_tag[tag] != closed[tag]:
+            raise AssertionError(f"tp auto prefill ledger {tag}: {led.by_tag[tag]} != closed "
+                                 f"form {closed[tag]}")
+        if tag not in exact:
+            log(f"tp auto prefill: {tag} over {led.plans[tag]}: {led.by_tag[tag]['steps']} steps, "
+                f"{led.by_tag[tag]['bytes']} B per rank (not a raw wire)")
+    log(f"tp auto prefill plans: {json.dumps(led.plans)}; the ledger equals the closed form on "
+        f"{len(exact)} of {len(led.plans)} tags")
+    if tuple(hidden.shape) != (1, PREFILL_TOKENS, cfg.d_model) or not torch.isfinite(hidden).all():
+        raise AssertionError("tp auto prefill hidden states not finite or misshapen")
+    ms = {"auto": [], "static": []}
+    outs = {}
+    for who in ("static", "auto", "auto", "static"):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        outs[who] = run(ctxs[who])
+        torch.cuda.synchronize()
+        ms[who].append((time.perf_counter() - t) * 1e3)
+    cos = float(_row_cos(hidden, outs["static"]).min())
+    if not same_bits(outs["auto"], hidden):
+        raise AssertionError("tp auto prefill is not deterministic from run to run")
+    int8 = {}
+    if any(k.startswith("compressed") for k in led.plans.values()):
+        log(f"tp auto prefill: an int8 plan; end-to-end min row cosine {cos:.6f}")
+        int8 = _int8_layer_checks(dev, ctxs["auto"], led.plans)
+    elif cos < 0.999:
+        raise AssertionError(f"tp auto prefill: min row cosine {cos} against smi:static")
+    t = {k: sum(v) / len(v) for k, v in ms.items()}
+    log(f"tp auto prefill: {t['auto']:.3f} ms ({PREFILL_TOKENS / t['auto'] * 1e3:.1f} tok/s) "
+        f"against smi:static {t['static']:.3f} ms ({PREFILL_TOKENS / t['static'] * 1e3:.1f} "
+        f"tok/s), turns {json.dumps(ms)}; min row cosine {cos:.6f}; launches {launches}")
+    return {"plans": led.plans, "ms": t, "turns_ms": ms,
+            "tok_per_s": {k: PREFILL_TOKENS / v * 1e3 for k, v in t.items()},
+            "min_cos_vs_static": cos, "launches": launches, "int8_layers": int8,
+            "ledger_bytes": led.tag_bytes()}
 
 
 def main() -> int:
@@ -2275,7 +2645,6 @@ def main() -> int:
     tp_prefill["launches_a_fused_4_layers"] = tp_fused
     next(r for r in rows if r["name"] == "shift_accumulate")["launches_tp_prefill_fused"] = \
         tp_fused["shift"]
-    del tp_params
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     log(f"phase 20 (TP prefill over smi:fused): {time.perf_counter() - t0:.1f}s")
@@ -2309,6 +2678,31 @@ def main() -> int:
     c_warp["launches_channels"] = lat_c["C_warp"] + bw_c["C_warp"]
     c_thread["launches_channels"] = lat_c["C"] - lat_c["C_warp"] + bw_c["C"] - bw_c["C_warp"]
 
+    t0 = time.perf_counter()
+    link_fit = phase_link_fit(dev, reduce_times, injection, bandwidth_rows)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"phase 25 (link model fit): {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    tuned, tuned_launches = phase_tuned_collectives(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"phase 26 (tuned collectives and halo): {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    tp_auto = phase_tp_auto(dev, tp_params)
+    del tp_params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"phase 27 (the default TP prefill, plan='auto'): {time.perf_counter() - t0:.1f}s")
+    # each kernel's launches on the tuned paths: the checked phase 26 runs
+    # and phase 27's timed-before prefill
+    lt = tp_auto["launches"]
+    by_name["accumulate"]["launches_tuned"] = tuned_launches["A_fold"] + lt["A_fold"]
+    by_name["shift_accumulate"]["launches_tuned"] = tuned_launches["A_shift"] + lt["A_shift"]
+    by_name["stencil_sweep"]["launches_tuned"] = tuned_launches["B"]
+    by_name["matmul"]["launches_tuned"] = lt["D"]
+    by_name["flash_attention"]["launches_tuned"] = lt["E"]
+
     log("stencil_wall_per_step_ms: " + json.dumps(
         {k: v["wall_per_step_s"] * 1e3 for k, v in stencil.items()}))
     log("packet_stencil_wall_per_step_ms: " + json.dumps(
@@ -2327,6 +2721,9 @@ def main() -> int:
     log("channel_bandwidth: " + json.dumps(bandwidth_rows))
     log("gesummv: " + json.dumps(gesummv_res))
     log("collective_channels: " + json.dumps(coll))
+    log("link_fit: " + json.dumps(link_fit))
+    log("tuned_collectives: " + json.dumps(tuned))
+    log("tp_prefill_auto: " + json.dumps(tp_auto))
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

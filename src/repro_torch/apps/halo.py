@@ -11,6 +11,16 @@ timestep.  :class:`HaloExchange` packages that schedule:
   :meth:`finish` assembles the padded tiles, so an application runs its
   interior compute between the two.
 
+It is also
+
+* **costed** — :meth:`predicted_stats` is the netsim-exact (steps, bytes)
+  the backend tallies under ``"halo"``, and :meth:`predicted_time` the
+  :class:`~repro_torch.netsim.model.LinkModel` prediction of one exchange;
+* **tunable** — ``plan="auto"`` asks the communicator's tuning table which
+  backend moves a slab of this size on this topology
+  (``Communicator.plan("halo", nbytes)``; always a raw wire: a lossy halo
+  is an explicit choice, never a tuned one).
+
 Its communication configuration rides in a :class:`ChannelSpec` of kind
 ``"exchange"`` (:attr:`spec`) carrying the ``"halo"`` stats tag.
 """
@@ -19,9 +29,17 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import torch
+
 from ..channels.spec import ChannelSpec
 from ..core.comm import Communicator
 from ..core.overlap import halo_exchange_2d_finish, halo_exchange_2d_start
+from ..netsim.schedule import (
+    _dtype_size,
+    halo_slab_elems,
+    predict_halo_stats,
+    predict_halo_time,
+)
 
 #: the tag halo wire traffic is accounted under (TransportStats.by_tag)
 HALO_TAG = "halo"
@@ -32,13 +50,15 @@ class HaloExchange:
     """The N/S/E/W halo-exchange schedule of a (RX, RY) rank grid.
 
     ``transport`` is a registry key / Transport instance / None (the
-    communicator's default).  A per-call ``transport=`` always wins.
+    communicator's default); ``plan="auto"`` defers the choice to the
+    tuning table per tile size.  A per-call ``transport=`` always wins.
     """
 
     comm: Communicator
     grid: tuple[int, int]
     halo: tuple[int, int] = (1, 1)
     transport: object = None
+    plan: object = None
 
     def __post_init__(self):
         RX, RY = self.grid
@@ -52,23 +72,34 @@ class HaloExchange:
         """This schedule's communication config: an anonymous-port
         ``"exchange"`` channel tagged ``"halo"``."""
         return ChannelSpec(comm=self.comm, kind="exchange", port=None,
-                           transport=self.transport, tag=HALO_TAG)
+                           transport=self.transport, plan=self.plan, tag=HALO_TAG)
 
-    def resolve_transport(self, transport=None):
-        """The Transport instance one exchange uses: the explicit argument,
-        else the spec's (a fresh instance for a key)."""
+    def slab_nbytes(self, tile_shape, dtype=torch.float32) -> int:
+        """Bytes of the largest halo slab of one rank's ``tile_shape`` tile
+        (the message size the tuner's ``halo`` cells are keyed on)."""
+        ns, ew = halo_slab_elems(tuple(tile_shape), self.halo)
+        return max(ns, ew) * _dtype_size(dtype)
+
+    def resolve_transport(self, tile=None, transport=None):
+        """The Transport instance one exchange of the rank-stacked ``tile``
+        uses: the explicit argument > the spec's ``transport`` > the tuned
+        ``halo`` plan (``plan="auto"``) > the communicator's default."""
+        spec = self.spec
         if transport is not None:
             from ..transport.registry import resolve_transport
 
             return resolve_transport(transport, self.comm)
-        return self.spec.resolve()
+        if spec.transport is None and spec.plan == "auto" and tile is not None:
+            p = self.comm.plan("halo", self.slab_nbytes(tile.shape[1:], tile.dtype))
+            return spec.replace(transport=p.transport_key).resolve()
+        return spec.resolve()
 
     def start(self, x, transport=None):
         """Launch the four neighbour permutes; returns the in-flight slabs
         (tallied under ``"halo"`` in the backend's stats)."""
         return halo_exchange_2d_start(
             x, self.comm, grid=self.grid, halo=self.halo,
-            transport=self.resolve_transport(transport), tag=self.spec.stats_tag,
+            transport=self.resolve_transport(x, transport), tag=self.spec.stats_tag,
         )
 
     def finish(self, x, inflight):
@@ -78,3 +109,20 @@ class HaloExchange:
     def exchange(self, x, transport=None):
         """Non-overlapped exchange: start and immediately finish."""
         return self.finish(x, self.start(x, transport))
+
+    # -- costing (netsim) ----------------------------------------------------
+
+    def predicted_stats(self, tile_shape, dtype="float32", transport: str = "static", **kw):
+        """Exact (steps, bytes) one exchange of one rank's ``tile_shape``
+        tile tallies under ``transport``: what ``stats.by_tag["halo"]``
+        holds after it.  Extra keywords (``pkt_elems`` etc.) go to
+        :func:`~repro_torch.netsim.schedule.predict_halo_stats`."""
+        return predict_halo_stats(self.comm, grid=self.grid, shape=tuple(tile_shape),
+                                  dtype=dtype, halo=self.halo, transport=transport, **kw)
+
+    def predicted_time(self, tile_shape, dtype="float32", model=None,
+                       wire: str = "raw") -> float:
+        """LinkModel-predicted seconds of one exchange (the card's fit
+        unless ``model`` is given)."""
+        return predict_halo_time(self.comm, grid=self.grid, shape=tuple(tile_shape),
+                                 dtype=dtype, halo=self.halo, model=model, wire=wire)

@@ -45,18 +45,19 @@ def _sweep(padded: torch.Tensor) -> torch.Tensor:
 class DistributedStencil:
     """A sharded heat-diffusion run over ``grid`` = (RX, RY) ranks.
 
-    ``transport`` configures the halo schedule (see :class:`HaloExchange`).
-    The interior update takes the stencil kernel on a CUDA tensor and its
-    plain version on a CPU tensor.
+    ``transport`` / ``plan`` configure the halo schedule (see
+    :class:`HaloExchange`).  The interior update takes the stencil kernel on
+    a CUDA tensor and its plain version on a CPU tensor.
     """
 
     comm: Communicator
     grid: tuple[int, int]
     transport: object = None
+    plan: object = None
 
     @staticmethod
     def create(grid, *, axis_names=None, comm=None, comm_mode=None, transport=None,
-               device=None):
+               plan=None, device=None):
         """Build the app over a fresh communicator (row-major torus over
         ``axis_names``) on ``device`` (``cuda`` unless named) unless one is
         passed.  ``comm_mode`` accepts the launch-layer strings
@@ -75,7 +76,7 @@ class DistributedStencil:
             spec = default_channel_spec(comm, comm_mode, kind="exchange", port=None,
                                         tag=HALO_TAG)
             transport = spec.transport
-        return DistributedStencil(comm=comm, grid=(RX, RY), transport=transport)
+        return DistributedStencil(comm=comm, grid=(RX, RY), transport=transport, plan=plan)
 
     @property
     def device(self) -> torch.device:
@@ -84,7 +85,7 @@ class DistributedStencil:
     @property
     def halo_schedule(self) -> HaloExchange:
         return HaloExchange(comm=self.comm, grid=self.grid, halo=(1, 1),
-                            transport=self.transport)
+                            transport=self.transport, plan=self.plan)
 
     # -- one timestep ------------------------------------------------------
 
@@ -113,7 +114,7 @@ class DistributedStencil:
     def run(self, x, n_steps: int, *, overlapped: bool = True, transport=None):
         """``n_steps`` timesteps of the rank-stacked tiles ``x``; every
         step's halo traffic is tallied on one transport instance."""
-        t = self.halo_schedule.resolve_transport(transport)
+        t = self.halo_schedule.resolve_transport(x, transport)
         step = self.step_overlapped if overlapped else self.step_reference
         return _schedule_loop(t, n_steps, lambda _, v: step(v, transport=t), x)
 
@@ -144,3 +145,23 @@ class DistributedStencil:
         for _ in range(n_steps):
             out = stencil_ref(out)
         return out
+
+    # -- costing -------------------------------------------------------------
+
+    def predicted_step_time(self, tile_shape, dtype="float32", model=None, *,
+                            overlapped: bool = True, compute_seconds: float | None = None,
+                            wire: str = "raw") -> float:
+        """LinkModel prediction of one timestep (the card's fit unless
+        ``model`` is given): the halo exchange's time of one rank's
+        ``tile_shape`` tile, combined with ``compute_seconds`` through the
+        overlap window (the longer of the two on the pipelined schedule,
+        the sum on the reference)."""
+        from ..netsim.model import LinkModel
+
+        model = model or LinkModel()
+        comm_s = self.halo_schedule.predicted_time(tile_shape, dtype, model=model, wire=wire)
+        if compute_seconds is None:
+            return comm_s
+        if overlapped:
+            return model.overlapped_step_time(compute_seconds, comm_s)
+        return model.serial_step_time(compute_seconds, comm_s)

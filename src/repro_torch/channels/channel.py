@@ -90,19 +90,19 @@ class _ChannelBase:
         self.close()
         return False
 
-    def _resolve_transfer(self, x, n_chunks):
+    def _resolve_transfer(self, x, n_chunks, op: str):
         """(transport, n_chunks) for one whole-message transfer: the spec's
-        plan, when it has one, picks backend and chunk count (a tuned int8
-        wire moves integer payloads raw); an explicit spec transport wins
-        over the plan's backend.  ``plan="auto"`` raises until the tuner is
-        ported."""
+        plan, when it has one, picks backend and chunk count (``"auto"``
+        consults the tuning table under ``op`` at one rank's bytes; a tuned
+        int8 wire moves integer payloads raw); an explicit spec transport
+        wins over the plan's backend."""
         spec = self.spec
         nc = n_chunks if n_chunks is not None else spec.n_chunks
         if spec.plan is None:
             return spec.resolve(), nc
         from ..core.collectives import _resolve_plan
 
-        plan = _resolve_plan(spec.plan, x)
+        plan = _resolve_plan(spec.plan, op, spec.comm, x)
         if spec.transport is None and spec.wire == "raw":
             t = spec.replace(transport=plan.transport_key).resolve()
         else:
@@ -171,7 +171,7 @@ class Channel(_ChannelBase):
         channel's transport (``n_chunks`` chunks along dim 1 in flight; the
         spec's plan may pick backend and chunk count); zeros elsewhere."""
         spec = self.spec
-        t, nc = self._resolve_transfer(x, n_chunks)
+        t, nc = self._resolve_transfer(x, n_chunks, "p2p")
         with _tagged(t, spec.stats_tag):
             return t.p2p(x, src=spec.src, dst=spec.dst, comm=spec.comm, n_chunks=nc)
 

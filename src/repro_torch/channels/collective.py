@@ -243,7 +243,7 @@ class CollectiveChannel(_ChannelBase):
             # the dispatcher owns the schedule and chunk count; the channel
             # owns the backend instance (the spec's transport, else the
             # plan's key, with the spec's wire) and the stats tag
-            p = C._resolve_plan(spec.plan, x)
+            p = C._resolve_plan(spec.plan, kind, spec.comm, x)
             t = (spec.resolve() if spec.transport is not None
                  else spec.replace(transport=p.transport_key).resolve())
             with _tagged(t, spec.stats_tag):

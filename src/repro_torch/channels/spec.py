@@ -14,8 +14,9 @@ communication config:
   with the compressed link, as a tuned Plan's wire does;
 * ``tag`` — the TransportStats bucket every step of the channel is
   accounted under (default ``"port<N>"`` for a numbered port);
-* ``plan`` — ``None`` | ``"auto"`` | a Plan (``"auto"`` raises until the
-  tuner is ported).
+* ``plan`` — ``None`` | ``"auto"`` | a Plan: defers backend and chunk
+  count (a collective channel's schedule too) to the plan, ``"auto"`` to
+  the netsim tuning table under the channel kind's op.
 
 The reference's capture mode (``repro.analysis.capture``, which resolves
 every spec to an abstract accounting backend) is not ported, so

@@ -10,7 +10,8 @@ equal the reference's bit for bit and step for step.
   Gather / Reduce;
 * ring AllGather / ReduceScatter / AllReduce / AllToAll;
 * binomial-tree and host-staged Bcast/Reduce;
-* the ``bcast``/``reduce``/``allreduce`` dispatchers, driven by a
+* the ``bcast``/``reduce``/``allreduce`` dispatchers, driven by the
+  netsim tuner (``plan="auto"``, their default) or a
   :class:`~repro_torch.netsim.Plan` (``plan=None`` is the static default);
 * the once-quantised reduce-scatter of a lossy (int8) wire, and
   :func:`make_int8_codec` for the deprecated ``quantize=`` keywords;
@@ -554,32 +555,40 @@ def staged_reduce(x: torch.Tensor, comm: Communicator, *, root: int = 0, op=None
 # ---------------------------------------------------------------------------
 
 
-def _resolve_plan(plan, x: torch.Tensor):
-    """``None`` -> the static default; a Plan passes through (an ``int8``
-    wire applies to floating payloads only; integer data moves raw).
-    ``"auto"`` needs the tuner, which is not ported yet."""
+def _resolve_plan(plan, op: str, comm: Communicator, x: torch.Tensor):
+    """Turn a plan argument into a concrete netsim Plan.
+
+    ``"auto"`` consults the communicator's cached tuning table for the
+    bytes of ONE rank's row of the rank-stacked ``x`` (the reference's
+    shard inside ``shard_map``); ``None`` is the static default; a
+    :class:`~repro_torch.netsim.Plan` passes through.  A tuned ``int8``
+    wire applies to floating payloads only: integer data moves raw, on the
+    same plan."""
     import dataclasses
 
     from ..netsim.tune import DEFAULT_PLAN, Plan
 
     if plan is None:
         return DEFAULT_PLAN
-    if not isinstance(plan, Plan):
-        raise NotImplementedError(
-            f"plan={plan!r}: only None or a Plan; plan='auto' (the netsim "
-            "tuner) comes with the tuner slice of the port"
-        )
-    if plan.wire != "raw" and not x.dtype.is_floating_point:
-        plan = dataclasses.replace(plan, wire="raw")
-    return plan
+    if isinstance(plan, Plan):
+        p = plan
+    elif plan == "auto":
+        p = comm.plan(op, x[0].numel() * x.element_size())
+    else:
+        raise ValueError(f"plan must be 'auto', None or a Plan; got {plan!r}")
+    if p.wire != "raw" and not x.dtype.is_floating_point:
+        p = dataclasses.replace(p, wire="raw")
+    return p
 
 
-def bcast(x: torch.Tensor, comm: Communicator, *, root: int = 0, plan=None,
+def bcast(x: torch.Tensor, comm: Communicator, *, root: int = 0, plan="auto",
           transport=None):
-    """Broadcast by plan: pipelined chain, binomial tree or staged, with
-    the plan's chunk count and backend; ``transport`` overrides the
-    plan's backend."""
-    p = _resolve_plan(plan, x)
+    """Autotuned broadcast: the tuning table picks the schedule (pipelined
+    chain, binomial tree or staged), the chunk count, the backend and the
+    wire (an int8 plan matches within the codec's bound) for this topology
+    and message size.  ``transport`` overrides the plan's backend only;
+    ``plan=None`` runs the static default."""
+    p = _resolve_plan(plan, "bcast", comm, x)
     tp = transport if transport is not None else p.transport_key
     if p.algo == "tree":
         return tree_bcast(x, comm, root=root, transport=tp)
@@ -589,10 +598,10 @@ def bcast(x: torch.Tensor, comm: Communicator, *, root: int = 0, plan=None,
                               n_chunks=p.clamp_chunks(x.shape[1]), transport=tp)
 
 
-def reduce(x: torch.Tensor, comm: Communicator, *, root: int = 0, op=None, plan=None,
+def reduce(x: torch.Tensor, comm: Communicator, *, root: int = 0, op=None, plan="auto",
            transport=None):
-    """Rooted reduction by plan (same dispatch rules as :func:`bcast`)."""
-    p = _resolve_plan(plan, x)
+    """Autotuned rooted reduction (same dispatch rules as :func:`bcast`)."""
+    p = _resolve_plan(plan, "reduce", comm, x)
     tp = transport if transport is not None else p.transport_key
     if p.algo == "tree":
         return tree_reduce(x, comm, root=root, op=op, transport=tp)
@@ -602,10 +611,10 @@ def reduce(x: torch.Tensor, comm: Communicator, *, root: int = 0, op=None, plan=
                                n_chunks=p.clamp_chunks(x.shape[1]), transport=tp)
 
 
-def allreduce(x: torch.Tensor, comm: Communicator, *, plan=None, transport=None, **kw):
-    """Ring all-reduce.  Only the plan's transport applies: the RS+AG
-    schedule fixes its own chunking (nbytes/P blocks)."""
-    p = _resolve_plan(plan, x)
+def allreduce(x: torch.Tensor, comm: Communicator, *, plan="auto", transport=None, **kw):
+    """Autotuned ring all-reduce.  Only the plan's backend applies: the
+    RS+AG schedule fixes its own chunking (nbytes/P blocks)."""
+    p = _resolve_plan(plan, "allreduce", comm, x)
     tp = transport if transport is not None else p.transport_key
     return _stream_allreduce_impl(x, comm, transport=tp, **kw)
 

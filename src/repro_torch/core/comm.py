@@ -148,11 +148,16 @@ class Communicator:
         return replace(self, transport=transport)
 
     def plan(self, op: str, nbytes: int):
-        """The netsim tuner's decision in the reference; not ported yet."""
-        raise NotImplementedError(
-            "Communicator.plan (the netsim tuner, plan='auto') comes with "
-            "the tuner slice of the port; pass plan=None or a Plan"
-        )
+        """The netsim autotuner's decision for ``op`` at ``nbytes`` (one
+        rank's bytes) on this communicator's topology and routes, from the
+        tuning table cached per topology signature
+        (``repro_torch.netsim.tune._TABLES``).  What the ``bcast``/
+        ``reduce``/``allreduce`` dispatchers, the channels, the parallel
+        layers and the halo exchange (``op="halo"``, ``nbytes`` = one slab)
+        consult under ``plan="auto"``."""
+        from ..netsim.tune import tuned_plan
+
+        return tuned_plan(op, self, nbytes)
 
     # -- rank queries --------------------------------------------------------
 

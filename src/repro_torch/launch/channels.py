@@ -15,8 +15,16 @@ Every delivered message is checked: bit for bit on the exact wires, within
 the int8 codec's bound on the compressed one.  One line a row; the exit
 code is 1 if a check fails.
 
+``--validate-sim`` (the reference's ``benchmarks/{latency,bandwidth}.py
+--validate-sim``) records the static wire's latency and bandwidth
+transfers as netsim calibration points (``TransportStats.record`` of one
+transfer, seconds the median of 9 readings taken in turns), fits a
+:class:`~repro_torch.netsim.LinkModel` to each set and gates its drift at
+2x, then prints the fit of both sets together.
+
     python -m repro_torch.launch.channels --device cpu --sizes-kib 16,256
     python -m repro_torch.launch.channels --measure latency
+    python -m repro_torch.launch.channels --validate-sim
 
 The device is ``cuda`` unless ``--device cpu`` is given.
 """
@@ -189,6 +197,83 @@ def bandwidth(device, sizes_kib=BW_SIZES_KIB, wires=BW_WIRES, reps: int = 5) -> 
     return rows
 
 
+def _interleaved_median_s(fns, device: torch.device, reps: int, warmup: int = 2) -> list:
+    """Median seconds of ``reps`` single calls of each of ``fns``, taken in
+    rounds (every function once a round, in turn) so that a drift of the
+    host's pace between the first reading and the last falls on every
+    function alike.  A reading is the CUDA events around one call on an
+    idle card (a synchronize before each: a call queued behind another's
+    device work would read short), or the host clock on the CPU."""
+    for fn in fns:
+        for _ in range(warmup):
+            fn()
+    times = [[] for _ in fns]
+    for _ in range(reps):
+        for ts, fn in zip(times, fns):
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn()
+                end.record()
+                torch.cuda.synchronize(device)
+                ts.append(start.elapsed_time(end) * 1e-3)
+            else:
+                t0 = time.perf_counter()
+                fn()
+                ts.append(time.perf_counter() - t0)
+    return [sorted(ts)[len(ts) // 2] for ts in times]
+
+
+def calibration_records(device, sizes_kib=BW_SIZES_KIB, reps: int = 9):
+    """netsim calibration points of the static wire on the 8-rank bus:
+    ``(latency, bandwidth)`` lists of ``TransportStats.record`` dicts, one
+    per transfer shape — Tab. 3's (8 float32 at 1, 4 and 7 hops,
+    ``n_chunks=1``) and Fig. 9's (``sizes_kib`` per rank at 1, 4 and 7 hops,
+    ``n_chunks=16``).  Each record holds the steps and bytes of ONE transfer
+    and the median seconds of ``reps`` (at least 9) timed transfers, the
+    shapes of a set timed in turns."""
+    if reps < 9:
+        raise ValueError(f"reps={reps}: the calibration takes the median of at least 9")
+    dev = resolve_device(device)
+    comm = bus_comm(dev)
+    g = torch.Generator(device=dev).manual_seed(9)
+    shapes = [("latency", LAT_ELEMS, 1)] + [("bandwidth", kib * 256, BW_CHUNKS)
+                                             for kib in sizes_kib]
+    runs = []  # (measure, name, transport, call)
+    for measure, elems, n_chunks in shapes:
+        x = torch.randn((8, elems), generator=g, device=dev)
+        for dst, hops in HOPS:
+            t = get_transport("static", device=dev)
+            ch = open_channel(comm, src=0, dst=dst, port=None, n_chunks=n_chunks, transport=t)
+            _check_delivery(ch.transfer(x), x, 0, dst, False,
+                            f"calibration {elems} float32 hops={hops}")
+            runs.append((measure, f"{measure} {elems * 4}B hops={hops} n_chunks={n_chunks}", t,
+                         lambda ch=ch, x=x: ch.transfer(x)))
+    out = {"latency": [], "bandwidth": []}
+    for measure, recs in out.items():  # each set in turns of its own shapes
+        mine = [r for r in runs if r[0] == measure]
+        secs = _interleaved_median_s([fn for *_, fn in mine], dev, reps)
+        for (_, name, t, fn), sec in zip(mine, secs):
+            t.reset_stats()
+            fn()
+            recs.append(t.stats.record(sec, name))
+    return out["latency"], out["bandwidth"]
+
+
+def validate_sim(device, sizes_kib=BW_SIZES_KIB, reps: int = 9, tol: float = 2.0):
+    """Fit and gate each record set at ``tol`` (an AssertionError on a
+    miss), then fit both together.  Returns ``(fit of both, latency
+    records, bandwidth records)``."""
+    from ..netsim import calibrate
+
+    lat, bw = calibration_records(device, sizes_kib, reps)
+    calibrate.validate(lat, tol=tol, label="latency_tab3")
+    calibrate.validate(bw, tol=tol, label="bandwidth_fig9")
+    return calibrate.fit(lat + bw), lat, bw
+
+
 def _line(row: dict) -> str:
     if row["measure"] == "latency":
         return (f"latency hops={row['hops']} wire={row['wire']}: "
@@ -206,9 +291,16 @@ def main(argv=None) -> int:
     ap.add_argument("--sizes-kib", default=",".join(map(str, BW_SIZES_KIB)),
                     help="bandwidth message sizes per rank, KiB")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--validate-sim", action="store_true",
+                    help="fit a LinkModel to the static wire's transfers and gate its drift")
     args = ap.parse_args(argv)
     measures = args.measure.split(",")
     try:
+        if args.validate_sim:
+            sizes = tuple(int(s) for s in args.sizes_kib.split(","))
+            model, _, _ = validate_sim(args.device, sizes)
+            print(f"fitted {model!r}", flush=True)
+            return 0
         if "latency" in measures:
             for row in latency(args.device):
                 print(_line(row), flush=True)

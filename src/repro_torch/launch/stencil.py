@@ -9,6 +9,11 @@ steps and bytes per rank over one run.
     python -m repro_torch.launch.stencil --grid 2x4 --domain 8192x8192 --steps 32
     python -m repro_torch.launch.stencil --case ring8 --comm-mode smi:fused \\
         --device cpu --json out.json
+    python -m repro_torch.launch.stencil --grid 2x4 --plan auto
+
+``--plan auto`` lets the netsim tuning table pick the halo backend (the
+card's link model; never a lossy wire) and cannot be combined with a
+pinned ``--comm-mode``; the run is labelled ``smi(auto)``.
 
 The device is ``cuda`` unless ``--device cpu`` is given.
 """
@@ -45,6 +50,8 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--comm-mode", default="smi", choices=COMM_MODES,
                     help="smi:<backend> selects the transport; 'smi' = static")
+    ap.add_argument("--plan", default=None, choices=["auto"],
+                    help="'auto' lets the netsim tuning table pick the halo backend")
     ap.add_argument("--no-overlap", action="store_true",
                     help="run the non-overlapped reference schedule")
     ap.add_argument("--json", default=None, metavar="OUT",
@@ -59,12 +66,23 @@ def main(argv=None) -> int:
         c = STENCIL_CASES[args.case]
         grid, domain, steps = c["grid"], c["domain"], c["steps"]
 
-    app = DistributedStencil.create(grid, comm_mode=args.comm_mode, device=args.device)
+    if args.plan == "auto":
+        if args.comm_mode != "smi":
+            ap.error("--plan auto lets the tuner pick the backend; it cannot be combined "
+                     "with an explicit --comm-mode")
+        comm_mode = None
+    else:
+        comm_mode = args.comm_mode
+    mode_label = args.comm_mode if args.plan != "auto" else "smi(auto)"
+    app = DistributedStencil.create(grid, comm_mode=comm_mode, plan=args.plan,
+                                    device=args.device)
     dev = app.device
     world = torch.from_numpy(np.random.RandomState(0).randn(*domain).astype(np.float32)).to(dev)
     tiles = app.scatter(world)
     overlapped = not args.no_overlap
-    tp = app.halo_schedule.resolve_transport()
+    # one instance for every step, resolved from the tiles (a tuned plan is
+    # keyed on their slab size), so its counters hold the run's halo traffic
+    tp = app.halo_schedule.resolve_transport(tiles)
 
     # the first run gives the result and warms up (allocator, module loads);
     # the second is timed
@@ -83,7 +101,7 @@ def main(argv=None) -> int:
     sched = "overlapped" if overlapped else "reference"
     kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"[stencil] grid={grid} domain={domain} steps={steps} "
-          f"comm_mode={args.comm_mode} schedule={sched} device={kind}")
+          f"comm_mode={mode_label} halo_backend={tp.name} schedule={sched} device={kind}")
     print(f"[stencil] wall_per_step={wall / max(steps, 1) * 1e3:.4f}ms "
           f"halo_steps={halo_steps} halo_bytes_per_rank={halo_bytes} "
           f"max|err|={err:.3g} {'OK' if ok else 'MISMATCH'}")
@@ -91,7 +109,8 @@ def main(argv=None) -> int:
         with open(args.json, "w") as f:
             json.dump({
                 "grid": grid, "domain": domain, "steps": steps,
-                "comm_mode": args.comm_mode, "schedule": sched, "device": kind,
+                "comm_mode": mode_label, "halo_backend": tp.name, "schedule": sched,
+                "device": kind,
                 "wall_s": wall, "wall_per_step_s": wall / max(steps, 1),
                 "halo_steps": halo_steps, "halo_bytes_per_rank": halo_bytes,
                 "max_err": err, "ok": ok,

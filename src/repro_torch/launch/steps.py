@@ -29,9 +29,10 @@ def build_prefill(cfg: ModelConfig, shape: ShapeConfig, *, mesh=None, comm_mode:
     plain versions there, for comparisons.
 
     ``mesh=(1, P)`` runs it tensor-parallel over P stacked ranks, the
-    layers' collectives over ``comm_mode`` (``"smi:static"``,
-    ``"smi:fused"``, ``"bulk"``; a bare ``"smi"`` takes the config's
-    ``comm_plan`` and raises until the tuner is ported); ``params`` are then
+    layers' collectives over ``comm_mode``: a bare ``"smi"`` (the default)
+    takes the config's ``comm_plan`` (``"auto"``: the netsim tuning table
+    picks each layer's backend and wire), a pinned ``"smi:static"``,
+    ``"smi:fused"`` or ``"bulk"`` keeps every layer there; ``params`` are then
     :func:`~repro_torch.interop.shard_params`'s for ``prefill.ctx``.  The
     products are ``torch.matmul``, as the reference's are unless a caller
     injects a kernel through ``make_ctx(..., matmul_fn=...)``.  FSDP stays

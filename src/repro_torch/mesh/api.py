@@ -21,11 +21,13 @@ all-gather streamed through the GEMM, row-parallel ones emit a
 reduce-scatter streamed through it.  ``matmul_fn`` puts kernel D on those
 GEMMs (``make_ctx(..., matmul_fn=repro_torch.kernels.matmul.matmul)``).
 
+``plan`` is the layers' default tuning plan (``"auto"``: the netsim tuning
+table picks each layer call's backend; a launch's bare ``"smi"`` passes a
+config's ``comm_plan``).
+
 Not in the port yet, each raising ``NotImplementedError`` rather than
 running something else in its stead: a data axis of more than one rank,
-ring attention (``opt_ring_attn``), decode and serving at tp > 1, and a
-tuned layer plan (``plan="auto"``, the bare ``"smi"`` of a config whose
-``comm_plan`` is ``"auto"``).
+ring attention (``opt_ring_attn``), and decode and serving at tp > 1.
 """
 
 from __future__ import annotations
@@ -44,9 +46,6 @@ RING_ATTN_ROADMAP = "opt_ring_attn (ring attention) waits for its slice (ROADMAP
 #: what a mesh with a data axis of more than one rank raises with
 DATA_AXIS_ROADMAP = ("a data axis of more than one rank (data parallelism, FSDP) waits for "
                      "its slice (ROADMAP.md §1, item 9)")
-#: what a tuned layer plan raises with
-PLAN_ROADMAP = ("plan='auto' or a netsim Plan on the tensor-parallel layers needs the tuner "
-                "(ROADMAP.md §1, item 3); pin a wire with comm_mode='smi:<backend>'")
 #: the mesh axes, outermost first
 MESH_AXES = ("data", "model")
 
@@ -127,8 +126,6 @@ def make_ctx(mesh=None, *, model_axis: str | None = "model",
     if tp == 1:
         return ParallelCtx(comm_mode="none", transport=transport, mesh=mesh,
                            opt_shared_gather=opt_shared_gather, plan=plan)
-    if plan is not None:
-        raise NotImplementedError(f"plan={plan!r}: {PLAN_ROADMAP}")
     comm = Communicator.create(model_axis, (tp,), name=f"tp_{model_axis}",
                                transport=transport, device=device)
     return ParallelCtx(

@@ -1,14 +1,90 @@
-"""The parts of ``repro.netsim`` the port's schedules need, copied.
+"""netsim: link-level network simulation and cost-model autotuning
+(``repro.netsim``).
 
-Only the halo wiring (:mod:`.schedule`), the tuning-plan record
-(:mod:`.tune`) and the compressed wire's block size (:mod:`.model`) are
-here; the simulator, the link cost model and the autotuner come with a
-later slice.
+The paper's evaluation is a performance model made measurable: latency
+against hops (Tab. 3), injection rate against polling stickiness R
+(Tab. 4), bandwidth against message size (Fig. 9).  This package makes
+that model executable:
+
+* :mod:`.model` — :class:`LinkModel`, the analytic per-link cost model,
+  its defaults fitted on an H100 (``chip_smoke.py`` phase 25);
+* :mod:`.sim` — a tick-based link simulator replaying message schedules
+  over any Topology and RouteTable with FIFO depths, R-sticky arbitration
+  and backpressure;
+* :mod:`.schedule` — schedule builders mirroring the transports, and exact
+  ``TransportStats`` prediction;
+* :mod:`.calibrate` — fit a LinkModel from measured runs and gate the
+  drift between prediction and measurement;
+* :mod:`.tune` — the autotuner and its cached :class:`TuningTable` s, which
+  ``plan="auto"`` consults.
+
+numpy and pure Python: no torch is needed to import it.
 """
 
-from .model import WIRE_AXIS_ELEMS, clamp_chunks
-from .schedule import halo_pairs, halo_slab_elems
-from .tune import DEFAULT_PLAN, Plan
+from .calibrate import fit, record, record_from_stats, validate
+from .model import WIRE_AXIS_ELEMS, LinkModel, clamp_chunks, int8_wire_nbytes
+from .schedule import (
+    HALO_DIRECTIONS,
+    collective_rounds,
+    compressed_reduce_scatter_rounds,
+    halo_pairs,
+    halo_rounds,
+    halo_slab_elems,
+    p2p_messages,
+    packet_bounds,
+    packet_n_packets,
+    predict_channel_stats,
+    predict_halo_stats,
+    predict_halo_time,
+    predict_transport_stats,
+    ring_perm_round,
+)
+from .sim import Message, SimReport, simulate, simulate_rounds
+from .tune import (
+    DEFAULT_PLAN,
+    SIZE_GRID,
+    WIRES,
+    Plan,
+    TuningTable,
+    autotune,
+    score_plan,
+    tuned_plan,
+    tuning_table_for,
+)
 
-__all__ = ["DEFAULT_PLAN", "Plan", "WIRE_AXIS_ELEMS", "clamp_chunks", "halo_pairs",
-           "halo_slab_elems"]
+__all__ = [
+    "LinkModel",
+    "WIRE_AXIS_ELEMS",
+    "int8_wire_nbytes",
+    "Message",
+    "SimReport",
+    "simulate",
+    "simulate_rounds",
+    "HALO_DIRECTIONS",
+    "collective_rounds",
+    "compressed_reduce_scatter_rounds",
+    "halo_pairs",
+    "halo_rounds",
+    "halo_slab_elems",
+    "p2p_messages",
+    "packet_bounds",
+    "packet_n_packets",
+    "predict_channel_stats",
+    "predict_halo_stats",
+    "predict_halo_time",
+    "predict_transport_stats",
+    "ring_perm_round",
+    "fit",
+    "record",
+    "record_from_stats",
+    "validate",
+    "DEFAULT_PLAN",
+    "Plan",
+    "SIZE_GRID",
+    "WIRES",
+    "TuningTable",
+    "autotune",
+    "score_plan",
+    "tuned_plan",
+    "tuning_table_for",
+]

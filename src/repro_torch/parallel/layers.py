@@ -24,14 +24,19 @@ preferred_element_type=float32)`` does.
 When the context carries a persistent
 :class:`~repro_torch.channels.ChannelPool` (``ctx.channels``), each layer's
 spec comes from the pool: the pool-prefixed tag and one persistent port
-claim a tag.  ``wire="int8"`` runs a layer over the compressed link.
+claim a tag.  ``wire="int8"`` runs a layer over the compressed link.  A
+plan (the call's or the context's; ``"auto"`` for a config's ``comm_plan``
+under a bare ``comm_mode="smi"``) lets the netsim tuning table pick each
+layer call's backend and wire, recorded per tag in the capture ledger's
+``plans``.
 
-Not ported yet: tuned layer plans (``plan=`` raises, ROADMAP item 3), ring
-attention, the MoE, loss, gradient and pipeline layers.
+Not ported yet: ring attention, the MoE, loss, gradient and pipeline
+layers.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from contextlib import contextmanager
 
 import torch
@@ -39,9 +44,15 @@ import torch
 from ..channels import ChannelSpec
 from ..core.collectives import _stream_allreduce_impl, stream_allgather, stream_reduce_scatter
 from ..core.overlap import _default_mm, stream_allgather_matmul, stream_matmul_reducescatter
-from ..mesh.api import PLAN_ROADMAP
 from ..transport.base import rank_bytes
 from . import ledger
+
+#: channel kind -> the netsim tuner op a ``plan="auto"`` consults (the
+#: tuner prices rooted and ring collectives; ring all-gathers and
+#: reduce-scatters cost like the all-reduce phases they compose into)
+_PLAN_OPS = {"bcast": "bcast", "reduce": "allreduce", "gather": "allreduce",
+             "scatter": "allreduce", "allreduce": "allreduce",
+             "exchange": "allreduce", "p2p": "p2p"}
 
 
 def _matmul(ctx):
@@ -52,9 +63,10 @@ def layer_spec(ctx, tag: str, *, kind: str = "allreduce", wire: str = "raw", pla
                transport=None, port: int | None = None, n_chunks: int = 1,
                op=None) -> ChannelSpec:
     """The ChannelSpec a parallel layer owns: the context's TP communicator
-    and launch-selected backend, the layer's stats tag, and the call's wire
-    override.  A tuning plan (the call's or the context's) raises until the
-    tuner is ported.
+    and launch-selected backend, the layer's stats tag, and the call's
+    wire/plan overrides.  ``transport=None`` inherits ``ctx.transport``
+    unless a ``plan`` (the call's or the context's) is given: then the
+    tuned plan picks the backend (pass ``transport`` to pin it).
 
     When the context carries a persistent :class:`~repro_torch.channels.
     ChannelPool` (``ctx.channels``, a serving runtime), the spec comes from
@@ -63,23 +75,37 @@ def layer_spec(ctx, tag: str, *, kind: str = "allreduce", wire: str = "raw", pla
     for every later call."""
     if plan is None:
         plan = ctx.plan
-    if plan is not None:
-        raise NotImplementedError(f"plan={plan!r} on layer {tag!r}: {PLAN_ROADMAP}")
-    if transport is None:
+    if transport is None and plan is None:
         transport = ctx.transport
     pool = ctx.channels
     if pool is not None:
-        return pool.spec(tag, kind=kind, wire=wire, transport=transport, n_chunks=n_chunks,
-                         op=op)
+        return pool.spec(tag, kind=kind, wire=wire, plan=plan, transport=transport,
+                         n_chunks=n_chunks, op=op)
     return ChannelSpec(comm=ctx.model_comm, kind=kind, tag=tag, wire=wire, plan=plan,
                        transport=transport, port=port, n_chunks=n_chunks, op=op)
 
 
 def _open(spec: ChannelSpec, x):
     """A fresh transport realising ``spec`` for one layer call, mirrored
-    into the active capture ledger."""
-    if spec.plan is not None:
-        raise NotImplementedError(f"plan={spec.plan!r}: {PLAN_ROADMAP}")
+    into the active capture ledger.  A ``plan`` (``"auto"`` or a netsim
+    Plan) selects backend and wire from the tuning table, at one rank's
+    bytes of ``x``, unless the spec pins a transport; the choice is recorded
+    in the active ledger's ``plans`` under the spec's tag.  An int8 plan
+    on a non-floating payload falls back to the raw wire."""
+    if spec.plan is not None and spec.transport is None:
+        from ..netsim.tune import Plan
+
+        p = spec.plan
+        if not isinstance(p, Plan):
+            if p != "auto":
+                raise ValueError(f"plan must be 'auto', None or a Plan; got {p!r}")
+            p = spec.comm.plan(_PLAN_OPS.get(spec.kind, "allreduce"), rank_bytes(x))
+        floating = all(v.dtype.is_floating_point for v in (x if isinstance(x, tuple) else (x,)))
+        if p.wire != "raw" and not floating:
+            p = dataclasses.replace(p, wire="raw")
+        spec = spec.replace(transport=p.transport_key)
+        if spec.tag is not None:
+            ledger.record_plan(spec.tag, p.transport_key)
     return ledger.attach(spec.resolve())
 
 

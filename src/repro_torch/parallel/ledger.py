@@ -37,8 +37,7 @@ class CommLedger:
     bytes_moved: int = 0
     #: tag -> {"steps": int, "bytes": int}
     by_tag: dict = field(default_factory=dict)
-    #: tag -> the tuner's transport key for a planned layer (filled once the
-    #: tuner is ported; the port's layers run pinned wires until then)
+    #: tag -> the tuner's transport key for a planned layer (the last call's)
     plans: dict = field(default_factory=dict)
     #: id -> instance of every transport mirrored; holding the instance
     #: keeps its id from being reused by a later, fresh transport (whose

@@ -60,6 +60,24 @@ class TransportStats:
         """Add one router run's per-rank loss count (no host sync)."""
         self.overflow = ovf if self.overflow is None else self.overflow + ovf
 
+    def record(self, seconds: float, name: str = "") -> dict:
+        """One netsim calibration point: this schedule's cost paired with
+        its measured seconds (read by :mod:`repro_torch.netsim.calibrate`;
+        the fit reads only steps, bytes and seconds).  ``by_tag`` and the
+        total ``overflow`` (a host sync when the router ran) ride along so
+        saved calibration runs stay auditable per message tag."""
+        return {
+            "steps": int(self.steps),
+            "bytes": float(self.bytes_moved),
+            "seconds": float(seconds),
+            "name": name,
+            "overflow": None if self.overflow is None else int(self.overflow.sum()),
+            "by_tag": {
+                tag: {"steps": int(e["steps"]), "bytes": int(e["bytes"])}
+                for tag, e in self.by_tag.items()
+            },
+        }
+
 
 def rank_bytes(x) -> int:
     """Wire bytes one rank's row of the rank-stacked ``x`` holds; a tuple of

@@ -332,8 +332,11 @@ def test_stream_p2p_deprecated_keywords_warn():
     planned = pch.open_channel(comm, src=0, dst=5, port=None,
                                plan=Plan("static", 4, "ring")).transfer(x)
     assert torch.equal(legacy, planned) and torch.equal(legacy[5], x[0])
-    with pytest.raises(NotImplementedError, match="tuner"):
-        pch.open_channel(comm, src=0, dst=5, port=None, plan="auto").transfer(x)
+    with pytest.warns(DeprecationWarning, match="open a channel"):
+        legacy = stream_p2p(x, src=0, dst=5, comm=comm, plan="auto")
+    tuned = pch.open_channel(comm, src=0, dst=5, port=None,
+                             plan=comm.plan("p2p", 16 * 4)).transfer(x)
+    assert torch.equal(legacy, tuned) and torch.equal(legacy[5], x[0])
 
 
 @pytest.mark.parametrize("backend", BACKENDS)

@@ -53,14 +53,19 @@ def test_collective_matches_reference(case, topo, transport):
     assert_bits_equal(xin, x, "input was modified")
 
 
-def test_dispatchers_default_to_static_and_refuse_auto():
+def test_dispatchers_default_to_the_tuned_plan():
+    """``plan="auto"`` is the default: the communicator's tuning table
+    (keyed on one rank's bytes) picks the plan; ``plan=None`` is the static
+    default; ``transport=`` replaces only the plan's backend."""
     comm = port_comm("ring")
     x = to_port(_f32(P, 16))
-    assert_bits_equal(pc.allreduce(x, comm), pc.allreduce(x, comm, transport="static"), "default")
-    with pytest.raises(NotImplementedError, match="tuner"):
-        pc.allreduce(x, comm, plan="auto")
-    with pytest.raises(NotImplementedError, match="tuner"):
-        comm.plan("allreduce", 64)
+    tuned = comm.plan("allreduce", 16 * 4)
+    assert_bits_equal(pc.allreduce(x, comm), pc.allreduce(x, comm, plan=tuned), "default")
+    assert_bits_equal(pc.allreduce(x, comm, plan=None),
+                      pc.allreduce(x, comm, plan=None, transport="static"), "plan=None")
+    assert_bits_equal(pc.bcast(x, comm, transport="fused"),
+                      pc.bcast(x, comm, plan=comm.plan("bcast", 64), transport="fused"),
+                      "transport override")
     # an int8 plan runs the compressed wire over the plan's backend
     assert_bits_equal(pc.bcast(x, comm, plan=Plan("static", 1, "ring", wire="int8")),
                       pc.bcast(x, comm, plan=None, transport="compressed:static"), "int8 plan")

@@ -20,8 +20,9 @@
   keywords, lossy-dtype errors, and an int8 plan on integer data.
 
 The reference's rolled-loop stat scaling and its cross-trace reuse guard
-have no counterpart in the eager port, and ``plan="auto"`` and the
-optimiser's error feedback come with later items.
+have no counterpart in the eager port; the optimiser's error feedback
+comes with a later item, and tuned int8 plans are held in
+tests/test_torch_netsim.py.
 """
 
 import warnings

@@ -387,7 +387,7 @@ def _ssm_specs_at_tp4():
 @pytest.mark.parametrize("kw", [
     lambda: make_ctx((2, 4)),                                   # a data axis (item 9)
     lambda: make_ctx((2, 4), comm_mode="smi:static"),           # the same with a comm mode
-    lambda: make_ctx((1, 4), comm_mode="smi", plan="auto", device="cpu"),  # the tuner (item 3)
+    lambda: make_ctx((2, 4), comm_mode="smi", plan="auto", device="cpu"),  # a data axis, tuned
     _ssm_specs_at_tp4,                                          # mamba2 at tp > 1 (item 14)
     lambda: make_ctx(opt_ring_attn=True),                       # ring attention (item 9)
 ])

@@ -81,6 +81,7 @@ def test_single_rank_reference_matches_repro(world):
     ["--domain", "64x64", "--steps", "3"],
     ["--domain", "64x64", "--steps", "3", "--no-overlap", "--comm-mode", "smi:fused"],
     ["--case", "ring8", "--comm-mode", "smi:static"],
+    ["--domain", "64x64", "--steps", "3", "--plan", "auto"],
 ])
 def test_launch_stencil_on_cpu(argv, tmp_path, capsys):
     out = tmp_path / "r.json"
@@ -90,3 +91,24 @@ def test_launch_stencil_on_cpu(argv, tmp_path, capsys):
 
     res = json.loads(out.read_text())
     assert res["ok"] and res["max_err"] == 0.0 and res["halo_steps"] > 0
+
+
+def test_launch_stencil_plan_auto(tmp_path, capsys):
+    """``--plan auto`` is labelled ``smi(auto)``, names the tuned halo
+    backend, equals the single-rank sweep and the predicted halo traffic;
+    with a pinned ``--comm-mode`` it is an error, as in the reference."""
+    import json
+
+    out = tmp_path / "r.json"
+    assert launch_stencil.main(["--domain", "64x48", "--steps", "2", "--plan", "auto",
+                                "--device", "cpu", "--json", str(out)]) == 0
+    res = json.loads(out.read_text())
+    app = DistributedStencil.create((2, 4), plan="auto", device="cpu")
+    tuned = app.comm.plan("halo", app.halo_schedule.slab_nbytes((32, 12)))
+    assert res["comm_mode"] == "smi(auto)" and res["halo_backend"] == tuned.transport_key
+    steps, nbytes = app.halo_schedule.predicted_stats((32, 12), transport=tuned.transport_key)
+    assert (res["halo_steps"], res["halo_bytes_per_rank"]) == (2 * steps, 2 * nbytes)
+    assert "comm_mode=smi(auto)" in capsys.readouterr().out
+    with pytest.raises(SystemExit):
+        launch_stencil.main(["--plan", "auto", "--comm-mode", "smi:fused", "--device", "cpu"])
+    assert "cannot be combined" in capsys.readouterr().err

@@ -378,6 +378,86 @@ def test_tp_prefill_matches_tp1_prefill(arch, P):
     _close(step(shard_params(params, cfg, step.ctx), tokens), want, RTOL, f"{arch} tp={P}")
 
 
+# -- the tuned layer plan (plan="auto", the bare "smi") ------------------------------
+
+
+@contextmanager
+def _one_table(P):
+    """Both packages' tuning caches hold, for the (1, P) mesh's model ring,
+    the table of one model (the port's default), and are emptied after."""
+    from repro.netsim import LinkModel as RefLinkModel
+    from repro.netsim import tune as ref_tune
+    from repro_torch.netsim import LinkModel
+    from repro_torch.netsim import tune
+
+    rcomm, pcomm = ref_make_ctx(_mesh(P), comm_mode="smi").model_comm, make_ctx(
+        (1, P), comm_mode="smi", device="cpu").model_comm
+    fields = {f: getattr(LinkModel(), f) for f in ("hop_latency", "link_bw", "injection_base",
+                                                   "switch_cycles", "quant_latency",
+                                                   "unfused_add_latency")}
+    tune.clear_cache(), ref_tune.clear_cache()
+    try:
+        want = ref_tune.tuning_table_for(rcomm.topology, rcomm.route_table,
+                                         model=RefLinkModel(**fields))
+        got = tune.tuning_table_for(pcomm.topology, pcomm.route_table, model=LinkModel())
+        assert got.entries == want.entries
+        yield got
+    finally:
+        tune.clear_cache(), ref_tune.clear_cache()
+
+
+@pytest.mark.parametrize("P", [4, 8])
+def test_bare_smi_prefill_matches_reference(P):
+    """``build_prefill`` on a (1, P) mesh with its default bare ``"smi"``
+    (the config's ``comm_plan="auto"``: the tuning table picks every layer's
+    wire) against the reference's ``shard_map`` prefill with the same plan,
+    under one table: within float32 1e-5; both ledgers record the same
+    backend for every layer tag, and the port's bytes equal the closed
+    form."""
+    ref_cfg, cfg = _cfgs("yi-6b")
+    assert cfg.comm_plan == ref_cfg.comm_plan == "auto"
+    with _one_table(P):
+        rctx = ref_make_ctx(_mesh(P), comm_mode="smi", plan=ref_cfg.comm_plan)
+        fn = jax.shard_map(
+            lambda p, t: ref_model.lm_prefill(p, t, ref_cfg, rctx, capacity=S, interp=True),
+            mesh=_mesh(P), in_specs=(ref_model.lm_specs(ref_cfg, rctx), PS()),
+            out_specs=PS(None, "model", None), check_vma=False)
+        with _ref_capture() as rled:
+            want = np.asarray(jax.jit(fn)(_np_params("yi-6b", P), _tokens()))
+        step = build_prefill(cfg, configs.ShapeConfig("t", S, B, "prefill"), mesh=(1, P),
+                             device="cpu")
+        assert step.ctx.plan == "auto" and step.ctx.comm_mode == "smi"
+        params = shard_params(params_from_reference(_np_params("yi-6b", P), cfg, "cpu"), cfg,
+                              step.ctx)
+        with ledger.capture() as pled:
+            got = step(params, torch.from_numpy(_tokens()))
+    _close(got, want, RTOL, f"bare smi tp={P}")
+    assert pled.plans == rled.plans and set(pled.plans) == set(pled.by_tag)
+    if all(k in ("static", "fused") for k in pled.plans.values()):
+        assert pled.by_tag == _closed_form(cfg, P, False)
+
+
+def test_auto_plan_layer_records_its_choice():
+    """A ``plan="auto"`` layer call resolves its backend from the tuning
+    table at one rank's bytes and records it under its tag; a Plan on the
+    int8 wire moves an integer payload raw; a pinned transport wins."""
+    from repro_torch.netsim import Plan
+
+    ctx = make_ctx((1, 4), comm_mode="smi", plan="auto", device="cpu")
+    x = torch.from_numpy(_randn((4, 6, 8), 5))
+    with ledger.capture() as led:
+        got = layers.gather_sequence(x, ctx)
+        ints = layers.gather_sequence(torch.arange(4 * 6 * 8, dtype=torch.int32).reshape(4, 6, 8),
+                                      ctx, tag="tp.ints", plan=Plan("static", 1, "ring", "int8"))
+        layers.all_reduce(x, ctx, tag="tp.pinned", transport="static")
+    tuned = ctx.model_comm.plan("allreduce", 6 * 8 * 4)
+    assert led.plans == {"tp.gather": tuned.transport_key, "tp.ints": "static"}
+    assert torch.equal(got, layers.all_gather_rows(x))
+    assert torch.equal(ints, layers.all_gather_rows(
+        torch.arange(4 * 6 * 8, dtype=torch.int32).reshape(4, 6, 8)))
+    assert led.tag_counts("tp.pinned")[0] == 2 * 3
+
+
 # -- shard_params and the specs -------------------------------------------------------
 
 
@@ -470,15 +550,8 @@ def _raises_roadmap(fn, item):
 def test_options_outside_the_slice_raise():
     _, cfg = _cfgs("yi-6b")
     _, ssm_cfg = _cfgs("mamba2-2.7b")
-    shape = configs.ShapeConfig("t", S, B, "prefill")
     _, pctx = _ctxs(4, "smi:static")
     tp_params = shard_params(init_lm(cfg, torch.Generator().manual_seed(0), "cpu"), cfg, pctx)
-    # the tuner (item 3): bare "smi" takes the config's comm_plan "auto"
-    _raises_roadmap(lambda: build_prefill(cfg, shape, mesh=(1, 4), device="cpu"), "3")
-    _raises_roadmap(lambda: make_ctx((1, 4), comm_mode="smi:static", plan="auto",
-                                     device="cpu"), "3")
-    x = torch.zeros((4, 2, 8))
-    _raises_roadmap(lambda: layers.gather_sequence(x, pctx, plan="auto"), "3")
     # data parallelism, ring attention, decode and serving at tp > 1 (item 9)
     _raises_roadmap(lambda: make_ctx((2, 4), comm_mode="smi:static", device="cpu"), "9")
     _raises_roadmap(lambda: make_ctx((1, 4), comm_mode="smi:static", opt_ring_attn=True,
