@@ -173,13 +173,43 @@ non-zero):
     for every layer tag, every D and E launch on ``wgmma``, the ledger
     equal to the closed form on raw tags, within a row cosine of 0.999 of
     ``smi:static`` (or int8 tags held alone to the wire's bound), timed in
-    turns with ``smi:static``.
+    turns with ``smi:static``;
+30. (run right after 27, on phase 19's params) the ring-attention prefill:
+    yi-6b at full width and depth, P = 8, 4096 tokens, ``build_prefill(mesh=
+    (1, 8), comm_mode="smi:static", ring_attn=True)`` within a row cosine
+    of 0.999 of the default TP prefill; both timed in turns (wall and device
+    time); the attention wire's ledger bytes a layer of both layouts;
+28. yi-6b at full width and depth served at P = 8 (bfloat16): ``python -m
+    repro_torch.launch.serve --arch yi-6b --mesh 1,8`` with phase 14's
+    requests, wave then continuous, on ``smi:static`` and on the bare
+    ``smi`` (the tuned plan): every request's tokens equal across the four
+    runs, kernel A launched on the tuned wire and never on the static one;
+    the first decode steps' logits within a row cosine of 0.999 of the
+    tp = 1 ``lm_decode_step`` on the same tokens (the tuned plans at the
+    decode's bytes printed); the first decode steps on a pinned
+    ``smi:fused`` runtime bit-equal to an ``smi:static`` one on the same
+    params, caches and tokens, A's launches rising on each fused step, and
+    every ring step's operands the fused decode handed A (``(8, 2048)``
+    bfloat16) run again through A and its plain version, bit-equal; a
+    migration over ``serve.migrate`` with two
+    ticks in flight leaving the request's tokens unchanged, the pool's
+    ports held for the run and released at shutdown; ms per decode step at
+    P = 8 beside tp = 1 in turns, the device time by kernel and the idle
+    share; a float32 copy at full width cut to 4 layers within 3e-4
+    rtol/atol of tp = 1;
+29. ``launch.serve --validate-comm`` on yi-6b at full width and depth at
+    meshes ``1,8`` and ``2,4`` over ``smi:static`` and ``smi:fused``: every
+    ``serve.*`` tag, migration legs included, equal to
+    ``predict_decode_step_stats`` byte for byte and step for step.
 
 Earlier phases that time or check one schedule pass ``plan=None``.
 
 A ``{"kernels": [...]}`` line carries the rows of phases 6, 7, 12, 15 and
 18 (A's and C's rows add ``launches_channels``, their launches in phases
-21-24; A, B, D and E add ``launches_tuned``, theirs in phases 26-27), each
+21-24; A, B, D and E add ``launches_tuned``, theirs in phases 26-27; A's rows add
+``launches_tp_decode_tuned_per_step``, its launches a decode step in phase
+28's launcher runs on the tuned wire, and ``launches_tp_decode_fused_step``, in phase 29's one
+validated step over ``smi:fused`` at each mesh), each
 with the path its kernel ran (``simt``, ``vector``, ``warp``,
 ``thread``, ``fma`` or ``wgmma``); the rows of A, C, E, F's wgmma path and
 D add ``ms_before``, the time in this run of the kernel their calls ran
@@ -2535,6 +2565,400 @@ def phase_tp_auto(dev, tp_params, seed: int = 19) -> dict:
             "ledger_bytes": led.tag_bytes()}
 
 
+# -- slice 8: tensor-parallel decode and serving (phases 28-30) -------------------------
+
+#: phase 28's launcher runs: phase 14's request set at P = 8, on the pinned
+#: static wire and on the bare "smi" (the config's comm_plan="auto")
+TP_SERVE_WIRES = ("smi:static", "smi")
+#: phase 28's in-process checks: decode steps compared, ticks timed a turn
+TP_DECODE_STEPS = 4
+TP_TICKS = 6
+#: phase 28's float32 copy at full width: its depth, and the reference's own
+#: tolerance for a parallel decode against a single-device one
+#: (tests/test_model_parallel.py::test_parallel_decode_matches_single)
+TP_F32_LAYERS = 4
+TP_F32_TOL = 3e-4
+#: phase 29's meshes and wires
+VALIDATE_MESHES = ("1,8", "2,4")
+VALIDATE_WIRES = ("smi:static", "smi:fused")
+
+
+def _a_launches() -> dict:
+    from repro_torch.transport.fused import fused_accumulate, fused_shift_accumulate
+
+    return {"shift": fused_shift_accumulate.launches, "fold": fused_accumulate.launches}
+
+
+def _tp_serve_runs() -> tuple[dict, dict]:
+    """Phase 28's launcher runs: ``launch.serve --arch yi-6b --mesh 1,8``
+    with phase 14's requests, wave then continuous, on each of
+    :data:`TP_SERVE_WIRES`; kernel A's launches counted per run.  Every
+    request's tokens must be equal across the four runs."""
+    import torch
+
+    from repro_torch.launch import serve as launch_serve
+
+    results, launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for wire in TP_SERVE_WIRES:
+            for engine in ("wave", "continuous"):
+                out = os.path.join(tmp, f"{engine}.json")
+                reset_counts()
+                rc = launch_serve.main(["--arch", "yi-6b", *SERVE_ARGS, "--mesh", f"1,{TP}",
+                                        "--comm-mode", wire, "--engine", engine, "--json", out])
+                torch.cuda.synchronize()
+                launches[f"{wire} {engine}"] = _a_launches()
+                torch.cuda.empty_cache()
+                res = json.loads(Path(out).read_text())
+                if rc != 0 or res["completed"] != res["requests"]:
+                    raise AssertionError(f"tp serve {wire} {engine}: rc={rc}, {res['completed']} "
+                                         f"of {res['requests']} requests completed")
+                results[f"{wire} {engine}"] = res
+                log(f"tp serve yi-6b P={TP} {wire} {engine}: {res['tokens']} tokens in "
+                    f"{res['seconds']:.3f}s ({res['tok_per_s']:.1f} tok/s), "
+                    f"{res['decode_steps']} decode steps ({res['ms_per_step']:.3f} ms/step); "
+                    f"kernel A {launches[f'{wire} {engine}']}")
+    outs = {k: v["out"] for k, v in results.items()}
+    first = next(iter(outs.values()))
+    if any(o != first for o in outs.values()):
+        raise AssertionError(f"tp serve: the engines or wires emitted different tokens: {outs}")
+    log(f"tp serve: tokens equal across {len(outs)} runs (2 engines x 2 wires) for all "
+        f"{len(first)} requests")
+    return results, launches
+
+
+def _engine_ticks_ms(eng, n: int) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        eng.tick()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3 / n
+
+
+def _busy_engine(cfg, params, runtime=None, n_ticks: int = TP_TICKS):
+    """A continuous engine (4 slots, 256 positions) whose slots stay busy
+    for the warm-up and ``3 * n_ticks`` timed ticks."""
+    from repro_torch.serving import ContinuousEngine, Request
+
+    eng = (ContinuousEngine(cfg, params, runtime=runtime) if runtime is not None else
+           ContinuousEngine(cfg, params, batch_slots=4, capacity=256))
+    for uid in range(4):
+        eng.submit(Request(uid=uid, prompt=[1 + uid, 2, 3], max_new=8 * n_ticks))
+    for _ in range(2):
+        eng.tick()
+    return eng
+
+
+def _fused_against_static(cfg, tp_params, dev, rng) -> dict:
+    """Kernel A on the TP decode path: the first :data:`TP_DECODE_STEPS`
+    decode steps of a pinned ``smi:fused`` runtime and of an ``smi:static``
+    one, on the same params, fresh caches and the same tokens, give the same
+    logits bit for bit, with A's launches rising on every fused step (the
+    static wire's add is A's plain version).  Every ``(x, addend, src)`` the
+    fused decode's ring steps handed A in the first step is then run again
+    through A and its plain version, bit for bit; their shapes are
+    returned."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.steps import build_continuous_serve
+    from repro_torch.transport.fused import (
+        FusedTransport,
+        fused_shift_accumulate,
+        shift_accumulate_plain,
+        source_index,
+    )
+
+    rts = {w: build_continuous_serve(cfg, mesh=(1, TP), comm_mode=w, batch_slots=4,
+                                     capacity=256, device=dev)
+           for w in ("smi:static", "smi:fused")}
+    caches = {w: rt["init_caches"]() for w, rt in rts.items()}
+    seen, launches = [], []
+    method = FusedTransport.shift_accumulate
+
+    def recording(self, x, addend, comm, step=1):
+        if record:
+            seen.append((x.clone(), addend.clone(),
+                         source_index(tuple(comm.ring_perm(step)), x.shape[0], x.device)))
+        return method(self, x, addend, comm, step)
+
+    FusedTransport.shift_accumulate = recording
+    try:
+        for t in range(TP_DECODE_STEPS):
+            record = t == 0
+            tok = torch.from_numpy(rng.randint(0, cfg.vocab_size, (4,)).astype(np.int32)).to(dev)
+            pos = torch.full((4,), t, dtype=torch.int32, device=dev)
+            want, _ = rts["smi:static"]["step"](tp_params, caches["smi:static"], tok, pos)
+            before = fused_shift_accumulate.launches
+            got, _ = rts["smi:fused"]["step"](tp_params, caches["smi:fused"], tok, pos)
+            torch.cuda.synchronize()
+            launches.append(fused_shift_accumulate.launches - before)
+            if not same_bits(got, want) or launches[-1] == 0:
+                raise AssertionError(f"tp decode step {t}: smi:fused against smi:static: same "
+                                     f"bits {same_bits(got, want)}, kernel A launches "
+                                     f"{launches[-1]} (max abs err {max_abs_err(got, want)})")
+    finally:
+        FusedTransport.shift_accumulate = method
+    for rt in rts.values():
+        rt["pool"].close()
+    del caches
+    shapes = sorted({(tuple(x.shape), str(x.dtype)) for x, _, _ in seen})
+    for x, addend, src in seen:
+        got = fused_shift_accumulate(x, addend, src)
+        want = shift_accumulate_plain(x, addend, src)
+        torch.cuda.synchronize()
+        if not same_bits(got, want):
+            raise AssertionError(f"shift_accumulate at the TP decode's {tuple(x.shape)} "
+                                 f"{x.dtype}: kernel != plain (max abs err "
+                                 f"{max_abs_err(got, want)})")
+    log(f"tp decode smi:fused: logits bit-equal to smi:static over {TP_DECODE_STEPS} steps, "
+        f"kernel A launched {launches} times a step; its {len(seen)} calls of the first step "
+        f"at {shapes} bit-equal to the plain version")
+    return {"steps": TP_DECODE_STEPS, "a_launches_per_step": launches,
+            "a_operands_checked": len(seen), "a_shapes": shapes}
+
+
+def phase_tp_serving(dev, seed: int = 28) -> dict:
+    """Phase 28: yi-6b at full width and depth served at P = 8; see the
+    module docstring.  Returns the results and kernel A's launches per
+    decode step on the tuned wire."""
+    import numpy as np
+    import torch
+
+    from repro_torch.channels import PORTS
+    from repro_torch.configs import get_arch
+    from repro_torch.interop import shard_params
+    from repro_torch.launch.steps import build_continuous_serve
+    from repro_torch.mesh.api import make_ctx
+    from repro_torch.models import init_lm, lm_caches, lm_decode_step
+    from repro_torch.models.model import model_dtype
+    from repro_torch.parallel import ledger
+    from repro_torch.serving import ContinuousEngine, Request
+
+    runs, launches = _tp_serve_runs()
+    tuned = {k: v for k, v in launches.items() if k.startswith("smi ")}
+    steps_tuned = sum(runs[k]["decode_steps"] for k in tuned)
+    a_per_step_runs = {key: sum(v[key] for v in tuned.values()) / max(steps_tuned, 1)
+                       for key in ("shift", "fold")}
+    if sum(a_per_step_runs.values()) == 0:
+        raise AssertionError(f"tp serve on the tuned wire launched kernel A no time: {launches}")
+    if any(v["shift"] + v["fold"] for k, v in launches.items() if k.startswith("smi:static")):
+        raise AssertionError(f"tp serve on smi:static launched kernel A: {launches}")
+
+    cfg = get_arch("yi-6b")
+    t0 = time.perf_counter()
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(seed), dev,
+                     dtype=model_dtype(cfg))
+    rt = build_continuous_serve(cfg, mesh=(1, TP), comm_mode="smi", batch_slots=4,
+                                capacity=256, device=dev)
+    tp_params = shard_params(params, cfg, rt["ctx"])
+    torch.cuda.synchronize()
+    log(f"tp serve: {cfg.name} params drawn and split over {TP} ranks in "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    # the tuned wire's plans at the decode's bytes, and the first steps' logits
+    # against the tp = 1 step on the same tokens and weights
+    ctx1 = make_ctx()
+    caches1, caches8 = lm_caches(cfg, 4, 256, ctx1, dev), rt["init_caches"]()
+    rng = np.random.RandomState(seed)
+    cos, plans = [], None
+    reset_counts()
+    for t in range(TP_DECODE_STEPS):
+        tok = torch.from_numpy(rng.randint(0, cfg.vocab_size, (4,)).astype(np.int32)).to(dev)
+        pos = torch.full((4,), t, dtype=torch.int32, device=dev)
+        want, _ = lm_decode_step(params, caches1, tok, pos, cfg, ctx1)
+        with ledger.capture() as led:
+            got, _ = rt["step"](tp_params, caches8, tok, pos)
+        plans = plans or dict(led.plans)
+        if not torch.isfinite(got).all() or tuple(got.shape) != tuple(want.shape):
+            raise AssertionError(f"tp decode step {t}: logits {tuple(got.shape)} not finite")
+        cos.append(float(torch.nn.functional.cosine_similarity(got, want, dim=-1).min()))
+    a_per_step = {k: v / max(TP_DECODE_STEPS, 1) for k, v in _a_launches().items()}
+    log(f"tp decode: tuned plans at the decode's bytes {json.dumps(plans)}; min row cosine of "
+        f"the logits against tp = 1, step by step: {[round(c, 6) for c in cos]}")
+    if min(cos) < 0.999:
+        raise AssertionError(f"tp decode logits disagree with tp = 1: min row cosine {min(cos)}")
+    del caches1, caches8
+    rt["pool"].close()
+    fused_check = _fused_against_static(cfg, tp_params, dev, rng)
+
+    # one migration with decode ticks in flight, over the pool's channels
+    def serve(migrate: bool):
+        rts = build_continuous_serve(cfg, mesh=(1, TP), comm_mode="smi:static", batch_slots=4,
+                                     capacity=256, device=dev)
+        eng = ContinuousEngine(cfg, tp_params, runtime=rts)
+        for uid, p in enumerate(([11, 12, 13], [21, 22], [31, 32, 33, 34])):
+            eng.submit(Request(uid=uid, prompt=p, max_new=8))
+        done = eng.tick() + eng.tick()
+        ports = eng.pool.ports()
+        if migrate:
+            eng.migrate(0, 3, overlap_ticks=2)
+        done += eng.run(max_steps=64)
+        held = set(ports.values()) <= set(PORTS.in_use(eng.ctx.model_comm))
+        same = eng.pool.ports() == ports
+        eng.shutdown()
+        freed = not set(ports.values()) & set(PORTS.in_use(eng.ctx.model_comm))
+        if not (held and same and freed and len(ports) > 2):
+            raise AssertionError(f"tp serve pool: ports {ports} held {held}, unchanged {same}, "
+                                 f"released at shutdown {freed}")
+        return {r.uid: r.out for r in done}
+
+    plain, migrated = serve(False), serve(True)
+    if plain != migrated:
+        raise AssertionError(f"tp serve: the migrated request's tokens changed: {migrated} != "
+                             f"{plain}")
+    log("tp serve: a slot migrated over serve.migrate with 2 ticks in flight decodes the same "
+        "tokens; the pool held its ports to shutdown and released them there")
+
+    # ms per decode step at P = 8 beside tp = 1, in turns; then the profile
+    eng8 = _busy_engine(cfg, tp_params, build_continuous_serve(
+        cfg, mesh=(1, TP), comm_mode="smi:static", batch_slots=4, capacity=256, device=dev))
+    eng1 = _busy_engine(cfg, params)
+    turns = {"tp1": [], f"tp{TP}": []}
+    for who, eng in (("tp1", eng1), (f"tp{TP}", eng8), (f"tp{TP}", eng8), ("tp1", eng1)):
+        turns[who].append(_engine_ticks_ms(eng, TP_TICKS))
+    ms = {k: sum(v) / len(v) for k, v in turns.items()}
+    busy, rows, wall = _profile_device_ms(lambda: [eng8.tick() for _ in range(TP_TICKS)])
+    eng8.shutdown()
+    log(f"tp decode ms/step (4 slots, 256 positions, smi:static): P={TP} {ms[f'tp{TP}']:.3f}, "
+        f"tp = 1 {ms['tp1']:.3f}; turns {json.dumps(turns)}")
+    log(f"tp decode profile: device {busy / TP_TICKS:.3f} ms of {wall / TP_TICKS:.3f} ms wall a "
+        f"step (idle {max(0.0, 1 - busy / wall):.1%})")
+    for name, t in rows[:8]:
+        log(f"tp decode profile: {t / TP_TICKS:8.3f} ms/step  {name[:90]}")
+    del eng1, eng8, params, tp_params
+    torch.cuda.empty_cache()
+
+    # a float32 copy at full width, cut in depth, against tp = 1
+    cfg32 = cfg.scaled(n_layers=TP_F32_LAYERS, dtype="float32")
+    p32 = init_lm(cfg32, torch.Generator(device=dev).manual_seed(seed + 1), dev)
+    ctx8 = make_ctx((1, TP), comm_mode="smi:static", device=dev)
+    p32_8 = shard_params(p32, cfg32, ctx8)
+    c1, c8 = lm_caches(cfg32, 4, 256, ctx1, dev), lm_caches(cfg32, 4, 256, ctx8, dev)
+    worst = 0.0
+    for t in range(TP_DECODE_STEPS):
+        tok = torch.from_numpy(rng.randint(0, cfg.vocab_size, (4,)).astype(np.int32)).to(dev)
+        want, _ = lm_decode_step(p32, c1, tok, t, cfg32, ctx1)
+        got, _ = lm_decode_step(p32_8, c8, tok, t, cfg32, ctx8)
+        if not all(torch.equal(got[r], got[0]) for r in range(TP)):
+            raise AssertionError("tp decode float32: the ranks' gathered logits differ")
+        excess = ((got[0] - want).abs() - (TP_F32_TOL + TP_F32_TOL * want.abs())).max()
+        worst = max(worst, float((got[0] - want).abs().max()))
+        if float(excess) > 0:
+            raise AssertionError(f"tp decode float32 step {t}: beyond {TP_F32_TOL} rtol/atol "
+                                 f"(max abs err {worst})")
+    log(f"tp decode float32 ({TP_F32_LAYERS} layers, full width): within {TP_F32_TOL} rtol/atol "
+        f"of tp = 1 over {TP_DECODE_STEPS} steps, max abs err {worst:.3e}")
+    del p32, p32_8, c1, c8
+    torch.cuda.empty_cache()
+    return {"runs": {k: {m: v[m] for m in ("tok_per_s", "ms_per_step", "decode_steps",
+                                              "tokens")} for k, v in runs.items()},
+            "launches_a": launches, "a_per_step_tuned_runs": a_per_step_runs,
+            "a_per_step_decode": a_per_step, "fused_vs_static": fused_check, "plans": plans, "min_cos_vs_tp1": min(cos),
+            "ms_per_step": ms, "turns_ms": turns, "device_ms_per_step": busy / TP_TICKS,
+            "wall_ms_per_step_profiled": wall / TP_TICKS, "idle": max(0.0, 1 - busy / wall),
+            "f32_max_abs_err": worst}
+
+
+def phase_validate_comm() -> dict:
+    """Phase 29: ``launch.serve --validate-comm`` on yi-6b at full width
+    and depth, 4 slots, 256 positions, at each
+    of :data:`VALIDATE_MESHES` on each of :data:`VALIDATE_WIRES`: every
+    ``serve.*`` tag, migration legs included, equal to the prediction byte
+    for byte and step for step.  Returns the tables and A's launches."""
+    import torch
+
+    from repro_torch.launch import serve as launch_serve
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for mesh in VALIDATE_MESHES:
+            for wire in VALIDATE_WIRES:
+                path = os.path.join(tmp, "v.json")
+                reset_counts()
+                rc = launch_serve.main(["--arch", "yi-6b", "--mesh", mesh, "--comm-mode", wire, "--slots", "4",
+                                        "--capacity", "256", "--validate-comm", "--json", path])
+                torch.cuda.synchronize()
+                a = _a_launches()
+                torch.cuda.empty_cache()
+                if rc != 0:
+                    raise AssertionError(f"validate-comm mesh {mesh} {wire}: rc={rc}")
+                res = json.loads(Path(path).read_text())
+                out[f"{mesh} {wire}"] = {"tags": res["measured"], "A": a}
+                log(f"validate-comm yi-6b mesh {mesh} {wire}: "
+                    f"{len(res['measured'])} tags equal, "
+                    f"{sum(e['bytes'] for e in res['measured'].values())} B a rank; kernel A {a}")
+    return out
+
+
+#: phase 30: the ring-attention prefill's tags on the attention wire, and
+#: the default layout's
+RING_TAGS = ("tp.attn.qkv", "tp.attn.out", "tp.attn.ring")
+DEFAULT_ATTN_TAGS = ("tp.attn.qkv", "tp.attn.kv", "tp.attn.out")
+
+
+def phase_ring_prefill(dev, tp_params, seed: int = 19) -> dict:
+    """Phase 30: yi-6b at full width and depth, P = 8, 4096 tokens, through
+    ``build_prefill(mesh=(1, 8), comm_mode="smi:static", ring_attn=True)``
+    against the default TP prefill of phase 19 (``build_prefill``, no D),
+    on phase 19's params: row cosine >= 0.999; wall and device ms of both
+    in turns; the attention wire's bytes a layer of both layouts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.launch.steps import build_prefill
+    from repro_torch.parallel import ledger
+
+    cfg = get_arch("yi-6b")
+    shape = ShapeConfig("prefill_4k", PREFILL_TOKENS, 1, "prefill")
+    tokens = torch.from_numpy(np.random.RandomState(seed).randint(0, cfg.vocab_size,
+                                                                  (1, PREFILL_TOKENS))).to(dev)
+    steps = {"default": build_prefill(cfg, shape, mesh=(1, TP), comm_mode="smi:static",
+                                      device=dev),
+             "ring": build_prefill(cfg, shape, mesh=(1, TP), comm_mode="smi:static",
+                                   ring_attn=True, device=dev)}
+    leds, outs = {}, {}
+    for who, step in steps.items():
+        with ledger.capture() as leds[who]:
+            outs[who] = step(tp_params, tokens)  # warm-up, its wire traffic captured
+    torch.cuda.synchronize()
+    h = outs["ring"]
+    if tuple(h.shape) != (1, PREFILL_TOKENS, cfg.d_model) or not torch.isfinite(h).all():
+        raise AssertionError("ring-attention prefill hidden states not finite or misshapen")
+    cos = float(_row_cos(h, outs["default"]).min())
+    if cos < 0.999:
+        raise AssertionError(f"ring-attention prefill: min row cosine {cos} against the default")
+    del outs
+    turns = {"default": [], "ring": []}
+    for who in ("default", "ring", "ring", "default"):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        steps[who](tp_params, tokens)
+        torch.cuda.synchronize()
+        turns[who].append((time.perf_counter() - t) * 1e3)
+    device = {}
+    for who in ("default", "ring"):
+        device[who], _, _ = _profile_device_ms(lambda: steps[who](tp_params, tokens))
+    ms = {k: sum(v) / len(v) for k, v in turns.items()}
+    per_layer = {who: {t: leds[who].by_tag[t]["bytes"] // cfg.n_layers for t in tags}
+                 for who, tags in (("default", DEFAULT_ATTN_TAGS), ("ring", RING_TAGS))}
+    attn = {who: sum(v.values()) for who, v in per_layer.items()}
+    log(f"ring prefill: {ms['ring']:.3f} ms (device {device['ring']:.3f}) against the default "
+        f"TP prefill {ms['default']:.3f} ms (device {device['default']:.3f}), turns "
+        f"{json.dumps(turns)}; min row cosine {cos:.6f}")
+    log(f"ring prefill attention wire a layer a rank: ring {json.dumps(per_layer['ring'])} = "
+        f"{attn['ring']} B against default {json.dumps(per_layer['default'])} = "
+        f"{attn['default']} B: x{attn['default'] / attn['ring']:.3f} (the reference's docstring "
+        f"claims x{cfg.d_model / (2 * cfg.n_kv_heads * cfg.hd):.0f} on the activation rings)")
+    return {"ms": ms, "turns_ms": turns, "device_ms": device, "min_cos_vs_default": cos,
+            "attn_bytes_per_layer": per_layer, "attn_cut": attn["default"] / attn["ring"],
+            "ledger_bytes": {k: v.tag_bytes() for k, v in leds.items()}}
+
+
 def main() -> int:
     import torch
 
@@ -2690,10 +3114,24 @@ def main() -> int:
     log(f"phase 26 (tuned collectives and halo): {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     tp_auto = phase_tp_auto(dev, tp_params)
+    torch.cuda.synchronize()
+    log(f"phase 27 (the default TP prefill, plan='auto'): {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    ring = phase_ring_prefill(dev, tp_params)
     del tp_params
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    log(f"phase 27 (the default TP prefill, plan='auto'): {time.perf_counter() - t0:.1f}s")
+    log(f"phase 30 (ring-attention prefill, P = {TP}): {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    tp_serving = phase_tp_serving(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"phase 28 (yi-6b served at P = {TP}): {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    validate = phase_validate_comm()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"phase 29 (--validate-comm): {time.perf_counter() - t0:.1f}s")
     # each kernel's launches on the tuned paths: the checked phase 26 runs
     # and phase 27's timed-before prefill
     lt = tp_auto["launches"]
@@ -2702,6 +3140,14 @@ def main() -> int:
     by_name["stencil_sweep"]["launches_tuned"] = tuned_launches["B"]
     by_name["matmul"]["launches_tuned"] = lt["D"]
     by_name["flash_attention"]["launches_tuned"] = lt["E"]
+    # kernel A on the TP decode path: its launches a decode step in phase 28's
+    # launcher runs on the tuned wire, and the fused wire's in one validated
+    # step (phase 29)
+    for name, key in (("accumulate", "fold"), ("shift_accumulate", "shift")):
+        by_name[name]["launches_tp_decode_tuned_per_step"] = \
+            tp_serving["a_per_step_tuned_runs"][key]
+        by_name[name]["launches_tp_decode_fused_step"] = {
+            k: v["A"][key] for k, v in validate.items() if k.endswith("smi:fused")}
 
     log("stencil_wall_per_step_ms: " + json.dumps(
         {k: v["wall_per_step_s"] * 1e3 for k, v in stencil.items()}))
@@ -2724,6 +3170,9 @@ def main() -> int:
     log("link_fit: " + json.dumps(link_fit))
     log("tuned_collectives: " + json.dumps(tuned))
     log("tp_prefill_auto: " + json.dumps(tp_auto))
+    log("tp_serving_yi6b_p8: " + json.dumps(tp_serving))
+    log("validate_comm: " + json.dumps({k: v["A"] for k, v in validate.items()}))
+    log("ring_prefill_yi6b_4096_p8: " + json.dumps(ring))
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

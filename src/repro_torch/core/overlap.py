@@ -12,6 +12,8 @@ chunk i+1 overlaps the multiply of chunk i.
 * :func:`stream_matmul_reducescatter` — the row-parallel linear:
   ``RS(x @ W)`` with each row block's partial product computed just in
   time;
+* :func:`stream_ring_attention` — sequence-parallel attention: the K/V
+  blocks stream around the ring inside the online-softmax update;
 * :func:`halo_exchange_2d_start` / :func:`halo_exchange_2d_finish` — the
   paper's stencil halo pattern, split so that the caller runs the interior
   update between the two.
@@ -20,8 +22,7 @@ Tensors are rank-stacked: row ``r`` of every ``(P, ...)`` tensor is rank
 ``r``'s buffer.  ``matmul`` is injectable, so kernel D
 (:func:`repro_torch.kernels.matmul.matmul`) multiplies each ring step of
 all P ranks in one launch; the default is ``torch.matmul`` cast back to the
-input's dtype.  The reference's ``stream_ring_attention`` is not ported
-(``opt_ring_attn`` raises in ``mesh.api.make_ctx``).
+input's dtype.
 """
 
 from __future__ import annotations
@@ -106,6 +107,78 @@ def stream_matmul_reducescatter(x: torch.Tensor, w: torch.Tensor, comm: Communic
         return mm(_take(xb, blk), w)
 
     return stream_reduce_scatter(None, comm, compute_chunk=compute_chunk, transport=transport)
+
+
+def stream_ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          comm: Communicator, *, causal: bool = True,
+                          sm_scale: float | None = None, local_window: int | None = None,
+                          transport=None) -> torch.Tensor:
+    """Ring attention: the K/V blocks stream around the ring during a
+    flash-style online-softmax accumulation (SMI streaming applied to
+    attention), in plain PyTorch, as the reference's ``jnp`` body.
+
+    q: ``(P, B, Sq, H, D)`` — each rank's query block (global positions
+    ``r*Sq..``); k, v: ``(P, B, Skv, Hkv, D)`` — each rank's K/V block,
+    ``Hkv`` dividing ``H`` (GQA).  Returns ``(P, B, Sq, H, D)`` in q's
+    dtype.  An arriving block is processed in chunks of ``min(512, Skv)``
+    keys, as the reference blocks it; a shard of more than 512 keys that is
+    not a multiple of 512 raises ``ValueError``.  ``local_window`` (tokens)
+    masks keys at that distance or more; blocks wholly outside it still ride
+    the ring (one schedule for every rank)."""
+    P = comm.size
+    r = comm.rank()
+    t = _resolve(transport, comm)
+    Pr, B, Sq, H, D = q.shape
+    Hkv = k.shape[3]
+    g = H // Hkv
+    scale = sm_scale if sm_scale is not None else D ** -0.5
+    dev = q.device
+
+    qf = q.float() * scale
+    m_i = torch.full((Pr, B, H, Sq), -1e30, dtype=torch.float32, device=dev)
+    l_i = torch.zeros((Pr, B, H, Sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((Pr, B, H, Sq, D), dtype=torch.float32, device=dev)
+    q_pos = r[:, None] * Sq + torch.arange(Sq, device=dev)          # (P, Sq)
+    blk = min(512, k.shape[2])
+    if k.shape[2] % blk:
+        raise ValueError(f"stream_ring_attention blocks {k.shape[2]} keys a rank in chunks of "
+                         f"{blk}; the shard must be a multiple of it (as the reference's reshape "
+                         f"needs)")
+
+    def block_update(carry, kv, owner):
+        """The online-softmax update of one arriving K/V block, whose keys
+        sit at ``owner * Skv..``, in chunks of ``blk`` keys."""
+        m_i, l_i, acc = carry
+        kb, vb = kv
+        Skv = kb.shape[2]
+        for j in range(Skv // blk):
+            kbe = kb[:, :, j * blk:(j + 1) * blk].float().repeat_interleave(g, dim=3)
+            vbe = vb[:, :, j * blk:(j + 1) * blk].float().repeat_interleave(g, dim=3)
+            kv_pos = owner[:, None] * Skv + j * blk + torch.arange(blk, device=dev)  # (P, blk)
+            s = torch.einsum("pbqhd,pbkhd->pbhqk", qf, kbe)
+            mask = torch.ones((Pr, Sq, blk), dtype=torch.bool, device=dev)
+            if causal:
+                mask = q_pos[:, :, None] >= kv_pos[:, None, :]
+            if local_window is not None:
+                mask = mask & (q_pos[:, :, None] - kv_pos[:, None, :] < local_window)
+            mask = mask[:, None, None]
+            s = torch.where(mask, s, -1e30)
+            m_new = torch.maximum(m_i, s.amax(dim=-1))
+            p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+            corr = torch.exp(m_i - m_new)
+            l_i = l_i * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum("pbhqk,pbkhd->pbhqd", p, vbe)
+            m_i = m_new
+        return m_i, l_i, acc
+
+    carry = block_update((m_i, l_i, acc), (k, v), r)
+    kv = (k, v)
+    for s_ in range(1, P):
+        kv = t.shift(kv, comm, +1)
+        carry = block_update(carry, kv, (r - s_) % P)
+    m_i, l_i, acc = carry
+    out = acc / l_i.clamp_min(1e-30)[..., None]
+    return out.transpose(2, 3).to(q.dtype)                          # (P, B, Sq, H, D)
 
 
 def halo_exchange_2d_start(

@@ -25,9 +25,15 @@ GEMMs (``make_ctx(..., matmul_fn=repro_torch.kernels.matmul.matmul)``).
 table picks each layer call's backend; a launch's bare ``"smi"`` passes a
 config's ``comm_plan``).
 
-Not in the port yet, each raising ``NotImplementedError`` rather than
-running something else in its stead: a data axis of more than one rank,
-ring attention (``opt_ring_attn``), and decode and serving at tp > 1.
+A data axis of more than one rank carries data groups: the batch is split
+over them (``build_serve``, ``build_prefill``) or the serving slots are
+replicated over them (``build_continuous_serve``).  On one card the groups
+run beside the model-axis rank stack, one after another, each on its own
+rows (:func:`over_data_groups`); the ledger records the first group's
+traffic, as the reference's records the one device program every group
+runs.  ``opt_ring_attn`` streams the K/V blocks around the model ring in
+the prefill (``models/attention.py apply_attention_ring``).  FSDP over the
+data axis is not in the port and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -38,14 +44,9 @@ from typing import Callable
 from ..core.comm import Communicator
 from ..transport.registry import resolve_comm_mode
 
-#: what tensor-parallel decode and serving raise with
-TP_ROADMAP = ("tensor-parallel decode and serving (tp > 1) wait for the rest of the TP slice "
-              "(ROADMAP.md §1, item 9)")
-#: what ring attention raises with
-RING_ATTN_ROADMAP = "opt_ring_attn (ring attention) waits for its slice (ROADMAP.md §1, item 9)"
-#: what a mesh with a data axis of more than one rank raises with
-DATA_AXIS_ROADMAP = ("a data axis of more than one rank (data parallelism, FSDP) waits for "
-                     "its slice (ROADMAP.md §1, item 9)")
+#: what FSDP over a data axis of more than one rank raises with
+DATA_AXIS_ROADMAP = ("FSDP (weights sharded over a data axis of more than one rank) waits for "
+                     "the training slice (ROADMAP.md §1, item 13)")
 #: the mesh axes, outermost first
 MESH_AXES = ("data", "model")
 
@@ -84,6 +85,7 @@ class ParallelCtx:
     matmul_fn: Callable | None = None      # kernel D injection
     mesh: tuple | None = None
     opt_shared_gather: bool = False        # beyond-paper: one seq ring a block
+    opt_ring_attn: bool = False            # beyond-paper: KV-streaming attention
     #: a persistent ChannelPool (serving); None = the transient lifecycle
     channels: object = field(default=None, compare=False)
     #: default tuning plan of the layer channels (None: the pinned wire)
@@ -96,6 +98,15 @@ class ParallelCtx:
     @property
     def tp(self) -> int:
         return self.model_comm.size if self.model_comm is not None else 1
+
+    @property
+    def dp(self) -> int:
+        """The number of data groups: the product of the batch axes' sizes."""
+        sizes = mesh_sizes(self.mesh)
+        n = 1
+        for a in self.batch_axes:
+            n *= sizes.get(a, 1)
+        return n
 
     def rank(self, ndim: int = 1):
         """This rank's index along the model axis: 0 at tp = 1; at tp > 1
@@ -114,28 +125,61 @@ def make_ctx(mesh=None, *, model_axis: str | None = "model",
     ranks gives a ring communicator of P ranks stacked on ``device``
     (``cuda`` unless named)."""
     base_mode, transport = resolve_comm_mode(comm_mode)
-    if opt_ring_attn:
-        raise NotImplementedError(RING_ATTN_ROADMAP)
     mesh = None if mesh is None else tuple(int(n) for n in mesh)
     if mesh is not None and not 1 <= len(mesh) <= len(MESH_AXES):
         raise ValueError(f"mesh {mesh}: give (data, model) or (model,) sizes")
-    sizes = {} if mesh is None else dict(zip(MESH_AXES[-len(mesh):], mesh))
-    if any(sizes.get(a, 1) > 1 for a in batch_axes if a != model_axis):
-        raise NotImplementedError(f"mesh {mesh}: {DATA_AXIS_ROADMAP}")
+    sizes = mesh_sizes(mesh)
+    batch = tuple(a for a in batch_axes if a in sizes and a != model_axis)
     tp = sizes.get(model_axis, 1) if model_axis is not None else 1
     if tp == 1:
-        return ParallelCtx(comm_mode="none", transport=transport, mesh=mesh,
-                           opt_shared_gather=opt_shared_gather, plan=plan)
+        return ParallelCtx(batch_axes=batch, comm_mode="none", transport=transport, mesh=mesh,
+                           opt_shared_gather=opt_shared_gather, opt_ring_attn=opt_ring_attn,
+                           plan=plan)
     comm = Communicator.create(model_axis, (tp,), name=f"tp_{model_axis}",
                                transport=transport, device=device)
     return ParallelCtx(
         model_axis=model_axis,
-        batch_axes=tuple(a for a in batch_axes if a in sizes),
+        batch_axes=batch,
         model_comm=comm,
         comm_mode=base_mode,
         transport=transport,
         matmul_fn=matmul_fn,
         mesh=mesh,
         opt_shared_gather=opt_shared_gather,
+        opt_ring_attn=opt_ring_attn,
         plan=plan,
     )
+
+
+def mesh_sizes(mesh) -> dict:
+    """``{axis name: size}`` of a ``(data, model)`` or ``(model,)`` mesh."""
+    return {} if mesh is None else dict(zip(MESH_AXES[-len(mesh):], mesh))
+
+
+def check_fsdp(fsdp, mesh, param_count: int):
+    """The reference's FSDP switch for a step builder on ``mesh``:
+    ``"auto"`` turns it on where one model shard's bfloat16 weights pass
+    10 GB.  FSDP shards over the data axis, so it changes nothing on a data
+    axis of one rank; on more it is not in the port and raises."""
+    sizes = mesh_sizes(None if mesh is None else tuple(int(n) for n in mesh))
+    if fsdp == "auto":
+        fsdp = (param_count / sizes.get("model", 1)) * 2 > 10e9
+    if fsdp and sizes.get("data", 1) > 1:
+        raise NotImplementedError(DATA_AXIS_ROADMAP)
+
+
+def over_data_groups(ctx, n_rows: int, fn):
+    """Run ``fn(rows)`` for each of ``ctx.dp`` data groups, ``rows`` the
+    group's ``slice`` of ``n_rows`` batch rows (the whole batch, once, when
+    it does not split evenly: the reference then replicates it), and return
+    the list of results.  Only the first group tallies into an active
+    ledger capture: every group runs the same program, whose traffic the
+    reference's ledger records once."""
+    from ..parallel import ledger
+
+    dp = ctx.dp if n_rows % ctx.dp == 0 else 1
+    m = n_rows // dp
+    out = [fn(slice(0, m))]
+    with ledger.paused():
+        out.extend(fn(slice(g * m, (g + 1) * m)) for g in range(1, dp))
+    return out

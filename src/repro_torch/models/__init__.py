@@ -1,6 +1,17 @@
-"""The dense and Mamba2 model families (``repro.models``): prefill at any
-tensor-parallel degree for the dense blocks, decode at tp = 1."""
+"""The dense and Mamba2 model families (``repro.models``): prefill and
+decode at any tensor-parallel degree for the dense blocks, at tp = 1 for
+Mamba2."""
 
-from .model import gather_hidden, init_lm, lm_caches, lm_decode_step, lm_prefill, lm_specs
+from .model import (
+    assemble_logits,
+    gather_hidden,
+    init_lm,
+    lm_cache_specs,
+    lm_caches,
+    lm_decode_step,
+    lm_prefill,
+    lm_specs,
+)
 
-__all__ = ["gather_hidden", "init_lm", "lm_caches", "lm_decode_step", "lm_prefill", "lm_specs"]
+__all__ = ["assemble_logits", "gather_hidden", "init_lm", "lm_cache_specs", "lm_caches",
+           "lm_decode_step", "lm_prefill", "lm_specs"]

@@ -43,9 +43,10 @@ def _rotate(x, cos, sin):
 
 
 def rope(x, pos, theta: float = 10_000.0):
-    """Rotate-half RoPE.  x: (..., S, H, D); pos: (S,) absolute positions."""
-    ang = pos.float()[:, None] * _rope_freqs(x.shape[-1], theta, x.device)[None, :]  # (S, half)
-    return _rotate(x, torch.cos(ang)[None, :, None, :], torch.sin(ang)[None, :, None, :])
+    """Rotate-half RoPE.  x: (..., S, H, D); pos: (S,) absolute positions,
+    or (..., S) broadcast against x's leading dims (each rank's shard)."""
+    ang = (pos.float()[..., None] * _rope_freqs(x.shape[-1], theta, x.device)).unsqueeze(-2)
+    return _rotate(x, torch.cos(ang), torch.sin(ang))                # (..., S, 1, half)
 
 
 def rope_batched(x, pos, theta: float = 10_000.0):

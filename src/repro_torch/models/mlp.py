@@ -62,12 +62,21 @@ def apply_mlp(p, x, cfg, ctx):
 
 
 def apply_mlp_replicated(p, x, cfg, ctx):
-    """Decode path: x (B, 1, D)."""
-    B = x.shape[0]
-    x2d = x.reshape(B, -1)
+    """Decode path: x (B, 1, D), at tp = P > 1 the rank-stacked (P, B, 1, D)
+    of the replicated rows.  Each rank's partial down-projection is summed
+    by a ring all-reduce over the tagged ``tp.mlp.down`` channel (kernel A
+    folds its reduce-scatter steps on the ``fused`` wire).
+
+    The ring all-reduce sums each of its P chunks of the flattened payload
+    in another rank order.  The reference flattens (B, D), so a row's sums
+    depend on its slot, and a request's tokens on where it was admitted
+    (in bfloat16, near-ties flip).  The port hands the ring (D, B): every
+    row's element d then lies in the same chunk whatever its slot, and the
+    step is row-independent, with the reference's bytes and steps."""
+    x2d = x.reshape(x.shape[:-2] + (x.shape[-1],))
     if cfg.mlp_type == "swiglu":
         h = silu(x2d @ p["w_gate"]) * (x2d @ p["w_up"])
     else:
         h = _gelu(x2d @ p["w_up"])
-    y = all_reduce(h @ p["w_down"], ctx, tag="tp.mlp.down")
-    return y.reshape(B, 1, -1)
+    y = all_reduce((h @ p["w_down"]).transpose(-1, -2), ctx, tag="tp.mlp.down")
+    return y.transpose(-1, -2).unsqueeze(-2)

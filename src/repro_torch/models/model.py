@@ -1,11 +1,15 @@
 """LM wrapper (``repro.models.model``): embedding -> block stack -> final
-norm; prefill at any tensor-parallel degree, one decode step at tp = 1.
+norm; prefill and one decode step at any tensor-parallel degree.
 
 At tp = P > 1 the residual stream is sequence-sharded and rank-stacked,
 ``(P, B, S/P, D)``: the vocab-parallel embedding fuses its sum over the
 vocabulary shards into the reduce-scatter onto sequence shards, and
 :func:`lm_prefill` returns the sharded hidden states, which
-:func:`gather_hidden` assembles into ``(B, S, D)``.
+:func:`gather_hidden` assembles into ``(B, S, D)``.  A decode step's rows
+are replicated, ``(P, B, 1, D)``, and its KV caches sequence-sharded
+(``models/attention.py``); its logits are each rank's vocabulary shard,
+gathered over the ``tp.loss.gather`` channel unless the caller assembles
+them (``gather_logits=False``).
 
 The vocabulary stays padded to a multiple of 256 (``cfg.padded_vocab``):
 greedy decoding takes the argmax over every padded column, as the reference
@@ -18,11 +22,23 @@ from __future__ import annotations
 import torch
 
 from ..core.comm import resolve_device
-from ..mesh.api import TP_ROADMAP, make_ctx
+from ..mesh.api import make_ctx
 from ..mesh.api import PartitionSpec as PS
-from ..parallel import parallel_embedding_partial, psum_tagged, reduce_scatter_sequence
+from ..parallel import (
+    gather_sequence,
+    parallel_embedding_partial,
+    psum_tagged,
+    reduce_scatter_sequence,
+)
 from .common import rms_norm, tree_map, trunc_normal
-from .transformer import apply_stack, decode_stack, init_stack, init_stack_cache, stack_specs
+from .transformer import (
+    apply_stack,
+    decode_stack,
+    init_stack,
+    init_stack_cache,
+    stack_cache_specs,
+    stack_specs,
+)
 
 CODEBOOK_ROADMAP = ("codebook streams (n_codebooks > 1) and frontend embeddings wait for the "
                     "VLM/audio frontend slice (ROADMAP.md §1, item 12)")
@@ -31,11 +47,6 @@ CODEBOOK_ROADMAP = ("codebook streams (n_codebooks > 1) and frontend embeddings 
 def _check_lm(cfg):
     if cfg.n_codebooks > 1:
         raise NotImplementedError(CODEBOOK_ROADMAP)
-
-
-def _check_decode(ctx):
-    if ctx.tp > 1:
-        raise NotImplementedError(f"decode at tp = {ctx.tp}: {TP_ROADMAP}")
 
 
 def model_dtype(cfg) -> torch.dtype:
@@ -126,25 +137,41 @@ def gather_hidden(h: torch.Tensor) -> torch.Tensor:
     return h.transpose(0, 1).reshape(B, P * S_loc, D)
 
 
-def lm_decode_step(params, caches, token, pos, cfg, ctx):
+def lm_decode_step(params, caches, token, pos, cfg, ctx, *, gather_logits: bool = True):
     """One decode step.  token (B,) int; pos a scalar or a (B,) vector.
-    Returns (float32 logits (B, padded_vocab), caches) with the caches
-    updated in place."""
+    Returns (float32 logits, caches) with the caches updated in place: the
+    logits are (B, padded_vocab) at tp = 1; at tp = P > 1 every rank's
+    gathered copy, (P, B, padded_vocab), or with ``gather_logits=False``
+    every rank's own vocabulary shard, (P, B, padded_vocab / P), for the
+    caller to assemble (the reference's ``out_specs``)."""
     _check_lm(cfg)
-    _check_decode(ctx)
     pf = _cast(params, model_dtype(cfg))
     emb = parallel_embedding_partial(pf["embed"], token, ctx)
-    x = psum_tagged(emb, ctx, "tp.embed")[:, None, :].to(model_dtype(cfg))  # (B, 1, D)
+    x = psum_tagged(emb, ctx, "tp.embed").unsqueeze(-2).to(model_dtype(cfg))  # (.., B, 1, D)
     # on the device once, not once a layer (a copy from the host waits for the card)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     x, caches = decode_stack(pf["stack"], caches, x, pos, cfg, ctx)
-    x = rms_norm(x, pf["final_norm"], cfg.norm_eps)[:, 0]             # (B, D)
-    logits = x @ (pf["embed"].T if cfg.tie_embeddings else pf["head"])
+    x = rms_norm(x, pf["final_norm"], cfg.norm_eps).squeeze(-2)        # (.., B, D)
+    logits = x @ (pf["embed"].transpose(-1, -2) if cfg.tie_embeddings else pf["head"])
+    if ctx.tp > 1 and gather_logits:
+        # the vocabulary shards, gathered: (P, V_loc, B) -> (P, V, B)
+        logits = gather_sequence(logits.transpose(1, 2), ctx, tag="tp.loss.gather").transpose(1, 2)
     return logits.float(), caches
+
+
+def assemble_logits(logits: torch.Tensor) -> torch.Tensor:
+    """Every rank's vocabulary shard (P, B, V/P) -> (B, V), rank r's columns
+    at r*V/P (the reference's ``out_specs=P(None, "model")``: no wire)."""
+    return logits.transpose(0, 1).reshape(logits.shape[1], -1)
 
 
 def lm_caches(cfg, B: int, capacity: int, ctx, device=None):
     """Empty decode caches for ``B`` slots of ``capacity`` positions, in the
-    model dtype, on ``device`` (``cuda`` unless named)."""
-    _check_decode(ctx)
+    model dtype, on ``device`` (``cuda`` unless named); at tp = P > 1 each
+    rank holds ``capacity / P`` of every attention layer's slots."""
     return init_stack_cache(cfg, B, capacity, ctx, model_dtype(cfg), resolve_device(device))
+
+
+def lm_cache_specs(cfg, ctx, shard_batch: bool = True):
+    """How each leaf of the decode caches lies over the mesh."""
+    return stack_cache_specs(cfg, ctx, shard_batch)

@@ -7,9 +7,9 @@ remainder blocks}``.  The periods run as a Python loop over that dim (the
 reference's ``lax.scan``; there is no remat to port).  At tp > 1 the
 activations are the rank-stacked ``(P, B, S/P, D)`` and the sharded leaves
 of a period are laid out ``(L, P, ...)`` (``interop.shard_params``), so a
-layer's slice is rank-stacked and contiguous.  The block kinds ``"moe"``
-and ``"rec"`` raise ``NotImplementedError``, and so does ``"ssm"`` at
-tp > 1.
+layer's slice is rank-stacked and contiguous; so are the decode caches,
+``(L, P, B, ...)``.  The block kinds ``"moe"`` and ``"rec"`` raise
+``NotImplementedError``, and so does ``"ssm"`` at tp > 1.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from .attention import (
     decode_attention,
     init_attention,
     init_kv_cache,
+    kv_cache_specs,
 )
 from .common import rms_norm, tree_map
 from .mlp import apply_mlp, apply_mlp_replicated, init_mlp, mlp_specs
@@ -88,15 +89,32 @@ def apply_block(p, kind: str, x, cfg, ctx, *, use_kernel=None):
 
 
 def init_block_cache(kind: str, cfg, B: int, capacity: int, ctx, dtype, device=None):
-    _check_kind(kind)
+    """A block's decode cache; a windowed attention layer keeps at most its
+    window, padded up to a multiple of tp (the reference's cap), of the
+    ``capacity`` slots."""
+    _check_kind(kind, ctx)
     if kind == "ssm":
         return init_ssm_cache(cfg, B, ctx, dtype, device)
-    cap = capacity if cfg.local_window is None else min(capacity, cfg.local_window)
+    cap = capacity if cfg.local_window is None else min(
+        capacity, _pow2_pad(cfg.local_window, ctx.tp))
     return init_kv_cache(cfg, B, cap, ctx, dtype, device)
 
 
+def _pow2_pad(w: int, tp: int) -> int:
+    """``w`` rounded up to a multiple of ``tp`` (the reference's name)."""
+    return ((w + tp - 1) // tp) * tp
+
+
+def block_cache_specs(kind: str, ctx, shard_batch: bool = True):
+    """How a block's decode cache lies over the mesh."""
+    _check_kind(kind, ctx)
+    if kind == "ssm":
+        raise NotImplementedError(SSM_TP_ROADMAP)
+    return kv_cache_specs(ctx, shard_batch)
+
+
 def decode_block(p, kind: str, x, cache, pos, cfg, ctx):
-    _check_kind(kind)
+    _check_kind(kind, ctx)
     if kind == "ssm":
         y, cache = decode_ssm(p["ssm"], rms_norm(x, p["norm1"], cfg.norm_eps), cache, cfg, ctx)
         return x + y, cache
@@ -172,6 +190,20 @@ def init_stack_cache(cfg, B: int, capacity: int, ctx, dtype, device=None):
     remainder = tuple(init_block_cache(pattern[j], cfg, B, capacity, ctx, dtype, device)
                       for j in range(rem))
     return {"periods": stacked, "rem": remainder}
+
+
+def stack_cache_specs(cfg, ctx, shard_batch: bool = True):
+    """``{"periods", "rem"}`` cache specs; a period's leaves gain the
+    leading (unsharded) layer dimension."""
+    pattern, period, n_full, rem = _layout(cfg)
+
+    def prepend(tree):
+        return tree_map(lambda sp: PS(None, *sp), tree)
+
+    stacked = (tuple(prepend(block_cache_specs(pattern[j], ctx, shard_batch))
+                     for j in range(period)) if n_full > 0 else None)
+    return {"periods": stacked, "rem": tuple(block_cache_specs(pattern[j], ctx, shard_batch)
+                                             for j in range(rem))}
 
 
 def decode_stack(params, caches, x, pos, cfg, ctx):

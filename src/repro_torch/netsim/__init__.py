@@ -11,8 +11,9 @@ that model executable:
 * :mod:`.sim` — a tick-based link simulator replaying message schedules
   over any Topology and RouteTable with FIFO depths, R-sticky arbitration
   and backpressure;
-* :mod:`.schedule` — schedule builders mirroring the transports, and exact
-  ``TransportStats`` prediction;
+* :mod:`.schedule` — schedule builders mirroring the transports, exact
+  ``TransportStats`` prediction, and the serving decode step's per-tag
+  ledger (``predict_decode_step_stats``);
 * :mod:`.calibrate` — fit a LinkModel from measured runs and gate the
   drift between prediction and measurement;
 * :mod:`.tune` — the autotuner and its cached :class:`TuningTable` s, which
@@ -34,6 +35,7 @@ from .schedule import (
     packet_bounds,
     packet_n_packets,
     predict_channel_stats,
+    predict_decode_step_stats,
     predict_halo_stats,
     predict_halo_time,
     predict_transport_stats,
@@ -70,6 +72,7 @@ __all__ = [
     "packet_bounds",
     "packet_n_packets",
     "predict_channel_stats",
+    "predict_decode_step_stats",
     "predict_halo_stats",
     "predict_halo_time",
     "predict_transport_stats",

@@ -17,9 +17,10 @@ Two jobs:
    for the packet backend the router's schedule bound from the port's own
    ``PacketTransport._bounds`` (no second formula to drift).
 
-The whole-step predictors of the training and decode ledgers
-(``predict_train_step_stats``, ``predict_decode_step_stats``) come with
-the slices that port those steps.
+3. **Whole-step prediction** of the serving decode ledger
+   (:func:`predict_decode_step_stats`, per ``serve.*`` tag), the gate of
+   ``launch/serve --validate-comm``.  The training step's predictor comes
+   with the training slice.
 """
 
 from __future__ import annotations
@@ -431,3 +432,165 @@ def predict_channel_stats(spec, *, shape, dtype="float32", n_chunks=None,
         spec.comm, "p2p", shape=shape, dtype=dtype, transport=key,
         src=spec.src, dst=spec.dst, n_chunks=nc, **kw,
     )
+
+
+# ---------------------------------------------------------------------------
+# whole-step prediction (per channel tag)
+# ---------------------------------------------------------------------------
+
+
+def _shift_cost(leaves, key, *, pkt_elems=32, slack_steps=4):
+    """Exact (steps, wire_bytes) ONE ring shift (hop distance 1) of a
+    payload tallies, per backend family.  ``leaves``: [(elems, itemsize,
+    is_float)].  Mirrors the transports' accounting: static and fused move
+    the raw bytes in one step; the compressed link re-wires float leaves as
+    int8 plus the scale sidecar; the packet router's schedule bound is
+    ``hops + n_packets + slack`` over the flattened float32 wire."""
+    from .model import WIRE_AXIS_ELEMS, int8_wire_nbytes
+
+    raw = sum(n * sz for n, sz, _ in leaves)
+    fam, _, inner = key.partition(":")
+    if fam == "compressed":
+        wire = sum(int8_wire_nbytes(n, WIRE_AXIS_ELEMS) if fl else n * sz for n, sz, fl in leaves)
+        if inner == "packet":
+            k = packet_n_packets(-(-wire // 4), pkt_elems)
+            return 1 + k + slack_steps, wire
+        return 1, wire
+    if fam == "packet":
+        k = packet_n_packets(-(-raw // 4), pkt_elems)
+        return 1 + k + slack_steps, raw
+    return 1, raw
+
+
+def _slot_nbytes(cfg, tp: int, capacity: int) -> int:
+    """Bytes of one rank's packed slot image (every layer's cache rows of
+    one slot), from the config alone: the KV ring of an attention (or MoE)
+    layer at ``capacity / tp`` slots (a windowed layer's at its window,
+    padded to a multiple of tp), the SSM conv windows and state, the RG-LRU
+    conv window and state, as the reference's ``lm_caches`` lays them."""
+    from ..models.transformer import _pow2_pad  # lazy: the cache's own cap
+
+    esz = 2 if cfg.dtype == "bfloat16" else 4
+    K = cfg.ssm_conv
+    total = 0
+    for kind in cfg.layer_pattern:
+        if kind in ("attn", "moe"):
+            cap = capacity if cfg.local_window is None else min(
+                capacity, _pow2_pad(cfg.local_window, tp))
+            cap_loc = cap // tp
+            total += cap_loc * (2 * cfg.n_kv_heads * cfg.hd * esz + 4)
+        elif kind == "ssm":
+            d_in = cfg.ssm_expand * cfg.d_model
+            nh_loc = d_in // cfg.ssm_headdim // tp
+            total += (K - 1) * (nh_loc * cfg.ssm_headdim + 2 * cfg.ssm_state) * esz
+            total += nh_loc * cfg.ssm_state * cfg.ssm_headdim * 4
+        elif kind == "rec":
+            w_loc = (cfg.lru_width or cfg.d_model) // tp
+            total += (K - 1) * w_loc * esz + w_loc * 4
+        else:
+            raise ValueError(kind)
+    return total
+
+
+def predict_decode_step_stats(cfg, mesh_shape, batch_slots, settings, *, capacity=128,
+                              migrations=0, prefix="serve.", pkt_elems=32, slack_steps=4,
+                              eager=False):
+    """Per-tag predicted channel traffic of ONE serving decode step
+    (``lm_decode_step`` with ``gather_logits=False``, as
+    ``launch.steps.build_continuous_serve`` runs it), plus ``migrations``
+    slot migrations, as the channel ledger measures it: ``{tag: {"steps":
+    int, "bytes": int}}``, bytes one rank's, tags under the serving pool's
+    ``prefix``.
+
+    ``mesh_shape`` is ``(dp, tp)``: serving replicates slots over the data
+    axes, so only ``tp`` moves bytes.  ``settings`` duck-types
+    ``comm_mode`` (an smi mode).  Migration always rides the static
+    schedule on a raw wire (the slot image is reinterpreted bytes),
+    whatever the layer backend.
+
+    The reference's ledger is filled while it traces, and a ``lax.scan``
+    over layer periods traces each period position once: its per-block
+    tags count once per traced position, which is this table by default.
+    The port runs every layer, so its ledger holds every layer's traffic:
+    ``eager=True`` counts the per-block tags once a layer."""
+    from ..transport.registry import resolve_comm_mode
+
+    tp = int(mesh_shape[1])
+    base_mode, key = resolve_comm_mode(settings.comm_mode)
+    if base_mode != "smi":
+        raise ValueError(f"predict_decode_step_stats models smi comm modes; got "
+                         f"{settings.comm_mode!r}")
+    esz = 2 if cfg.dtype == "bfloat16" else 4
+    B = int(batch_slots)
+    D = cfg.d_model
+    acc: dict = {}
+
+    def add(tag, steps, nbytes):
+        e = acc.setdefault(prefix + tag, {"steps": 0, "bytes": 0})
+        e["steps"] += int(steps)
+        e["bytes"] += int(nbytes)
+
+    def ring(tag, leaves, P, n_shifts=None, tkey=key):
+        if P <= 1:
+            return
+        ns = (P - 1) if n_shifts is None else n_shifts
+        s, b = _shift_cost(leaves, tkey, pkt_elems=pkt_elems, slack_steps=slack_steps)
+        add(tag, s * ns, b * ns)
+
+    def psum(tag, nbytes, n=1):
+        if tp > 1:
+            add(tag, n, nbytes * n)
+
+    def allreduce(tag, elems, itemsize=None):
+        # _stream_allreduce_impl: pad to a tp multiple, RS + AG =
+        # 2*(tp-1) shifts of the padded ring chunk
+        m = -(-int(elems) // tp)
+        ring(tag, [(m, esz if itemsize is None else itemsize, True)], tp,
+             n_shifts=2 * (tp - 1))
+
+    def act(elems):
+        return [(int(elems), esz, True)]
+
+    # embed: one partial-sum tally of the (B, D) embedding
+    psum("tp.embed", B * D * esz)
+
+    period = len(cfg.pattern)
+    n_full = cfg.n_layers // period
+    rem = cfg.n_layers % period
+    if eager:
+        blocks = list(cfg.pattern) * n_full + list(cfg.pattern[:rem])
+    else:
+        blocks = (list(cfg.pattern) if n_full > 0 else []) + list(cfg.pattern[:rem])
+    hd = cfg.hd
+    Hp = -(-cfg.n_heads // tp) * tp
+
+    for kind in blocks:
+        if tp <= 1:
+            break
+        if kind in ("attn", "moe"):
+            # query-head gather (1, B, H_loc*hd) and the four softmax /
+            # out-projection partial-sum tallies (m, l float32; o float32;
+            # y in the model dtype)
+            ring("tp.attn.qkv", act(B * Hp * hd // tp), tp)
+            psum("tp.attn.out", B * Hp * 4)
+            psum("tp.attn.out", B * Hp * 4)
+            psum("tp.attn.out", B * Hp * hd * 4)
+            psum("tp.attn.out", B * D * esz)
+        if kind == "attn" or (kind == "moe" and cfg.shared_expert):
+            allreduce("tp.mlp.down", B * D)
+        if kind == "moe":
+            allreduce("ep.combine", B * D)
+        if kind == "ssm":
+            allreduce("ssm.out", B * D)
+        if kind == "rec":
+            allreduce("ssm.out", B * D)
+            allreduce("tp.mlp.down", B * D)
+
+    # slot migrations: a gather and a scatter leg, one rank's (1, N) uint8
+    # image a shift, static and raw whatever the layers' backend
+    if migrations and tp > 1:
+        n = _slot_nbytes(cfg, tp, capacity)
+        ring("migrate", [(n, 1, False)], tp, n_shifts=2 * (tp - 1) * int(migrations),
+             tkey="static")
+
+    return {t: acc[t] for t in sorted(acc)}

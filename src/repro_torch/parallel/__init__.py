@@ -8,9 +8,10 @@ from .layers import (
     pmax_tagged,
     psum_tagged,
     reduce_scatter_sequence,
+    ring_attention,
     row_parallel_linear,
 )
 
 __all__ = ["all_reduce", "column_parallel_linear", "gather_sequence", "layer_spec",
            "parallel_embedding", "parallel_embedding_partial", "pmax_tagged", "psum_tagged",
-           "reduce_scatter_sequence", "row_parallel_linear"]
+           "reduce_scatter_sequence", "ring_attention", "row_parallel_linear"]

@@ -30,8 +30,7 @@ under a bare ``comm_mode="smi"``) lets the netsim tuning table pick each
 layer call's backend and wire, recorded per tag in the capture ledger's
 ``plans``.
 
-Not ported yet: ring attention, the MoE, loss, gradient and pipeline
-layers.
+Not ported yet: the MoE, loss, gradient and pipeline layers.
 """
 
 from __future__ import annotations
@@ -43,7 +42,12 @@ import torch
 
 from ..channels import ChannelSpec
 from ..core.collectives import _stream_allreduce_impl, stream_allgather, stream_reduce_scatter
-from ..core.overlap import _default_mm, stream_allgather_matmul, stream_matmul_reducescatter
+from ..core.overlap import (
+    _default_mm,
+    stream_allgather_matmul,
+    stream_matmul_reducescatter,
+    stream_ring_attention,
+)
 from ..transport.base import rank_bytes
 from . import ledger
 
@@ -128,21 +132,26 @@ def _channel(ctx, x, tag, kind, spec, plan, transport, wire):
 # ------------------------------------------------------------ tagged psums
 #
 # Sites the reference reduces with a raw lax.psum/pmax keep a plain sum or
-# max over the rank dimension, tallied under the layer tag as one logical
-# step moving one rank's tensor.
+# max over the rank dimension, tallied under the layer tag (the pool's
+# bucket for it under a serving pool) as one logical step moving one
+# rank's tensor.
+
+
+def _psum_tag(ctx, tag: str) -> str:
+    return ctx.channels.retag(tag) if ctx.channels is not None else tag
 
 
 def psum_tagged(x, ctx, tag: str):
     if ctx.tp == 1:
         return x
-    ledger.tally(tag, 1, rank_bytes(x))
+    ledger.tally(_psum_tag(ctx, tag), 1, rank_bytes(x))
     return x.sum(0, keepdim=True, dtype=x.dtype).expand_as(x)
 
 
 def pmax_tagged(x, ctx, tag: str):
     if ctx.tp == 1:
         return x
-    ledger.tally(tag, 1, rank_bytes(x))
+    ledger.tally(_psum_tag(ctx, tag), 1, rank_bytes(x))
     return x.amax(0, keepdim=True).expand_as(x)
 
 
@@ -249,6 +258,21 @@ def all_reduce(x, ctx, *, tag: str = "tp.allreduce", spec=None, plan=None, trans
     spec, t = _channel(ctx, x, tag, "allreduce", spec, plan, transport, wire)
     with _tagged(t, spec.stats_tag):
         return _stream_allreduce_impl(x, spec.comm, transport=t)
+
+
+# -------------------------------------------------------------- attention
+
+
+def ring_attention(q, k, v, ctx, *, tag: str = "tp.attn.ring", spec=None, plan=None,
+                   transport=None, **kw):
+    """Sequence-parallel ring attention: the (small, GQA) K/V blocks stream
+    around a tagged ``"exchange"`` channel ring while every rank computes
+    its sequence shard's attention (``core/overlap.py``)."""
+    if ctx.tp == 1 or not ctx.is_smi:
+        raise ValueError("ring attention streams over a model ring: tp > 1 and an smi mode")
+    spec, t = _channel(ctx, (k, v), tag, "exchange", spec, plan, transport, "raw")
+    with _tagged(t, spec.stats_tag):
+        return stream_ring_attention(q, k, v, spec.comm, transport=t, **kw)
 
 
 # -------------------------------------------------------------- embedding

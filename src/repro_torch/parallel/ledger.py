@@ -118,3 +118,16 @@ def capture():
         yield led
     finally:
         _ACTIVE = prev
+
+
+@contextmanager
+def paused():
+    """No ledger for the block: what runs in it tallies only into its own
+    transports (the data groups after the first, which repeat its traffic)."""
+    global _ACTIVE
+    prev = _ACTIVE
+    _ACTIVE = None
+    try:
+        yield
+    finally:
+        _ACTIVE = prev

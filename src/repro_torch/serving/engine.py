@@ -1,5 +1,5 @@
 """Batched serving engine (``repro.serving.engine``): prefill-as-decode and
-wave batching.
+wave batching, at any tensor-parallel degree.
 
 A fixed-width batch of slots decodes in lock-step; when a wave of requests
 completes, the caches are reset and the next wave is admitted.  The batch
@@ -15,8 +15,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..mesh.api import TP_ROADMAP, ParallelCtx
-from ..models import lm_caches, lm_decode_step
+from ..mesh.api import ParallelCtx
+from ..models import assemble_logits, lm_caches, lm_decode_step
 from ..models.common import tree_leaves_with_path
 from ..models.model import _cast, model_dtype
 
@@ -35,18 +35,41 @@ def params_device(params) -> torch.device:
     return tree_leaves_with_path(params)[0][1].device
 
 
+def local_step(cfg, ctx):
+    """The decode step ``step(params, caches, token, pos) -> (logits (B, V),
+    caches)`` of ``ctx``: at tp = P > 1 every rank's vocabulary shard,
+    assembled without a wire (the reference's ``out_specs``)."""
+    if ctx.tp == 1:
+        return lambda p, c, t, pos: lm_decode_step(p, c, t, pos, cfg, ctx)
+
+    def step(params, caches, token, pos):
+        logits, caches = lm_decode_step(params, caches, token, pos, cfg, ctx,
+                                        gather_logits=False)
+        return assemble_logits(logits), caches
+
+    return step
+
+
 class ServeEngine:
-    """The wave engine.  Runs where ``params`` lie; casts them to the model
-    dtype once, here, rather than on every step (the same bits)."""
+    """The wave engine.  Runs where ``params`` lie (at tp > 1
+    :func:`~repro_torch.interop.shard_params`'s); casts them to the model
+    dtype once, here, rather than on every step (the same bits).  Decodes
+    on ``ctx`` (tp = 1 unless given), or on the step of ``runtime``, the
+    dict of :func:`repro_torch.launch.steps.build_serve`, whose batch and
+    capacity it takes."""
 
     def __init__(self, cfg, params, *, ctx: ParallelCtx | None = None, batch_slots: int = 4,
-                 capacity: int = 128, eos: int | None = None):
+                 capacity: int = 128, eos: int | None = None, runtime: dict | None = None):
         self.cfg = cfg
-        self.ctx = ctx or ParallelCtx()
-        if self.ctx.tp > 1:
-            raise NotImplementedError(f"serving at tp = {self.ctx.tp}: {TP_ROADMAP}")
         self.params = _cast(params, model_dtype(cfg))
         self.device = params_device(params)
+        if runtime is not None:
+            self.ctx = runtime["ctx"]
+            batch_slots, capacity = runtime["batch"], runtime["capacity"]
+            self._decode = runtime["step"]
+        else:
+            self.ctx = ctx or ParallelCtx()
+            self._decode = local_step(cfg, self.ctx)
         self.B = batch_slots
         self.capacity = capacity
         self.eos = eos
@@ -62,9 +85,8 @@ class ServeEngine:
 
     def _step(self, cur: np.ndarray, pos) -> np.ndarray:
         """One decode step of every slot; returns the greedy tokens (B,)."""
-        logits, self.caches = lm_decode_step(self.params, self.caches,
-                                             torch.from_numpy(cur).to(self.device), pos,
-                                             self.cfg, self.ctx)
+        logits, self.caches = self._decode(self.params, self.caches,
+                                           torch.from_numpy(cur).to(self.device), pos)
         self.decode_steps += 1
         return logits.argmax(dim=1).cpu().numpy()
 

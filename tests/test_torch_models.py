@@ -45,6 +45,9 @@ CFGS = {
     "glm4-9b": ("glm4-9b", {}),
     "minitron-4b": ("minitron-4b", {}),
     "yi-6b-qknorm-window": ("yi-6b", dict(qk_norm=True, local_window=16)),
+    # the tied-embedding archs: the logits read the embedding's transpose
+    "command-r-plus-104b": ("command-r-plus-104b", {}),
+    "internvl2-1b": ("internvl2-1b", {}),
 }
 #: the Mamba2 configuration (``"ssm"`` blocks, no attention)
 SSM = "mamba2-2.7b"
@@ -384,12 +387,17 @@ def _ssm_specs_at_tp4():
              make_ctx((1, 4), comm_mode="smi:static", device="cpu"))
 
 
+def _fsdp_at_2x4():
+    from repro_torch.launch.steps import build_prefill
+
+    build_prefill(configs.smoke(configs.get_arch("yi-6b")),
+                  configs.ShapeConfig("t", 32, 2, "prefill"), mesh=(2, 4),
+                  comm_mode="smi:static", fsdp=True, device="cpu")
+
+
 @pytest.mark.parametrize("kw", [
-    lambda: make_ctx((2, 4)),                                   # a data axis (item 9)
-    lambda: make_ctx((2, 4), comm_mode="smi:static"),           # the same with a comm mode
-    lambda: make_ctx((2, 4), comm_mode="smi", plan="auto", device="cpu"),  # a data axis, tuned
     _ssm_specs_at_tp4,                                          # mamba2 at tp > 1 (item 14)
-    lambda: make_ctx(opt_ring_attn=True),                       # ring attention (item 9)
+    _fsdp_at_2x4,                                               # FSDP over the data axis (13)
 ])
 def test_tensor_parallel_options_raise(kw):
     """What tensor parallelism does not run yet raises, naming its ROADMAP
@@ -399,6 +407,20 @@ def test_tensor_parallel_options_raise(kw):
         kw()
     assert make_ctx((1, 1)).tp == 1 and make_ctx().rank() == 0
     assert make_ctx(comm_mode="smi").tp == 1 and make_ctx(comm_mode="bulk").tp == 1
+
+
+@pytest.mark.parametrize("kw, dp, tp, ring", [
+    (lambda: make_ctx((2, 4), device="cpu"), 2, 4, False),               # a data axis
+    (lambda: make_ctx((2, 4), comm_mode="smi:static", device="cpu"), 2, 4, False),
+    (lambda: make_ctx((2, 4), comm_mode="smi", plan="auto", device="cpu"), 2, 4, False),
+    (lambda: make_ctx(opt_ring_attn=True), 1, 1, True),                  # ring attention
+])
+def test_data_axis_and_ring_attention_contexts(kw, dp, tp, ring):
+    """The contexts the tensor-parallel options once refused: a data axis of
+    two groups beside the model ring, and ring attention."""
+    ctx = kw()
+    assert (ctx.dp, ctx.tp, ctx.opt_ring_attn) == (dp, tp, ring)
+    assert ctx.batch_axes == (("data",) if dp > 1 else ())
 
 
 def test_extra_embeds_raise():

@@ -196,9 +196,55 @@ def test_migration_keeps_tokens(arch):
 
 
 def test_tensor_parallel_runtime_raises():
-    _, cfg, _, params = _params("yi-6b")
+    """A TP runtime refuses what it does not run: mamba2's ssm block at
+    tp > 1 (item 14), and a migration onto a slot that is not free."""
+    from repro_torch.launch.steps import build_continuous_serve
+
+    _, ssm_cfg = _cfgs("mamba2-2.7b")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ContinuousEngine(cfg, params, runtime={"ctx": None})
+        build_continuous_serve(ssm_cfg, mesh=(1, 4), comm_mode="smi:static",
+                               device="cpu")["init_caches"]()
+    _, cfg, _, params = _params("yi-6b")
+    rt = build_continuous_serve(cfg, mesh=(1, 4), comm_mode="smi:static", batch_slots=2,
+                                device="cpu")
+    with ContinuousEngine(cfg, _shard(params, cfg, rt["ctx"]), runtime=rt) as eng:
+        for uid in range(2):
+            eng.submit(Request(uid=uid, prompt=[3, 4], max_new=4))
+        eng.tick()
+        with pytest.raises(ValueError, match="not free"):
+            eng.migrate(0, 1)
+
+
+def _shard(params, cfg, ctx):
+    from repro_torch.interop import shard_params
+
+    return shard_params(params, cfg, ctx)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_tensor_parallel_runtime_matches_tp1(arch):
+    """The continuous engine on ``build_continuous_serve``'s (1, 4) runtime
+    (a ChannelPool over ``smi:static``) emits the tp = 1 engine's tokens on
+    the same weights (4 heads split whole over 4 ranks), with a migration
+    streamed between two of the runs' ticks; the pool is released at
+    shutdown."""
+    from repro_torch.launch.steps import build_continuous_serve
+
+    _, cfg, _, params = _params(arch)
+    prompts = _prompts(cfg, 3)
+    want, _, _ = _drive(ContinuousEngine(cfg, params, batch_slots=4, capacity=32), Request,
+                        prompts, 5, None)
+    rt = build_continuous_serve(cfg, mesh=(1, 4), comm_mode="smi:static", batch_slots=4,
+                                capacity=32, device="cpu")
+    eng = ContinuousEngine(cfg, _shard(params, cfg, rt["ctx"]), runtime=rt)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(uid=i, prompt=p, max_new=5))
+    done = eng.tick() + eng.tick()
+    eng.migrate(0, 3, overlap_ticks=1)
+    done += eng.run(max_steps=100)
+    assert {r.uid: r.out for r in done} == want
+    eng.shutdown()
+    assert rt["pool"].closed
 
 
 def test_serve_cli_smoke_on_cpu():
@@ -224,7 +270,13 @@ def test_serve_cli_mamba2_engines_agree_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("argv", [["--mesh", "1,8"], ["--validate-comm"]])
 def test_serve_cli_refuses_tensor_parallel(argv):
+    """What the launcher still refuses at tp > 1: mamba2 (item 14) over a
+    (1, 8) mesh raises; ``--validate-comm`` with the bare ``smi`` plan
+    returns 2 (the tuner's picks are not the predictor's)."""
     from repro_torch.launch import serve
 
+    if "--validate-comm" in argv:
+        assert serve.main(["--smoke", "--device", "cpu", "--mesh", "1,4", *argv]) == 2
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.main(["--smoke", "--device", "cpu", *argv])
+        serve.main(["--arch", "mamba2-2.7b", "--smoke", "--device", "cpu", *argv])

@@ -552,15 +552,22 @@ def test_options_outside_the_slice_raise():
     _, ssm_cfg = _cfgs("mamba2-2.7b")
     _, pctx = _ctxs(4, "smi:static")
     tp_params = shard_params(init_lm(cfg, torch.Generator().manual_seed(0), "cpu"), cfg, pctx)
-    # data parallelism, ring attention, decode and serving at tp > 1 (item 9)
-    _raises_roadmap(lambda: make_ctx((2, 4), comm_mode="smi:static", device="cpu"), "9")
-    _raises_roadmap(lambda: make_ctx((1, 4), comm_mode="smi:static", opt_ring_attn=True,
-                                     device="cpu"), "9")
-    _raises_roadmap(lambda: lm_caches(cfg, 2, 8, pctx, device="cpu"), "9")
-    _raises_roadmap(lambda: lm_decode_step(tp_params, None, torch.zeros(2, dtype=torch.long), 0,
-                                           cfg, pctx), "9")
-    _raises_roadmap(lambda: ServeEngine(cfg, tp_params, ctx=pctx), "9")
-    _raises_roadmap(lambda: ContinuousEngine(cfg, tp_params, ctx=pctx), "9")
+    # a data axis, ring attention, decode and serving at tp > 1 run (item 9,
+    # ported); FSDP over the data axis waits for the training slice (item 13)
+    assert make_ctx((2, 4), comm_mode="smi:static", device="cpu").dp == 2
+    assert make_ctx((1, 4), comm_mode="smi:static", opt_ring_attn=True,
+                    device="cpu").opt_ring_attn
+    caches = lm_caches(cfg, 2, 8, pctx, device="cpu")
+    assert tuple(caches["periods"][0]["k"].shape) == (cfg.n_layers, 4, 2, 2, cfg.n_kv_heads,
+                                                      cfg.hd)
+    logits, _ = lm_decode_step(tp_params, caches, torch.zeros(2, dtype=torch.long), 0, cfg, pctx)
+    assert tuple(logits.shape) == (4, 2, cfg.padded_vocab)
+    assert ServeEngine(cfg, tp_params, ctx=pctx).ctx.tp == 4
+    with ContinuousEngine(cfg, tp_params, ctx=pctx) as eng:
+        assert eng.ctx.tp == 4 and eng.pool is None
+    _raises_roadmap(lambda: build_prefill(cfg, configs.ShapeConfig("t", S, B, "prefill"),
+                                          mesh=(2, 4), comm_mode="smi:static", fsdp=True,
+                                          device="cpu"), "13")
     # mamba2's ssm block at tp > 1 (item 14)
     _raises_roadmap(lambda: lm_specs(ssm_cfg, pctx), "14")
     ssm_params = init_lm(ssm_cfg, torch.Generator().manual_seed(0), "cpu")
