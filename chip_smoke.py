@@ -200,7 +200,35 @@ non-zero):
 29. ``launch.serve --validate-comm`` on yi-6b at full width and depth at
     meshes ``1,8`` and ``2,4`` over ``smi:static`` and ``smi:fused``: every
     ``serve.*`` tag, migration legs included, equal to
-    ``predict_decode_step_stats`` byte for byte and step for step.
+    ``predict_decode_step_stats`` byte for byte and step for step;
+31. mamba2-2.7b at full width and depth, P = 8 over ``smi:static`` with D
+    injected, 4096 tokens, bfloat16, on phase 16's weights and tokens, in
+    turns with the tp = 1 prefill: F launched 64 times over the 8 ranks'
+    head rows, all on wgmma, D 1,536 times; the ledger equal to its closed
+    form; F gated layer by layer (row cosine >= 0.999 against the plain
+    scan) and in float32 end to end (against the plain scan and tp = 1);
+32. ``launch.serve --arch mamba2-2.7b --mesh 1,8``: phase 14's requests,
+    both engines, ``smi:static`` and the bare ``smi``, tokens equal across
+    the four runs; ms a decode step beside tp = 1 in turns, the idle share,
+    kernel A's launches a step on the tuned wire;
+33. qwen3-moe-30b-a3b at full width and depth (61.1 GB of bfloat16) through
+    ``build_prefill`` on 4096 tokens: ms, tokens/s, E launched 48 times on
+    wgmma, the device time by kernel and the idle share;
+34. the same prefill at P = 8 (``smi:static``, D injected) on the same
+    weights, the experts shared as views, in turns with phase 33's: D 768
+    and E 48 launches, the ledger equal to its closed form, over
+    ``smi:fused`` bit-equal with kernel A launched once a reduce-scatter
+    ring step; the row cosine and the share of routing choices that agree
+    with tp = 1 reported; then a float32 copy cut to 4 layers (256 tokens):
+    the chosen experts equal to tp = 1's and the hidden states within 3e-4
+    rtol/atol;
+35. ``launch.serve --arch qwen3-moe-30b-a3b`` at tp = 1 (both engines) and
+    at ``--mesh 1,8`` (both engines, both wires): tokens equal at each tp;
+    ms a decode step beside tp = 1, the idle share, A's launches a step;
+36. ``launch.serve --validate-comm`` over ``smi:static`` for mamba2-2.7b and
+    qwen3-moe-30b-a3b at ``1,8`` and ``2,4`` (the latter with ``--fsdp
+    off``: the port has no FSDP): every ``serve.*`` tag equal to the
+    prediction.
 
 Earlier phases that time or check one schedule pass ``plan=None``.
 
@@ -209,7 +237,11 @@ A ``{"kernels": [...]}`` line carries the rows of phases 6, 7, 12, 15 and
 21-24; A, B, D and E add ``launches_tuned``, theirs in phases 26-27; A's rows add
 ``launches_tp_decode_tuned_per_step``, its launches a decode step in phase
 28's launcher runs on the tuned wire, and ``launches_tp_decode_fused_step``, in phase 29's one
-validated step over ``smi:fused`` at each mesh), each
+validated step over ``smi:fused`` at each mesh; phases 31-35's launches are
+``launches_ssm_tp_prefill`` on F's wgmma row and D's,
+``launches_moe_prefill`` and ``launches_moe_tp_prefill`` on E's and D's,
+and A's ``launches_moe_tp_prefill_fused`` and
+``launches_{ssm,moe}_tp_decode_tuned_per_step``), each
 with the path its kernel ran (``simt``, ``vector``, ``warp``,
 ``thread``, ``fma`` or ``wgmma``); the rows of A, C, E, F's wgmma path and
 D add ``ms_before``, the time in this run of the kernel their calls ran
@@ -226,6 +258,8 @@ no result.
 
 from __future__ import annotations
 
+import functools
+import gc
 import json
 import os
 import subprocess
@@ -404,6 +438,25 @@ def graph_ms(fn, reps: int = 50) -> float:
     with torch.cuda.graph(graph):
         fn()
     return time_ms(graph.replay, reps=reps)
+
+
+def _timed_ms(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def _in_turns(fns: dict, order) -> tuple[dict, dict]:
+    """Each of ``fns`` timed once for each time it appears in ``order``
+    (e.g. a, b, b, a); returns (mean ms, the readings) by name."""
+    turns = {k: [] for k in fns}
+    for who in order:
+        turns[who].append(_timed_ms(fns[who])[1])
+    return {k: sum(v) / len(v) for k, v in turns.items()}, turns
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
@@ -1408,8 +1461,8 @@ def _ssm_checks(dev, cfg, params, tokens, prefill, hidden, seed) -> dict:
     worst_layer = (1.0, -1)
     for i in range(cfg.n_layers):
         p = _layer(params["stack"]["periods"][0], i)
-        got = apply_block(p, "ssm", x, cfg, ctx, use_kernel=True)
-        want = apply_block(p, "ssm", x, cfg, ctx, use_kernel=False)
+        got, _ = apply_block(p, "ssm", x, cfg, ctx, use_kernel=True)
+        want, _ = apply_block(p, "ssm", x, cfg, ctx, use_kernel=False)
         c = float(_row_cos(got - x, want - x).min())
         worst_layer = min(worst_layer, (c, i))
         x = got
@@ -1694,14 +1747,20 @@ def _mean_row_rel_err(got, want) -> float:
 #: kernel D's cases: (name, x shape, w shape, dtype, strided, path); the first
 #: four are the yi-6b TP prefill's ring steps at P = 8 (512 rows a rank): Q,
 #: MLP-up (ragged N = 1376), MLP-down (ragged K = 1376) and the
-#: out-projection; ``strided`` hands D views (every other rank row of a
-#: buffer, a transposed weight); ``path`` is the kernel ``matmul_path`` picks
+#: out-projection; the next four slice 9's: mamba2-2.7b's ``ssm.in`` and
+#: ``ssm.out``, qwen3-moe-30b-a3b's Q and out-projection; ``strided`` hands
+#: D views (every other rank row of a buffer, a transposed weight); ``path``
+#: is the kernel ``matmul_path`` picks
 #: (bfloat16 with K and N multiples of 8 on wgmma, the rest on mma.sync)
 MM_CASES = (
     ("mlp_up_bf16", (8, 512, 4096), (8, 4096, 1376), "bfloat16", False, "wgmma"),
     ("q_bf16", (8, 512, 4096), (8, 4096, 512), "bfloat16", False, "wgmma"),
     ("mlp_down_bf16", (8, 512, 1376), (8, 1376, 4096), "bfloat16", False, "wgmma"),
     ("out_bf16", (8, 512, 512), (8, 512, 4096), "bfloat16", False, "wgmma"),
+    ("ssm_in_bf16", (8, 512, 2560), (8, 2560, 640), "bfloat16", False, "wgmma"),
+    ("ssm_out_bf16", (8, 512, 640), (8, 640, 2560), "bfloat16", False, "wgmma"),
+    ("moe_q_bf16", (8, 512, 2048), (8, 2048, 512), "bfloat16", False, "wgmma"),
+    ("moe_out_bf16", (8, 512, 512), (8, 512, 2048), "bfloat16", False, "wgmma"),
     ("mlp_up_f32", (8, 512, 4096), (8, 4096, 1376), "float32", False, "mma_sync"),
     ("ragged_2d_f32", (100, 70), (70, 50), "float32", False, "mma_sync"),
     ("ragged_2d_bf16", (1000, 130), (130, 333), "bfloat16", False, "mma_sync"),
@@ -1822,17 +1881,24 @@ def _host_us_per_call(dev, n: int = 2000) -> dict:
     return res
 
 
-def _tp_closed_form(cfg, P: int, tokens: int) -> dict:
+#: a layer's streamed calls in the TP prefill, by tag: the dense block (Q,
+#: the K/V gather, the out-projection, gate and up, down), the Mamba2 block
+#: (z and x, the B/C/dt gather, the out-projection) and the MoE block (the
+#: attention's three, the expert dispatch and combine)
+DENSE_CALLS = {"tp.attn.qkv": 1, "tp.attn.kv": 1, "tp.attn.out": 1, "tp.mlp.up": 2,
+               "tp.mlp.down": 1}
+SSM_CALLS = {"ssm.in": 2, "ssm.gather": 1, "ssm.out": 1}
+MOE_CALLS = {"tp.attn.qkv": 1, "tp.attn.kv": 1, "tp.attn.out": 1, "ep.dispatch": 1,
+             "ep.combine": 1}
+
+
+def _tp_closed_form(cfg, P: int, tokens: int, calls: dict = DENSE_CALLS) -> dict:
     """Per tag, one rank's (steps, bytes) over one TP prefill of ``tokens``
     tokens: every streamed call moves P - 1 ring steps of one rank's rows
-    (tokens / P) of the model width in the model dtype.  Per layer: Q
-    (tp.attn.qkv), the K/V gather (tp.attn.kv), the out-projection
-    (tp.attn.out), gate and up (tp.mlp.up, two calls) and down
-    (tp.mlp.down); the embedding's reduce-scatter (tp.embed) once.  E.g.
-    tp.mlp.up = 2 x 7 x 512 x 4096 x 2 bytes a layer at P = 8."""
-    step_bytes = (P - 1) * (tokens // P) * cfg.d_model * 2
-    calls = {"tp.attn.qkv": 1, "tp.attn.kv": 1, "tp.attn.out": 1, "tp.mlp.up": 2,
-             "tp.mlp.down": 1}
+    (tokens / P) of the model width in the model dtype; ``calls`` a layer
+    by tag, and the embedding's reduce-scatter (tp.embed) once.  E.g.
+    yi-6b's tp.mlp.up = 2 x 7 x 512 x 4096 x 2 bytes a layer at P = 8."""
+    step_bytes = (P - 1) * (tokens // P) * cfg.d_model * (2 if cfg.dtype == "bfloat16" else 4)
     want = {t: {"steps": (P - 1) * n * cfg.n_layers, "bytes": step_bytes * n * cfg.n_layers}
             for t, n in calls.items()}
     want["tp.embed"] = {"steps": P - 1, "bytes": step_bytes}
@@ -1840,10 +1906,12 @@ def _tp_closed_form(cfg, P: int, tokens: int) -> dict:
 
 
 def _profile_split(rows) -> dict:
-    """Device ms by kind: kernel D, kernel E, cuBLAS GEMMs, the ring's index
-    copies and fills, and the elementwise rest."""
+    """Device ms by kind: kernel D, kernel E, cuBLAS GEMMs, sorting and
+    scans (the MoE routing and dispatch), the ring's and the dispatch's
+    index copies and fills, and the elementwise rest."""
     kinds = {"D": ("matmul_bf16_kernel", "matmul_wgmma_kernel"), "E": ("flash_attention",),
              "gemm": ("gemm", "nvjet", "xmma", "cutlass", "cublas"),
+             "sort_scan": ("sort", "Sort", "scan", "Scan", "topk", "TopK", "radix", "bitonic"),
              "copies": ("index", "copy", "Copy", "gather", "scatter", "fill", "cat")}
     split = {k: 0.0 for k in (*kinds, "elementwise")}
     for name, ms in rows:
@@ -1888,18 +1956,11 @@ def phase_tp_prefill(dev, seed: int = 19) -> tuple[int, dict, object]:
         return gather_hidden(lm_prefill(tp_params, tokens, cfg, ctx_d,
                                         capacity=PREFILL_TOKENS))
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t) * 1e3
-
     with ledger.capture() as led:
         run_d()  # warm-up, its wire traffic captured
     torch.cuda.synchronize()
     reset_counts()
-    hidden, ms_d = timed(run_d)
+    hidden, ms_d = _timed_ms(run_d)
     launches_d, launches_e = matmul.launches, flash_attention_kernel.launches
     wgmma_d, wgmma_e = matmul.wgmma_launches, flash_attention_kernel.wgmma_launches
     want_d = 5 * TP * cfg.n_layers
@@ -1918,10 +1979,10 @@ def phase_tp_prefill(dev, seed: int = 19) -> tuple[int, dict, object]:
     log(f"tp prefill ledger per tag equals the closed form: {json.dumps(led.tag_bytes())}")
 
     plain_step(tp_params, tokens)
-    h_none, ms_none = timed(lambda: plain_step(tp_params, tokens))
+    h_none, ms_none = _timed_ms(lambda: plain_step(tp_params, tokens))
     tp1 = build_prefill(cfg, shape, device=dev)
     tp1(params, tokens)
-    h_tp1, ms_tp1 = timed(lambda: tp1(params, tokens))
+    h_tp1, ms_tp1 = _timed_ms(lambda: tp1(params, tokens))
     cos_none = float(_row_cos(hidden, h_none).min())
     cos_tp1 = float(_row_cos(hidden, h_tp1).min())
     cos_none_tp1 = float(_row_cos(h_none, h_tp1).min())
@@ -2578,6 +2639,13 @@ TP_TICKS = 6
 #: (tests/test_model_parallel.py::test_parallel_decode_matches_single)
 TP_F32_LAYERS = 4
 TP_F32_TOL = 3e-4
+
+
+def f32_excess(got, want) -> float:
+    """How far ``got`` lies beyond :data:`TP_F32_TOL` rtol and atol of
+    ``want`` at its worst element (within it: <= 0; NaN: inf)."""
+    ex = float(((got - want).abs() - (TP_F32_TOL + TP_F32_TOL * want.abs())).max())
+    return ex if ex == ex else float("inf")
 #: phase 29's meshes and wires
 VALIDATE_MESHES = ("1,8", "2,4")
 VALIDATE_WIRES = ("smi:static", "smi:fused")
@@ -2589,42 +2657,87 @@ def _a_launches() -> dict:
     return {"shift": fused_shift_accumulate.launches, "fold": fused_accumulate.launches}
 
 
-def _tp_serve_runs() -> tuple[dict, dict]:
-    """Phase 28's launcher runs: ``launch.serve --arch yi-6b --mesh 1,8``
-    with phase 14's requests, wave then continuous, on each of
-    :data:`TP_SERVE_WIRES`; kernel A's launches counted per run.  Every
-    request's tokens must be equal across the four runs."""
+def _launcher_runs(arch: str, mesh: str, wires, extra=()) -> tuple[dict, dict]:
+    """``launch.serve --arch arch --mesh mesh`` with phase 14's requests,
+    wave then continuous, on each of ``wires``; kernel A's launches counted
+    per run.  Every request's tokens must be equal across the runs."""
     import torch
 
     from repro_torch.launch import serve as launch_serve
 
     results, launches = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
-        for wire in TP_SERVE_WIRES:
+        for wire in wires:
             for engine in ("wave", "continuous"):
                 out = os.path.join(tmp, f"{engine}.json")
                 reset_counts()
-                rc = launch_serve.main(["--arch", "yi-6b", *SERVE_ARGS, "--mesh", f"1,{TP}",
-                                        "--comm-mode", wire, "--engine", engine, "--json", out])
+                rc = launch_serve.main(["--arch", arch, *SERVE_ARGS, "--mesh", mesh,
+                                        "--comm-mode", wire, "--engine", engine, *extra,
+                                        "--json", out])
                 torch.cuda.synchronize()
                 launches[f"{wire} {engine}"] = _a_launches()
+                gc.collect()  # the run's weights go before the next run draws its own
                 torch.cuda.empty_cache()
                 res = json.loads(Path(out).read_text())
                 if rc != 0 or res["completed"] != res["requests"]:
-                    raise AssertionError(f"tp serve {wire} {engine}: rc={rc}, {res['completed']} "
-                                         f"of {res['requests']} requests completed")
+                    raise AssertionError(f"serve {arch} mesh {mesh} {wire} {engine}: rc={rc}, "
+                                         f"{res['completed']} of {res['requests']} requests "
+                                         f"completed")
                 results[f"{wire} {engine}"] = res
-                log(f"tp serve yi-6b P={TP} {wire} {engine}: {res['tokens']} tokens in "
+                log(f"serve {arch} mesh {mesh} {wire} {engine}: {res['tokens']} tokens in "
                     f"{res['seconds']:.3f}s ({res['tok_per_s']:.1f} tok/s), "
                     f"{res['decode_steps']} decode steps ({res['ms_per_step']:.3f} ms/step); "
                     f"kernel A {launches[f'{wire} {engine}']}")
     outs = {k: v["out"] for k, v in results.items()}
     first = next(iter(outs.values()))
     if any(o != first for o in outs.values()):
-        raise AssertionError(f"tp serve: the engines or wires emitted different tokens: {outs}")
-    log(f"tp serve: tokens equal across {len(outs)} runs (2 engines x 2 wires) for all "
-        f"{len(first)} requests")
+        raise AssertionError(f"serve {arch} mesh {mesh}: the engines or wires emitted different "
+                             f"tokens: {outs}")
+    log(f"serve {arch} mesh {mesh}: tokens equal across {len(outs)} runs (2 engines x "
+        f"{len(wires)} wires) for all {len(first)} requests")
     return results, launches
+
+
+def _tp_serve_runs() -> tuple[dict, dict]:
+    """Phase 28's launcher runs: yi-6b at ``1,8`` on each of
+    :data:`TP_SERVE_WIRES`."""
+    return _launcher_runs("yi-6b", f"1,{TP}", TP_SERVE_WIRES)
+
+
+def _a_per_step(runs: dict, launches: dict, wire: str = "smi") -> dict:
+    """Kernel A's launches a decode step over the launcher runs on
+    ``wire`` (the bare ``smi``: the tuned plans), by entry point."""
+    keys = [k for k in launches if k.split()[0] == wire]
+    steps = sum(runs[k]["decode_steps"] for k in keys)
+    return {e: sum(launches[k][e] for k in keys) / max(steps, 1) for e in ("shift", "fold")}
+
+
+def _decode_turns(dev, cfg, params, tp_params, n: int = TP_TICKS) -> dict:
+    """ms a decode step at P = 8 (``smi:static``, a continuous engine of 4
+    slots and 256 positions) beside tp = 1 on the same weights, in turns
+    (tp = 1, P, P, tp = 1), ``n`` ticks a turn; then ``n`` P = 8 ticks'
+    device time by kernel and the device's idle share under
+    ``torch.profiler``."""
+    from repro_torch.launch.steps import build_continuous_serve
+
+    eng8 = _busy_engine(cfg, tp_params, build_continuous_serve(
+        cfg, mesh=(1, TP), comm_mode="smi:static", batch_slots=4, capacity=256, device=dev), n)
+    eng1 = _busy_engine(cfg, params, n_ticks=n)
+    turns = {"tp1": [], f"tp{TP}": []}
+    for who, eng in (("tp1", eng1), (f"tp{TP}", eng8), (f"tp{TP}", eng8), ("tp1", eng1)):
+        turns[who].append(_engine_ticks_ms(eng, n))
+    ms = {k: sum(v) / len(v) for k, v in turns.items()}
+    busy, rows, wall = _profile_device_ms(lambda: [eng8.tick() for _ in range(n)])
+    eng8.shutdown()
+    log(f"{cfg.name} decode ms/step (4 slots, 256 positions, smi:static): P={TP} "
+        f"{ms[f'tp{TP}']:.3f}, tp = 1 {ms['tp1']:.3f}; turns {json.dumps(turns)}")
+    log(f"{cfg.name} tp decode profile: device {busy / n:.3f} ms of {wall / n:.3f} "
+        f"ms wall a step (idle {max(0.0, 1 - busy / wall):.1%})")
+    for name, t in rows[:8]:
+        log(f"{cfg.name} tp decode profile: {t / n:8.3f} ms/step  {name[:90]}")
+    return {"ms_per_step": ms, "turns_ms": turns, "device_ms_per_step": busy / n,
+            "wall_ms_per_step_profiled": wall / n, "idle": max(0.0, 1 - busy / wall),
+            "top_kernels_ms_per_step": [(name[:60], t / n) for name, t in rows[:8]]}
 
 
 def _engine_ticks_ms(eng, n: int) -> float:
@@ -2739,10 +2852,7 @@ def phase_tp_serving(dev, seed: int = 28) -> dict:
     from repro_torch.serving import ContinuousEngine, Request
 
     runs, launches = _tp_serve_runs()
-    tuned = {k: v for k, v in launches.items() if k.startswith("smi ")}
-    steps_tuned = sum(runs[k]["decode_steps"] for k in tuned)
-    a_per_step_runs = {key: sum(v[key] for v in tuned.values()) / max(steps_tuned, 1)
-                       for key in ("shift", "fold")}
+    a_per_step_runs = _a_per_step(runs, launches)
     if sum(a_per_step_runs.values()) == 0:
         raise AssertionError(f"tp serve on the tuned wire launched kernel A no time: {launches}")
     if any(v["shift"] + v["fold"] for k, v in launches.items() if k.startswith("smi:static")):
@@ -2814,22 +2924,8 @@ def phase_tp_serving(dev, seed: int = 28) -> dict:
         "tokens; the pool held its ports to shutdown and released them there")
 
     # ms per decode step at P = 8 beside tp = 1, in turns; then the profile
-    eng8 = _busy_engine(cfg, tp_params, build_continuous_serve(
-        cfg, mesh=(1, TP), comm_mode="smi:static", batch_slots=4, capacity=256, device=dev))
-    eng1 = _busy_engine(cfg, params)
-    turns = {"tp1": [], f"tp{TP}": []}
-    for who, eng in (("tp1", eng1), (f"tp{TP}", eng8), (f"tp{TP}", eng8), ("tp1", eng1)):
-        turns[who].append(_engine_ticks_ms(eng, TP_TICKS))
-    ms = {k: sum(v) / len(v) for k, v in turns.items()}
-    busy, rows, wall = _profile_device_ms(lambda: [eng8.tick() for _ in range(TP_TICKS)])
-    eng8.shutdown()
-    log(f"tp decode ms/step (4 slots, 256 positions, smi:static): P={TP} {ms[f'tp{TP}']:.3f}, "
-        f"tp = 1 {ms['tp1']:.3f}; turns {json.dumps(turns)}")
-    log(f"tp decode profile: device {busy / TP_TICKS:.3f} ms of {wall / TP_TICKS:.3f} ms wall a "
-        f"step (idle {max(0.0, 1 - busy / wall):.1%})")
-    for name, t in rows[:8]:
-        log(f"tp decode profile: {t / TP_TICKS:8.3f} ms/step  {name[:90]}")
-    del eng1, eng8, params, tp_params
+    turns = _decode_turns(dev, cfg, params, tp_params)
+    del params, tp_params
     torch.cuda.empty_cache()
 
     # a float32 copy at full width, cut in depth, against tp = 1
@@ -2857,10 +2953,8 @@ def phase_tp_serving(dev, seed: int = 28) -> dict:
     return {"runs": {k: {m: v[m] for m in ("tok_per_s", "ms_per_step", "decode_steps",
                                               "tokens")} for k, v in runs.items()},
             "launches_a": launches, "a_per_step_tuned_runs": a_per_step_runs,
-            "a_per_step_decode": a_per_step, "fused_vs_static": fused_check, "plans": plans, "min_cos_vs_tp1": min(cos),
-            "ms_per_step": ms, "turns_ms": turns, "device_ms_per_step": busy / TP_TICKS,
-            "wall_ms_per_step_profiled": wall / TP_TICKS, "idle": max(0.0, 1 - busy / wall),
-            "f32_max_abs_err": worst}
+            "a_per_step_decode": a_per_step, "fused_vs_static": fused_check, "plans": plans,
+            "min_cos_vs_tp1": min(cos), **turns, "f32_max_abs_err": worst}
 
 
 def phase_validate_comm() -> dict:
@@ -2933,17 +3027,12 @@ def phase_ring_prefill(dev, tp_params, seed: int = 19) -> dict:
     if cos < 0.999:
         raise AssertionError(f"ring-attention prefill: min row cosine {cos} against the default")
     del outs
-    turns = {"default": [], "ring": []}
-    for who in ("default", "ring", "ring", "default"):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        steps[who](tp_params, tokens)
-        torch.cuda.synchronize()
-        turns[who].append((time.perf_counter() - t) * 1e3)
+    ms, turns = _in_turns({who: functools.partial(step, tp_params, tokens)
+                           for who, step in steps.items()},
+                          ("default", "ring", "ring", "default"))
     device = {}
     for who in ("default", "ring"):
         device[who], _, _ = _profile_device_ms(lambda: steps[who](tp_params, tokens))
-    ms = {k: sum(v) / len(v) for k, v in turns.items()}
     per_layer = {who: {t: leds[who].by_tag[t]["bytes"] // cfg.n_layers for t in tags}
                  for who, tags in (("default", DEFAULT_ATTN_TAGS), ("ring", RING_TAGS))}
     attn = {who: sum(v.values()) for who, v in per_layer.items()}
@@ -2957,6 +3046,497 @@ def phase_ring_prefill(dev, tp_params, seed: int = 19) -> dict:
     return {"ms": ms, "turns_ms": turns, "device_ms": device, "min_cos_vs_default": cos,
             "attn_bytes_per_layer": per_layer, "attn_cut": attn["default"] / attn["ring"],
             "ledger_bytes": {k: v.tag_bytes() for k, v in leds.items()}}
+
+
+# -- slice 9: Mamba2 at tp > 1 and MoE (phases 31-36) ---------------------------------
+
+SSM_ARCH = "mamba2-2.7b"
+MOE_ARCH = "qwen3-moe-30b-a3b"
+#: phase 32's and 35's launcher wires at P = 8: the pinned static wire and the
+#: bare "smi" (the config's comm_plan="auto")
+SLICE9_WIRES = ("smi:static", "smi")
+#: ticks a turn of phases 32's and 35's in-process decode timing (a
+#: qwen3-moe tick at P = 8 takes 0.3-0.9 s of host time)
+SLICE9_TICKS = 3
+#: phase 34's float32 check: its depth, its tokens (few, so that a near-tie
+#: of the k-th and (k+1)-th expert is unlikely to flip between the two runs'
+#: float32 sums), and phase 28's tolerance
+MOE_F32_LAYERS = 4
+MOE_F32_TOKENS = 256
+#: phase 36's runs (arch, mesh); qwen3-moe at 2,4 is not among them: a
+#: model shard's 15 GB of weights would be sharded over the data axis (the
+#: reference's FSDP rule), and FSDP is item 13, so that run must raise
+VALIDATE_SLICE9 = ((SSM_ARCH, "1,8"), (SSM_ARCH, "2,4"), (MOE_ARCH, "1,8"))
+
+
+def phase_ssm_tp_prefill(dev, seed: int = 16) -> tuple[dict, dict]:
+    """Phase 31: mamba2-2.7b at full width and depth, P = 8 over
+    ``smi:static`` with kernel D injected, 4096 tokens, bfloat16, on phase
+    16's weights and tokens (its seed), timed in turns with the tp = 1
+    prefill.  Kernel F launched once a layer over the 8 x 80 / 8 head rows,
+    all on wgmma; D 3 x 8 times a layer (two ``ssm.in`` and the ``ssm.out``
+    ring steps); the ledger equal to its closed form.  F gated layer by
+    layer (each block's update from its own input, F against the plain
+    scan, row cosine >= 0.999) and in float32 at full width, cut to
+    :data:`TP_F32_LAYERS` layers as phases 28 and 34 are (F on the FMA
+    kernel within phase 28's :data:`TP_F32_TOL` rtol and atol of the plain
+    scan at P = 8 and of the plain tp = 1 prefill); the bfloat16 row cosine
+    against tp = 1 is reported (rounding amplified over 64 layers,
+    ROADMAP.md §3)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.interop import shard_params
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.kernels.ssd import ssd_scan_kernel
+    from repro_torch.launch.steps import build_prefill
+    from repro_torch.mesh.api import make_ctx
+    from repro_torch.models import gather_hidden, init_lm, lm_prefill
+    from repro_torch.models.model import embed_tokens_sp, model_dtype
+    from repro_torch.models.transformer import _layer, apply_block
+    from repro_torch.parallel import ledger
+
+    cfg = get_arch(SSM_ARCH)
+    shape = ShapeConfig("prefill_4k", PREFILL_TOKENS, 1, "prefill")
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(seed), dev,
+                     dtype=model_dtype(cfg))
+    tokens = torch.from_numpy(np.random.RandomState(seed).randint(0, cfg.vocab_size,
+                                                                  (1, PREFILL_TOKENS))).to(dev)
+    ctx = make_ctx((1, TP), comm_mode="smi:static", matmul_fn=matmul, device=dev)
+    tp_params = shard_params(params, cfg, ctx)
+    tp1 = build_prefill(cfg, shape, device=dev)
+
+    def run_tp(p, c, use_kernel=None):
+        return gather_hidden(lm_prefill(p, tokens, c, ctx, capacity=PREFILL_TOKENS,
+                                        use_kernel=use_kernel))
+
+    with ledger.capture() as led:
+        run_tp(tp_params, cfg)  # warm-up, its wire traffic captured
+    tp1(params, tokens)
+    want_led = _tp_closed_form(cfg, TP, PREFILL_TOKENS, SSM_CALLS)
+    if led.by_tag != want_led:
+        raise AssertionError(f"mamba2 TP prefill ledger {led.by_tag} != closed form {want_led}")
+    reset_counts()
+    hidden = run_tp(tp_params, cfg)
+    torch.cuda.synchronize()
+    f, f_wgmma, d = ssd_scan_kernel.launches, ssd_scan_kernel.wgmma_launches, matmul.launches
+    want_d = 3 * TP * cfg.n_layers
+    if (f, f_wgmma, d) != (cfg.n_layers, cfg.n_layers, want_d):
+        raise AssertionError(f"mamba2 TP prefill launched F {f} times ({f_wgmma} on wgmma) and D "
+                             f"{d} times; want {cfg.n_layers} all on wgmma, {want_d}")
+    if tuple(hidden.shape) != (1, PREFILL_TOKENS, cfg.d_model) or not torch.isfinite(hidden).all():
+        raise AssertionError("mamba2 TP prefill hidden states not finite or misshapen")
+    ms, turns = _in_turns({"tp1": lambda: tp1(params, tokens),
+                           f"tp{TP}": lambda: run_tp(tp_params, cfg)},
+                          ("tp1", f"tp{TP}", f"tp{TP}", "tp1"))
+    h1 = tp1(params, tokens)
+    cos_bf16 = float(_row_cos(hidden, h1).min())
+    busy, rows, wall = _profile_device_ms(lambda: run_tp(tp_params, cfg))
+    log(f"mamba2 TP prefill P={TP}: {ms[f'tp{TP}']:.3f} ms "
+        f"({PREFILL_TOKENS / ms[f'tp{TP}'] * 1e3:.1f} tok/s) against tp = 1 {ms['tp1']:.3f} ms, "
+        f"turns {json.dumps(turns)}; F launched {f} times ({f_wgmma} on wgmma), D {d}; ledger "
+        f"equal to the closed form {json.dumps(led.tag_bytes())}")
+    log(f"mamba2 TP prefill profile: device {busy:.3f} ms of {wall:.3f} ms wall (idle "
+        f"{1 - busy / wall:.1%}); F {sum(t for n, t in rows if 'ssd_scan' in n):.3f} ms, D "
+        f"{sum(t for n, t in rows if 'matmul_' in n):.3f} ms")
+    for name, t in rows[:8]:
+        log(f"mamba2 TP prefill profile: {t:9.3f} ms  {name[:90]}")
+    log(f"mamba2 TP prefill bf16 against tp = 1: min row cosine {cos_bf16:.6f} (reported, not "
+        f"gated: rounding over 64 layers)")
+    del h1
+
+    # F layer by layer at P = 8: each block's update from its own input
+    x = embed_tokens_sp(tp_params, tokens, cfg, ctx)
+    worst = (1.0, -1)
+    for i in range(cfg.n_layers):
+        p = _layer(tp_params["stack"]["periods"][0], i)
+        got, _ = apply_block(p, "ssm", x, cfg, ctx, use_kernel=True)
+        want, _ = apply_block(p, "ssm", x, cfg, ctx, use_kernel=False)
+        c = float(_row_cos(gather_hidden(got - x), gather_hidden(want - x)).min())
+        worst = min(worst, (c, i))
+        x = got
+    torch.cuda.synchronize()
+    log(f"mamba2 TP prefill per layer (bf16, F vs plain on each layer's own input): min row "
+        f"cosine {worst[0]:.6f} (layer {worst[1]})")
+    if worst[0] < 0.999:
+        raise AssertionError(f"mamba2 TP layer {worst[1]}: F's update disagrees with the plain "
+                             f"scan's, min row cosine {worst[0]}")
+    del x, got, want, params, tp_params
+    torch.cuda.empty_cache()
+
+    # float32 at full width, cut in depth: F (the FMA kernel) at P = 8 against
+    # the plain scan at P = 8 and the plain tp = 1 prefill
+    cfg32 = cfg.scaled(n_layers=TP_F32_LAYERS, dtype="float32")
+    p32 = init_lm(cfg32, torch.Generator(device=dev).manual_seed(seed), dev, dtype=torch.float32)
+    tp32 = shard_params(p32, cfg32, ctx)
+    reset_counts()
+    got32 = run_tp(tp32, cfg32)
+    torch.cuda.synchronize()
+    if (ssd_scan_kernel.launches, ssd_scan_kernel.wgmma_launches) != (TP_F32_LAYERS, 0):
+        raise AssertionError(f"mamba2 float32 TP prefill: F launched "
+                             f"{ssd_scan_kernel.launches} times, {ssd_scan_kernel.wgmma_launches} "
+                             f"on wgmma")
+    plain32 = run_tp(tp32, cfg32, use_kernel=False)
+    del tp32
+    ref32 = build_prefill(cfg32, shape, device=dev)(p32, tokens, use_kernel=False)
+    cos32 = float(_row_cos(got32, plain32).min())
+    cos32_tp1 = float(_row_cos(got32, ref32).min())
+    err32, err32_tp1 = max_abs_err(got32, plain32), max_abs_err(got32, ref32)
+    ex32, ex32_tp1 = f32_excess(got32, plain32), f32_excess(got32, ref32)
+    log(f"mamba2 TP prefill float32 ({TP_F32_LAYERS} layers, full width): F vs plain max abs "
+        f"err {err32:.3e} (min row cosine {cos32:.8f}); vs the tp = 1 plain prefill "
+        f"{err32_tp1:.3e} ({cos32_tp1:.8f}); within {TP_F32_TOL} rtol/atol: "
+        f"{max(ex32, ex32_tp1) <= 0}")
+    if not torch.isfinite(got32).all() or max(ex32, ex32_tp1) > 0:
+        raise AssertionError(f"mamba2 float32 TP prefill beyond {TP_F32_TOL} rtol/atol: max abs "
+                             f"err {err32} against the plain scan, {err32_tp1} against tp = 1")
+    del p32, got32, plain32, ref32
+    torch.cuda.empty_cache()
+    res = dict(ms=ms, turns_ms=turns, tok_per_s=PREFILL_TOKENS / ms[f"tp{TP}"] * 1e3,
+               launches_f=f, wgmma_launches_f=f_wgmma, launches_d=d, device_ms=busy,
+               profiled_wall_ms=wall, device_idle_share=1 - busy / wall,
+               min_cos_bf16_vs_tp1=cos_bf16, min_cos_per_layer=worst[0],
+               f32_layers=TP_F32_LAYERS, f32_max_abs_err_vs_plain=err32,
+               f32_max_abs_err_vs_tp1=err32_tp1, f32_min_cos=cos32, f32_min_cos_vs_tp1=cos32_tp1,
+               ledger_bytes=led.tag_bytes())
+    return {"F": f, "D": d}, res
+
+
+def phase_ssm_tp_serving(dev, seed: int = 32) -> dict:
+    """Phase 32: ``launch.serve --arch mamba2-2.7b --mesh 1,8`` with phase
+    14's requests, both engines, on ``smi:static`` and the bare ``smi``:
+    tokens equal across the four runs, kernel A never launched on the static
+    wire; kernel A held on the decode itself as phase 28 holds it (the first
+    steps over a pinned ``smi:fused`` runtime bit-equal to ``smi:static``,
+    A's launches rising each step, its operands re-run against its plain
+    version); then ms a decode step at P = 8 beside tp = 1 in turns, the
+    device's idle share, and A's launches a step on the tuned wire."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.interop import shard_params
+    from repro_torch.mesh.api import make_ctx
+    from repro_torch.models import init_lm
+    from repro_torch.models.model import model_dtype
+
+    runs, launches = _launcher_runs(SSM_ARCH, f"1,{TP}", SLICE9_WIRES)
+    if any(v["shift"] + v["fold"] for k, v in launches.items() if k.startswith("smi:static")):
+        raise AssertionError(f"mamba2 tp serve on smi:static launched kernel A: {launches}")
+    a_step = _a_per_step(runs, launches)
+    cfg = get_arch(SSM_ARCH)
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(seed), dev,
+                     dtype=model_dtype(cfg))
+    tp_params = shard_params(params, cfg, make_ctx((1, TP), comm_mode="smi:static", device=dev))
+    fused = _fused_against_static(cfg, tp_params, dev, np.random.RandomState(seed))
+    turns = _decode_turns(dev, cfg, params, tp_params, SLICE9_TICKS)
+    del params, tp_params
+    torch.cuda.empty_cache()
+    log(f"mamba2 tp serve: kernel A a decode step on the tuned wire {json.dumps(a_step)}")
+    return {"runs": {k: {m: v[m] for m in ("tok_per_s", "ms_per_step", "decode_steps", "tokens")}
+                     for k, v in runs.items()}, "launches_a": launches,
+            "a_per_step_tuned_runs": a_step, "fused_vs_static": fused, **turns}
+
+
+def phase_moe_prefill(dev, seed: int = 33) -> tuple[object, dict]:
+    """Phase 33: qwen3-moe-30b-a3b at full width and depth (48 layers, 128
+    experts, 61.1 GB of bfloat16 weights) through ``build_prefill`` on 4096
+    tokens: ms, tokens/s, kernel E launched once a layer, all on wgmma;
+    device time by kernel and the idle share.  Returns the params (phase
+    34's) and the results."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.launch.steps import build_prefill
+    from repro_torch.models import init_lm
+    from repro_torch.models.common import tree_leaves_with_path
+    from repro_torch.models.model import model_dtype
+
+    cfg = get_arch(MOE_ARCH)
+    t0 = time.perf_counter()
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(seed), dev,
+                     dtype=model_dtype(cfg))
+    torch.cuda.synchronize()
+    n = sum(t.numel() for _, t in tree_leaves_with_path(params))
+    log(f"moe prefill: {cfg.name} params {n} ({n * 2 / 1e9:.2f} GB bf16) drawn in "
+        f"{time.perf_counter() - t0:.1f}s")
+    tokens = torch.from_numpy(np.random.RandomState(seed).randint(0, cfg.vocab_size,
+                                                                  (1, PREFILL_TOKENS))).to(dev)
+    step = build_prefill(cfg, ShapeConfig("prefill_4k", PREFILL_TOKENS, 1, "prefill"), device=dev)
+    step(params, tokens)
+    reset_counts()
+    hidden, ms = _timed_ms(lambda: step(params, tokens))
+    e, e_wgmma = flash_attention_kernel.launches, flash_attention_kernel.wgmma_launches
+    if (e, e_wgmma) != (cfg.n_layers, cfg.n_layers):
+        raise AssertionError(f"moe prefill launched E {e} times ({e_wgmma} on wgmma), not "
+                             f"{cfg.n_layers}")
+    if tuple(hidden.shape) != (1, PREFILL_TOKENS, cfg.d_model) or not torch.isfinite(hidden).all():
+        raise AssertionError("moe prefill hidden states not finite or misshapen")
+    busy, rows, wall = _profile_device_ms(lambda: step(params, tokens))
+    split = _profile_split(rows)
+    log(f"moe prefill: {cfg.name} {ms:.3f} ms for {PREFILL_TOKENS} tokens "
+        f"({PREFILL_TOKENS / ms * 1e3:.1f} tok/s), E launched {e} times ({e_wgmma} on wgmma); "
+        f"device {busy:.3f} ms of {wall:.3f} ms wall (idle {1 - busy / wall:.1%}): " +
+        ", ".join(f"{k} {v:.3f} ms ({v / busy:.1%})" for k, v in split.items()))
+    for name, t in rows[:12]:
+        log(f"moe prefill profile: {t:9.3f} ms  {name[:90]}")
+    return params, dict(ms=ms, tok_per_s=PREFILL_TOKENS / ms * 1e3, launches_e=e,
+                        wgmma_launches_e=e_wgmma, device_ms=busy, profiled_wall_ms=wall,
+                        device_idle_share=1 - busy / wall, device_split_ms=split,
+                        top_kernels_ms=[(k[:60], t) for k, t in rows[:12]], params=n)
+
+
+def _recording_routes():
+    """A context in which every ``models.moe.route`` call's sorted choices
+    are kept, in call order."""
+    from contextlib import contextmanager
+    from unittest import mock
+
+    from repro_torch.models import moe as moe_mod
+
+    @contextmanager
+    def ctx():
+        seen = []
+        route = moe_mod.route
+
+        def recording(router, xf, cfg):
+            vals, idx, aux = route(router, xf, cfg)
+            seen.append(idx.sort(dim=-1).values)
+            return vals, idx, aux
+
+        with mock.patch.object(moe_mod, "route", recording):
+            yield seen
+
+    return ctx()
+
+
+def phase_moe_tp_prefill(dev, params, seed: int = 33) -> tuple[dict, dict]:
+    """Phase 34: phase 33's prefill at P = 8 over ``smi:static`` with kernel
+    D injected, on the same weights (the experts shared as views, the
+    attention, embedding and head copied), in turns with tp = 1: D 2 x 8
+    launches a layer (Q and the out-projection), E one (over the 8 ranks'
+    heads), the ledger equal to its closed form; over ``smi:fused`` bit-equal
+    to ``smi:static``, kernel A launched once a reduce-scatter ring step.
+    The row cosine against tp = 1 and the share of routing choices that
+    agree with it (bfloat16, full depth) are reported.  Then, the bfloat16
+    weights freed, a float32 copy cut to :data:`MOE_F32_LAYERS` layers at
+    full width: the chosen experts equal at every layer, and the hidden
+    states within phase 28's float32 tolerance (:data:`TP_F32_TOL` rtol and
+    atol) of tp = 1."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.interop import shard_params
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.launch.steps import build_prefill
+    from repro_torch.mesh.api import make_ctx
+    from repro_torch.models import gather_hidden, lm_prefill
+    from repro_torch.models.common import tree_leaves_with_path
+    from repro_torch.parallel import ledger
+
+    cfg = get_arch(MOE_ARCH)
+    shape = ShapeConfig("prefill_4k", PREFILL_TOKENS, 1, "prefill")
+    tokens = torch.from_numpy(np.random.RandomState(seed).randint(0, cfg.vocab_size,
+                                                                  (1, PREFILL_TOKENS))).to(dev)
+    ctxs = {m: make_ctx((1, TP), comm_mode=m, matmul_fn=matmul, device=dev)
+            for m in ("smi:static", "smi:fused")}
+    before = torch.cuda.memory_allocated()
+    tp_params = shard_params(params, cfg, ctxs["smi:static"])
+    copied = (torch.cuda.memory_allocated() - before) / 1e9
+    experts = [(a, b) for (path, a), (_, b) in zip(tree_leaves_with_path(tp_params),
+                                                    tree_leaves_with_path(params), strict=True)
+               if path[-2:-1] == ("moe",) and path[-1] in ("w_gate", "w_up", "w_down")]
+    if not experts or any(a.data_ptr() != b.data_ptr() for a, b in experts):
+        raise AssertionError("moe TP params: the expert leaves are not views of tp = 1's")
+    tp1 = build_prefill(cfg, shape, device=dev)
+
+    def run_tp(mode="smi:static"):
+        return gather_hidden(lm_prefill(tp_params, tokens, cfg, ctxs[mode],
+                                        capacity=PREFILL_TOKENS))
+
+    with ledger.capture() as led:
+        run_tp()
+    want_led = _tp_closed_form(cfg, TP, PREFILL_TOKENS, MOE_CALLS)
+    if led.by_tag != want_led:
+        raise AssertionError(f"moe TP prefill ledger {led.by_tag} != closed form {want_led}")
+    reset_counts()
+    with _recording_routes() as routes_tp:
+        hidden, _ = _timed_ms(run_tp)
+    d, d_wgmma = matmul.launches, matmul.wgmma_launches
+    e, e_wgmma = flash_attention_kernel.launches, flash_attention_kernel.wgmma_launches
+    want_d = 2 * TP * cfg.n_layers
+    if (d, d_wgmma, e, e_wgmma) != (want_d, want_d, cfg.n_layers, cfg.n_layers):
+        raise AssertionError(f"moe TP prefill launched D {d} times ({d_wgmma} on wgmma), E {e} "
+                             f"({e_wgmma}); want {want_d} and {cfg.n_layers}, all on wgmma")
+    with _recording_routes() as routes_1:
+        h1 = tp1(params, tokens)
+    agree = torch.stack([(a == b).all(-1) for a, b in zip(routes_tp, routes_1, strict=True)])
+    chosen = torch.stack([(a[..., None] == b[..., None, :]).any(-1).float().mean(-1)
+                          for a, b in zip(routes_tp, routes_1)])
+    cos = _row_cos(hidden, h1)
+    reset_counts()
+    fused = run_tp("smi:fused")
+    torch.cuda.synchronize()
+    a = _a_launches()
+    rs_steps = (2 * cfg.n_layers + 1) * (TP - 1)
+    if not same_bits(fused, hidden) or a != {"shift": rs_steps, "fold": 0}:
+        raise AssertionError(f"moe TP prefill over smi:fused: same bits {same_bits(fused, hidden)}"
+                             f", kernel A {a} (want {rs_steps} gather-fused)")
+    del fused, h1
+    ms, turns = _in_turns({"tp1": lambda: tp1(params, tokens), f"tp{TP}": run_tp},
+                          ("tp1", f"tp{TP}", f"tp{TP}", "tp1"))
+    busy, rows, wall = _profile_device_ms(run_tp)
+    split = _profile_split(rows)
+    log(f"moe TP prefill P={TP}: {ms[f'tp{TP}']:.3f} ms ({PREFILL_TOKENS / ms[f'tp{TP}'] * 1e3:.1f}"
+        f" tok/s) against tp = 1 {ms['tp1']:.3f} ms, turns {json.dumps(turns)}; D launched {d} "
+        f"times ({d_wgmma} on wgmma), E {e} ({e_wgmma}); the P = 8 copy added {copied:.2f} GB "
+        f"(experts shared); ledger equal to the closed form")
+    log(f"moe TP prefill over smi:fused: bit-equal to smi:static, kernel A {a}")
+    log(f"moe TP prefill bf16 against tp = 1: row cosine min {float(cos.min()):.6f} mean "
+        f"{float(cos.mean()):.6f}; routing: {float(agree.float().mean()):.4%} of (token, layer) "
+        f"top-{cfg.top_k} sets equal, {float(chosen.mean()):.4%} of the choices shared; first "
+        f"layer "
+        f"{float(agree[0].float().mean()):.4%}")
+    log(f"moe TP prefill profile: device {busy:.3f} ms of {wall:.3f} ms wall (idle "
+        f"{1 - busy / wall:.1%}): " + ", ".join(f"{k} {v:.3f} ms ({v / busy:.1%})"
+                                                for k, v in split.items()))
+    for name, t in rows[:12]:
+        log(f"moe TP prefill profile: {t:9.3f} ms  {name[:90]}")
+    res = dict(ms=ms, turns_ms=turns, tok_per_s=PREFILL_TOKENS / ms[f"tp{TP}"] * 1e3,
+               launches_d=d, launches_e=e, launches_a_fused=a, copied_gb=copied,
+               min_cos_vs_tp1=float(cos.min()), mean_cos_vs_tp1=float(cos.mean()),
+               routing_sets_equal=float(agree.float().mean()),
+               routing_choices_shared=float(chosen.mean()), device_ms=busy,
+               profiled_wall_ms=wall, device_idle_share=1 - busy / wall, device_split_ms=split,
+               ledger_bytes=led.tag_bytes())
+    del tp_params, hidden, routes_tp, routes_1
+    torch.cuda.empty_cache()
+    return {"D": d, "E": e, "A": a}, res
+
+
+def phase_moe_f32(dev, seed: int = 34) -> dict:
+    """Phase 34's float32 check (run once phase 33's weights are freed);
+    see :func:`phase_moe_tp_prefill`."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.interop import shard_params
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.mesh.api import make_ctx
+    from repro_torch.models import gather_hidden, init_lm, lm_prefill
+
+    cfg = get_arch(MOE_ARCH).scaled(n_layers=MOE_F32_LAYERS, dtype="float32")
+    p32 = init_lm(cfg, torch.Generator(device=dev).manual_seed(seed), dev, dtype=torch.float32)
+    tokens = torch.from_numpy(np.random.RandomState(seed).randint(0, cfg.vocab_size,
+                                                                  (1, MOE_F32_TOKENS))).to(dev)
+    ctx8 = make_ctx((1, TP), comm_mode="smi:static", matmul_fn=matmul, device=dev)
+    with _recording_routes() as r1:
+        want = lm_prefill(p32, tokens, cfg, make_ctx(), capacity=MOE_F32_TOKENS)
+    with _recording_routes() as r8:
+        got = gather_hidden(lm_prefill(shard_params(p32, cfg, ctx8), tokens, cfg, ctx8,
+                                       capacity=MOE_F32_TOKENS))
+    torch.cuda.synchronize()
+    flips = [int((a != b).any(-1).sum()) for a, b in zip(r8, r1, strict=True)]
+    err = max_abs_err(got, want)
+    excess = f32_excess(got, want)
+    log(f"moe float32 ({MOE_F32_LAYERS} layers, full width, {MOE_F32_TOKENS} tokens): tokens "
+        f"whose experts differ from tp = 1 by layer {flips}; max abs err {err:.3e}, within "
+        f"{TP_F32_TOL} rtol/atol: {excess <= 0}")
+    if any(flips):
+        raise AssertionError(f"moe float32 P = {TP}: the chosen experts differ from tp = 1 "
+                             f"({flips} tokens by layer)")
+    if excess > 0 or not torch.isfinite(got).all():
+        raise AssertionError(f"moe float32 P = {TP}: beyond {TP_F32_TOL} rtol/atol of tp = 1 "
+                             f"(max abs err {err})")
+    del p32, got, want
+    torch.cuda.empty_cache()
+    return {"layers": MOE_F32_LAYERS, "tokens": MOE_F32_TOKENS, "max_abs_err": err,
+            "routing_flips": flips}
+
+
+def phase_moe_serving(dev, seed: int = 35) -> dict:
+    """Phase 35: ``launch.serve --arch qwen3-moe-30b-a3b`` with phase 14's
+    requests, both engines, at tp = 1 and at ``--mesh 1,8`` on
+    ``smi:static`` and the bare ``smi``: tokens equal across the engines at
+    tp = 1 and across engines and wires at P = 8, kernel A never launched on
+    the static wire; kernel A held on the P = 8 decode as phase 32 holds it;
+    then ms a decode step at P = 8 beside tp = 1 in turns, the idle share,
+    and A's launches a step on the tuned wire."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.interop import shard_params
+    from repro_torch.mesh.api import make_ctx
+    from repro_torch.models import init_lm
+    from repro_torch.models.model import model_dtype
+
+    runs1, _ = _launcher_runs(MOE_ARCH, "1,1", ("smi",))
+    runs8, launches = _launcher_runs(MOE_ARCH, f"1,{TP}", SLICE9_WIRES)
+    if any(v["shift"] + v["fold"] for k, v in launches.items() if k.startswith("smi:static")):
+        raise AssertionError(f"moe tp serve on smi:static launched kernel A: {launches}")
+    a_step = _a_per_step(runs8, launches)
+    cfg = get_arch(MOE_ARCH)
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(seed), dev,
+                     dtype=model_dtype(cfg))
+    tp_params = shard_params(params, cfg, make_ctx((1, TP), comm_mode="smi:static", device=dev))
+    fused = _fused_against_static(cfg, tp_params, dev, np.random.RandomState(seed))
+    turns = _decode_turns(dev, cfg, params, tp_params, SLICE9_TICKS)
+    del params, tp_params
+    torch.cuda.empty_cache()
+    log(f"moe tp serve: kernel A a decode step on the tuned wire {json.dumps(a_step)}")
+
+    def brief(runs):
+        return {k: {m: v[m] for m in ("tok_per_s", "ms_per_step", "decode_steps", "tokens")}
+                for k, v in runs.items()}
+
+    return {"runs_tp1": brief(runs1), f"runs_tp{TP}": brief(runs8), "launches_a": launches,
+            "a_per_step_tuned_runs": a_step, "fused_vs_static": fused, **turns}
+
+
+def phase_validate_slice9() -> dict:
+    """Phase 36: ``launch.serve --validate-comm`` over ``smi:static``, 4
+    slots, 256 positions, full width and depth, for mamba2-2.7b and
+    qwen3-moe-30b-a3b at :data:`VALIDATE_SLICE9`'s meshes: every ``serve.*``
+    tag, migration legs included, equal to the prediction byte for byte and
+    step for step; qwen3-moe at ``2,4`` refused with FSDP's roadmap
+    error."""
+    import torch
+
+    from repro_torch.launch import serve as launch_serve
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for arch, mesh in VALIDATE_SLICE9:
+            path = os.path.join(tmp, "v.json")
+            rc = launch_serve.main(["--arch", arch, "--mesh", mesh, "--comm-mode", "smi:static",
+                                    "--slots", "4", "--capacity", "256",
+                                    "--validate-comm", "--json", path])
+            torch.cuda.synchronize()
+            gc.collect()
+            torch.cuda.empty_cache()
+            if rc != 0:
+                raise AssertionError(f"validate-comm {arch} mesh {mesh}: rc={rc}")
+            res = json.loads(Path(path).read_text())
+            out[f"{arch} {mesh}"] = res["measured"]
+            log(f"validate-comm {arch} mesh {mesh} smi:static: {len(res['measured'])} tags equal, "
+                f"{sum(e['bytes'] for e in res['measured'].values())} B a rank")
+    try:
+        launch_serve.main(["--arch", MOE_ARCH, "--mesh", "2,4", "--comm-mode", "smi:static",
+                           "--validate-comm"])
+    except NotImplementedError as e:
+        if "item 13" not in str(e):
+            raise
+        log(f"validate-comm {MOE_ARCH} mesh 2,4: refused, as FSDP waits ({e})")
+    else:
+        raise AssertionError(f"validate-comm {MOE_ARCH} mesh 2,4 ran; FSDP's rule should refuse it")
+    return out
 
 
 def main() -> int:
@@ -3132,6 +3712,55 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     log(f"phase 29 (--validate-comm): {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    launches_31, ssm_tp = phase_ssm_tp_prefill(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"phase 31 (mamba2-2.7b TP prefill, P = {TP}): {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    ssm_tp_serving = phase_ssm_tp_serving(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"phase 32 (mamba2-2.7b served at P = {TP}): {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    moe_params, moe_prefill = phase_moe_prefill(dev)
+    torch.cuda.synchronize()
+    log(f"phase 33 (qwen3-moe-30b-a3b prefill): {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    launches_34, moe_tp = phase_moe_tp_prefill(dev, moe_params)
+    del moe_params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    moe_tp["f32"] = phase_moe_f32(dev)
+    torch.cuda.synchronize()
+    log(f"phase 34 (qwen3-moe-30b-a3b TP prefill, P = {TP}): {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    moe_serving = phase_moe_serving(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"phase 35 (qwen3-moe-30b-a3b served at tp = 1 and P = {TP}): "
+        f"{time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    validate9 = phase_validate_slice9()
+    log(f"phase 36 (--validate-comm, mamba2 and qwen3-moe): {time.perf_counter() - t0:.1f}s")
+    # the launches of slice 9's paths: F and D in phase 31, E in phase 33, D
+    # and E in phase 34 (A over smi:fused), A a decode step on the tuned wire
+    # in phases 32 and 35
+    rows_f["wgmma"]["launches_ssm_tp_prefill"] = launches_31["F"]
+    by_name["matmul"]["launches_ssm_tp_prefill"] = launches_31["D"]
+    by_name["matmul"]["launches_moe_tp_prefill"] = launches_34["D"]
+    by_name["flash_attention"]["launches_moe_prefill"] = moe_prefill["launches_e"]
+    by_name["flash_attention"]["launches_moe_tp_prefill"] = launches_34["E"]
+    for name, key in (("accumulate", "fold"), ("shift_accumulate", "shift")):
+        by_name[name]["launches_moe_tp_prefill_fused"] = launches_34["A"][key]
+        by_name[name]["launches_ssm_tp_decode_tuned_per_step"] = \
+            ssm_tp_serving["a_per_step_tuned_runs"][key]
+        by_name[name]["launches_moe_tp_decode_tuned_per_step"] = \
+            moe_serving["a_per_step_tuned_runs"][key]
+    for key, res in (("ssm", ssm_tp_serving), ("moe", moe_serving)):
+        by_name["shift_accumulate"][f"launches_{key}_tp_decode_fused_per_step"] = \
+            res["fused_vs_static"]["a_launches_per_step"]
+
     # each kernel's launches on the tuned paths: the checked phase 26 runs
     # and phase 27's timed-before prefill
     lt = tp_auto["launches"]
@@ -3173,6 +3802,13 @@ def main() -> int:
     log("tp_serving_yi6b_p8: " + json.dumps(tp_serving))
     log("validate_comm: " + json.dumps({k: v["A"] for k, v in validate.items()}))
     log("ring_prefill_yi6b_4096_p8: " + json.dumps(ring))
+    log("tp_prefill_mamba2_4096_p8: " + json.dumps(ssm_tp))
+    log("tp_serving_mamba2_p8: " + json.dumps(ssm_tp_serving))
+    log("prefill_qwen3moe_4096: " + json.dumps(moe_prefill))
+    log("tp_prefill_qwen3moe_4096_p8: " + json.dumps(moe_tp))
+    log("serving_qwen3moe: " + json.dumps(moe_serving))
+    log("validate_comm_slice9: " + json.dumps({k: sum(e["bytes"] for e in v.values())
+                                               for k, v in validate9.items()}))
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

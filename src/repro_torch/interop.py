@@ -101,16 +101,26 @@ def params_from_reference(np_params, cfg, device=None):
 def shard_params(params, cfg, ctx):
     """Global params (the port's ``init_lm``, or :func:`params_from_reference`'s)
     as the rank-stacked params of ``ctx``'s tensor-parallel degree P, by
-    :func:`~repro_torch.models.lm_specs`: a leaf split over the model axis
-    along one dimension becomes its P blocks stacked on a new leading rank
-    dimension — after the layer dimension for the leaves of a period, so
-    they lie ``(L, P, ...)`` and a layer's slice is rank-stacked and
-    contiguous.  A replicated leaf stays the one global copy (broadcasting
-    hands it to every rank).  At tp = 1 the params come back as they are."""
+    :func:`~repro_torch.models.lm_specs` (:func:`shard_tree`).  At tp = 1
+    the params come back as they are."""
     if ctx.tp == 1:
         return params
     from .models.model import lm_specs
 
+    return shard_tree(params, lm_specs(cfg, ctx), ctx)
+
+
+def shard_tree(tree, specs, ctx):
+    """A tree of global leaves as ``ctx``'s rank-stacked leaves, by the
+    matching tree of specs: a leaf split over the model axis along one
+    dimension becomes its P blocks stacked on a new leading rank dimension
+    -- after the layer dimension for the leaves of a period (under a
+    ``"periods"`` key), so they lie
+    ``(L, P, ...)`` and a layer's slice is rank-stacked.  A replicated leaf
+    stays the one global copy (broadcasting hands it to every rank).  A leaf
+    split along its first dimension after the layers (the experts of an MoE
+    block, ``(L, E, D, f)`` -> ``(L, P, E/P, D, f)``) is a view of the
+    global leaf: no copy; the rest are copies, contiguous per rank."""
     P, m = ctx.tp, ctx.model_axis
 
     def split(t, spec, stacked):
@@ -124,11 +134,11 @@ def shard_params(params, cfg, ctx):
                              f"into {P} ranks")
         return t.unflatten(d, (P, t.shape[d] // P)).movedim(d, int(stacked)).contiguous()
 
-    def walk(t, spec, stacked=False):
+    def walk(t, spec, stacked):
         if isinstance(t, dict):
             return {k: walk(v, spec[k], stacked or k == "periods") for k, v in t.items()}
         if isinstance(t, (tuple, list)):
             return tuple(walk(v, s, stacked) for v, s in zip(t, spec, strict=True))
         return None if t is None else split(t, spec, stacked)
 
-    return walk(params, lm_specs(cfg, ctx))
+    return walk(tree, specs, False)

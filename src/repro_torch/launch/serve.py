@@ -12,6 +12,10 @@ decode of random-weight requests, at any ``(data, model)`` mesh.
     python -m repro_torch.launch.serve --arch yi-6b --smoke --device cpu \\
         --mesh 2,4 --comm-mode smi:static --validate-comm
 
+    # the MoE and Mamba2 families at tp > 1
+    python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --mesh 1,8
+    python -m repro_torch.launch.serve --arch mamba2-2.7b --mesh 1,8 --comm-mode smi:static
+
 Params are drawn from a ``torch.Generator`` seeded 0 on the device, in the
 model dtype (at tp > 1 with the heads padded to a multiple of tp, then
 split by ``interop.shard_params``); prompts come from

@@ -8,7 +8,9 @@ data axis's groups run beside that stack, one after another
 divides (prefill, ``build_serve``), and the serving slots are replicated
 over them (``build_continuous_serve``: slot scheduling is a global
 decision, so every group computes the same step, which the stack runs
-once).  FSDP stays off: it raises where it would shard anything.
+once).  FSDP stays off: it raises where it would shard anything (a
+builder's ``fsdp=False`` replicates the weights over the data axis).  Every
+block kind the port runs is served: dense, MoE and Mamba2.
 """
 
 from __future__ import annotations

@@ -1,6 +1,5 @@
-"""The dense and Mamba2 model families (``repro.models``): prefill and
-decode at any tensor-parallel degree for the dense blocks, at tp = 1 for
-Mamba2."""
+"""The dense, MoE and Mamba2 model families (``repro.models``): prefill
+and decode at any tensor-parallel degree."""
 
 from .model import (
     assemble_logits,

@@ -64,6 +64,16 @@ def silu(x):
 # -------------------------------------------------------------- pytrees
 
 
+def first_replica(xs):
+    """Rank 0's copy of a rank-stacked tensor whose ranks all hold the same
+    bits (a gathered sequence, the replicated decode rows), which the code
+    computes from once.  Every other rank's copy is asserted equal to it, on
+    the device without a host read: a transport that delivered other rows to
+    any rank fails here instead of going unseen."""
+    torch._assert_async((xs == xs[:1]).all(), "the ranks' copies of a replicated view differ")
+    return xs[0]
+
+
 def tree_map(fn, tree, *rest):
     """``fn`` over the leaves of nested dicts and tuples (``None`` stays)."""
     if isinstance(tree, dict):

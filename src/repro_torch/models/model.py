@@ -125,7 +125,7 @@ def lm_prefill(params, tokens, cfg, ctx, *, capacity: int, use_kernel=None):
     plain versions, for comparisons)."""
     pf = _cast(params, model_dtype(cfg))
     x = embed_tokens_sp(pf, tokens, cfg, ctx)
-    x = apply_stack(pf["stack"], x, cfg, ctx, use_kernel=use_kernel)
+    x, _ = apply_stack(pf["stack"], x, cfg, ctx, use_kernel=use_kernel)  # the aux loss: unused
     return rms_norm(x, pf["final_norm"], cfg.norm_eps)
 
 

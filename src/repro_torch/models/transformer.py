@@ -1,5 +1,6 @@
 """Block assembly (``repro.models.transformer``): the dense ``"attn"``
-block and the Mamba2 ``"ssm"`` block, stacked per pattern period.
+block, the MoE ``"moe"`` block (attention, then the experts) and the Mamba2
+``"ssm"`` block, stacked per pattern period.
 
 Parameters keep the reference's layout: ``{"periods": tuple of per-position
 block trees whose leaves carry a leading layer dim, "rem": tuple of
@@ -7,9 +8,10 @@ remainder blocks}``.  The periods run as a Python loop over that dim (the
 reference's ``lax.scan``; there is no remat to port).  At tp > 1 the
 activations are the rank-stacked ``(P, B, S/P, D)`` and the sharded leaves
 of a period are laid out ``(L, P, ...)`` (``interop.shard_params``), so a
-layer's slice is rank-stacked and contiguous; so are the decode caches,
-``(L, P, B, ...)``.  The block kinds ``"moe"`` and ``"rec"`` raise
-``NotImplementedError``, and so does ``"ssm"`` at tp > 1.
+layer's slice is rank-stacked; so are the decode caches, ``(L, P, B, ...)``.
+A block returns the MoE load-balancing loss beside its output (0 for the
+blocks without experts), as the reference's does.  The block kind
+``"rec"`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -27,72 +29,80 @@ from .attention import (
 )
 from .common import rms_norm, tree_map
 from .mlp import apply_mlp, apply_mlp_replicated, init_mlp, mlp_specs
-from .ssm import apply_ssm, decode_ssm, init_ssm, init_ssm_cache
+from .moe import apply_moe, apply_moe_replicated, init_moe, moe_specs
+from .ssm import apply_ssm, decode_ssm, init_ssm, init_ssm_cache, ssm_cache_specs, ssm_specs
 
 #: the block kinds the port runs
-KINDS = ("attn", "ssm")
+KINDS = ("attn", "moe", "ssm")
 #: what the block kinds outside the port raise with
 KIND_ROADMAP = {
-    "moe": "MoE blocks wait for their slice (ROADMAP.md §1, item 10)",
     "rec": "RG-LRU (rec) blocks wait for their slice (ROADMAP.md §1, item 11)",
 }
-#: what an ``"ssm"`` block at tp > 1 raises with
-SSM_TP_ROADMAP = ("the ssm (Mamba2) block at tp > 1, with its column-parallel ssm.in and "
-                  "ssm.gather layers, waits for its slice (ROADMAP.md §1, item 14)")
 
 
-def _check_kind(kind: str, ctx=None):
+def _check_kind(kind: str):
     if kind not in KINDS:
         raise NotImplementedError(KIND_ROADMAP.get(kind, f"unknown block kind {kind!r}"))
-    if kind == "ssm" and ctx is not None and ctx.tp > 1:
-        raise NotImplementedError(SSM_TP_ROADMAP)
 
 
 def init_block(generator, kind: str, cfg, ctx, dtype=None):
-    """``{"norm1", "attn", "norm2", "mlp"}`` for an attention block,
-    ``{"norm1", "ssm"}`` (no MLP) for an SSM block."""
+    """``{"norm1", "attn", "norm2", "mlp"}`` for an attention block, the
+    same with ``"moe"`` in place of ``"mlp"`` for an MoE block, ``{"norm1",
+    "ssm"}`` (no MLP) for an SSM block."""
     _check_kind(kind)
     D = cfg.d_model
     dt = torch.float32 if dtype is None else dtype
     dev = generator.device
+    p = {"norm1": torch.ones((D,), dtype=dt, device=dev)}
     if kind == "ssm":
-        return {"norm1": torch.ones((D,), dtype=dt, device=dev),
-                "ssm": init_ssm(generator, cfg, ctx, dtype)}
-    return {"norm1": torch.ones((D,), dtype=dt, device=dev),
-            "attn": init_attention(generator, cfg, ctx, dtype),
-            "norm2": torch.ones((D,), dtype=dt, device=dev),
-            "mlp": init_mlp(generator, cfg, ctx, dtype=dtype)}
+        p["ssm"] = init_ssm(generator, cfg, ctx, dtype)
+        return p
+    p["attn"] = init_attention(generator, cfg, ctx, dtype)
+    p["norm2"] = torch.ones((D,), dtype=dt, device=dev)
+    if kind == "attn":
+        p["mlp"] = init_mlp(generator, cfg, ctx, dtype=dtype)
+    else:
+        p["moe"] = init_moe(generator, cfg, ctx, dtype)
+    return p
 
 
 def block_specs(kind: str, cfg, ctx):
-    """How each leaf of a block lies over the mesh (the norms replicated).
-    The ``"ssm"`` block's layout is not ported: it raises."""
+    """How each leaf of a block lies over the mesh (the norms replicated)."""
     _check_kind(kind)
     if kind == "ssm":
-        raise NotImplementedError(SSM_TP_ROADMAP)
-    return {"norm1": PS(None), "attn": attention_specs(cfg, ctx), "norm2": PS(None),
-            "mlp": mlp_specs(cfg, ctx)}
+        return {"norm1": PS(None), "ssm": ssm_specs(cfg, ctx)}
+    sp = {"norm1": PS(None), "attn": attention_specs(cfg, ctx), "norm2": PS(None)}
+    if kind == "attn":
+        sp["mlp"] = mlp_specs(cfg, ctx)
+    else:
+        sp["moe"] = moe_specs(cfg, ctx)
+    return sp
 
 
 def apply_block(p, kind: str, x, cfg, ctx, *, use_kernel=None):
     """One block over x, (B, S, D) at tp = 1 or (P, B, S/P, D) at tp > 1;
-    ``use_kernel`` goes to the attention (kernel E) or the SSD scan (kernel
-    F).  (The reference also returns the MoE load-balancing loss, which
-    these blocks do not have.)"""
-    _check_kind(kind, ctx)
+    returns (x, the block's load-balancing loss).  ``use_kernel`` goes to
+    the attention (kernel E) or the SSD scan (kernel F)."""
+    _check_kind(kind)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "ssm":
-        return x + apply_ssm(p["ssm"], rms_norm(x, p["norm1"], cfg.norm_eps), cfg, ctx,
-                             use_kernel=use_kernel)
+        x = x + apply_ssm(p["ssm"], rms_norm(x, p["norm1"], cfg.norm_eps), cfg, ctx,
+                          use_kernel=use_kernel)
+        return x, aux
     x = x + apply_attention(p["attn"], rms_norm(x, p["norm1"], cfg.norm_eps), cfg, ctx,
                             use_kernel=use_kernel)
-    return x + apply_mlp(p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps), cfg, ctx)
+    h = rms_norm(x, p["norm2"], cfg.norm_eps)
+    if kind == "attn":
+        return x + apply_mlp(p["mlp"], h, cfg, ctx), aux
+    y, aux = apply_moe(p["moe"], h, cfg, ctx)
+    return x + y, aux
 
 
 def init_block_cache(kind: str, cfg, B: int, capacity: int, ctx, dtype, device=None):
     """A block's decode cache; a windowed attention layer keeps at most its
     window, padded up to a multiple of tp (the reference's cap), of the
     ``capacity`` slots."""
-    _check_kind(kind, ctx)
+    _check_kind(kind)
     if kind == "ssm":
         return init_ssm_cache(cfg, B, ctx, dtype, device)
     cap = capacity if cfg.local_window is None else min(
@@ -107,22 +117,25 @@ def _pow2_pad(w: int, tp: int) -> int:
 
 def block_cache_specs(kind: str, ctx, shard_batch: bool = True):
     """How a block's decode cache lies over the mesh."""
-    _check_kind(kind, ctx)
+    _check_kind(kind)
     if kind == "ssm":
-        raise NotImplementedError(SSM_TP_ROADMAP)
+        return ssm_cache_specs(ctx, shard_batch)
     return kv_cache_specs(ctx, shard_batch)
 
 
 def decode_block(p, kind: str, x, cache, pos, cfg, ctx):
-    _check_kind(kind, ctx)
+    _check_kind(kind)
     if kind == "ssm":
         y, cache = decode_ssm(p["ssm"], rms_norm(x, p["norm1"], cfg.norm_eps), cache, cfg, ctx)
         return x + y, cache
     y, cache = decode_attention(p["attn"], rms_norm(x, p["norm1"], cfg.norm_eps), cache, pos,
                                 cfg, ctx)
     x = x + y
-    x = x + apply_mlp_replicated(p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps), cfg, ctx)
-    return x, cache
+    h = rms_norm(x, p["norm2"], cfg.norm_eps)
+    if kind == "attn":
+        return x + apply_mlp_replicated(p["mlp"], h, cfg, ctx), cache
+    y, _ = apply_moe_replicated(p["moe"], h, cfg, ctx)
+    return x + y, cache
 
 
 # ------------------------------------------------------------ stacked form
@@ -169,14 +182,19 @@ def stack_specs(cfg, ctx):
 
 
 def apply_stack(params, x, cfg, ctx, *, use_kernel=None):
+    """Every layer over x; returns (x, the layers' load-balancing losses
+    summed)."""
     pattern, period, n_full, _ = _layout(cfg)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n_full if params["periods"] is not None else 0):
         for j in range(period):
-            x = apply_block(_layer(params["periods"][j], i), pattern[j], x, cfg, ctx,
-                            use_kernel=use_kernel)
+            x, aux = apply_block(_layer(params["periods"][j], i), pattern[j], x, cfg, ctx,
+                                 use_kernel=use_kernel)
+            aux_total = aux_total + aux
     for j, p in enumerate(params["rem"]):
-        x = apply_block(p, pattern[j], x, cfg, ctx, use_kernel=use_kernel)
-    return x
+        x, aux = apply_block(p, pattern[j], x, cfg, ctx, use_kernel=use_kernel)
+        aux_total = aux_total + aux
+    return x, aux_total
 
 
 def init_stack_cache(cfg, B: int, capacity: int, ctx, dtype, device=None):

@@ -3,6 +3,8 @@ from .layers import (
     column_parallel_linear,
     gather_sequence,
     layer_spec,
+    moe_combine,
+    moe_dispatch,
     parallel_embedding,
     parallel_embedding_partial,
     pmax_tagged,
@@ -12,6 +14,6 @@ from .layers import (
     row_parallel_linear,
 )
 
-__all__ = ["all_reduce", "column_parallel_linear", "gather_sequence", "layer_spec",
-           "parallel_embedding", "parallel_embedding_partial", "pmax_tagged", "psum_tagged",
-           "reduce_scatter_sequence", "ring_attention", "row_parallel_linear"]
+__all__ = ["all_reduce", "column_parallel_linear", "gather_sequence", "layer_spec", "moe_combine",
+           "moe_dispatch", "parallel_embedding", "parallel_embedding_partial", "pmax_tagged",
+           "psum_tagged", "reduce_scatter_sequence", "ring_attention", "row_parallel_linear"]

@@ -30,7 +30,7 @@ under a bare ``comm_mode="smi"``) lets the netsim tuning table pick each
 layer call's backend and wire, recorded per tag in the capture ledger's
 ``plans``.
 
-Not ported yet: the MoE, loss, gradient and pipeline layers.
+Not ported yet: the loss, gradient and pipeline layers.
 """
 
 from __future__ import annotations
@@ -258,6 +258,21 @@ def all_reduce(x, ctx, *, tag: str = "tp.allreduce", spec=None, plan=None, trans
     spec, t = _channel(ctx, x, tag, "allreduce", spec, plan, transport, wire)
     with _tagged(t, spec.stats_tag):
         return _stream_allreduce_impl(x, spec.comm, transport=t)
+
+
+# -------------------------------------------------------------------- MoE
+
+
+def moe_dispatch(x2d, ctx, *, tag: str = "ep.dispatch", **kw):
+    """Expert dispatch: gather the sequence-sharded token stream to the
+    full token view every expert group routes over (the EP all-gather)."""
+    return gather_sequence(x2d, ctx, tag=tag, **kw)
+
+
+def moe_combine(y_partial, ctx, *, tag: str = "ep.combine", **kw):
+    """Expert combine: merge the per-expert-group partials AND return them
+    to sequence shards in one reduce-scatter (the EP combine collective)."""
+    return reduce_scatter_sequence(y_partial, ctx, tag=tag, **kw)
 
 
 # -------------------------------------------------------------- attention

@@ -52,8 +52,10 @@ _MIGRATING = object()
 #
 # Cache trees are {"periods": tuple of stacked block trees, "rem": tuple of
 # block trees} (models/transformer.py): leaves under "periods" carry a
-# leading layer dim; at tp > 1 every leaf then carries the rank dim; the
-# batch dim follows.  ``slot_pos`` leaves hold -1 for "no entry".
+# leading layer dim; at tp > 1 every leaf then carries the rank dim (the
+# SSM's replicated ``conv_bc`` too, a copy a rank, so that a rank's slot
+# image holds the reference's device-local bytes); the batch dim follows.
+# ``slot_pos`` leaves hold -1 for "no entry".
 
 
 def cache_batch_dim(path, tp: int = 1) -> int:

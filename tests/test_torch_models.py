@@ -372,19 +372,43 @@ def test_ssm_lm_decode_step_matches_reference():
 # -- what the slice does not run -------------------------------------------------
 
 
-@pytest.mark.parametrize("name", ["recurrentgemma-9b", "qwen3-moe-30b-a3b",
-                                  "llama4-scout-17b-a16e", "musicgen-medium"])
+@pytest.mark.parametrize("name", ["recurrentgemma-9b", "musicgen-medium"])
 def test_out_of_slice_families_raise(name):
     cfg = configs.smoke(configs.get_arch(name))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
 
 
-def _ssm_specs_at_tp4():
+@pytest.mark.parametrize("name", ["qwen3-moe-30b-a3b", "llama4-scout-17b-a16e"])
+def test_moe_families_init_like_the_reference(name):
+    """The MoE families, once refused (item 10), draw params of the
+    reference's shapes, leaf for leaf in its flatten order (llama4-scout's
+    shared expert included)."""
+    ref_cfg = ref_configs.smoke(ref_configs.get_arch(name))
+    cfg = configs.smoke(configs.get_arch(name))
+    want = jax.eval_shape(lambda: ref_model.init_lm(jax.random.PRNGKey(0), ref_cfg, RefCtx()))
+    got = init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert [(tuple(t.shape), t.dtype) for _, t in tree_leaves_with_path(got)] == \
+        [(tuple(a.shape), torch.float32) for a in jax.tree.leaves(want)]
+    assert ("shared" in got["stack"]["periods"][0]["moe"]) == cfg.shared_expert
+
+
+def test_ssm_specs_at_tp4():
+    """mamba2's layout at tp = 4, once refused (item 14): the inner width
+    and its heads split over the model axis, B/C replicated."""
+    from repro_torch.interop import shard_params
+    from repro_torch.mesh.api import PartitionSpec as PS
     from repro_torch.models import lm_specs
 
-    lm_specs(configs.smoke(configs.get_arch(SSM)),
-             make_ctx((1, 4), comm_mode="smi:static", device="cpu"))
+    cfg = configs.smoke(configs.get_arch(SSM))
+    ctx = make_ctx((1, 4), comm_mode="smi:static", device="cpu")
+    blk = lm_specs(cfg, ctx)["stack"]["periods"][0]["ssm"]
+    assert blk["w_x"] == PS(None, None, "model") and blk["w_bc"] == PS(None, None, None)
+    assert blk["dt_bias"] == PS(None, "model") and blk["conv_bc"] == PS(None, None, None)
+    sp = shard_params(init_lm(cfg, torch.Generator().manual_seed(0), "cpu"), cfg, ctx)
+    d_in = cfg.ssm_expand * cfg.d_model
+    assert tuple(sp["stack"]["periods"][0]["ssm"]["w_x"].shape) == \
+        (cfg.n_layers, 4, cfg.d_model, d_in // 4)
 
 
 def _fsdp_at_2x4():
@@ -396,7 +420,6 @@ def _fsdp_at_2x4():
 
 
 @pytest.mark.parametrize("kw", [
-    _ssm_specs_at_tp4,                                          # mamba2 at tp > 1 (item 14)
     _fsdp_at_2x4,                                               # FSDP over the data axis (13)
 ])
 def test_tensor_parallel_options_raise(kw):

@@ -196,14 +196,17 @@ def test_migration_keeps_tokens(arch):
 
 
 def test_tensor_parallel_runtime_raises():
-    """A TP runtime refuses what it does not run: mamba2's ssm block at
-    tp > 1 (item 14), and a migration onto a slot that is not free."""
+    """A TP runtime refuses a migration onto a slot that is not free; it
+    runs mamba2's ssm block at tp > 1 (once refused, item 14), every cache
+    leaf carrying the rank dimension."""
     from repro_torch.launch.steps import build_continuous_serve
 
     _, ssm_cfg = _cfgs("mamba2-2.7b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_continuous_serve(ssm_cfg, mesh=(1, 4), comm_mode="smi:static",
-                               device="cpu")["init_caches"]()
+    rt = build_continuous_serve(ssm_cfg, mesh=(1, 4), comm_mode="smi:static", device="cpu")
+    caches = rt["init_caches"]()
+    rt["pool"].close()
+    assert all(tuple(t.shape[:3]) == (ssm_cfg.n_layers, 4, 4)
+               for t in caches["periods"][0].values())
     _, cfg, _, params = _params("yi-6b")
     rt = build_continuous_serve(cfg, mesh=(1, 4), comm_mode="smi:static", batch_slots=2,
                                 device="cpu")
@@ -270,13 +273,13 @@ def test_serve_cli_mamba2_engines_agree_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("argv", [["--mesh", "1,8"], ["--validate-comm"]])
 def test_serve_cli_refuses_tensor_parallel(argv):
-    """What the launcher still refuses at tp > 1: mamba2 (item 14) over a
-    (1, 8) mesh raises; ``--validate-comm`` with the bare ``smi`` plan
-    returns 2 (the tuner's picks are not the predictor's)."""
+    """What the launcher refuses at tp > 1: ``--validate-comm`` with the
+    bare ``smi`` plan returns 2 (the tuner's picks are not the
+    predictor's).  mamba2 over a (1, 8) mesh, once refused (item 14),
+    serves every request."""
     from repro_torch.launch import serve
 
     if "--validate-comm" in argv:
         assert serve.main(["--smoke", "--device", "cpu", "--mesh", "1,4", *argv]) == 2
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.main(["--arch", "mamba2-2.7b", "--smoke", "--device", "cpu", *argv])
+    assert serve.main(["--arch", "mamba2-2.7b", "--smoke", "--device", "cpu", *argv]) == 0

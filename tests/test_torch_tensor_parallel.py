@@ -568,10 +568,14 @@ def test_options_outside_the_slice_raise():
     _raises_roadmap(lambda: build_prefill(cfg, configs.ShapeConfig("t", S, B, "prefill"),
                                           mesh=(2, 4), comm_mode="smi:static", fsdp=True,
                                           device="cpu"), "13")
-    # mamba2's ssm block at tp > 1 (item 14)
-    _raises_roadmap(lambda: lm_specs(ssm_cfg, pctx), "14")
-    ssm_params = init_lm(ssm_cfg, torch.Generator().manual_seed(0), "cpu")
-    _raises_roadmap(lambda: shard_params(ssm_params, ssm_cfg, pctx), "14")
+    # mamba2's ssm block at tp > 1 runs (item 14, ported): its specs, its
+    # split and its prefill
+    assert tuple(lm_specs(ssm_cfg, pctx)["stack"]["periods"][0]["ssm"]["w_out"]) == \
+        (None, "model", None)
+    ssm_params = shard_params(init_lm(ssm_cfg, torch.Generator().manual_seed(0), "cpu"),
+                              ssm_cfg, pctx)
+    assert tuple(lm_prefill(ssm_params, torch.from_numpy(_tokens()), ssm_cfg, pctx,
+                            capacity=S).shape) == (4, B, S // 4, ssm_cfg.d_model)
     # the lossy wire runs the compressed link: within the int8 codec's bound
     # (half a step of max|x| / 127) of the raw gather
     xr = torch.from_numpy(np.random.RandomState(3).randn(4, 2, 8).astype(np.float32))
