@@ -208,9 +208,10 @@ non-zero):
     form; F gated layer by layer (row cosine >= 0.999 against the plain
     scan) and in float32 end to end (against the plain scan and tp = 1);
 32. ``launch.serve --arch mamba2-2.7b --mesh 1,8``: phase 14's requests,
-    both engines, ``smi:static`` and the bare ``smi``, tokens equal across
-    the four runs; ms a decode step beside tp = 1 in turns, the idle share,
-    kernel A's launches a step on the tuned wire;
+    both engines on the bare ``smi``, tokens equal across the two runs; a
+    pinned ``smi:fused`` decode bit-equal to ``smi:static`` (A never
+    launched on the static wire); ms a decode step beside tp = 1 in turns,
+    the idle share, kernel A's launches a step on the tuned wire;
 33. qwen3-moe-30b-a3b at full width and depth (61.1 GB of bfloat16) through
     ``build_prefill`` on 4096 tokens: ms, tokens/s, E launched 48 times on
     wgmma, the device time by kernel and the idle share;
@@ -223,12 +224,48 @@ non-zero):
     the chosen experts equal to tp = 1's and the hidden states within 3e-4
     rtol/atol;
 35. ``launch.serve --arch qwen3-moe-30b-a3b`` at tp = 1 (both engines) and
-    at ``--mesh 1,8`` (both engines, both wires): tokens equal at each tp;
-    ms a decode step beside tp = 1, the idle share, A's launches a step;
+    at ``--mesh 1,8`` (both engines, the bare ``smi``): tokens equal at each
+    tp; the pinned fused decode as phase 32's; ms a decode step beside
+    tp = 1, the idle share, A's launches a step;
 36. ``launch.serve --validate-comm`` over ``smi:static`` for mamba2-2.7b and
     qwen3-moe-30b-a3b at ``1,8`` and ``2,4`` (the latter with ``--fsdp
     off``: the port has no FSDP): every ``serve.*`` tag equal to the
-    prediction.
+    prediction;
+37. recurrentgemma-9b at full width and depth (38 layers, the last 2
+    remainder ``rec`` layers, 19.1 GB of bfloat16) through ``build_prefill``
+    on 4096 tokens: ms, tokens/s, E launched 12 times (the attention
+    layers), all on wgmma at head dim 256 with the 2048-token window; hidden
+    states within a row cosine of 0.999 of the plain attention's; the
+    device time by kind, the RG-LRU scan's, gates' and conv's ranges, and
+    the idle share;
+38. the same prefill at P = 8 (``smi:static``, D injected) on the same
+    weights, in turns with phase 37's: D 1,728 and E 12 launches, the ledger
+    equal to its closed form, over ``smi:fused`` bit-equal with A launched
+    once a reduce-scatter ring step (539); the bfloat16 row cosine against
+    tp = 1 reported; then a float32 copy cut to 5 layers (256 tokens)
+    within 3e-4 rtol/atol of the plain tp = 1 prefill and of the plain
+    attention at P = 8;
+39. ``launch.serve --arch recurrentgemma-9b`` at tp = 1 and ``--mesh 1,8``
+    (both engines, the bare ``smi``): tokens equal across the engines at
+    each tp; a pinned ``smi:fused`` decode bit-equal to ``smi:static`` over
+    4 steps; ms a decode step beside tp = 1 in turns, the idle share, A's
+    launches a step;
+40. internvl2-1b at full width and depth: 256 ``pixel_embeds`` and 3840
+    text tokens (``data.make_inputs``) prefilled at tp = 1 and P = 8 in
+    turns (E 24 and 24, D 960, A 343 over ``smi:fused``); a float32 copy at
+    4 layers whose patch positions' embeddings are bit-equal at tp = 1 and
+    P = 8 and whose hidden states lie within 3e-4; served at ``--mesh 1,8``
+    (both engines), and a float32 copy served at P = 8 and tp = 1 with equal
+    tokens;
+41. musicgen-medium at full width and depth: 4096 frames x 4 codebooks
+    prefilled at tp = 1 and P = 8 in turns (E 48 and 48, D 1,536, A 679
+    over ``smi:fused``); a pinned ``smi:fused`` decode bit-equal to
+    ``smi:static``; served at tp = 1 and ``--mesh 1,8`` (both engines), a
+    list of 4 tokens a step, equal across the engines at each tp; A's
+    launches a step;
+42. ``launch.serve --validate-comm`` over ``smi:static`` for
+    recurrentgemma-9b and musicgen-medium at ``1,8`` and ``2,4`` and
+    internvl2-1b at ``1,8``: every ``serve.*`` tag equal to the prediction.
 
 Earlier phases that time or check one schedule pass ``plan=None``.
 
@@ -241,7 +278,11 @@ validated step over ``smi:fused`` at each mesh; phases 31-35's launches are
 ``launches_ssm_tp_prefill`` on F's wgmma row and D's,
 ``launches_moe_prefill`` and ``launches_moe_tp_prefill`` on E's and D's,
 and A's ``launches_moe_tp_prefill_fused`` and
-``launches_{ssm,moe}_tp_decode_tuned_per_step``), each
+``launches_{ssm,moe}_tp_decode_tuned_per_step``; phases 37-41's are
+``launches_rg_prefill``, ``launches_{vlm,audio}_prefill`` and
+``launches_{rg,vlm,audio}_tp_prefill`` on E's and D's rows, and A's
+``launches_{rg,vlm,audio}_tp_prefill_fused`` and
+``launches_{rg,vlm,audio}_tp_decode_tuned_per_step``), each
 with the path its kernel ran (``simt``, ``vector``, ``warp``,
 ``thread``, ``fma`` or ``wgmma``); the rows of A, C, E, F's wgmma path and
 D add ``ms_before``, the time in this run of the kernel their calls ran
@@ -1234,6 +1275,16 @@ FA_CASES = (
     ("noncausal_bf16", 32, 32, 32, 1024, 1024, 1024, 128, False, None, "bfloat16"),
     ("d16_padded_bf16", 32, 32, 8, 1024, 1024, 1000, 16, True, None, "bfloat16"),
     ("sq4032_bf16", 32, 32, 32, 4032, 4032, 4032, 128, True, None, "bfloat16"),
+    # slice 10's prefills at 4096 positions: internvl2-1b (14 heads, their KV
+    # expanded; at P = 8 the 8 ranks' 2 padded heads) and musicgen-medium (24
+    # heads) at head dim 64, recurrentgemma-9b's 8 ranks x 2 heads at head dim
+    # 256 with its 2048-token window (its tp = 1 shape is window2048_d256)
+    ("vlm_d64_bf16", 14, 14, 14, 4096, 4096, 4096, 64, True, None, "bfloat16"),
+    ("vlm_d64_f32", 14, 14, 14, 4096, 4096, 4096, 64, True, None, "float32"),
+    ("vlm_tp8_d64_bf16", 16, 2, 2, 4096, 4096, 4096, 64, True, None, "bfloat16"),
+    ("audio_d64_bf16", 24, 24, 24, 4096, 4096, 4096, 64, True, None, "bfloat16"),
+    ("audio_d64_f32", 24, 24, 24, 4096, 4096, 4096, 64, True, None, "float32"),
+    ("rg_tp8_window2048_d256_bf16", 16, 2, 2, 4096, 4096, 4096, 256, True, 2048, "bfloat16"),
 )
 FA_TOL = {"float32": 1e-4, "bfloat16": 1.6e-2}
 
@@ -1748,7 +1799,11 @@ def _mean_row_rel_err(got, want) -> float:
 #: four are the yi-6b TP prefill's ring steps at P = 8 (512 rows a rank): Q,
 #: MLP-up (ragged N = 1376), MLP-down (ragged K = 1376) and the
 #: out-projection; the next four slice 9's: mamba2-2.7b's ``ssm.in`` and
-#: ``ssm.out``, qwen3-moe-30b-a3b's Q and out-projection; ``strided`` hands
+#: ``ssm.out``, qwen3-moe-30b-a3b's Q and out-projection; the next ten slice
+#: 10's: recurrentgemma-9b's MLP-up and down (its ``ssm.in`` and ``ssm.out``,
+#: Q and out-projection are yi-6b's Q and out shapes), internvl2-1b's Q,
+#: out-projection, MLP-up (the ragged N = 608) and down, musicgen-medium's Q
+#: (N = 192), out-projection, MLP-up and down; ``strided`` hands
 #: D views (every other rank row of a buffer, a transposed weight); ``path``
 #: is the kernel ``matmul_path`` picks
 #: (bfloat16 with K and N multiples of 8 on wgmma, the rest on mma.sync)
@@ -1761,6 +1816,16 @@ MM_CASES = (
     ("ssm_out_bf16", (8, 512, 640), (8, 640, 2560), "bfloat16", False, "wgmma"),
     ("moe_q_bf16", (8, 512, 2048), (8, 2048, 512), "bfloat16", False, "wgmma"),
     ("moe_out_bf16", (8, 512, 512), (8, 512, 2048), "bfloat16", False, "wgmma"),
+    ("rg_mlp_up_bf16", (8, 512, 4096), (8, 4096, 1536), "bfloat16", False, "wgmma"),
+    ("rg_mlp_down_bf16", (8, 512, 1536), (8, 1536, 4096), "bfloat16", False, "wgmma"),
+    ("vlm_q_bf16", (8, 512, 896), (8, 896, 128), "bfloat16", False, "wgmma"),
+    ("vlm_out_bf16", (8, 512, 128), (8, 128, 896), "bfloat16", False, "wgmma"),
+    ("vlm_mlp_up_bf16", (8, 512, 896), (8, 896, 608), "bfloat16", False, "wgmma"),
+    ("vlm_mlp_down_bf16", (8, 512, 608), (8, 608, 896), "bfloat16", False, "wgmma"),
+    ("audio_q_bf16", (8, 512, 1536), (8, 1536, 192), "bfloat16", False, "wgmma"),
+    ("audio_out_bf16", (8, 512, 192), (8, 192, 1536), "bfloat16", False, "wgmma"),
+    ("audio_mlp_up_bf16", (8, 512, 1536), (8, 1536, 768), "bfloat16", False, "wgmma"),
+    ("audio_mlp_down_bf16", (8, 512, 768), (8, 768, 1536), "bfloat16", False, "wgmma"),
     ("mlp_up_f32", (8, 512, 4096), (8, 4096, 1376), "float32", False, "mma_sync"),
     ("ragged_2d_f32", (100, 70), (70, 50), "float32", False, "mma_sync"),
     ("ragged_2d_bf16", (1000, 130), (130, 333), "bfloat16", False, "mma_sync"),
@@ -1898,9 +1963,18 @@ def _tp_closed_form(cfg, P: int, tokens: int, calls: dict = DENSE_CALLS) -> dict
     (tokens / P) of the model width in the model dtype; ``calls`` a layer
     by tag, and the embedding's reduce-scatter (tp.embed) once.  E.g.
     yi-6b's tp.mlp.up = 2 x 7 x 512 x 4096 x 2 bytes a layer at P = 8."""
+    return _pattern_closed_form(cfg, P, tokens, {kind: calls for kind in cfg.pattern})
+
+
+def _pattern_closed_form(cfg, P: int, tokens: int, calls: dict) -> dict:
+    """:func:`_tp_closed_form` with each layer's calls by its block kind
+    (``calls[kind]``), for a pattern of several kinds."""
     step_bytes = (P - 1) * (tokens // P) * cfg.d_model * (2 if cfg.dtype == "bfloat16" else 4)
-    want = {t: {"steps": (P - 1) * n * cfg.n_layers, "bytes": step_bytes * n * cfg.n_layers}
-            for t, n in calls.items()}
+    totals = {}
+    for kind in cfg.layer_pattern:
+        for t, n in calls[kind].items():
+            totals[t] = totals.get(t, 0) + n
+    want = {t: {"steps": (P - 1) * n, "bytes": step_bytes * n} for t, n in totals.items()}
     want["tp.embed"] = {"steps": P - 1, "bytes": step_bytes}
     return want
 
@@ -2698,6 +2772,17 @@ def _launcher_runs(arch: str, mesh: str, wires, extra=()) -> tuple[dict, dict]:
     return results, launches
 
 
+def _brief(runs: dict) -> dict:
+    """A launcher run's rates and counts, by run."""
+    return {k: {m: v[m] for m in ("tok_per_s", "ms_per_step", "decode_steps", "tokens")}
+            for k, v in runs.items()}
+
+
+def _serve_tokens(runs: dict) -> dict:
+    """Every request's tokens (equal across ``runs``: :func:`_launcher_runs`)."""
+    return next(iter(runs.values()))["out"]
+
+
 def _tp_serve_runs() -> tuple[dict, dict]:
     """Phase 28's launcher runs: yi-6b at ``1,8`` on each of
     :data:`TP_SERVE_WIRES`."""
@@ -2753,13 +2838,17 @@ def _engine_ticks_ms(eng, n: int) -> float:
 
 def _busy_engine(cfg, params, runtime=None, n_ticks: int = TP_TICKS):
     """A continuous engine (4 slots, 256 positions) whose slots stay busy
-    for the warm-up and ``3 * n_ticks`` timed ticks."""
+    for the warm-up and ``3 * n_ticks`` timed ticks (a codebook model's
+    prompt tokens repeated over its codebooks)."""
     from repro_torch.serving import ContinuousEngine, Request
 
     eng = (ContinuousEngine(cfg, params, runtime=runtime) if runtime is not None else
            ContinuousEngine(cfg, params, batch_slots=4, capacity=256))
     for uid in range(4):
-        eng.submit(Request(uid=uid, prompt=[1 + uid, 2, 3], max_new=8 * n_ticks))
+        prompt = [1 + uid, 2, 3]
+        if cfg.n_codebooks > 1:
+            prompt = [[t] * cfg.n_codebooks for t in prompt]
+        eng.submit(Request(uid=uid, prompt=prompt, max_new=8 * n_ticks))
     for _ in range(2):
         eng.tick()
     return eng
@@ -2769,15 +2858,16 @@ def _fused_against_static(cfg, tp_params, dev, rng) -> dict:
     """Kernel A on the TP decode path: the first :data:`TP_DECODE_STEPS`
     decode steps of a pinned ``smi:fused`` runtime and of an ``smi:static``
     one, on the same params, fresh caches and the same tokens, give the same
-    logits bit for bit, with A's launches rising on every fused step (the
-    static wire's add is A's plain version).  Every ``(x, addend, src)`` the
-    fused decode's ring steps handed A in the first step is then run again
-    through A and its plain version, bit for bit; their shapes are
-    returned."""
+    logits bit for bit, with A's launches rising on every fused step and
+    never on a static one (the static wire's add is A's plain version).
+    Every ``(x, addend, src)`` the fused decode's ring steps handed A in the
+    first step is then run again through A and its plain version, bit for
+    bit; their shapes are returned."""
     import numpy as np
     import torch
 
     from repro_torch.launch.steps import build_continuous_serve
+    from repro_torch.serving.engine import token_shape
     from repro_torch.transport.fused import (
         FusedTransport,
         fused_shift_accumulate,
@@ -2802,9 +2892,15 @@ def _fused_against_static(cfg, tp_params, dev, rng) -> dict:
     try:
         for t in range(TP_DECODE_STEPS):
             record = t == 0
-            tok = torch.from_numpy(rng.randint(0, cfg.vocab_size, (4,)).astype(np.int32)).to(dev)
+            tok = torch.from_numpy(rng.randint(0, cfg.vocab_size, token_shape(cfg, 4))
+                                   .astype(np.int32)).to(dev)
             pos = torch.full((4,), t, dtype=torch.int32, device=dev)
+            a0 = _a_launches()
             want, _ = rts["smi:static"]["step"](tp_params, caches["smi:static"], tok, pos)
+            torch.cuda.synchronize()
+            if _a_launches() != a0:
+                raise AssertionError(f"tp decode step {t}: smi:static launched kernel A "
+                                     f"({a0} -> {_a_launches()})")
             before = fused_shift_accumulate.launches
             got, _ = rts["smi:fused"]["step"](tp_params, caches["smi:fused"], tok, pos)
             torch.cuda.synchronize()
@@ -3052,9 +3148,11 @@ def phase_ring_prefill(dev, tp_params, seed: int = 19) -> dict:
 
 SSM_ARCH = "mamba2-2.7b"
 MOE_ARCH = "qwen3-moe-30b-a3b"
-#: phase 32's and 35's launcher wires at P = 8: the pinned static wire and the
-#: bare "smi" (the config's comm_plan="auto")
-SLICE9_WIRES = ("smi:static", "smi")
+#: phase 32's and 35's launcher wires at P = 8: the bare "smi" (the config's
+#: comm_plan="auto"); the pinned static wire's runs were cut to keep the
+#: script inside its time limit (its bits and its kernel-A-free add are held
+#: in process by ``_fused_against_static``)
+SLICE9_WIRES = ("smi",)
 #: ticks a turn of phases 32's and 35's in-process decode timing (a
 #: qwen3-moe tick at P = 8 takes 0.3-0.9 s of host time)
 SLICE9_TICKS = 3
@@ -3205,13 +3303,13 @@ def phase_ssm_tp_prefill(dev, seed: int = 16) -> tuple[dict, dict]:
 
 def phase_ssm_tp_serving(dev, seed: int = 32) -> dict:
     """Phase 32: ``launch.serve --arch mamba2-2.7b --mesh 1,8`` with phase
-    14's requests, both engines, on ``smi:static`` and the bare ``smi``:
-    tokens equal across the four runs, kernel A never launched on the static
-    wire; kernel A held on the decode itself as phase 28 holds it (the first
-    steps over a pinned ``smi:fused`` runtime bit-equal to ``smi:static``,
-    A's launches rising each step, its operands re-run against its plain
-    version); then ms a decode step at P = 8 beside tp = 1 in turns, the
-    device's idle share, and A's launches a step on the tuned wire."""
+    14's requests, both engines, on the bare ``smi``: tokens equal across
+    the two runs; kernel A held on the decode itself as phase 28 holds it
+    (the first steps over a pinned ``smi:fused`` runtime bit-equal to
+    ``smi:static``, A's launches rising each fused step and never on a
+    static one, its operands re-run against its plain version); then ms a
+    decode step at P = 8 beside tp = 1 in turns, the device's idle share,
+    and A's launches a step on the tuned wire."""
     import numpy as np
     import torch
 
@@ -3222,8 +3320,6 @@ def phase_ssm_tp_serving(dev, seed: int = 32) -> dict:
     from repro_torch.models.model import model_dtype
 
     runs, launches = _launcher_runs(SSM_ARCH, f"1,{TP}", SLICE9_WIRES)
-    if any(v["shift"] + v["fold"] for k, v in launches.items() if k.startswith("smi:static")):
-        raise AssertionError(f"mamba2 tp serve on smi:static launched kernel A: {launches}")
     a_step = _a_per_step(runs, launches)
     cfg = get_arch(SSM_ARCH)
     params = init_lm(cfg, torch.Generator(device=dev).manual_seed(seed), dev,
@@ -3234,9 +3330,8 @@ def phase_ssm_tp_serving(dev, seed: int = 32) -> dict:
     del params, tp_params
     torch.cuda.empty_cache()
     log(f"mamba2 tp serve: kernel A a decode step on the tuned wire {json.dumps(a_step)}")
-    return {"runs": {k: {m: v[m] for m in ("tok_per_s", "ms_per_step", "decode_steps", "tokens")}
-                     for k, v in runs.items()}, "launches_a": launches,
-            "a_per_step_tuned_runs": a_step, "fused_vs_static": fused, **turns}
+    return {"runs": _brief(runs), "launches_a": launches, "a_per_step_tuned_runs": a_step,
+            "fused_vs_static": fused, **turns}
 
 
 def phase_moe_prefill(dev, seed: int = 33) -> tuple[object, dict]:
@@ -3462,10 +3557,10 @@ def phase_moe_f32(dev, seed: int = 34) -> dict:
 
 def phase_moe_serving(dev, seed: int = 35) -> dict:
     """Phase 35: ``launch.serve --arch qwen3-moe-30b-a3b`` with phase 14's
-    requests, both engines, at tp = 1 and at ``--mesh 1,8`` on
-    ``smi:static`` and the bare ``smi``: tokens equal across the engines at
-    tp = 1 and across engines and wires at P = 8, kernel A never launched on
-    the static wire; kernel A held on the P = 8 decode as phase 32 holds it;
+    requests, both engines, at tp = 1 and at ``--mesh 1,8`` on the bare
+    ``smi``: tokens equal across the engines at each tp; kernel A held on
+    the P = 8 decode as phase 32 holds it (a pinned ``smi:fused`` decode
+    bit-equal to ``smi:static``);
     then ms a decode step at P = 8 beside tp = 1 in turns, the idle share,
     and A's launches a step on the tuned wire."""
     import numpy as np
@@ -3479,8 +3574,6 @@ def phase_moe_serving(dev, seed: int = 35) -> dict:
 
     runs1, _ = _launcher_runs(MOE_ARCH, "1,1", ("smi",))
     runs8, launches = _launcher_runs(MOE_ARCH, f"1,{TP}", SLICE9_WIRES)
-    if any(v["shift"] + v["fold"] for k, v in launches.items() if k.startswith("smi:static")):
-        raise AssertionError(f"moe tp serve on smi:static launched kernel A: {launches}")
     a_step = _a_per_step(runs8, launches)
     cfg = get_arch(MOE_ARCH)
     params = init_lm(cfg, torch.Generator(device=dev).manual_seed(seed), dev,
@@ -3491,12 +3584,7 @@ def phase_moe_serving(dev, seed: int = 35) -> dict:
     del params, tp_params
     torch.cuda.empty_cache()
     log(f"moe tp serve: kernel A a decode step on the tuned wire {json.dumps(a_step)}")
-
-    def brief(runs):
-        return {k: {m: v[m] for m in ("tok_per_s", "ms_per_step", "decode_steps", "tokens")}
-                for k, v in runs.items()}
-
-    return {"runs_tp1": brief(runs1), f"runs_tp{TP}": brief(runs8), "launches_a": launches,
+    return {"runs_tp1": _brief(runs1), f"runs_tp{TP}": _brief(runs8), "launches_a": launches,
             "a_per_step_tuned_runs": a_step, "fused_vs_static": fused, **turns}
 
 
@@ -3507,13 +3595,540 @@ def phase_validate_slice9() -> dict:
     tag, migration legs included, equal to the prediction byte for byte and
     step for step; qwen3-moe at ``2,4`` refused with FSDP's roadmap
     error."""
+    from repro_torch.launch import serve as launch_serve
+
+    out = _validate_comm_runs(VALIDATE_SLICE9)
+    try:
+        launch_serve.main(["--arch", MOE_ARCH, "--mesh", "2,4", "--comm-mode", "smi:static",
+                           "--validate-comm"])
+    except NotImplementedError as e:
+        if "item 13" not in str(e):
+            raise
+        log(f"validate-comm {MOE_ARCH} mesh 2,4: refused, as FSDP waits ({e})")
+    else:
+        raise AssertionError(f"validate-comm {MOE_ARCH} mesh 2,4 ran; FSDP's rule should refuse it")
+    return out
+
+
+# -- slice 10: the RG-LRU hybrid and the VLM and audio frontends -----------------------
+
+RG_ARCH = "recurrentgemma-9b"
+VLM_ARCH = "internvl2-1b"
+AUDIO_ARCH = "musicgen-medium"
+#: phase 38's float32 check: one (rec, rec, attn) period and the two
+#: remainder rec layers, at full width, on few tokens (the 256,000-row
+#: embedding and head take 8.4 GB in float32)
+RG_F32_LAYERS = 5
+RG_F32_TOKENS = 256
+#: phase 40's float32 check: its depth
+VLM_F32_LAYERS = 4
+#: phases 39-41's launcher wires at P = 8: the tuned wire (the bare "smi");
+#: the static wire's bits are held against the fused one in process
+#: (``_fused_against_static``)
+SLICE10_WIRES = ("smi",)
+#: phase 42's runs (arch, mesh)
+VALIDATE_SLICE10 = ((RG_ARCH, "1,8"), (RG_ARCH, "2,4"), (AUDIO_ARCH, "1,8"),
+                    (AUDIO_ARCH, "2,4"), (VLM_ARCH, "1,8"))
+#: a layer's streamed calls in the TP prefill by block kind (slice 10): the
+#: RG-LRU block (branch and gate, the out-projection, then its SwiGLU MLP),
+#: the attention blocks with a SwiGLU or a GELU MLP
+REC_CALLS = {"ssm.in": 2, "ssm.out": 1, "tp.mlp.up": 2, "tp.mlp.down": 1}
+GELU_CALLS = {**DENSE_CALLS, "tp.mlp.up": 1}
+#: the streamed calls that gather without a product (no kernel D launch)
+GATHER_TAGS = ("tp.attn.kv", "ssm.gather")
+
+
+def _calls(cfg) -> dict:
+    """A layer's streamed calls by tag for each block kind of ``cfg``."""
+    attn = GELU_CALLS if cfg.mlp_type == "gelu" else DENSE_CALLS
+    return {"rec": REC_CALLS, "attn": attn}
+
+
+def _d_launches(cfg, P: int) -> int:
+    """Kernel D's launches in one TP prefill: P ring steps a projection."""
+    calls = _calls(cfg)
+    return P * sum(n for kind in cfg.layer_pattern for t, n in calls[kind].items()
+                   if t not in GATHER_TAGS)
+
+
+def _rs_calls(cfg) -> int:
+    """The reduce-scatters of one TP prefill (each row-parallel projection
+    and the embedding's), each P - 1 gather-fused launches of A over
+    ``smi:fused``."""
+    rs = ("ssm.out", "tp.mlp.down", "tp.attn.out")
+    calls = _calls(cfg)
+    return 1 + sum(n for kind in cfg.layer_pattern for t, n in calls[kind].items() if t in rs)
+
+
+def _annotated_ms(fn, targets: dict) -> dict:
+    """Device ms of each of ``targets`` (name -> (module, attribute)) in one
+    call of ``fn``: each function wrapped in a ``torch.profiler`` range of
+    its name for the call, the range's device time read from the profile as
+    the sum of the kernels its host ops launched (the host-side range; the
+    device-side span of the same name would count the gaps between them)."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def ranged(name, f):
+        def inner(*a, **kw):
+            with record_function(name):
+                return f(*a, **kw)
+        return inner
+
+    with contextlib.ExitStack() as stack:
+        for name, (mod, attr) in targets.items():
+            stack.enter_context(mock.patch.object(mod, attr, ranged(name, getattr(mod, attr))))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    out = {name: 0.0 for name in targets}
+    for e in prof.key_averages():
+        if e.key in out and e.device_type == DeviceType.CPU:
+            out[e.key] += e.device_time_total / 1e3
+    return out
+
+
+def phase_rg_prefill(dev, seed: int = 37) -> tuple[object, dict]:
+    """Phase 37: recurrentgemma-9b at full width and depth (38 layers: 12
+    periods of (rec, rec, attn) and 2 remainder rec layers, bfloat16)
+    through ``build_prefill`` on 4096 tokens: ms, tokens/s, kernel E launched
+    once an attention layer (12), all on wgmma at head dim 256 with the
+    2048-token window; hidden states finite and within a row cosine of
+    0.999 of the plain attention's; the device time by kind (E, the RG-LRU
+    scan, its elementwise gates, the GEMMs) and the idle share.  Returns the
+    params (phase 38's) and the results."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.launch.steps import build_prefill
+    from repro_torch.models import init_lm
+    from repro_torch.models import rglru as rglru_mod
+    from repro_torch.models.common import tree_leaves_with_path
+    from repro_torch.models.model import model_dtype
+
+    cfg = get_arch(RG_ARCH)
+    t0 = time.perf_counter()
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(seed), dev,
+                     dtype=model_dtype(cfg))
+    torch.cuda.synchronize()
+    n = sum(t.numel() for _, t in tree_leaves_with_path(params))
+    log(f"rg prefill: {cfg.name} params {n} ({n * 2 / 1e9:.2f} GB bf16) drawn in "
+        f"{time.perf_counter() - t0:.1f}s; {len(params['stack']['rem'])} remainder layers")
+    tokens = torch.from_numpy(np.random.RandomState(seed).randint(0, cfg.vocab_size,
+                                                                  (1, PREFILL_TOKENS))).to(dev)
+    step = build_prefill(cfg, ShapeConfig("prefill_4k", PREFILL_TOKENS, 1, "prefill"), device=dev)
+    step(params, tokens)
+    reset_counts()
+    hidden, ms = _timed_ms(lambda: step(params, tokens))
+    e, e_wgmma = flash_attention_kernel.launches, flash_attention_kernel.wgmma_launches
+    n_attn = cfg.layer_pattern.count("attn")
+    if (e, e_wgmma) != (n_attn, n_attn):
+        raise AssertionError(f"rg prefill launched E {e} times ({e_wgmma} on wgmma), not {n_attn}")
+    if tuple(hidden.shape) != (1, PREFILL_TOKENS, cfg.d_model) or not torch.isfinite(hidden).all():
+        raise AssertionError("rg prefill hidden states not finite or misshapen")
+    busy, rows, wall = _profile_device_ms(lambda: step(params, tokens))
+    split = _profile_split(rows)
+    parts = _annotated_ms(lambda: step(params, tokens),
+                          {"rglru.scan": (rglru_mod, "linear_scan"),
+                           "rglru.gates": (rglru_mod, "_gates"),
+                           "rglru.conv": (rglru_mod, "_causal_conv")})
+    # the scan alone at a layer's shape (CUDA events), once a rec layer
+    n_rec = cfg.layer_pattern.count("rec")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ab = (torch.rand((1, 1, PREFILL_TOKENS, cfg.lru_width), generator=g, device=dev),
+          torch.randn((1, 1, PREFILL_TOKENS, cfg.lru_width), generator=g, device=dev))
+    scan_ms = time_ms(lambda: rglru_mod.linear_scan(*ab), reps=5, warmup=1)
+    del ab
+    plain = step(params, tokens, use_kernel=False)
+    cos = float(_row_cos(hidden, plain).min())
+    log(f"rg prefill: {ms:.3f} ms for {PREFILL_TOKENS} tokens ({PREFILL_TOKENS / ms * 1e3:.1f} "
+        f"tok/s), E launched {e} times ({e_wgmma} on wgmma, head dim {cfg.hd}, window "
+        f"{cfg.local_window}); against the plain attention min row cosine {cos:.6f}")
+    log(f"rg prefill profile: device {busy:.3f} ms of {wall:.3f} ms wall (idle "
+        f"{1 - busy / wall:.1%}): " + ", ".join(f"{k} {v:.3f} ms ({v / busy:.1%})"
+                                                for k, v in split.items()))
+    log(f"rg prefill RG-LRU ranges (device ms, {n_rec} rec layers): " +
+        ", ".join(f"{k} {v:.3f} ({v / busy:.1%})" for k, v in parts.items()) +
+        f"; the scan alone at a layer's (1, 1, {PREFILL_TOKENS}, {cfg.lru_width}) float32 "
+        f"{scan_ms:.3f} ms (x {n_rec} = {scan_ms * n_rec:.3f} ms)")
+    for name, t in rows[:12]:
+        log(f"rg prefill profile: {t:9.3f} ms  {name[:90]}")
+    if cos < 0.999:
+        raise AssertionError(f"rg prefill disagrees with the plain attention: min row cosine {cos}")
+    del plain
+    return params, dict(ms=ms, tok_per_s=PREFILL_TOKENS / ms * 1e3, launches_e=e,
+                        wgmma_launches_e=e_wgmma, device_ms=busy, profiled_wall_ms=wall,
+                        device_idle_share=1 - busy / wall, device_split_ms=split,
+                        rglru_ranges_ms=parts, scan_alone_ms=scan_ms,
+                        min_cos_vs_plain_attention=cos,
+                        top_kernels_ms=[(k[:60], t) for k, t in rows[:12]], params=n)
+
+
+def _tp_prefill_checks(cfg, params, tokens, extra, dev, name: str) -> tuple[dict, dict]:
+    """The TP prefill of ``cfg`` at P = 8 over ``smi:static`` with kernel D
+    injected, on ``params`` (split by ``shard_params``) and in turns with
+    tp = 1: D and E launched as the closed form says (all on wgmma), the
+    ledger equal to its closed form; over ``smi:fused`` bit-equal, kernel A
+    launched once a reduce-scatter ring step; the bfloat16 row cosine
+    against tp = 1 reported.  Returns the launches and the results."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.interop import shard_params
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.launch.steps import build_prefill
+    from repro_torch.mesh.api import make_ctx
+    from repro_torch.models import gather_hidden, lm_prefill
+    from repro_torch.parallel import ledger
+
+    ctxs = {m: make_ctx((1, TP), comm_mode=m, matmul_fn=matmul, device=dev)
+            for m in ("smi:static", "smi:fused")}
+    before = torch.cuda.memory_allocated()
+    tp_params = shard_params(params, cfg, ctxs["smi:static"])
+    copied = (torch.cuda.memory_allocated() - before) / 1e9
+    tp1 = build_prefill(cfg, ShapeConfig("prefill_4k", PREFILL_TOKENS, 1, "prefill"), device=dev)
+
+    def run_tp(mode="smi:static"):
+        return gather_hidden(lm_prefill(tp_params, tokens, cfg, ctxs[mode],
+                                        capacity=PREFILL_TOKENS, extra_embeds=extra))
+
+    with ledger.capture() as led:
+        run_tp()
+    calls = _calls(cfg)
+    want_led = _pattern_closed_form(cfg, TP, PREFILL_TOKENS, calls)
+    if led.by_tag != want_led:
+        raise AssertionError(f"{name} TP prefill ledger {led.by_tag} != closed form {want_led}")
+    reset_counts()
+    hidden, _ = _timed_ms(run_tp)
+    d, d_wgmma = matmul.launches, matmul.wgmma_launches
+    e, e_wgmma = flash_attention_kernel.launches, flash_attention_kernel.wgmma_launches
+    want_d, want_e = _d_launches(cfg, TP), cfg.layer_pattern.count("attn")
+    if (d, d_wgmma, e, e_wgmma) != (want_d, want_d, want_e, want_e):
+        raise AssertionError(f"{name} TP prefill launched D {d} times ({d_wgmma} on wgmma), E "
+                             f"{e} ({e_wgmma}); want {want_d} and {want_e}, all on wgmma")
+    if not torch.isfinite(hidden).all():
+        raise AssertionError(f"{name} TP prefill hidden states not finite")
+    h1 = tp1(params, tokens, extra)
+    cos = _row_cos(hidden, h1)
+    reset_counts()
+    fused = run_tp("smi:fused")
+    torch.cuda.synchronize()
+    a = _a_launches()
+    rs_steps = _rs_calls(cfg) * (TP - 1)
+    if not same_bits(fused, hidden) or a != {"shift": rs_steps, "fold": 0}:
+        raise AssertionError(f"{name} TP prefill over smi:fused: same bits "
+                             f"{same_bits(fused, hidden)}, kernel A {a} (want {rs_steps} "
+                             f"gather-fused)")
+    del fused, h1
+    ms, turns = _in_turns({"tp1": lambda: tp1(params, tokens, extra), f"tp{TP}": run_tp},
+                          ("tp1", f"tp{TP}", f"tp{TP}", "tp1"))
+    busy, rows, wall = _profile_device_ms(run_tp)
+    split = _profile_split(rows)
+    log(f"{name} TP prefill P={TP}: {ms[f'tp{TP}']:.3f} ms "
+        f"({PREFILL_TOKENS / ms[f'tp{TP}'] * 1e3:.1f} tok/s) against tp = 1 {ms['tp1']:.3f} ms, "
+        f"turns {json.dumps(turns)}; D launched {d} times ({d_wgmma} on wgmma), E {e} "
+        f"({e_wgmma}); the P = 8 copy added {copied:.2f} GB; ledger equal to the closed form")
+    log(f"{name} TP prefill over smi:fused: bit-equal to smi:static, kernel A {a}")
+    log(f"{name} TP prefill bf16 against tp = 1: row cosine min {float(cos.min()):.6f} mean "
+        f"{float(cos.mean()):.6f} (reported)")
+    log(f"{name} TP prefill profile: device {busy:.3f} ms of {wall:.3f} ms wall (idle "
+        f"{1 - busy / wall:.1%}): " + ", ".join(f"{k} {v:.3f} ms ({v / busy:.1%})"
+                                                for k, v in split.items()))
+    res = dict(ms=ms, turns_ms=turns, tok_per_s=PREFILL_TOKENS / ms[f"tp{TP}"] * 1e3,
+               launches_d=d, launches_e=e, launches_a_fused=a, copied_gb=copied,
+               min_cos_vs_tp1=float(cos.min()), mean_cos_vs_tp1=float(cos.mean()),
+               device_ms=busy, profiled_wall_ms=wall, device_idle_share=1 - busy / wall,
+               device_split_ms=split, ledger_bytes=led.tag_bytes())
+    del tp_params, hidden
+    torch.cuda.empty_cache()
+    return {"D": d, "E": e, "A": a}, res
+
+
+def phase_rg_tp_prefill(dev, params, seed: int = 37) -> tuple[dict, dict]:
+    """Phase 38: phase 37's prefill at P = 8 (``_tp_prefill_checks``: D 6 x
+    8 launches a rec layer and 5 x 8 an attention layer, E 12 over the 8
+    ranks' heads, the single KV head selected for each; A 539 over
+    ``smi:fused``), on phase 37's weights and tokens."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(RG_ARCH)
+    tokens = torch.from_numpy(np.random.RandomState(seed).randint(0, cfg.vocab_size,
+                                                                  (1, PREFILL_TOKENS))).to(dev)
+    return _tp_prefill_checks(cfg, params, tokens, None, dev, "rg")
+
+
+def phase_rg_f32(dev, seed: int = 38) -> dict:
+    """Phase 38's float32 check, once the bfloat16 weights are freed: the
+    hybrid at full width cut to :data:`RG_F32_LAYERS` layers (the remainder
+    layers among them), :data:`RG_F32_TOKENS` tokens, at P = 8 with D and E
+    (E's FMA kernel) within :data:`TP_F32_TOL` rtol and atol of the plain
+    tp = 1 prefill and of the plain attention at P = 8."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.interop import shard_params
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.mesh.api import make_ctx
+    from repro_torch.models import gather_hidden, init_lm, lm_prefill
+
+    cfg = get_arch(RG_ARCH).scaled(n_layers=RG_F32_LAYERS, dtype="float32")
+    p32 = init_lm(cfg, torch.Generator(device=dev).manual_seed(seed), dev, dtype=torch.float32)
+    tokens = torch.from_numpy(np.random.RandomState(seed).randint(0, cfg.vocab_size,
+                                                                  (1, RG_F32_TOKENS))).to(dev)
+    ctx8 = make_ctx((1, TP), comm_mode="smi:static", matmul_fn=matmul, device=dev)
+    want = lm_prefill(p32, tokens, cfg, make_ctx(), capacity=RG_F32_TOKENS, use_kernel=False)
+    p8 = shard_params(p32, cfg, ctx8)
+    del p32
+    reset_counts()
+    got = gather_hidden(lm_prefill(p8, tokens, cfg, ctx8, capacity=RG_F32_TOKENS))
+    torch.cuda.synchronize()
+    e = (flash_attention_kernel.launches, flash_attention_kernel.wgmma_launches)
+    plain = gather_hidden(lm_prefill(p8, tokens, cfg, ctx8, capacity=RG_F32_TOKENS,
+                                     use_kernel=False))
+    err1, err_plain = max_abs_err(got, want), max_abs_err(got, plain)
+    ex = max(f32_excess(got, want), f32_excess(got, plain))
+    log(f"rg float32 ({RG_F32_LAYERS} layers, full width, {RG_F32_TOKENS} tokens): P = {TP} with "
+        f"D and E (E {e[0]} launches, {e[1]} on wgmma) against the plain tp = 1 prefill max abs "
+        f"err {err1:.3e}, against the plain attention at P = {TP} {err_plain:.3e}; within "
+        f"{TP_F32_TOL} rtol/atol: {ex <= 0}")
+    if e != (1, 0) or ex > 0 or not torch.isfinite(got).all():
+        raise AssertionError(f"rg float32 P = {TP}: E {e}, beyond {TP_F32_TOL} rtol/atol (max abs "
+                             f"err {err1} against tp = 1, {err_plain} against plain attention)")
+    del p8, got, want, plain
+    torch.cuda.empty_cache()
+    return {"layers": RG_F32_LAYERS, "tokens": RG_F32_TOKENS, "max_abs_err_vs_tp1": err1,
+            "max_abs_err_vs_plain_attention": err_plain}
+
+
+def phase_rg_serving(dev, seed: int = 39) -> dict:
+    """Phase 39: ``launch.serve --arch recurrentgemma-9b`` with phase 14's
+    requests, both engines, at tp = 1 and at ``--mesh 1,8`` on the tuned
+    wire: tokens equal across the engines at each tp (whether P = 8's equal
+    tp = 1's is reported); a pinned ``smi:fused`` decode bit-equal to
+    ``smi:static`` over 4 steps (``_fused_against_static``); ms a decode
+    step at P = 8 beside tp = 1 in turns, the idle share, and A's launches a
+    step on the tuned wire."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.interop import shard_params
+    from repro_torch.mesh.api import make_ctx
+    from repro_torch.models import init_lm
+    from repro_torch.models.model import model_dtype
+
+    runs1, _ = _launcher_runs(RG_ARCH, "1,1", ("smi",))
+    runs8, launches = _launcher_runs(RG_ARCH, f"1,{TP}", SLICE10_WIRES)
+    a_step = _a_per_step(runs8, launches)
+    same = _serve_tokens(runs1) == _serve_tokens(runs8)
+    cfg = get_arch(RG_ARCH)
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(seed), dev,
+                     dtype=model_dtype(cfg))
+    tp_params = shard_params(params, cfg, make_ctx((1, TP), comm_mode="smi:static", device=dev))
+    fused = _fused_against_static(cfg, tp_params, dev, np.random.RandomState(seed))
+    turns = _decode_turns(dev, cfg, params, tp_params, SLICE9_TICKS)
+    del params, tp_params
+    torch.cuda.empty_cache()
+    log(f"rg serve: kernel A a decode step on the tuned wire {json.dumps(a_step)}; P = {TP}'s "
+        f"tokens equal tp = 1's: {same}")
+    return {"runs_tp1": _brief(runs1), f"runs_tp{TP}": _brief(runs8), "launches_a": launches,
+            "a_per_step_tuned_runs": a_step, "fused_vs_static": fused,
+            "tokens_equal_tp1": same, **turns}
+
+
+def phase_vlm(dev, seed: int = 40) -> tuple[dict, dict]:
+    """Phase 40: internvl2-1b at full width and depth (24 layers, 14 query
+    heads padded to 16 for P = 8 and 2 KV heads), bfloat16: the prefill of
+    ``data.make_inputs``' 256 patch embeddings and 3840 text tokens at tp = 1
+    and at P = 8 on the same weights (``_tp_prefill_checks``; E 24 launches
+    at tp = 1 and at P = 8, D 960); a float32 copy cut to
+    :data:`VLM_F32_LAYERS` layers whose patch positions' embeddings are
+    bit-equal at tp = 1 and P = 8 (the patches themselves) and whose hidden
+    states lie within :data:`TP_F32_TOL` rtol and atol; then served at
+    ``--mesh 1,8`` (both engines, the tuned wire, tokens equal across them;
+    ms a decode step at P = 8 beside tp = 1 in turns, the idle share), and a
+    float32 copy at full depth served at P = 8 and at tp = 1 with
+    phase 14's requests: every request's tokens equal (in bfloat16 the two
+    reduction orders' rounding flips near-ties within a few steps)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.data import make_inputs
+    from repro_torch.interop import shard_params
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch.steps import build_continuous_serve, build_prefill
+    from repro_torch.mesh.api import make_ctx
+    from repro_torch.models import gather_hidden, init_lm, lm_prefill
+    from repro_torch.models.model import embed_tokens_sp, model_dtype
+    from repro_torch.serving import ContinuousEngine
+
+    cfg = get_arch(VLM_ARCH)
+    shape = ShapeConfig("prefill_4k", PREFILL_TOKENS, 1, "prefill")
+    ctx8 = make_ctx((1, TP), comm_mode="smi:static", device=dev)
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(seed), dev,
+                     dtype=model_dtype(cfg), ctx=ctx8)
+    inputs = make_inputs(cfg, shape, seed, device=dev)
+    tokens, pix = inputs["tokens"], inputs["pixel_embeds"]
+    tp1 = build_prefill(cfg, shape, device=dev)
+    tp1(params, tokens, pix)
+    reset_counts()
+    h1, ms1 = _timed_ms(lambda: tp1(params, tokens, pix))
+    e1 = (flash_attention_kernel.launches, flash_attention_kernel.wgmma_launches)
+    if e1 != (cfg.n_layers, cfg.n_layers) or not torch.isfinite(h1).all():
+        raise AssertionError(f"vlm prefill: E {e1}, want {cfg.n_layers} on wgmma")
+    busy, rows, wall = _profile_device_ms(lambda: tp1(params, tokens, pix))
+    log(f"vlm prefill: {cfg.name} {PREFILL_TOKENS} positions ({cfg.n_patches} patches) "
+        f"{ms1:.3f} ms ({PREFILL_TOKENS / ms1 * 1e3:.1f} tok/s), E {e1[0]} launches on wgmma; "
+        f"device {busy:.3f} ms of {wall:.3f} ms wall (idle {1 - busy / wall:.1%})")
+    del h1
+    launches, tp = _tp_prefill_checks(cfg, params, tokens, pix, dev, "vlm")
+    turns = _decode_turns(dev, cfg, params, shard_params(params, cfg, ctx8), SLICE9_TICKS)
+    del params
+    torch.cuda.empty_cache()
+
+    # float32 at full width, cut in depth: the patches exact, the rest close
+    cfg32 = cfg.scaled(n_layers=VLM_F32_LAYERS, dtype="float32")
+    p32 = init_lm(cfg32, torch.Generator(device=dev).manual_seed(seed), dev, ctx=ctx8)
+    p8 = shard_params(p32, cfg32, ctx8)
+    pix32 = pix.float()
+    emb1 = embed_tokens_sp(p32, tokens, cfg32, make_ctx(), pix32)
+    emb8 = gather_hidden(embed_tokens_sp(p8, tokens, cfg32, ctx8, pix32))
+    npch = cfg.n_patches
+    exact = same_bits(emb8[:, :npch], emb1[:, :npch]) and same_bits(emb1[:, :npch], pix32)
+    want = lm_prefill(p32, tokens, cfg32, make_ctx(), capacity=PREFILL_TOKENS, extra_embeds=pix32)
+    got = gather_hidden(lm_prefill(p8, tokens, cfg32, ctx8, capacity=PREFILL_TOKENS,
+                                   extra_embeds=pix32))
+    err, ex = max_abs_err(got, want), f32_excess(got, want)
+    log(f"vlm float32 ({VLM_F32_LAYERS} layers, full width): the {npch} patch positions' "
+        f"embeddings bit-equal at tp = 1 and P = {TP}: {exact}; hidden states max abs err "
+        f"{err:.3e}, within {TP_F32_TOL} rtol/atol: {ex <= 0}")
+    if not exact or ex > 0 or not torch.isfinite(got).all():
+        raise AssertionError(f"vlm float32: patches exact {exact}, max abs err {err}")
+    del p32, p8, emb1, emb8, want, got
+    torch.cuda.empty_cache()
+
+    # served at P = 8 (the launcher, bfloat16), and in float32 at full depth
+    # against tp = 1 on the same weights, phase 14's requests
+    runs8, a = _launcher_runs(VLM_ARCH, f"1,{TP}", SLICE10_WIRES)
+    cfg32 = cfg.scaled(dtype="float32")
+    p32 = init_lm(cfg32, torch.Generator(device=dev).manual_seed(0), dev, ctx=ctx8)
+    outs = {}
+    for tp, eng in (("tp1", lambda: ContinuousEngine(cfg32, p32, batch_slots=4, capacity=256)),
+                    (f"tp{TP}", lambda: ContinuousEngine(
+                        cfg32, shard_params(p32, cfg32, ctx8), runtime=build_continuous_serve(
+                            cfg32, mesh=(1, TP), comm_mode="smi:static", batch_slots=4,
+                            capacity=256, device=dev)))):
+        e = eng()
+        launch_serve._submit_all(e, cfg32, 8, 16)
+        outs[tp] = {r.uid: r.out for r in e.run(max_steps=1024)}
+        e.shutdown()
+        del e
+    del p32
+    torch.cuda.empty_cache()
+    same32 = outs["tp1"] == outs[f"tp{TP}"]
+    log(f"vlm serve float32 (full depth): P = {TP}'s tokens equal tp = 1's on the same weights "
+        f"for all {len(outs['tp1'])} requests: {same32}")
+    if not same32:
+        raise AssertionError(f"vlm serve float32: P = {TP} {outs[f'tp{TP}']} != tp = 1 "
+                             f"{outs['tp1']}")
+    return launches, {"prefill_tp1_ms": ms1, "launches_e_tp1": e1[0], "device_ms_tp1": busy,
+                      "device_idle_share_tp1": 1 - busy / wall, "tp": tp,
+                      "f32_patches_exact": exact, "f32_max_abs_err": err,
+                      f"runs_tp{TP}": _brief(runs8), "launches_a": a,
+                      "a_per_step_tuned_runs": _a_per_step(runs8, a),
+                      "f32_serve_tokens_equal_tp1": same32, "decode": turns}
+
+
+def phase_audio(dev, seed: int = 41) -> tuple[dict, dict]:
+    """Phase 41: musicgen-medium at full width and depth (48 layers, 24
+    heads, GELU, 4 codebooks), bfloat16: the prefill of ``data.make_inputs``'
+    4096 frames x 4 codebooks at tp = 1 and P = 8 on the same weights
+    (``_tp_prefill_checks``: E 48, D 1,536); served with phase 14's
+    requests (4-codebook prompts) at tp = 1 and ``--mesh 1,8`` (both
+    engines, the tuned wire): every step's token a list of 4, equal across
+    the engines at each tp; a pinned ``smi:fused`` decode bit-equal to
+    ``smi:static`` over 4 steps; ms a decode step at P = 8 beside tp = 1 in
+    turns and the idle share; A's launches a step on the tuned wire."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.data import make_inputs
+    from repro_torch.interop import shard_params
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.launch.steps import build_prefill
+    from repro_torch.mesh.api import make_ctx
+    from repro_torch.models import init_lm
+    from repro_torch.models.model import model_dtype
+
+    cfg = get_arch(AUDIO_ARCH)
+    shape = ShapeConfig("prefill_4k", PREFILL_TOKENS, 1, "prefill")
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(seed), dev,
+                     dtype=model_dtype(cfg))
+    tokens = make_inputs(cfg, shape, seed, device=dev)["tokens"]
+    tp1 = build_prefill(cfg, shape, device=dev)
+    tp1(params, tokens)
+    reset_counts()
+    h1, ms1 = _timed_ms(lambda: tp1(params, tokens))
+    e1 = (flash_attention_kernel.launches, flash_attention_kernel.wgmma_launches)
+    if e1 != (cfg.n_layers, cfg.n_layers) or not torch.isfinite(h1).all() \
+            or tuple(tokens.shape) != (1, PREFILL_TOKENS, cfg.n_codebooks):
+        raise AssertionError(f"audio prefill: E {e1}, tokens {tuple(tokens.shape)}")
+    busy, rows, wall = _profile_device_ms(lambda: tp1(params, tokens))
+    log(f"audio prefill: {cfg.name} {PREFILL_TOKENS} frames x {cfg.n_codebooks} codebooks "
+        f"{ms1:.3f} ms ({PREFILL_TOKENS / ms1 * 1e3:.1f} frames/s), E {e1[0]} launches on wgmma; "
+        f"device {busy:.3f} ms of {wall:.3f} ms wall (idle {1 - busy / wall:.1%})")
+    del h1
+    launches, tp = _tp_prefill_checks(cfg, params, tokens, None, dev, "audio")
+    tp_params = shard_params(params, cfg, make_ctx((1, TP), comm_mode="smi:static", device=dev))
+    fused = _fused_against_static(cfg, tp_params, dev, np.random.RandomState(seed))
+    turns = _decode_turns(dev, cfg, params, tp_params, SLICE9_TICKS)
+    del params, tp_params
+    torch.cuda.empty_cache()
+
+    runs1, _ = _launcher_runs(AUDIO_ARCH, "1,1", ("smi",))
+    runs8, a = _launcher_runs(AUDIO_ARCH, f"1,{TP}", SLICE10_WIRES)
+    for runs in (runs1, runs8):
+        if not all(len(tok) == cfg.n_codebooks for out in _serve_tokens(runs).values()
+                   for tok in out):
+            raise AssertionError(f"audio serve: a step's token is not {cfg.n_codebooks} codebooks")
+    a_step = _a_per_step(runs8, a)
+    same = _serve_tokens(runs1) == _serve_tokens(runs8)
+    log(f"audio serve: (4,) tokens a step; kernel A a decode step on the tuned wire "
+        f"{json.dumps(a_step)}; P = {TP}'s tokens equal tp = 1's: {same}")
+    return launches, {"prefill_tp1_ms": ms1, "launches_e_tp1": e1[0], "device_ms_tp1": busy,
+                      "device_idle_share_tp1": 1 - busy / wall, "tp": tp,
+                      "runs_tp1": _brief(runs1), f"runs_tp{TP}": _brief(runs8),
+                      "launches_a": a, "a_per_step_tuned_runs": a_step,
+                      "fused_vs_static": fused, "tokens_equal_tp1": same, "decode": turns}
+
+
+def _validate_comm_runs(runs) -> dict:
+    """``launch.serve --validate-comm`` over ``smi:static``, 4 slots, 256
+    positions, full width and depth, at each (arch, mesh) of ``runs``:
+    every ``serve.*`` tag, migration legs included, equal to the prediction
+    byte for byte and step for step.  Returns the measured tags by run."""
     import torch
 
     from repro_torch.launch import serve as launch_serve
 
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for arch, mesh in VALIDATE_SLICE9:
+        for arch, mesh in runs:
             path = os.path.join(tmp, "v.json")
             rc = launch_serve.main(["--arch", arch, "--mesh", mesh, "--comm-mode", "smi:static",
                                     "--slots", "4", "--capacity", "256",
@@ -3527,16 +4142,13 @@ def phase_validate_slice9() -> dict:
             out[f"{arch} {mesh}"] = res["measured"]
             log(f"validate-comm {arch} mesh {mesh} smi:static: {len(res['measured'])} tags equal, "
                 f"{sum(e['bytes'] for e in res['measured'].values())} B a rank")
-    try:
-        launch_serve.main(["--arch", MOE_ARCH, "--mesh", "2,4", "--comm-mode", "smi:static",
-                           "--validate-comm"])
-    except NotImplementedError as e:
-        if "item 13" not in str(e):
-            raise
-        log(f"validate-comm {MOE_ARCH} mesh 2,4: refused, as FSDP waits ({e})")
-    else:
-        raise AssertionError(f"validate-comm {MOE_ARCH} mesh 2,4 ran; FSDP's rule should refuse it")
     return out
+
+
+def phase_validate_slice10() -> dict:
+    """Phase 42: :func:`_validate_comm_runs` at :data:`VALIDATE_SLICE10`'s
+    (arch, mesh)."""
+    return _validate_comm_runs(VALIDATE_SLICE10)
 
 
 def main() -> int:
@@ -3743,6 +4355,52 @@ def main() -> int:
     t0 = time.perf_counter()
     validate9 = phase_validate_slice9()
     log(f"phase 36 (--validate-comm, mamba2 and qwen3-moe): {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    rg_params, rg_prefill = phase_rg_prefill(dev)
+    torch.cuda.synchronize()
+    log(f"phase 37 (recurrentgemma-9b prefill): {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    launches_38, rg_tp = phase_rg_tp_prefill(dev, rg_params)
+    del rg_params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    rg_tp["f32"] = phase_rg_f32(dev)
+    torch.cuda.synchronize()
+    log(f"phase 38 (recurrentgemma-9b TP prefill, P = {TP}): {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    rg_serving = phase_rg_serving(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"phase 39 (recurrentgemma-9b served at tp = 1 and P = {TP}): "
+        f"{time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    launches_40, vlm = phase_vlm(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"phase 40 (internvl2-1b): {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    launches_41, audio = phase_audio(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"phase 41 (musicgen-medium): {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    validate10 = phase_validate_slice10()
+    log(f"phase 42 (--validate-comm, slice 10): {time.perf_counter() - t0:.1f}s")
+    # the launches of slice 10's paths: E in phase 37, D and E in the TP
+    # prefills of phases 38, 40 and 41 (A over smi:fused), E in the tp = 1
+    # prefills of 40 and 41, A a decode step on the tuned wire (39-41)
+    by_name["flash_attention"]["launches_rg_prefill"] = rg_prefill["launches_e"]
+    for key, launches in (("rg", launches_38), ("vlm", launches_40), ("audio", launches_41)):
+        by_name["matmul"][f"launches_{key}_tp_prefill"] = launches["D"]
+        by_name["flash_attention"][f"launches_{key}_tp_prefill"] = launches["E"]
+        for name, k in (("accumulate", "fold"), ("shift_accumulate", "shift")):
+            by_name[name][f"launches_{key}_tp_prefill_fused"] = launches["A"][k]
+    for key, res in (("vlm", vlm), ("audio", audio)):
+        by_name["flash_attention"][f"launches_{key}_prefill"] = res["launches_e_tp1"]
+    for key, res in (("rg", rg_serving), ("vlm", vlm), ("audio", audio)):
+        for name, k in (("accumulate", "fold"), ("shift_accumulate", "shift")):
+            by_name[name][f"launches_{key}_tp_decode_tuned_per_step"] = \
+                res["a_per_step_tuned_runs"][k]
     # the launches of slice 9's paths: F and D in phase 31, E in phase 33, D
     # and E in phase 34 (A over smi:fused), A a decode step on the tuned wire
     # in phases 32 and 35
@@ -3809,6 +4467,13 @@ def main() -> int:
     log("serving_qwen3moe: " + json.dumps(moe_serving))
     log("validate_comm_slice9: " + json.dumps({k: sum(e["bytes"] for e in v.values())
                                                for k, v in validate9.items()}))
+    log("prefill_recurrentgemma_4096: " + json.dumps(rg_prefill))
+    log("tp_prefill_recurrentgemma_4096_p8: " + json.dumps(rg_tp))
+    log("serving_recurrentgemma: " + json.dumps(rg_serving))
+    log("internvl2_1b: " + json.dumps(vlm))
+    log("musicgen_medium: " + json.dumps(audio))
+    log("validate_comm_slice10: " + json.dumps({k: sum(e["bytes"] for e in v.values())
+                                                for k, v in validate10.items()}))
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -79,7 +79,8 @@ def params_from_reference(np_params, cfg, device=None):
     (``cuda`` unless named): the same nesting of dicts and tuples, with the
     ``periods`` leaves stacked over layers, each leaf a copy with the same
     bits (``np_params`` is ``jax.tree.map(numpy.asarray, params)``).  The
-    embedding must have ``cfg``'s padded vocabulary."""
+    embedding (each codebook's, for a codebook model) must have ``cfg``'s
+    padded vocabulary."""
     from .core.comm import resolve_device
 
     dev = resolve_device(device)
@@ -92,9 +93,11 @@ def params_from_reference(np_params, cfg, device=None):
         return None if t is None else _leaf_from_reference(t, dev)
 
     params = conv(np_params)
-    want = (cfg.padded_vocab, cfg.d_model)
-    if tuple(params["embed"].shape) != want:
-        raise ValueError(f"embed {tuple(params['embed'].shape)} is not {cfg.name}'s {want}")
+    key, want = "embed", (cfg.padded_vocab, cfg.d_model)
+    if cfg.n_codebooks > 1:
+        key, want = "embed_cb", (cfg.n_codebooks,) + want
+    if tuple(params[key].shape) != want:
+        raise ValueError(f"{key} {tuple(params[key].shape)} is not {cfg.name}'s {want}")
     return params
 
 

@@ -12,17 +12,20 @@ decode of random-weight requests, at any ``(data, model)`` mesh.
     python -m repro_torch.launch.serve --arch yi-6b --smoke --device cpu \\
         --mesh 2,4 --comm-mode smi:static --validate-comm
 
-    # the MoE and Mamba2 families at tp > 1
+    # the MoE, Mamba2, RG-LRU hybrid and audio (codebook) families at tp > 1
     python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --mesh 1,8
     python -m repro_torch.launch.serve --arch mamba2-2.7b --mesh 1,8 --comm-mode smi:static
+    python -m repro_torch.launch.serve --arch recurrentgemma-9b --mesh 1,8
+    python -m repro_torch.launch.serve --arch musicgen-medium --mesh 1,8
 
 Params are drawn from a ``torch.Generator`` seeded 0 on the device, in the
 model dtype (at tp > 1 with the heads padded to a multiple of tp, then
 split by ``interop.shard_params``); prompts come from
 ``numpy.random.RandomState(0)`` as in the reference, so both packages
-submit the same prompts.  At tp > 1 the continuous engine decodes over ONE
-persistent channel a layer tag from the serving ``ChannelPool``, released
-at shutdown, and the wave engine over ``launch.steps.build_serve``'s step.
+submit the same prompts (a codebook model's a ``(plen, n_cb)`` draw each).
+At tp > 1 the continuous engine decodes over ONE persistent channel a layer
+tag from the serving ``ChannelPool``, released at shutdown, and the wave
+engine over ``launch.steps.build_serve``'s step.
 Prints tokens/s and each request's tokens; ``--json`` writes them with the
 decode steps and the milliseconds per step.  The device is ``cuda`` unless
 ``--device cpu`` is given.
@@ -43,6 +46,7 @@ from ..interop import shard_params
 from ..models import init_lm
 from ..models.model import model_dtype
 from ..serving import ContinuousEngine, Request, ServeEngine
+from ..serving.engine import token_shape
 from .steps import build_continuous_serve, build_serve
 
 
@@ -73,7 +77,7 @@ def validate_comm(cfg, dims, args, dev) -> int:
     params = _params(cfg, rt["ctx"], dev)
     caches = rt["init_caches"]()
     B = rt["batch_slots"]
-    tok = torch.zeros(B, dtype=torch.int32, device=dev)
+    tok = torch.zeros(token_shape(cfg, B), dtype=torch.int32, device=dev)
     pos = torch.zeros(B, dtype=torch.int32, device=dev)
     migrations = 1 if tp > 1 else 0
     with ledger.capture() as led:
@@ -114,7 +118,7 @@ def _submit_all(eng, cfg, n_requests, max_new, seed=0):
     rng = np.random.RandomState(seed)
     for uid in range(n_requests):
         plen = int(rng.randint(3, 9))
-        prompt = rng.randint(0, cfg.vocab_size, (plen,)).tolist()
+        prompt = rng.randint(0, cfg.vocab_size, token_shape(cfg, plen)).tolist()
         eng.submit(Request(uid=uid, prompt=prompt, max_new=max_new))
 
 

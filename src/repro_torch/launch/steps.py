@@ -10,7 +10,9 @@ over them (``build_continuous_serve``: slot scheduling is a global
 decision, so every group computes the same step, which the stack runs
 once).  FSDP stays off: it raises where it would shard anything (a
 builder's ``fsdp=False`` replicates the weights over the data axis).  Every
-block kind the port runs is served: dense, MoE and Mamba2.
+block kind is served: dense, MoE, Mamba2 and the RG-LRU hybrid, with the
+codebook token streams of an audio model and the patch embeddings of a
+vision model's prefill.
 """
 
 from __future__ import annotations
@@ -54,9 +56,11 @@ def build_prefill(cfg: ModelConfig, shape: ShapeConfig, *, mesh=None, comm_mode:
                   shared_gather: bool = False, ring_attn: bool = False, fsdp="auto",
                   device=None):
     """The prefill step of ``cfg`` for ``shape`` on ``device`` (``cuda``
-    unless named): a callable ``prefill(params, tokens, *, use_kernel=None)``
-    that runs :func:`~repro_torch.models.lm_prefill` on tokens (B, S) and
-    returns the final hidden states (B, S, D).  On the card its attention is
+    unless named): a callable ``prefill(params, tokens, pixel_embeds=None, *,
+    use_kernel=None)`` that runs :func:`~repro_torch.models.lm_prefill` on
+    tokens (B, S) (or (B, S, n_cb) for a codebook model), a vision model's
+    patch embeddings (B, n_patches, D) in the first positions, and returns
+    the final hidden states (B, S, D).  On the card its attention is
     kernel E and its SSD scan kernel F; ``use_kernel=False`` runs their
     plain versions there, for comparisons.
 
@@ -66,7 +70,8 @@ def build_prefill(cfg: ModelConfig, shape: ShapeConfig, *, mesh=None, comm_mode:
     picks each layer's backend and wire), a pinned ``"smi:static"``,
     ``"smi:fused"`` or ``"bulk"`` keeps every layer there; ``params`` are then
     :func:`~repro_torch.interop.shard_params`'s for ``prefill.ctx``.  The
-    batch is split over the ``dp`` data groups where it divides.
+    batch (the tokens' and the patch embeddings' rows) is split over the
+    ``dp`` data groups where it divides.
     ``ring_attn`` streams the K/V blocks around the model ring instead of
     gathering the sequence (``models/attention.py apply_attention_ring``).
     The products are ``torch.matmul``, as the reference's are unless a
@@ -77,13 +82,19 @@ def build_prefill(cfg: ModelConfig, shape: ShapeConfig, *, mesh=None, comm_mode:
                    opt_ring_attn=ring_attn, plan=_layer_plan(cfg, comm_mode), device=dev)
     check_fsdp(fsdp, mesh, cfg.param_count())
 
-    def prefill(params, tokens: torch.Tensor, *, use_kernel=None) -> torch.Tensor:
-        if tokens.dim() != 2:
-            raise ValueError(f"tokens must be (B, S), got {tuple(tokens.shape)}")
+    want_dim = 3 if cfg.n_codebooks > 1 else 2
+
+    def prefill(params, tokens: torch.Tensor, pixel_embeds=None, *,
+                use_kernel=None) -> torch.Tensor:
+        if tokens.dim() != want_dim:
+            raise ValueError(f"{cfg.name} takes tokens of {want_dim} dims, got "
+                             f"{tuple(tokens.shape)}")
         tokens = tokens.to(dev)
+        extra = None if pixel_embeds is None else pixel_embeds.to(dev)
 
         def group(rows):
             h = lm_prefill(params, tokens[rows], cfg, ctx, capacity=shape.seq_len,
+                           extra_embeds=None if extra is None else extra[rows],
                            use_kernel=use_kernel)
             return gather_hidden(h) if ctx.tp > 1 else h
 
@@ -102,6 +113,7 @@ def build_serve(cfg: ModelConfig, shape: ShapeConfig, *, mesh=None, comm_mode: s
 
     Returns ``dict(step, ctx, batch, capacity)``:
     ``step(params, caches, token, pos) -> (float32 logits (B, V), caches)``
+    (token (B, n_cb) and logits (B, V, n_cb) for a codebook model)
     runs :func:`~repro_torch.models.lm_decode_step` with
     ``gather_logits=False`` and assembles the vocabulary shards without a
     wire (the reference's ``out_specs``), the batch split over the data

@@ -13,8 +13,17 @@ them (``gather_logits=False``).
 
 The vocabulary stays padded to a multiple of 256 (``cfg.padded_vocab``):
 greedy decoding takes the argmax over every padded column, as the reference
-does.  Codebook streams (``n_codebooks > 1``) and precomputed frontend
-embeddings (``extra_embeds``) wait for their slices and raise.
+does.
+
+The modality frontends are the reference's stubs.  An audio model's
+``n_codebooks`` token streams (tokens ``(B, S, n_cb)``, a decode step's
+``(B, n_cb)``) each have an embedding and a head (``embed_cb`` (n_cb, V, D),
+``head_cb`` (n_cb, D, V)); their partial embeddings are summed before the
+vocabulary reduction, and a decode step's logits are ``(B, V, n_cb)``.  A
+vision model's precomputed patch embeddings (``extra_embeds``, (B,
+n_patches, D)) take the first positions of the sequence: those positions'
+vocabulary partials are zeroed and the patches added on rank 0's partial
+only, so the reduction over ranks carries them exactly.
 """
 
 from __future__ import annotations
@@ -40,15 +49,6 @@ from .transformer import (
     stack_specs,
 )
 
-CODEBOOK_ROADMAP = ("codebook streams (n_codebooks > 1) and frontend embeddings wait for the "
-                    "VLM/audio frontend slice (ROADMAP.md §1, item 12)")
-
-
-def _check_lm(cfg):
-    if cfg.n_codebooks > 1:
-        raise NotImplementedError(CODEBOOK_ROADMAP)
-
-
 def model_dtype(cfg) -> torch.dtype:
     """The dtype the model computes in: bfloat16 or float32, from the config."""
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
@@ -60,8 +60,9 @@ def init_lm(cfg, generator: torch.Generator | None = None, device=None, dtype=No
     as in the reference unless ``dtype`` names another: the full-width run
     passes the model dtype, and each layer is drawn in float32 and cast.
     ``ctx`` (tp = 1 unless given) pads the attention heads to a multiple of
-    its tp; :func:`~repro_torch.interop.shard_params` splits the result."""
-    _check_lm(cfg)
+    its tp; :func:`~repro_torch.interop.shard_params` splits the result.  A
+    codebook model has ``embed_cb`` and ``head_cb`` in place of ``embed``
+    and ``head``."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -72,6 +73,13 @@ def init_lm(cfg, generator: torch.Generator | None = None, device=None, dtype=No
     ctx = ctx or make_ctx()
     if V % ctx.tp:
         raise ValueError(f"padded vocabulary {V} not divisible by tp={ctx.tp}")
+    n_cb = cfg.n_codebooks
+    if n_cb > 1:
+        p = {"final_norm": torch.ones((D,), dtype=dt, device=dev),
+             "embed_cb": trunc_normal(generator, (n_cb, V, D), 0.02, dt),
+             "stack": init_stack(generator, cfg, ctx, dtype)}
+        p["head_cb"] = trunc_normal(generator, (n_cb, D, V), D ** -0.5, dt)
+        return p
     p = {"final_norm": torch.ones((D,), dtype=dt, device=dev),
          "embed": trunc_normal(generator, (V, D), 0.02, dt),
          "stack": init_stack(generator, cfg, ctx, dtype)}
@@ -84,9 +92,12 @@ def lm_specs(cfg, ctx):
     """How each leaf of the LM params lies over the mesh: the embedding
     split by vocabulary rows, the head by vocabulary columns, the final norm
     replicated."""
-    _check_lm(cfg)
     m = ctx.model_axis
-    sp = {"final_norm": PS(None), "stack": stack_specs(cfg, ctx), "embed": PS(m, None)}
+    sp = {"final_norm": PS(None), "stack": stack_specs(cfg, ctx)}
+    if cfg.n_codebooks > 1:
+        sp.update(embed_cb=PS(None, m, None), head_cb=PS(None, None, m))
+        return sp
+    sp["embed"] = PS(m, None)
     if not cfg.tie_embeddings:
         sp["head"] = PS(None, m)
     return sp
@@ -98,13 +109,37 @@ def _cast(p, dtype):
     return tree_map(lambda v: v.to(dtype) if v.dtype == torch.float32 else v, p)
 
 
+def _codebook(t, cb: int, ctx):
+    """Codebook ``cb``'s table of a ``(n_cb, ...)`` leaf (rank-stacked
+    ``(P, n_cb, ...)`` at tp > 1)."""
+    return t[:, cb] if ctx.tp > 1 else t[cb]
+
+
+def _embed_partial(params, tokens, cfg, ctx):
+    """Every rank's vocabulary partial of the tokens' embedding; a codebook
+    model's streams (the tokens' last dim) summed, codebook by codebook."""
+    if cfg.n_codebooks > 1:
+        return sum(parallel_embedding_partial(_codebook(params["embed_cb"], cb, ctx),
+                                              tokens[..., cb], ctx)
+                   for cb in range(cfg.n_codebooks))
+    return parallel_embedding_partial(params["embed"], tokens, ctx)
+
+
 def embed_tokens_sp(params, tokens, cfg, ctx, extra_embeds=None):
-    """tokens (B, S) -> (B, S, D) in the model dtype; at tp = P > 1 the
-    sequence shards (P, B, S/P, D)."""
-    _check_lm(cfg)
+    """tokens (B, S) (or (B, S, n_cb)) -> (B, S, D) in the model dtype; at
+    tp = P > 1 the sequence shards (P, B, S/P, D).  ``extra_embeds`` (B,
+    n_patches, D) take the first positions in place of the tokens'
+    embeddings."""
+    emb = _embed_partial(params, tokens, cfg, ctx)
     if extra_embeds is not None:
-        raise NotImplementedError(CODEBOOK_ROADMAP)
-    emb = parallel_embedding_partial(params["embed"], tokens, ctx)
+        # patch positions: the vocabulary partial zeroed, the patch added on
+        # rank 0's partial only, so the sum over ranks is the patch itself
+        S, npch = emb.shape[-2], extra_embeds.shape[1]
+        patch = (torch.arange(S, device=emb.device) < npch)[:, None]
+        emb = torch.where(patch, torch.zeros((), dtype=emb.dtype, device=emb.device), emb)
+        full = torch.nn.functional.pad(extra_embeds.to(emb.device), (0, 0, 0, S - npch))
+        emb = emb + torch.where(patch & (torch.as_tensor(ctx.rank(4)) == 0), full,
+                                torch.zeros((), dtype=full.dtype, device=emb.device))
     if ctx.tp > 1:
         # the vocab psum fused into the sequence scatter: each rank's partial
         # laid out shard-major, (P_dst, B, S_loc) on the rows
@@ -114,17 +149,19 @@ def embed_tokens_sp(params, tokens, cfg, ctx, extra_embeds=None):
     return emb.to(model_dtype(cfg))
 
 
-def lm_prefill(params, tokens, cfg, ctx, *, capacity: int, use_kernel=None):
-    """Prefill: the full forward over ``tokens`` (B, S); returns the final
-    hidden states, (B, S, D) at tp = 1 and the sequence shards (P, B, S/P, D)
-    at tp = P > 1 (:func:`gather_hidden` assembles them).  ``params`` are
-    the global ones at tp = 1 and :func:`~repro_torch.interop.shard_params`'s
-    at tp > 1.  Like the reference, it fills no cache (the serving engines
-    replay prompts through decode).  ``use_kernel`` goes to every attention
-    and SSM block (``None``: kernels E and F on the card; ``False``: their
-    plain versions, for comparisons)."""
+def lm_prefill(params, tokens, cfg, ctx, *, capacity: int, extra_embeds=None, use_kernel=None):
+    """Prefill: the full forward over ``tokens`` (B, S) (or (B, S, n_cb)),
+    the first positions taken by ``extra_embeds`` (B, n_patches, D) when
+    given; returns the final hidden states, (B, S, D) at tp = 1 and the
+    sequence shards (P, B, S/P, D) at tp = P > 1 (:func:`gather_hidden`
+    assembles them).  ``params`` are the global ones at tp = 1 and
+    :func:`~repro_torch.interop.shard_params`'s at tp > 1.  Like the
+    reference, it fills no cache (the serving engines replay prompts through
+    decode).  ``use_kernel`` goes to every attention and SSM block
+    (``None``: kernels E and F on the card; ``False``: their plain versions,
+    for comparisons)."""
     pf = _cast(params, model_dtype(cfg))
-    x = embed_tokens_sp(pf, tokens, cfg, ctx)
+    x = embed_tokens_sp(pf, tokens, cfg, ctx, extra_embeds)
     x, _ = apply_stack(pf["stack"], x, cfg, ctx, use_kernel=use_kernel)  # the aux loss: unused
     return rms_norm(x, pf["final_norm"], cfg.norm_eps)
 
@@ -138,31 +175,37 @@ def gather_hidden(h: torch.Tensor) -> torch.Tensor:
 
 
 def lm_decode_step(params, caches, token, pos, cfg, ctx, *, gather_logits: bool = True):
-    """One decode step.  token (B,) int; pos a scalar or a (B,) vector.
-    Returns (float32 logits, caches) with the caches updated in place: the
-    logits are (B, padded_vocab) at tp = 1; at tp = P > 1 every rank's
-    gathered copy, (P, B, padded_vocab), or with ``gather_logits=False``
-    every rank's own vocabulary shard, (P, B, padded_vocab / P), for the
-    caller to assemble (the reference's ``out_specs``)."""
-    _check_lm(cfg)
+    """One decode step.  token (B,) int (or (B, n_cb)); pos a scalar or a
+    (B,) vector.  Returns (float32 logits, caches) with the caches updated
+    in place: the logits are (B, padded_vocab) at tp = 1; at tp = P > 1
+    every rank's gathered copy, (P, B, padded_vocab), or with
+    ``gather_logits=False`` every rank's own vocabulary shard, (P, B,
+    padded_vocab / P), for the caller to assemble (the reference's
+    ``out_specs``).  A codebook model's logits gain a trailing ``n_cb``
+    dimension, and its gather carries ``n_cb`` times the bytes."""
     pf = _cast(params, model_dtype(cfg))
-    emb = parallel_embedding_partial(pf["embed"], token, ctx)
+    emb = _embed_partial(pf, token, cfg, ctx)
     x = psum_tagged(emb, ctx, "tp.embed").unsqueeze(-2).to(model_dtype(cfg))  # (.., B, 1, D)
     # on the device once, not once a layer (a copy from the host waits for the card)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     x, caches = decode_stack(pf["stack"], caches, x, pos, cfg, ctx)
     x = rms_norm(x, pf["final_norm"], cfg.norm_eps).squeeze(-2)        # (.., B, D)
-    logits = x @ (pf["embed"].transpose(-1, -2) if cfg.tie_embeddings else pf["head"])
+    if cfg.n_codebooks > 1:
+        logits = torch.stack([x @ _codebook(pf["head_cb"], cb, ctx)
+                              for cb in range(cfg.n_codebooks)], dim=-1)  # (.., B, V_loc, n_cb)
+    else:
+        logits = x @ (pf["embed"].transpose(-1, -2) if cfg.tie_embeddings else pf["head"])
     if ctx.tp > 1 and gather_logits:
-        # the vocabulary shards, gathered: (P, V_loc, B) -> (P, V, B)
-        logits = gather_sequence(logits.transpose(1, 2), ctx, tag="tp.loss.gather").transpose(1, 2)
+        # the vocabulary shards, gathered: (P, V_loc, B[, n_cb]) -> (P, V, B[, n_cb])
+        logits = gather_sequence(logits.movedim(2, 1), ctx, tag="tp.loss.gather").movedim(1, 2)
     return logits.float(), caches
 
 
 def assemble_logits(logits: torch.Tensor) -> torch.Tensor:
-    """Every rank's vocabulary shard (P, B, V/P) -> (B, V), rank r's columns
-    at r*V/P (the reference's ``out_specs=P(None, "model")``: no wire)."""
-    return logits.transpose(0, 1).reshape(logits.shape[1], -1)
+    """Every rank's vocabulary shard (P, B, V/P[, n_cb]) -> (B, V[, n_cb]),
+    rank r's columns at r*V/P (the reference's ``out_specs=P(None,
+    "model")``: no wire)."""
+    return logits.transpose(0, 1).flatten(1, 2)
 
 
 def lm_caches(cfg, B: int, capacity: int, ctx, device=None):

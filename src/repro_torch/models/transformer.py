@@ -1,6 +1,7 @@
 """Block assembly (``repro.models.transformer``): the dense ``"attn"``
-block, the MoE ``"moe"`` block (attention, then the experts) and the Mamba2
-``"ssm"`` block, stacked per pattern period.
+block, the MoE ``"moe"`` block (attention, then the experts), the Mamba2
+``"ssm"`` block and the RG-LRU ``"rec"`` block (the recurrence, then the
+MLP), stacked per pattern period.
 
 Parameters keep the reference's layout: ``{"periods": tuple of per-position
 block trees whose leaves carry a leading layer dim, "rem": tuple of
@@ -10,8 +11,8 @@ activations are the rank-stacked ``(P, B, S/P, D)`` and the sharded leaves
 of a period are laid out ``(L, P, ...)`` (``interop.shard_params``), so a
 layer's slice is rank-stacked; so are the decode caches, ``(L, P, B, ...)``.
 A block returns the MoE load-balancing loss beside its output (0 for the
-blocks without experts), as the reference's does.  The block kind
-``"rec"`` raises ``NotImplementedError``.
+blocks without experts), as the reference's does.  An unknown block kind
+raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -30,25 +31,30 @@ from .attention import (
 from .common import rms_norm, tree_map
 from .mlp import apply_mlp, apply_mlp_replicated, init_mlp, mlp_specs
 from .moe import apply_moe, apply_moe_replicated, init_moe, moe_specs
+from .rglru import (
+    apply_rglru,
+    decode_rglru,
+    init_rglru,
+    init_rglru_cache,
+    rglru_cache_specs,
+    rglru_specs,
+)
 from .ssm import apply_ssm, decode_ssm, init_ssm, init_ssm_cache, ssm_cache_specs, ssm_specs
 
-#: the block kinds the port runs
-KINDS = ("attn", "moe", "ssm")
-#: what the block kinds outside the port raise with
-KIND_ROADMAP = {
-    "rec": "RG-LRU (rec) blocks wait for their slice (ROADMAP.md §1, item 11)",
-}
+#: the block kinds of the reference, all run by the port
+KINDS = ("attn", "moe", "ssm", "rec")
 
 
 def _check_kind(kind: str):
     if kind not in KINDS:
-        raise NotImplementedError(KIND_ROADMAP.get(kind, f"unknown block kind {kind!r}"))
+        raise ValueError(f"unknown block kind {kind!r}")
 
 
 def init_block(generator, kind: str, cfg, ctx, dtype=None):
     """``{"norm1", "attn", "norm2", "mlp"}`` for an attention block, the
-    same with ``"moe"`` in place of ``"mlp"`` for an MoE block, ``{"norm1",
-    "ssm"}`` (no MLP) for an SSM block."""
+    same with ``"moe"`` in place of ``"mlp"`` for an MoE block and ``"rec"``
+    in place of ``"attn"`` for an RG-LRU block, ``{"norm1", "ssm"}`` (no
+    MLP) for an SSM block."""
     _check_kind(kind)
     D = cfg.d_model
     dt = torch.float32 if dtype is None else dtype
@@ -57,9 +63,12 @@ def init_block(generator, kind: str, cfg, ctx, dtype=None):
     if kind == "ssm":
         p["ssm"] = init_ssm(generator, cfg, ctx, dtype)
         return p
-    p["attn"] = init_attention(generator, cfg, ctx, dtype)
+    if kind == "rec":
+        p["rec"] = init_rglru(generator, cfg, ctx, dtype)
+    else:
+        p["attn"] = init_attention(generator, cfg, ctx, dtype)
     p["norm2"] = torch.ones((D,), dtype=dt, device=dev)
-    if kind == "attn":
+    if kind in ("attn", "rec"):
         p["mlp"] = init_mlp(generator, cfg, ctx, dtype=dtype)
     else:
         p["moe"] = init_moe(generator, cfg, ctx, dtype)
@@ -71,6 +80,9 @@ def block_specs(kind: str, cfg, ctx):
     _check_kind(kind)
     if kind == "ssm":
         return {"norm1": PS(None), "ssm": ssm_specs(cfg, ctx)}
+    if kind == "rec":
+        return {"norm1": PS(None), "rec": rglru_specs(cfg, ctx), "norm2": PS(None),
+                "mlp": mlp_specs(cfg, ctx)}
     sp = {"norm1": PS(None), "attn": attention_specs(cfg, ctx), "norm2": PS(None)}
     if kind == "attn":
         sp["mlp"] = mlp_specs(cfg, ctx)
@@ -89,6 +101,9 @@ def apply_block(p, kind: str, x, cfg, ctx, *, use_kernel=None):
         x = x + apply_ssm(p["ssm"], rms_norm(x, p["norm1"], cfg.norm_eps), cfg, ctx,
                           use_kernel=use_kernel)
         return x, aux
+    if kind == "rec":
+        x = x + apply_rglru(p["rec"], rms_norm(x, p["norm1"], cfg.norm_eps), cfg, ctx)
+        return x + apply_mlp(p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps), cfg, ctx), aux
     x = x + apply_attention(p["attn"], rms_norm(x, p["norm1"], cfg.norm_eps), cfg, ctx,
                             use_kernel=use_kernel)
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
@@ -105,6 +120,8 @@ def init_block_cache(kind: str, cfg, B: int, capacity: int, ctx, dtype, device=N
     _check_kind(kind)
     if kind == "ssm":
         return init_ssm_cache(cfg, B, ctx, dtype, device)
+    if kind == "rec":
+        return init_rglru_cache(cfg, B, ctx, dtype, device)
     cap = capacity if cfg.local_window is None else min(
         capacity, _pow2_pad(cfg.local_window, ctx.tp))
     return init_kv_cache(cfg, B, cap, ctx, dtype, device)
@@ -120,6 +137,8 @@ def block_cache_specs(kind: str, ctx, shard_batch: bool = True):
     _check_kind(kind)
     if kind == "ssm":
         return ssm_cache_specs(ctx, shard_batch)
+    if kind == "rec":
+        return rglru_cache_specs(ctx, shard_batch)
     return kv_cache_specs(ctx, shard_batch)
 
 
@@ -128,6 +147,12 @@ def decode_block(p, kind: str, x, cache, pos, cfg, ctx):
     if kind == "ssm":
         y, cache = decode_ssm(p["ssm"], rms_norm(x, p["norm1"], cfg.norm_eps), cache, cfg, ctx)
         return x + y, cache
+    if kind == "rec":
+        y, cache = decode_rglru(p["rec"], rms_norm(x, p["norm1"], cfg.norm_eps), cache, cfg,
+                                ctx)
+        x = x + y
+        return x + apply_mlp_replicated(p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps), cfg,
+                                        ctx), cache
     y, cache = decode_attention(p["attn"], rms_norm(x, p["norm1"], cfg.norm_eps), cache, pos,
                                 cfg, ctx)
     x = x + y

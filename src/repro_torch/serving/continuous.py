@@ -37,7 +37,7 @@ from ..models import lm_caches
 from ..models.common import tree_leaves_with_path
 from ..models.model import _cast, model_dtype
 from ..parallel import ledger
-from .engine import Request, local_step, params_device
+from .engine import Request, emitted, hit_eos, local_step, params_device, token_shape
 
 #: the stats tag migration traffic tallies under (pool-prefixed:
 #: ``serve.migrate``); the gather and scatter legs share it
@@ -205,7 +205,7 @@ class ContinuousEngine:
         self.queue: list[Request] = []
         self.pos = np.zeros(B, dtype=np.int32)      # per-slot next position
         self.cursor = np.zeros(B, dtype=np.int64)   # per-slot prompt cursor
-        self._cur = np.zeros((B,), dtype=np.int32)
+        self._cur = np.zeros(token_shape(cfg, B), dtype=np.int32)
         self.steps_done = 0
         self.decode_steps = 0                        # decode steps run
         self.admit_step: dict[int, int] = {}   # uid -> tick admitted
@@ -262,10 +262,10 @@ class ContinuousEngine:
             self.pos[i] += 1
             self.cursor[i] += 1
             if self.cursor[i] >= len(req.prompt):
-                tok = int(nxt[i])
+                tok = emitted(nxt[i])
                 req.out.append(tok)
                 self._cur[i] = tok
-                if len(req.out) >= req.max_new or (self.eos is not None and tok == self.eos):
+                if len(req.out) >= req.max_new or hit_eos(tok, self.eos):
                     req.done = True
                     self.finish_step[req.uid] = self.steps_done + 1
                     done.append(req)

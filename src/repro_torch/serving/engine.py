@@ -5,7 +5,9 @@ A fixed-width batch of slots decodes in lock-step; when a wave of requests
 completes, the caches are reset and the next wave is admitted.  The batch
 shares one cache position, so this engine is the bit-exactness oracle of
 :class:`~repro_torch.serving.continuous.ContinuousEngine`.  Prompts are
-replayed through decode steps.  Greedy sampling; deterministic.
+replayed through decode steps.  Greedy sampling; deterministic.  A codebook
+model's tokens are ``(n_cb,)`` rows: its prompts are lists of them, and
+``Request.out`` takes a list a step.
 """
 
 from __future__ import annotations
@@ -30,14 +32,32 @@ class Request:
     done: bool = False
 
 
+def token_shape(cfg, B: int) -> tuple:
+    """A decode step's token batch: (B,), or (B, n_cb) for a codebook
+    model."""
+    return (B, cfg.n_codebooks) if cfg.n_codebooks > 1 else (B,)
+
+
+def emitted(tok: np.ndarray):
+    """A greedy token as ``Request.out`` keeps it: an int, or a list of
+    ``n_cb`` ints."""
+    return tok.tolist() if tok.ndim else int(tok)
+
+
+def hit_eos(tok, eos) -> bool:
+    """Whether ``tok`` ends a request (single-stream tokens only, as in the
+    reference)."""
+    return eos is not None and not isinstance(tok, list) and tok == eos
+
+
 def params_device(params) -> torch.device:
     """The device the params lie on (every leaf's)."""
     return tree_leaves_with_path(params)[0][1].device
 
 
 def local_step(cfg, ctx):
-    """The decode step ``step(params, caches, token, pos) -> (logits (B, V),
-    caches)`` of ``ctx``: at tp = P > 1 every rank's vocabulary shard,
+    """The decode step ``step(params, caches, token, pos) -> (logits (B, V)
+    or (B, V, n_cb), caches)`` of ``ctx``: at tp = P > 1 every rank's vocabulary shard,
     assembled without a wire (the reference's ``out_specs``)."""
     if ctx.tp == 1:
         return lambda p, c, t, pos: lm_decode_step(p, c, t, pos, cfg, ctx)
@@ -84,7 +104,8 @@ class ServeEngine:
         self.queue.append(req)
 
     def _step(self, cur: np.ndarray, pos) -> np.ndarray:
-        """One decode step of every slot; returns the greedy tokens (B,)."""
+        """One decode step of every slot; returns the greedy tokens (B,) or
+        (B, n_cb)."""
         logits, self.caches = self._decode(self.params, self.caches,
                                            torch.from_numpy(cur).to(self.device), pos)
         self.decode_steps += 1
@@ -113,7 +134,7 @@ class ServeEngine:
         admission and completion ticks either way."""
         completed: list[Request] = []
         pending = sorted(arrivals, key=lambda a: a[0]) if arrivals else []
-        cur = np.zeros((self.B,), dtype=np.int32)
+        cur = np.zeros(token_shape(self.cfg, self.B), dtype=np.int32)
         cursor = np.zeros(self.B, dtype=np.int64)  # prompt read positions
         pos = 0
         steps = 0
@@ -144,10 +165,10 @@ class ServeEngine:
                     continue
                 cursor[i] += 1
                 if cursor[i] >= len(req.prompt):
-                    tok = int(nxt[i])
+                    tok = emitted(nxt[i])
                     req.out.append(tok)
                     cur[i] = tok
-                    if len(req.out) >= req.max_new or (self.eos is not None and tok == self.eos):
+                    if len(req.out) >= req.max_new or hit_eos(tok, self.eos):
                         req.done = True
                         self.finish_step[req.uid] = steps + 1
                         completed.append(req)

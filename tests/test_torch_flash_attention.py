@@ -199,6 +199,13 @@ CUDA_CASES = {
     "bf16_noncausal": (8, 8, 8, 1024, 1024, 1024, 128, False, None, torch.bfloat16),
     "bf16_noncausal_d16": (4, 2, 1, 128, 256, 200, 16, False, None, torch.bfloat16),
     "bf16_sq_odd_64s": (8, 8, 2, 320, 320, 300, 128, True, None, torch.bfloat16),
+    # slice 10's prefills at 4096 tokens: internvl2-1b (14 heads, their KV
+    # expanded) and musicgen-medium (24 heads) at head dim 64, and the 8
+    # ranks' 2 padded heads of internvl2-1b at P = 8
+    "bf16_vlm_d64": (14, 14, 14, 4096, 4096, 4096, 64, True, None, torch.bfloat16),
+    "bf16_audio_d64": (24, 24, 24, 4096, 4096, 4096, 64, True, None, torch.bfloat16),
+    "bf16_vlm_tp8_d64": (16, 2, 2, 4096, 4096, 4096, 64, True, None, torch.bfloat16),
+    "f32_audio_d64": (24, 24, 24, 1024, 1024, 1024, 64, True, None, torch.float32),
 }
 
 

@@ -124,6 +124,16 @@ CARD_CASES = [
     ("shared_w_bf16", (4, 256, 512), (512, 384), "bfloat16", "wgmma"),
     ("m_n_edges_bf16", (3, 100, 72), (3, 72, 40), "bfloat16", "wgmma"),
     ("edges_2d_bf16", (1000, 136), (136, 336), "bfloat16", "wgmma"),
+    # slice 10's ring steps at P = 8: recurrentgemma-9b's MLP-up and down
+    # (its ssm.in and ssm.out are q_bf16's and out_bf16's shapes),
+    # internvl2-1b's MLP-up (the ragged N = 608) and Q (N = 128, 14 heads
+    # padded to 16), musicgen-medium's Q (N = 192) and out-projection (K = 192)
+    ("rg_mlp_up_bf16", (8, 512, 4096), (8, 4096, 1536), "bfloat16", "wgmma"),
+    ("rg_mlp_down_bf16", (8, 512, 1536), (8, 1536, 4096), "bfloat16", "wgmma"),
+    ("vlm_mlp_up_bf16", (8, 512, 896), (8, 896, 608), "bfloat16", "wgmma"),
+    ("vlm_q_bf16", (8, 512, 896), (8, 896, 128), "bfloat16", "wgmma"),
+    ("audio_q_bf16", (8, 512, 1536), (8, 1536, 192), "bfloat16", "wgmma"),
+    ("audio_out_bf16", (8, 512, 192), (8, 192, 1536), "bfloat16", "wgmma"),
 ]
 
 

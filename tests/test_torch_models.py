@@ -369,14 +369,32 @@ def test_ssm_lm_decode_step_matches_reference():
         _close(leaf, want_leaf, f"cache {path}")
 
 
-# -- what the slice does not run -------------------------------------------------
+# -- the families and options once refused ---------------------------------------
 
 
 @pytest.mark.parametrize("name", ["recurrentgemma-9b", "musicgen-medium"])
-def test_out_of_slice_families_raise(name):
+def test_rec_and_codebook_families_init_like_the_reference(name):
+    """The RG-LRU hybrid and the codebook model, once refused (items 11 and
+    12), draw params of the reference's shapes, leaf for leaf in its flatten
+    order (the rec blocks' gate vectors, the codebooks' embeddings and
+    heads)."""
+    ref_cfg = ref_configs.smoke(ref_configs.get_arch(name))
     cfg = configs.smoke(configs.get_arch(name))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+    want = jax.eval_shape(lambda: ref_model.init_lm(jax.random.PRNGKey(0), ref_cfg, RefCtx()))
+    got = init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert [(tuple(t.shape), t.dtype) for _, t in tree_leaves_with_path(got)] == \
+        [(tuple(a.shape), torch.float32) for a in jax.tree.leaves(want)]
+    assert ("embed_cb" in got) == (cfg.n_codebooks > 1)
+
+
+def test_unknown_block_kind_raises():
+    """A block kind outside the reference's four raises ``ValueError``, as
+    the reference's does."""
+    from repro_torch.models.transformer import init_block
+
+    cfg = configs.smoke(configs.get_arch("yi-6b"))
+    with pytest.raises(ValueError, match="unknown block kind"):
+        init_block(torch.Generator().manual_seed(0), "conv", cfg, ParallelCtx())
 
 
 @pytest.mark.parametrize("name", ["qwen3-moe-30b-a3b", "llama4-scout-17b-a16e"])
@@ -446,11 +464,18 @@ def test_data_axis_and_ring_attention_contexts(kw, dp, tp, ring):
     assert ctx.batch_axes == (("data",) if dp > 1 else ())
 
 
-def test_extra_embeds_raise():
-    cfg = configs.smoke(configs.get_arch("internvl2-1b"))
-    params = init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+def test_extra_embeds_take_the_patch_positions():
+    """Frontend embeddings, once refused (item 12), take the first positions
+    of the embedding; the rest are the tokens' rows, as the reference's."""
+    ref_cfg, cfg = _cfgs("internvl2-1b")
+    np_params = _ref_params(ref_cfg)
+    params = params_from_reference(np_params, cfg, device="cpu")
     from repro_torch.models.model import embed_tokens_sp
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        embed_tokens_sp(params, torch.zeros((1, 4), dtype=torch.long), cfg, ParallelCtx(),
-                        extra_embeds=torch.zeros((1, 2, cfg.d_model)))
+    tokens = np.random.RandomState(2).randint(0, cfg.vocab_size, (1, 6)).astype(np.int32)
+    extra = _randn((1, 2, cfg.d_model), 3, 0.02)
+    got = embed_tokens_sp(params, torch.from_numpy(tokens), cfg, ParallelCtx(),
+                          extra_embeds=torch.from_numpy(extra))
+    want = ref_model.embed_tokens_sp(np_params, tokens, ref_cfg, RefCtx(), extra_embeds=extra)
+    assert torch.equal(got[:, :2], torch.from_numpy(extra))
+    _close(got, want, "embed_tokens_sp")
