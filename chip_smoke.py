@@ -205,10 +205,12 @@ non-zero):
     injected, 4096 tokens, bfloat16, on phase 16's weights and tokens, in
     turns with the tp = 1 prefill: F launched 64 times over the 8 ranks'
     head rows, all on wgmma, D 1,536 times; the ledger equal to its closed
-    form; F gated layer by layer (row cosine >= 0.999 against the plain
+    form; over ``smi:fused`` bit-equal with A launched once a reduce-scatter
+    ring step (455); F gated layer by layer (row cosine >= 0.999 against the plain
     scan) and in float32 end to end (against the plain scan and tp = 1);
 32. ``launch.serve --arch mamba2-2.7b --mesh 1,8``: phase 14's requests,
-    both engines on the bare ``smi``, tokens equal across the two runs; a
+    both engines on ``smi:static`` and the bare ``smi``, tokens equal
+    across the four runs; a
     pinned ``smi:fused`` decode bit-equal to ``smi:static`` (A never
     launched on the static wire); ms a decode step beside tp = 1 in turns,
     the idle share, kernel A's launches a step on the tuned wire;
@@ -224,9 +226,10 @@ non-zero):
     the chosen experts equal to tp = 1's and the hidden states within 3e-4
     rtol/atol;
 35. ``launch.serve --arch qwen3-moe-30b-a3b`` at tp = 1 (both engines) and
-    at ``--mesh 1,8`` (both engines, the bare ``smi``): tokens equal at each
-    tp; the pinned fused decode as phase 32's; ms a decode step beside
-    tp = 1, the idle share, A's launches a step;
+    at ``--mesh 1,8`` (both engines, on ``smi:static`` and the bare
+    ``smi``): tokens equal across the runs at each tp; the pinned fused
+    decode as phase 32's; ms a decode step beside tp = 1, the idle share,
+    A's launches a step;
 36. ``launch.serve --validate-comm`` over ``smi:static`` for mamba2-2.7b and
     qwen3-moe-30b-a3b at ``1,8`` and ``2,4`` (the latter with ``--fsdp
     off``: the port has no FSDP): every ``serve.*`` tag equal to the
@@ -246,8 +249,8 @@ non-zero):
     within 3e-4 rtol/atol of the plain tp = 1 prefill and of the plain
     attention at P = 8;
 39. ``launch.serve --arch recurrentgemma-9b`` at tp = 1 and ``--mesh 1,8``
-    (both engines, the bare ``smi``): tokens equal across the engines at
-    each tp; a pinned ``smi:fused`` decode bit-equal to ``smi:static`` over
+    (both engines; at P = 8 on ``smi:static`` and the bare ``smi``): tokens
+    equal across the runs at each tp; a pinned ``smi:fused`` decode bit-equal to ``smi:static`` over
     4 steps; ms a decode step beside tp = 1 in turns, the idle share, A's
     launches a step;
 40. internvl2-1b at full width and depth: 256 ``pixel_embeds`` and 3840
@@ -255,14 +258,16 @@ non-zero):
     turns (E 24 and 24, D 960, A 343 over ``smi:fused``); a float32 copy at
     4 layers whose patch positions' embeddings are bit-equal at tp = 1 and
     P = 8 and whose hidden states lie within 3e-4; served at ``--mesh 1,8``
-    (both engines), and a float32 copy served at P = 8 and tp = 1 with equal
-    tokens;
+    (both engines, on ``smi:static`` and the bare ``smi``, tokens equal
+    across the four runs); a pinned ``smi:fused`` decode bit-equal to
+    ``smi:static`` over 4 steps; and a float32 copy served at P = 8 and
+    tp = 1 with equal tokens;
 41. musicgen-medium at full width and depth: 4096 frames x 4 codebooks
     prefilled at tp = 1 and P = 8 in turns (E 48 and 48, D 1,536, A 679
     over ``smi:fused``); a pinned ``smi:fused`` decode bit-equal to
-    ``smi:static``; served at tp = 1 and ``--mesh 1,8`` (both engines), a
-    list of 4 tokens a step, equal across the engines at each tp; A's
-    launches a step;
+    ``smi:static``; served at tp = 1 and ``--mesh 1,8`` (both engines; at
+    P = 8 on ``smi:static`` and the bare ``smi``), a list of 4 tokens a
+    step, equal across the runs at each tp; A's launches a step;
 42. ``launch.serve --validate-comm`` over ``smi:static`` for
     recurrentgemma-9b and musicgen-medium at ``1,8`` and ``2,4`` and
     internvl2-1b at ``1,8``: every ``serve.*`` tag equal to the prediction.
@@ -1948,35 +1953,61 @@ def _host_us_per_call(dev, n: int = 2000) -> dict:
 
 #: a layer's streamed calls in the TP prefill, by tag: the dense block (Q,
 #: the K/V gather, the out-projection, gate and up, down), the Mamba2 block
-#: (z and x, the B/C/dt gather, the out-projection) and the MoE block (the
-#: attention's three, the expert dispatch and combine)
+#: (z and x, the B/C/dt gather, the out-projection), the MoE block (the
+#: attention's three, the expert dispatch and combine) and the RG-LRU block
+#: (branch and gate, the out-projection, then its SwiGLU MLP)
 DENSE_CALLS = {"tp.attn.qkv": 1, "tp.attn.kv": 1, "tp.attn.out": 1, "tp.mlp.up": 2,
                "tp.mlp.down": 1}
+GELU_CALLS = {**DENSE_CALLS, "tp.mlp.up": 1}
 SSM_CALLS = {"ssm.in": 2, "ssm.gather": 1, "ssm.out": 1}
 MOE_CALLS = {"tp.attn.qkv": 1, "tp.attn.kv": 1, "tp.attn.out": 1, "ep.dispatch": 1,
              "ep.combine": 1}
+REC_CALLS = {"ssm.in": 2, "ssm.out": 1, "tp.mlp.up": 2, "tp.mlp.down": 1}
+#: the streamed calls that run no product through kernel D, and the
+#: reduce-scatters (each P - 1 gather-fused launches of A over smi:fused)
+D_FREE_TAGS = ("tp.attn.kv", "ssm.gather", "ep.dispatch", "ep.combine")
+RS_TAGS = ("tp.attn.out", "tp.mlp.down", "ssm.out", "ep.combine")
 
 
-def _tp_closed_form(cfg, P: int, tokens: int, calls: dict = DENSE_CALLS) -> dict:
-    """Per tag, one rank's (steps, bytes) over one TP prefill of ``tokens``
-    tokens: every streamed call moves P - 1 ring steps of one rank's rows
-    (tokens / P) of the model width in the model dtype; ``calls`` a layer
-    by tag, and the embedding's reduce-scatter (tp.embed) once.  E.g.
-    yi-6b's tp.mlp.up = 2 x 7 x 512 x 4096 x 2 bytes a layer at P = 8."""
-    return _pattern_closed_form(cfg, P, tokens, {kind: calls for kind in cfg.pattern})
+def _calls(cfg) -> dict:
+    """A layer's streamed calls by tag for each block kind."""
+    return {"attn": GELU_CALLS if cfg.mlp_type == "gelu" else DENSE_CALLS, "moe": MOE_CALLS,
+            "ssm": SSM_CALLS, "rec": REC_CALLS}
 
 
-def _pattern_closed_form(cfg, P: int, tokens: int, calls: dict) -> dict:
-    """:func:`_tp_closed_form` with each layer's calls by its block kind
-    (``calls[kind]``), for a pattern of several kinds."""
-    step_bytes = (P - 1) * (tokens // P) * cfg.d_model * (2 if cfg.dtype == "bfloat16" else 4)
-    totals = {}
+def _call_counts(cfg) -> dict:
+    """One TP prefill's streamed calls by tag, each layer's by its block
+    kind (:func:`_calls`)."""
+    calls, totals = _calls(cfg), {}
     for kind in cfg.layer_pattern:
         for t, n in calls[kind].items():
             totals[t] = totals.get(t, 0) + n
-    want = {t: {"steps": (P - 1) * n, "bytes": step_bytes * n} for t, n in totals.items()}
+    return totals
+
+
+def _tp_closed_form(cfg, P: int, tokens: int) -> dict:
+    """Per tag, one rank's (steps, bytes) over one TP prefill of ``tokens``
+    tokens: every streamed call moves P - 1 ring steps of one rank's rows
+    (tokens / P) of the model width in the model dtype; each layer's calls
+    by its block kind (:func:`_calls`), and the embedding's reduce-scatter
+    (tp.embed) once.  E.g. yi-6b's tp.mlp.up = 2 x 7 x 512 x 4096 x 2 bytes
+    a layer at P = 8."""
+    step_bytes = (P - 1) * (tokens // P) * cfg.d_model * (2 if cfg.dtype == "bfloat16" else 4)
+    want = {t: {"steps": (P - 1) * n, "bytes": step_bytes * n}
+            for t, n in _call_counts(cfg).items()}
     want["tp.embed"] = {"steps": P - 1, "bytes": step_bytes}
     return want
+
+
+def _d_launches(cfg, P: int) -> int:
+    """Kernel D's launches in one TP prefill: P ring steps a projection."""
+    return P * sum(n for t, n in _call_counts(cfg).items() if t not in D_FREE_TAGS)
+
+
+def _rs_calls(cfg) -> int:
+    """The reduce-scatters of one TP prefill: the embedding's and each
+    row-parallel projection's."""
+    return 1 + sum(n for t, n in _call_counts(cfg).items() if t in RS_TAGS)
 
 
 def _profile_split(rows) -> dict:
@@ -2702,8 +2733,9 @@ def phase_tp_auto(dev, tp_params, seed: int = 19) -> dict:
 
 # -- slice 8: tensor-parallel decode and serving (phases 28-30) -------------------------
 
-#: phase 28's launcher runs: phase 14's request set at P = 8, on the pinned
-#: static wire and on the bare "smi" (the config's comm_plan="auto")
+#: the launcher runs at P = 8 (phases 28, 32, 35 and 39-41): phase 14's
+#: request set on the pinned static wire and on the bare "smi" (the
+#: config's comm_plan="auto"), tokens equal across the two
 TP_SERVE_WIRES = ("smi:static", "smi")
 #: phase 28's in-process checks: decode steps compared, ticks timed a turn
 TP_DECODE_STEPS = 4
@@ -2789,12 +2821,18 @@ def _tp_serve_runs() -> tuple[dict, dict]:
     return _launcher_runs("yi-6b", f"1,{TP}", TP_SERVE_WIRES)
 
 
-def _a_per_step(runs: dict, launches: dict, wire: str = "smi") -> dict:
-    """Kernel A's launches a decode step over the launcher runs on
-    ``wire`` (the bare ``smi``: the tuned plans), by entry point."""
-    keys = [k for k in launches if k.split()[0] == wire]
+def _a_per_step(runs: dict, launches: dict) -> dict:
+    """Kernel A's launches a decode step over the P = 8 launcher runs on the
+    bare ``smi`` (the tuned plans), by entry point; A must launch on that
+    wire and never on ``smi:static`` (whose add is A's plain version)."""
+    if any(v["shift"] + v["fold"] for k, v in launches.items() if k.startswith("smi:static")):
+        raise AssertionError(f"tp serve on smi:static launched kernel A: {launches}")
+    keys = [k for k in launches if k.split()[0] == "smi"]
     steps = sum(runs[k]["decode_steps"] for k in keys)
-    return {e: sum(launches[k][e] for k in keys) / max(steps, 1) for e in ("shift", "fold")}
+    per_step = {e: sum(launches[k][e] for k in keys) / max(steps, 1) for e in ("shift", "fold")}
+    if sum(per_step.values()) == 0:
+        raise AssertionError(f"tp serve on the tuned wire launched kernel A no time: {launches}")
+    return per_step
 
 
 def _decode_turns(dev, cfg, params, tp_params, n: int = TP_TICKS) -> dict:
@@ -2949,10 +2987,6 @@ def phase_tp_serving(dev, seed: int = 28) -> dict:
 
     runs, launches = _tp_serve_runs()
     a_per_step_runs = _a_per_step(runs, launches)
-    if sum(a_per_step_runs.values()) == 0:
-        raise AssertionError(f"tp serve on the tuned wire launched kernel A no time: {launches}")
-    if any(v["shift"] + v["fold"] for k, v in launches.items() if k.startswith("smi:static")):
-        raise AssertionError(f"tp serve on smi:static launched kernel A: {launches}")
 
     cfg = get_arch("yi-6b")
     t0 = time.perf_counter()
@@ -3148,11 +3182,6 @@ def phase_ring_prefill(dev, tp_params, seed: int = 19) -> dict:
 
 SSM_ARCH = "mamba2-2.7b"
 MOE_ARCH = "qwen3-moe-30b-a3b"
-#: phase 32's and 35's launcher wires at P = 8: the bare "smi" (the config's
-#: comm_plan="auto"); the pinned static wire's runs were cut to keep the
-#: script inside its time limit (its bits and its kernel-A-free add are held
-#: in process by ``_fused_against_static``)
-SLICE9_WIRES = ("smi",)
 #: ticks a turn of phases 32's and 35's in-process decode timing (a
 #: qwen3-moe tick at P = 8 takes 0.3-0.9 s of host time)
 SLICE9_TICKS = 3
@@ -3167,14 +3196,109 @@ MOE_F32_TOKENS = 256
 VALIDATE_SLICE9 = ((SSM_ARCH, "1,8"), (SSM_ARCH, "2,4"), (MOE_ARCH, "1,8"))
 
 
+def _tp_prefill_checks(cfg, params, tokens, extra, dev, name: str,
+                       inspect=None) -> tuple[dict, dict]:
+    """The TP prefill of ``cfg`` at P = 8 over ``smi:static`` with kernel D
+    injected, on ``params`` (split by ``shard_params``) and in turns with
+    tp = 1: D, E and F launched as the closed form says (all on wgmma), the
+    hidden states finite, the ledger equal to its closed form; over
+    ``smi:fused`` bit-equal, kernel A launched once a reduce-scatter ring
+    step; the bfloat16 row cosine against tp = 1 reported.  ``inspect(
+    tp_params, ctx, run_tp, run_tp1)``, if given, runs next, before the
+    P = 8 copy is freed; its dict joins the results.  Returns the launches
+    and the results."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.interop import shard_params
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.kernels.ssd import ssd_scan_kernel
+    from repro_torch.launch.steps import build_prefill
+    from repro_torch.mesh.api import make_ctx
+    from repro_torch.models import gather_hidden, lm_prefill
+    from repro_torch.parallel import ledger
+
+    ctxs = {m: make_ctx((1, TP), comm_mode=m, matmul_fn=matmul, device=dev)
+            for m in ("smi:static", "smi:fused")}
+    before = torch.cuda.memory_allocated()
+    tp_params = shard_params(params, cfg, ctxs["smi:static"])
+    copied = (torch.cuda.memory_allocated() - before) / 1e9
+    tp1 = build_prefill(cfg, ShapeConfig("prefill_4k", PREFILL_TOKENS, 1, "prefill"), device=dev)
+
+    def run_tp(mode="smi:static"):
+        return gather_hidden(lm_prefill(tp_params, tokens, cfg, ctxs[mode],
+                                        capacity=PREFILL_TOKENS, extra_embeds=extra))
+
+    def run_tp1():
+        return tp1(params, tokens, extra)
+
+    with ledger.capture() as led:
+        run_tp()
+    want_led = _tp_closed_form(cfg, TP, PREFILL_TOKENS)
+    if led.by_tag != want_led:
+        raise AssertionError(f"{name} TP prefill ledger {led.by_tag} != closed form {want_led}")
+    reset_counts()
+    hidden, _ = _timed_ms(run_tp)
+    got = {"D": (matmul.launches, matmul.wgmma_launches),
+           "E": (flash_attention_kernel.launches, flash_attention_kernel.wgmma_launches),
+           "F": (ssd_scan_kernel.launches, ssd_scan_kernel.wgmma_launches)}
+    kinds = cfg.layer_pattern
+    want = {"D": _d_launches(cfg, TP), "E": kinds.count("attn") + kinds.count("moe"),
+            "F": kinds.count("ssm")}
+    if got != {k: (n, n) for k, n in want.items()}:
+        raise AssertionError(f"{name} TP prefill launched (all, on wgmma) {got}; want {want}, "
+                             f"all on wgmma")
+    if tuple(hidden.shape) != (1, PREFILL_TOKENS, cfg.d_model) or not torch.isfinite(hidden).all():
+        raise AssertionError(f"{name} TP prefill hidden states not finite or misshapen")
+    h1 = run_tp1()
+    cos = _row_cos(hidden, h1)
+    reset_counts()
+    fused = run_tp("smi:fused")
+    torch.cuda.synchronize()
+    a = _a_launches()
+    rs_steps = _rs_calls(cfg) * (TP - 1)
+    if not same_bits(fused, hidden) or a != {"shift": rs_steps, "fold": 0}:
+        raise AssertionError(f"{name} TP prefill over smi:fused: same bits "
+                             f"{same_bits(fused, hidden)}, kernel A {a} (want {rs_steps} "
+                             f"gather-fused)")
+    del fused, h1
+    ms, turns = _in_turns({"tp1": run_tp1, f"tp{TP}": run_tp},
+                          ("tp1", f"tp{TP}", f"tp{TP}", "tp1"))
+    busy, rows, wall = _profile_device_ms(run_tp)
+    split = _profile_split(rows)
+    log(f"{name} TP prefill P={TP}: {ms[f'tp{TP}']:.3f} ms "
+        f"({PREFILL_TOKENS / ms[f'tp{TP}'] * 1e3:.1f} tok/s) against tp = 1 {ms['tp1']:.3f} ms, "
+        f"turns {json.dumps(turns)}; launched (all, on wgmma) {json.dumps(got)}; the P = 8 copy "
+        f"added {copied:.2f} GB; ledger equal to the closed form {json.dumps(led.tag_bytes())}")
+    log(f"{name} TP prefill over smi:fused: bit-equal to smi:static, kernel A {a}")
+    log(f"{name} TP prefill bf16 against tp = 1: row cosine min {float(cos.min()):.6f} mean "
+        f"{float(cos.mean()):.6f} (reported)")
+    log(f"{name} TP prefill profile: device {busy:.3f} ms of {wall:.3f} ms wall (idle "
+        f"{1 - busy / wall:.1%}): " + ", ".join(f"{k} {v:.3f} ms ({v / busy:.1%})"
+                                                for k, v in split.items()))
+    for kname, t in rows[:8]:
+        log(f"{name} TP prefill profile: {t:9.3f} ms  {kname[:90]}")
+    res = dict(ms=ms, turns_ms=turns, tok_per_s=PREFILL_TOKENS / ms[f"tp{TP}"] * 1e3,
+               launches=got, launches_a_fused=a, copied_gb=copied,
+               min_cos_vs_tp1=float(cos.min()), mean_cos_vs_tp1=float(cos.mean()),
+               device_ms=busy, profiled_wall_ms=wall, device_idle_share=1 - busy / wall,
+               device_split_ms=split, ledger_bytes=led.tag_bytes())
+    del hidden
+    if inspect is not None:
+        res |= inspect(tp_params, ctxs["smi:static"], run_tp, run_tp1)
+    del tp_params
+    torch.cuda.empty_cache()
+    return {"D": got["D"][0], "E": got["E"][0], "F": got["F"][0], "A": a}, res
+
+
 def phase_ssm_tp_prefill(dev, seed: int = 16) -> tuple[dict, dict]:
-    """Phase 31: mamba2-2.7b at full width and depth, P = 8 over
-    ``smi:static`` with kernel D injected, 4096 tokens, bfloat16, on phase
-    16's weights and tokens (its seed), timed in turns with the tp = 1
-    prefill.  Kernel F launched once a layer over the 8 x 80 / 8 head rows,
-    all on wgmma; D 3 x 8 times a layer (two ``ssm.in`` and the ``ssm.out``
-    ring steps); the ledger equal to its closed form.  F gated layer by
-    layer (each block's update from its own input, F against the plain
+    """Phase 31: mamba2-2.7b at full width and depth, 4096 tokens, bfloat16,
+    on phase 16's weights and tokens (its seed), through
+    :func:`_tp_prefill_checks`: kernel F launched once a layer over the 8 x
+    80 / 8 head rows, all on wgmma; D 3 x 8 times a layer (two ``ssm.in``
+    and the ``ssm.out`` ring steps); A 455 over ``smi:fused``.  F gated layer
+    by layer (each block's update from its own input, F against the plain
     scan, row cosine >= 0.999) and in float32 at full width, cut to
     :data:`TP_F32_LAYERS` layers as phases 28 and 34 are (F on the FMA
     kernel within phase 28's :data:`TP_F32_TOL` rtol and atol of the plain
@@ -3193,90 +3317,57 @@ def phase_ssm_tp_prefill(dev, seed: int = 16) -> tuple[dict, dict]:
     from repro_torch.models import gather_hidden, init_lm, lm_prefill
     from repro_torch.models.model import embed_tokens_sp, model_dtype
     from repro_torch.models.transformer import _layer, apply_block
-    from repro_torch.parallel import ledger
 
     cfg = get_arch(SSM_ARCH)
-    shape = ShapeConfig("prefill_4k", PREFILL_TOKENS, 1, "prefill")
     params = init_lm(cfg, torch.Generator(device=dev).manual_seed(seed), dev,
                      dtype=model_dtype(cfg))
     tokens = torch.from_numpy(np.random.RandomState(seed).randint(0, cfg.vocab_size,
                                                                   (1, PREFILL_TOKENS))).to(dev)
-    ctx = make_ctx((1, TP), comm_mode="smi:static", matmul_fn=matmul, device=dev)
-    tp_params = shard_params(params, cfg, ctx)
-    tp1 = build_prefill(cfg, shape, device=dev)
 
-    def run_tp(p, c, use_kernel=None):
-        return gather_hidden(lm_prefill(p, tokens, c, ctx, capacity=PREFILL_TOKENS,
-                                        use_kernel=use_kernel))
+    def per_layer(tp_params, ctx, _run_tp, _run_tp1):
+        # F layer by layer at P = 8: each block's update from its own input
+        x = embed_tokens_sp(tp_params, tokens, cfg, ctx)
+        worst = (1.0, -1)
+        for i in range(cfg.n_layers):
+            p = _layer(tp_params["stack"]["periods"][0], i)
+            got, _ = apply_block(p, "ssm", x, cfg, ctx, use_kernel=True)
+            want, _ = apply_block(p, "ssm", x, cfg, ctx, use_kernel=False)
+            c = float(_row_cos(gather_hidden(got - x), gather_hidden(want - x)).min())
+            worst = min(worst, (c, i))
+            x = got
+        torch.cuda.synchronize()
+        log(f"mamba2 TP prefill per layer (bf16, F vs plain on each layer's own input): min row "
+            f"cosine {worst[0]:.6f} (layer {worst[1]})")
+        if worst[0] < 0.999:
+            raise AssertionError(f"mamba2 TP layer {worst[1]}: F's update disagrees with the "
+                                 f"plain scan's, min row cosine {worst[0]}")
+        return {"min_cos_per_layer": worst[0]}
 
-    with ledger.capture() as led:
-        run_tp(tp_params, cfg)  # warm-up, its wire traffic captured
-    tp1(params, tokens)
-    want_led = _tp_closed_form(cfg, TP, PREFILL_TOKENS, SSM_CALLS)
-    if led.by_tag != want_led:
-        raise AssertionError(f"mamba2 TP prefill ledger {led.by_tag} != closed form {want_led}")
-    reset_counts()
-    hidden = run_tp(tp_params, cfg)
-    torch.cuda.synchronize()
-    f, f_wgmma, d = ssd_scan_kernel.launches, ssd_scan_kernel.wgmma_launches, matmul.launches
-    want_d = 3 * TP * cfg.n_layers
-    if (f, f_wgmma, d) != (cfg.n_layers, cfg.n_layers, want_d):
-        raise AssertionError(f"mamba2 TP prefill launched F {f} times ({f_wgmma} on wgmma) and D "
-                             f"{d} times; want {cfg.n_layers} all on wgmma, {want_d}")
-    if tuple(hidden.shape) != (1, PREFILL_TOKENS, cfg.d_model) or not torch.isfinite(hidden).all():
-        raise AssertionError("mamba2 TP prefill hidden states not finite or misshapen")
-    ms, turns = _in_turns({"tp1": lambda: tp1(params, tokens),
-                           f"tp{TP}": lambda: run_tp(tp_params, cfg)},
-                          ("tp1", f"tp{TP}", f"tp{TP}", "tp1"))
-    h1 = tp1(params, tokens)
-    cos_bf16 = float(_row_cos(hidden, h1).min())
-    busy, rows, wall = _profile_device_ms(lambda: run_tp(tp_params, cfg))
-    log(f"mamba2 TP prefill P={TP}: {ms[f'tp{TP}']:.3f} ms "
-        f"({PREFILL_TOKENS / ms[f'tp{TP}'] * 1e3:.1f} tok/s) against tp = 1 {ms['tp1']:.3f} ms, "
-        f"turns {json.dumps(turns)}; F launched {f} times ({f_wgmma} on wgmma), D {d}; ledger "
-        f"equal to the closed form {json.dumps(led.tag_bytes())}")
-    log(f"mamba2 TP prefill profile: device {busy:.3f} ms of {wall:.3f} ms wall (idle "
-        f"{1 - busy / wall:.1%}); F {sum(t for n, t in rows if 'ssd_scan' in n):.3f} ms, D "
-        f"{sum(t for n, t in rows if 'matmul_' in n):.3f} ms")
-    for name, t in rows[:8]:
-        log(f"mamba2 TP prefill profile: {t:9.3f} ms  {name[:90]}")
-    log(f"mamba2 TP prefill bf16 against tp = 1: min row cosine {cos_bf16:.6f} (reported, not "
-        f"gated: rounding over 64 layers)")
-    del h1
-
-    # F layer by layer at P = 8: each block's update from its own input
-    x = embed_tokens_sp(tp_params, tokens, cfg, ctx)
-    worst = (1.0, -1)
-    for i in range(cfg.n_layers):
-        p = _layer(tp_params["stack"]["periods"][0], i)
-        got, _ = apply_block(p, "ssm", x, cfg, ctx, use_kernel=True)
-        want, _ = apply_block(p, "ssm", x, cfg, ctx, use_kernel=False)
-        c = float(_row_cos(gather_hidden(got - x), gather_hidden(want - x)).min())
-        worst = min(worst, (c, i))
-        x = got
-    torch.cuda.synchronize()
-    log(f"mamba2 TP prefill per layer (bf16, F vs plain on each layer's own input): min row "
-        f"cosine {worst[0]:.6f} (layer {worst[1]})")
-    if worst[0] < 0.999:
-        raise AssertionError(f"mamba2 TP layer {worst[1]}: F's update disagrees with the plain "
-                             f"scan's, min row cosine {worst[0]}")
-    del x, got, want, params, tp_params
+    launches, res = _tp_prefill_checks(cfg, params, tokens, None, dev, "mamba2", per_layer)
+    del params
     torch.cuda.empty_cache()
 
     # float32 at full width, cut in depth: F (the FMA kernel) at P = 8 against
     # the plain scan at P = 8 and the plain tp = 1 prefill
+    ctx = make_ctx((1, TP), comm_mode="smi:static", matmul_fn=matmul, device=dev)
     cfg32 = cfg.scaled(n_layers=TP_F32_LAYERS, dtype="float32")
     p32 = init_lm(cfg32, torch.Generator(device=dev).manual_seed(seed), dev, dtype=torch.float32)
     tp32 = shard_params(p32, cfg32, ctx)
+
+    def run_tp(use_kernel=None):
+        return gather_hidden(lm_prefill(tp32, tokens, cfg32, ctx, capacity=PREFILL_TOKENS,
+                                        use_kernel=use_kernel))
+
     reset_counts()
-    got32 = run_tp(tp32, cfg32)
+    got32 = run_tp()
     torch.cuda.synchronize()
     if (ssd_scan_kernel.launches, ssd_scan_kernel.wgmma_launches) != (TP_F32_LAYERS, 0):
         raise AssertionError(f"mamba2 float32 TP prefill: F launched "
                              f"{ssd_scan_kernel.launches} times, {ssd_scan_kernel.wgmma_launches} "
                              f"on wgmma")
-    plain32 = run_tp(tp32, cfg32, use_kernel=False)
+    plain32 = run_tp(use_kernel=False)
     del tp32
+    shape = ShapeConfig("prefill_4k", PREFILL_TOKENS, 1, "prefill")
     ref32 = build_prefill(cfg32, shape, device=dev)(p32, tokens, use_kernel=False)
     cos32 = float(_row_cos(got32, plain32).min())
     cos32_tp1 = float(_row_cos(got32, ref32).min())
@@ -3291,20 +3382,15 @@ def phase_ssm_tp_prefill(dev, seed: int = 16) -> tuple[dict, dict]:
                              f"err {err32} against the plain scan, {err32_tp1} against tp = 1")
     del p32, got32, plain32, ref32
     torch.cuda.empty_cache()
-    res = dict(ms=ms, turns_ms=turns, tok_per_s=PREFILL_TOKENS / ms[f"tp{TP}"] * 1e3,
-               launches_f=f, wgmma_launches_f=f_wgmma, launches_d=d, device_ms=busy,
-               profiled_wall_ms=wall, device_idle_share=1 - busy / wall,
-               min_cos_bf16_vs_tp1=cos_bf16, min_cos_per_layer=worst[0],
-               f32_layers=TP_F32_LAYERS, f32_max_abs_err_vs_plain=err32,
-               f32_max_abs_err_vs_tp1=err32_tp1, f32_min_cos=cos32, f32_min_cos_vs_tp1=cos32_tp1,
-               ledger_bytes=led.tag_bytes())
-    return {"F": f, "D": d}, res
+    res |= dict(f32_layers=TP_F32_LAYERS, f32_max_abs_err_vs_plain=err32,
+                f32_max_abs_err_vs_tp1=err32_tp1, f32_min_cos=cos32, f32_min_cos_vs_tp1=cos32_tp1)
+    return launches, res
 
 
 def phase_ssm_tp_serving(dev, seed: int = 32) -> dict:
     """Phase 32: ``launch.serve --arch mamba2-2.7b --mesh 1,8`` with phase
-    14's requests, both engines, on the bare ``smi``: tokens equal across
-    the two runs; kernel A held on the decode itself as phase 28 holds it
+    14's requests, both engines, on ``smi:static`` and the bare ``smi``:
+    tokens equal across the four runs; kernel A held on the decode itself as phase 28 holds it
     (the first steps over a pinned ``smi:fused`` runtime bit-equal to
     ``smi:static``, A's launches rising each fused step and never on a
     static one, its operands re-run against its plain version); then ms a
@@ -3319,7 +3405,7 @@ def phase_ssm_tp_serving(dev, seed: int = 32) -> dict:
     from repro_torch.models import init_lm
     from repro_torch.models.model import model_dtype
 
-    runs, launches = _launcher_runs(SSM_ARCH, f"1,{TP}", SLICE9_WIRES)
+    runs, launches = _launcher_runs(SSM_ARCH, f"1,{TP}", TP_SERVE_WIRES)
     a_step = _a_per_step(runs, launches)
     cfg = get_arch(SSM_ARCH)
     params = init_lm(cfg, torch.Generator(device=dev).manual_seed(seed), dev,
@@ -3409,109 +3495,47 @@ def _recording_routes():
 
 
 def phase_moe_tp_prefill(dev, params, seed: int = 33) -> tuple[dict, dict]:
-    """Phase 34: phase 33's prefill at P = 8 over ``smi:static`` with kernel
-    D injected, on the same weights (the experts shared as views, the
-    attention, embedding and head copied), in turns with tp = 1: D 2 x 8
-    launches a layer (Q and the out-projection), E one (over the 8 ranks'
-    heads), the ledger equal to its closed form; over ``smi:fused`` bit-equal
-    to ``smi:static``, kernel A launched once a reduce-scatter ring step.
-    The row cosine against tp = 1 and the share of routing choices that
-    agree with it (bfloat16, full depth) are reported.  Then, the bfloat16
-    weights freed, a float32 copy cut to :data:`MOE_F32_LAYERS` layers at
-    full width: the chosen experts equal at every layer, and the hidden
-    states within phase 28's float32 tolerance (:data:`TP_F32_TOL` rtol and
-    atol) of tp = 1."""
+    """Phase 34: phase 33's prefill at P = 8 through
+    :func:`_tp_prefill_checks`, on the same weights (the experts shared as
+    views, the attention, embedding and head copied): D 2 x 8 launches a
+    layer (Q and the out-projection), E one (over the 8 ranks' heads), A 679
+    over ``smi:fused``.  The share of routing choices that agree with tp = 1
+    (bfloat16, full depth) is reported.  Then, the bfloat16 weights freed, a
+    float32 copy cut to :data:`MOE_F32_LAYERS` layers at full width
+    (:func:`phase_moe_f32`): the chosen experts equal at every layer, and
+    the hidden states within phase 28's float32 tolerance
+    (:data:`TP_F32_TOL` rtol and atol) of tp = 1."""
     import numpy as np
     import torch
 
-    from repro_torch.configs import ShapeConfig, get_arch
-    from repro_torch.interop import shard_params
-    from repro_torch.kernels.flash_attention import flash_attention_kernel
-    from repro_torch.kernels.matmul import matmul
-    from repro_torch.launch.steps import build_prefill
-    from repro_torch.mesh.api import make_ctx
-    from repro_torch.models import gather_hidden, lm_prefill
+    from repro_torch.configs import get_arch
     from repro_torch.models.common import tree_leaves_with_path
-    from repro_torch.parallel import ledger
 
     cfg = get_arch(MOE_ARCH)
-    shape = ShapeConfig("prefill_4k", PREFILL_TOKENS, 1, "prefill")
     tokens = torch.from_numpy(np.random.RandomState(seed).randint(0, cfg.vocab_size,
                                                                   (1, PREFILL_TOKENS))).to(dev)
-    ctxs = {m: make_ctx((1, TP), comm_mode=m, matmul_fn=matmul, device=dev)
-            for m in ("smi:static", "smi:fused")}
-    before = torch.cuda.memory_allocated()
-    tp_params = shard_params(params, cfg, ctxs["smi:static"])
-    copied = (torch.cuda.memory_allocated() - before) / 1e9
-    experts = [(a, b) for (path, a), (_, b) in zip(tree_leaves_with_path(tp_params),
-                                                    tree_leaves_with_path(params), strict=True)
-               if path[-2:-1] == ("moe",) and path[-1] in ("w_gate", "w_up", "w_down")]
-    if not experts or any(a.data_ptr() != b.data_ptr() for a, b in experts):
-        raise AssertionError("moe TP params: the expert leaves are not views of tp = 1's")
-    tp1 = build_prefill(cfg, shape, device=dev)
 
-    def run_tp(mode="smi:static"):
-        return gather_hidden(lm_prefill(tp_params, tokens, cfg, ctxs[mode],
-                                        capacity=PREFILL_TOKENS))
+    def routing(tp_params, _ctx, run_tp, run_tp1):
+        experts = [(a, b) for (path, a), (_, b) in zip(tree_leaves_with_path(tp_params),
+                                                        tree_leaves_with_path(params), strict=True)
+                   if path[-2:-1] == ("moe",) and path[-1] in ("w_gate", "w_up", "w_down")]
+        if not experts or any(a.data_ptr() != b.data_ptr() for a, b in experts):
+            raise AssertionError("moe TP params: the expert leaves are not views of tp = 1's")
+        with _recording_routes() as routes_tp:
+            run_tp()
+        with _recording_routes() as routes_1:
+            run_tp1()
+        agree = torch.stack([(a == b).all(-1) for a, b in zip(routes_tp, routes_1, strict=True)])
+        chosen = torch.stack([(a[..., None] == b[..., None, :]).any(-1).float().mean(-1)
+                              for a, b in zip(routes_tp, routes_1)])
+        log(f"moe TP prefill routing against tp = 1 (bf16): {float(agree.float().mean()):.4%} of "
+            f"(token, layer) top-{cfg.top_k} sets equal, {float(chosen.mean()):.4%} of the choices "
+            f"shared; first layer {float(agree[0].float().mean()):.4%}; the experts shared as "
+            f"views")
+        return dict(routing_sets_equal=float(agree.float().mean()),
+                    routing_choices_shared=float(chosen.mean()))
 
-    with ledger.capture() as led:
-        run_tp()
-    want_led = _tp_closed_form(cfg, TP, PREFILL_TOKENS, MOE_CALLS)
-    if led.by_tag != want_led:
-        raise AssertionError(f"moe TP prefill ledger {led.by_tag} != closed form {want_led}")
-    reset_counts()
-    with _recording_routes() as routes_tp:
-        hidden, _ = _timed_ms(run_tp)
-    d, d_wgmma = matmul.launches, matmul.wgmma_launches
-    e, e_wgmma = flash_attention_kernel.launches, flash_attention_kernel.wgmma_launches
-    want_d = 2 * TP * cfg.n_layers
-    if (d, d_wgmma, e, e_wgmma) != (want_d, want_d, cfg.n_layers, cfg.n_layers):
-        raise AssertionError(f"moe TP prefill launched D {d} times ({d_wgmma} on wgmma), E {e} "
-                             f"({e_wgmma}); want {want_d} and {cfg.n_layers}, all on wgmma")
-    with _recording_routes() as routes_1:
-        h1 = tp1(params, tokens)
-    agree = torch.stack([(a == b).all(-1) for a, b in zip(routes_tp, routes_1, strict=True)])
-    chosen = torch.stack([(a[..., None] == b[..., None, :]).any(-1).float().mean(-1)
-                          for a, b in zip(routes_tp, routes_1)])
-    cos = _row_cos(hidden, h1)
-    reset_counts()
-    fused = run_tp("smi:fused")
-    torch.cuda.synchronize()
-    a = _a_launches()
-    rs_steps = (2 * cfg.n_layers + 1) * (TP - 1)
-    if not same_bits(fused, hidden) or a != {"shift": rs_steps, "fold": 0}:
-        raise AssertionError(f"moe TP prefill over smi:fused: same bits {same_bits(fused, hidden)}"
-                             f", kernel A {a} (want {rs_steps} gather-fused)")
-    del fused, h1
-    ms, turns = _in_turns({"tp1": lambda: tp1(params, tokens), f"tp{TP}": run_tp},
-                          ("tp1", f"tp{TP}", f"tp{TP}", "tp1"))
-    busy, rows, wall = _profile_device_ms(run_tp)
-    split = _profile_split(rows)
-    log(f"moe TP prefill P={TP}: {ms[f'tp{TP}']:.3f} ms ({PREFILL_TOKENS / ms[f'tp{TP}'] * 1e3:.1f}"
-        f" tok/s) against tp = 1 {ms['tp1']:.3f} ms, turns {json.dumps(turns)}; D launched {d} "
-        f"times ({d_wgmma} on wgmma), E {e} ({e_wgmma}); the P = 8 copy added {copied:.2f} GB "
-        f"(experts shared); ledger equal to the closed form")
-    log(f"moe TP prefill over smi:fused: bit-equal to smi:static, kernel A {a}")
-    log(f"moe TP prefill bf16 against tp = 1: row cosine min {float(cos.min()):.6f} mean "
-        f"{float(cos.mean()):.6f}; routing: {float(agree.float().mean()):.4%} of (token, layer) "
-        f"top-{cfg.top_k} sets equal, {float(chosen.mean()):.4%} of the choices shared; first "
-        f"layer "
-        f"{float(agree[0].float().mean()):.4%}")
-    log(f"moe TP prefill profile: device {busy:.3f} ms of {wall:.3f} ms wall (idle "
-        f"{1 - busy / wall:.1%}): " + ", ".join(f"{k} {v:.3f} ms ({v / busy:.1%})"
-                                                for k, v in split.items()))
-    for name, t in rows[:12]:
-        log(f"moe TP prefill profile: {t:9.3f} ms  {name[:90]}")
-    res = dict(ms=ms, turns_ms=turns, tok_per_s=PREFILL_TOKENS / ms[f"tp{TP}"] * 1e3,
-               launches_d=d, launches_e=e, launches_a_fused=a, copied_gb=copied,
-               min_cos_vs_tp1=float(cos.min()), mean_cos_vs_tp1=float(cos.mean()),
-               routing_sets_equal=float(agree.float().mean()),
-               routing_choices_shared=float(chosen.mean()), device_ms=busy,
-               profiled_wall_ms=wall, device_idle_share=1 - busy / wall, device_split_ms=split,
-               ledger_bytes=led.tag_bytes())
-    del tp_params, hidden, routes_tp, routes_1
-    torch.cuda.empty_cache()
-    return {"D": d, "E": e, "A": a}, res
+    return _tp_prefill_checks(cfg, params, tokens, None, dev, "moe", routing)
 
 
 def phase_moe_f32(dev, seed: int = 34) -> dict:
@@ -3557,8 +3581,9 @@ def phase_moe_f32(dev, seed: int = 34) -> dict:
 
 def phase_moe_serving(dev, seed: int = 35) -> dict:
     """Phase 35: ``launch.serve --arch qwen3-moe-30b-a3b`` with phase 14's
-    requests, both engines, at tp = 1 and at ``--mesh 1,8`` on the bare
-    ``smi``: tokens equal across the engines at each tp; kernel A held on
+    requests, both engines, at tp = 1 and at ``--mesh 1,8`` on
+    ``smi:static`` and the bare ``smi``: tokens equal across the runs at
+    each tp; kernel A held on
     the P = 8 decode as phase 32 holds it (a pinned ``smi:fused`` decode
     bit-equal to ``smi:static``);
     then ms a decode step at P = 8 beside tp = 1 in turns, the idle share,
@@ -3573,7 +3598,7 @@ def phase_moe_serving(dev, seed: int = 35) -> dict:
     from repro_torch.models.model import model_dtype
 
     runs1, _ = _launcher_runs(MOE_ARCH, "1,1", ("smi",))
-    runs8, launches = _launcher_runs(MOE_ARCH, f"1,{TP}", SLICE9_WIRES)
+    runs8, launches = _launcher_runs(MOE_ARCH, f"1,{TP}", TP_SERVE_WIRES)
     a_step = _a_per_step(runs8, launches)
     cfg = get_arch(MOE_ARCH)
     params = init_lm(cfg, torch.Generator(device=dev).manual_seed(seed), dev,
@@ -3622,42 +3647,9 @@ RG_F32_LAYERS = 5
 RG_F32_TOKENS = 256
 #: phase 40's float32 check: its depth
 VLM_F32_LAYERS = 4
-#: phases 39-41's launcher wires at P = 8: the tuned wire (the bare "smi");
-#: the static wire's bits are held against the fused one in process
-#: (``_fused_against_static``)
-SLICE10_WIRES = ("smi",)
 #: phase 42's runs (arch, mesh)
 VALIDATE_SLICE10 = ((RG_ARCH, "1,8"), (RG_ARCH, "2,4"), (AUDIO_ARCH, "1,8"),
                     (AUDIO_ARCH, "2,4"), (VLM_ARCH, "1,8"))
-#: a layer's streamed calls in the TP prefill by block kind (slice 10): the
-#: RG-LRU block (branch and gate, the out-projection, then its SwiGLU MLP),
-#: the attention blocks with a SwiGLU or a GELU MLP
-REC_CALLS = {"ssm.in": 2, "ssm.out": 1, "tp.mlp.up": 2, "tp.mlp.down": 1}
-GELU_CALLS = {**DENSE_CALLS, "tp.mlp.up": 1}
-#: the streamed calls that gather without a product (no kernel D launch)
-GATHER_TAGS = ("tp.attn.kv", "ssm.gather")
-
-
-def _calls(cfg) -> dict:
-    """A layer's streamed calls by tag for each block kind of ``cfg``."""
-    attn = GELU_CALLS if cfg.mlp_type == "gelu" else DENSE_CALLS
-    return {"rec": REC_CALLS, "attn": attn}
-
-
-def _d_launches(cfg, P: int) -> int:
-    """Kernel D's launches in one TP prefill: P ring steps a projection."""
-    calls = _calls(cfg)
-    return P * sum(n for kind in cfg.layer_pattern for t, n in calls[kind].items()
-                   if t not in GATHER_TAGS)
-
-
-def _rs_calls(cfg) -> int:
-    """The reduce-scatters of one TP prefill (each row-parallel projection
-    and the embedding's), each P - 1 gather-fused launches of A over
-    ``smi:fused``."""
-    rs = ("ssm.out", "tp.mlp.down", "tp.attn.out")
-    calls = _calls(cfg)
-    return 1 + sum(n for kind in cfg.layer_pattern for t, n in calls[kind].items() if t in rs)
 
 
 def _annotated_ms(fn, targets: dict) -> dict:
@@ -3770,87 +3762,6 @@ def phase_rg_prefill(dev, seed: int = 37) -> tuple[object, dict]:
                         top_kernels_ms=[(k[:60], t) for k, t in rows[:12]], params=n)
 
 
-def _tp_prefill_checks(cfg, params, tokens, extra, dev, name: str) -> tuple[dict, dict]:
-    """The TP prefill of ``cfg`` at P = 8 over ``smi:static`` with kernel D
-    injected, on ``params`` (split by ``shard_params``) and in turns with
-    tp = 1: D and E launched as the closed form says (all on wgmma), the
-    ledger equal to its closed form; over ``smi:fused`` bit-equal, kernel A
-    launched once a reduce-scatter ring step; the bfloat16 row cosine
-    against tp = 1 reported.  Returns the launches and the results."""
-    import torch
-
-    from repro_torch.configs import ShapeConfig
-    from repro_torch.interop import shard_params
-    from repro_torch.kernels.flash_attention import flash_attention_kernel
-    from repro_torch.kernels.matmul import matmul
-    from repro_torch.launch.steps import build_prefill
-    from repro_torch.mesh.api import make_ctx
-    from repro_torch.models import gather_hidden, lm_prefill
-    from repro_torch.parallel import ledger
-
-    ctxs = {m: make_ctx((1, TP), comm_mode=m, matmul_fn=matmul, device=dev)
-            for m in ("smi:static", "smi:fused")}
-    before = torch.cuda.memory_allocated()
-    tp_params = shard_params(params, cfg, ctxs["smi:static"])
-    copied = (torch.cuda.memory_allocated() - before) / 1e9
-    tp1 = build_prefill(cfg, ShapeConfig("prefill_4k", PREFILL_TOKENS, 1, "prefill"), device=dev)
-
-    def run_tp(mode="smi:static"):
-        return gather_hidden(lm_prefill(tp_params, tokens, cfg, ctxs[mode],
-                                        capacity=PREFILL_TOKENS, extra_embeds=extra))
-
-    with ledger.capture() as led:
-        run_tp()
-    calls = _calls(cfg)
-    want_led = _pattern_closed_form(cfg, TP, PREFILL_TOKENS, calls)
-    if led.by_tag != want_led:
-        raise AssertionError(f"{name} TP prefill ledger {led.by_tag} != closed form {want_led}")
-    reset_counts()
-    hidden, _ = _timed_ms(run_tp)
-    d, d_wgmma = matmul.launches, matmul.wgmma_launches
-    e, e_wgmma = flash_attention_kernel.launches, flash_attention_kernel.wgmma_launches
-    want_d, want_e = _d_launches(cfg, TP), cfg.layer_pattern.count("attn")
-    if (d, d_wgmma, e, e_wgmma) != (want_d, want_d, want_e, want_e):
-        raise AssertionError(f"{name} TP prefill launched D {d} times ({d_wgmma} on wgmma), E "
-                             f"{e} ({e_wgmma}); want {want_d} and {want_e}, all on wgmma")
-    if not torch.isfinite(hidden).all():
-        raise AssertionError(f"{name} TP prefill hidden states not finite")
-    h1 = tp1(params, tokens, extra)
-    cos = _row_cos(hidden, h1)
-    reset_counts()
-    fused = run_tp("smi:fused")
-    torch.cuda.synchronize()
-    a = _a_launches()
-    rs_steps = _rs_calls(cfg) * (TP - 1)
-    if not same_bits(fused, hidden) or a != {"shift": rs_steps, "fold": 0}:
-        raise AssertionError(f"{name} TP prefill over smi:fused: same bits "
-                             f"{same_bits(fused, hidden)}, kernel A {a} (want {rs_steps} "
-                             f"gather-fused)")
-    del fused, h1
-    ms, turns = _in_turns({"tp1": lambda: tp1(params, tokens, extra), f"tp{TP}": run_tp},
-                          ("tp1", f"tp{TP}", f"tp{TP}", "tp1"))
-    busy, rows, wall = _profile_device_ms(run_tp)
-    split = _profile_split(rows)
-    log(f"{name} TP prefill P={TP}: {ms[f'tp{TP}']:.3f} ms "
-        f"({PREFILL_TOKENS / ms[f'tp{TP}'] * 1e3:.1f} tok/s) against tp = 1 {ms['tp1']:.3f} ms, "
-        f"turns {json.dumps(turns)}; D launched {d} times ({d_wgmma} on wgmma), E {e} "
-        f"({e_wgmma}); the P = 8 copy added {copied:.2f} GB; ledger equal to the closed form")
-    log(f"{name} TP prefill over smi:fused: bit-equal to smi:static, kernel A {a}")
-    log(f"{name} TP prefill bf16 against tp = 1: row cosine min {float(cos.min()):.6f} mean "
-        f"{float(cos.mean()):.6f} (reported)")
-    log(f"{name} TP prefill profile: device {busy:.3f} ms of {wall:.3f} ms wall (idle "
-        f"{1 - busy / wall:.1%}): " + ", ".join(f"{k} {v:.3f} ms ({v / busy:.1%})"
-                                                for k, v in split.items()))
-    res = dict(ms=ms, turns_ms=turns, tok_per_s=PREFILL_TOKENS / ms[f"tp{TP}"] * 1e3,
-               launches_d=d, launches_e=e, launches_a_fused=a, copied_gb=copied,
-               min_cos_vs_tp1=float(cos.min()), mean_cos_vs_tp1=float(cos.mean()),
-               device_ms=busy, profiled_wall_ms=wall, device_idle_share=1 - busy / wall,
-               device_split_ms=split, ledger_bytes=led.tag_bytes())
-    del tp_params, hidden
-    torch.cuda.empty_cache()
-    return {"D": d, "E": e, "A": a}, res
-
-
 def phase_rg_tp_prefill(dev, params, seed: int = 37) -> tuple[dict, dict]:
     """Phase 38: phase 37's prefill at P = 8 (``_tp_prefill_checks``: D 6 x
     8 launches a rec layer and 5 x 8 an attention layer, E 12 over the 8
@@ -3914,8 +3825,9 @@ def phase_rg_f32(dev, seed: int = 38) -> dict:
 
 def phase_rg_serving(dev, seed: int = 39) -> dict:
     """Phase 39: ``launch.serve --arch recurrentgemma-9b`` with phase 14's
-    requests, both engines, at tp = 1 and at ``--mesh 1,8`` on the tuned
-    wire: tokens equal across the engines at each tp (whether P = 8's equal
+    requests, both engines, at tp = 1 and at ``--mesh 1,8`` on
+    ``smi:static`` and the tuned wire: tokens equal across the runs at each
+    tp (whether P = 8's equal
     tp = 1's is reported); a pinned ``smi:fused`` decode bit-equal to
     ``smi:static`` over 4 steps (``_fused_against_static``); ms a decode
     step at P = 8 beside tp = 1 in turns, the idle share, and A's launches a
@@ -3930,7 +3842,7 @@ def phase_rg_serving(dev, seed: int = 39) -> dict:
     from repro_torch.models.model import model_dtype
 
     runs1, _ = _launcher_runs(RG_ARCH, "1,1", ("smi",))
-    runs8, launches = _launcher_runs(RG_ARCH, f"1,{TP}", SLICE10_WIRES)
+    runs8, launches = _launcher_runs(RG_ARCH, f"1,{TP}", TP_SERVE_WIRES)
     a_step = _a_per_step(runs8, launches)
     same = _serve_tokens(runs1) == _serve_tokens(runs8)
     cfg = get_arch(RG_ARCH)
@@ -3957,8 +3869,11 @@ def phase_vlm(dev, seed: int = 40) -> tuple[dict, dict]:
     :data:`VLM_F32_LAYERS` layers whose patch positions' embeddings are
     bit-equal at tp = 1 and P = 8 (the patches themselves) and whose hidden
     states lie within :data:`TP_F32_TOL` rtol and atol; then served at
-    ``--mesh 1,8`` (both engines, the tuned wire, tokens equal across them;
-    ms a decode step at P = 8 beside tp = 1 in turns, the idle share), and a
+    ``--mesh 1,8`` (both engines, on ``smi:static`` and the tuned wire,
+    tokens equal across the four runs; a pinned ``smi:fused`` decode
+    bit-equal to ``smi:static`` over 4 steps, A's operands re-run against
+    its plain version; ms a decode step at P = 8 beside tp = 1 in turns, the
+    idle share), and a
     float32 copy at full depth served at P = 8 and at tp = 1 with
     phase 14's requests: every request's tokens equal (in bfloat16 the two
     reduction orders' rounding flips near-ties within a few steps)."""
@@ -3996,8 +3911,10 @@ def phase_vlm(dev, seed: int = 40) -> tuple[dict, dict]:
         f"device {busy:.3f} ms of {wall:.3f} ms wall (idle {1 - busy / wall:.1%})")
     del h1
     launches, tp = _tp_prefill_checks(cfg, params, tokens, pix, dev, "vlm")
-    turns = _decode_turns(dev, cfg, params, shard_params(params, cfg, ctx8), SLICE9_TICKS)
-    del params
+    tp_params = shard_params(params, cfg, ctx8)
+    fused = _fused_against_static(cfg, tp_params, dev, np.random.RandomState(seed))
+    turns = _decode_turns(dev, cfg, params, tp_params, SLICE9_TICKS)
+    del params, tp_params
     torch.cuda.empty_cache()
 
     # float32 at full width, cut in depth: the patches exact, the rest close
@@ -4023,7 +3940,7 @@ def phase_vlm(dev, seed: int = 40) -> tuple[dict, dict]:
 
     # served at P = 8 (the launcher, bfloat16), and in float32 at full depth
     # against tp = 1 on the same weights, phase 14's requests
-    runs8, a = _launcher_runs(VLM_ARCH, f"1,{TP}", SLICE10_WIRES)
+    runs8, a = _launcher_runs(VLM_ARCH, f"1,{TP}", TP_SERVE_WIRES)
     cfg32 = cfg.scaled(dtype="float32")
     p32 = init_lm(cfg32, torch.Generator(device=dev).manual_seed(0), dev, ctx=ctx8)
     outs = {}
@@ -4050,7 +3967,8 @@ def phase_vlm(dev, seed: int = 40) -> tuple[dict, dict]:
                       "f32_patches_exact": exact, "f32_max_abs_err": err,
                       f"runs_tp{TP}": _brief(runs8), "launches_a": a,
                       "a_per_step_tuned_runs": _a_per_step(runs8, a),
-                      "f32_serve_tokens_equal_tp1": same32, "decode": turns}
+                      "fused_vs_static": fused, "f32_serve_tokens_equal_tp1": same32,
+                      "decode": turns}
 
 
 def phase_audio(dev, seed: int = 41) -> tuple[dict, dict]:
@@ -4059,8 +3977,8 @@ def phase_audio(dev, seed: int = 41) -> tuple[dict, dict]:
     4096 frames x 4 codebooks at tp = 1 and P = 8 on the same weights
     (``_tp_prefill_checks``: E 48, D 1,536); served with phase 14's
     requests (4-codebook prompts) at tp = 1 and ``--mesh 1,8`` (both
-    engines, the tuned wire): every step's token a list of 4, equal across
-    the engines at each tp; a pinned ``smi:fused`` decode bit-equal to
+    engines; at P = 8 on ``smi:static`` and the tuned wire): every step's
+    token a list of 4, equal across the runs at each tp; a pinned ``smi:fused`` decode bit-equal to
     ``smi:static`` over 4 steps; ms a decode step at P = 8 beside tp = 1 in
     turns and the idle share; A's launches a step on the tuned wire."""
     import numpy as np
@@ -4101,7 +4019,7 @@ def phase_audio(dev, seed: int = 41) -> tuple[dict, dict]:
     torch.cuda.empty_cache()
 
     runs1, _ = _launcher_runs(AUDIO_ARCH, "1,1", ("smi",))
-    runs8, a = _launcher_runs(AUDIO_ARCH, f"1,{TP}", SLICE10_WIRES)
+    runs8, a = _launcher_runs(AUDIO_ARCH, f"1,{TP}", TP_SERVE_WIRES)
     for runs in (runs1, runs8):
         if not all(len(tok) == cfg.n_codebooks for out in _serve_tokens(runs).values()
                    for tok in out):
@@ -4415,7 +4333,8 @@ def main() -> int:
             ssm_tp_serving["a_per_step_tuned_runs"][key]
         by_name[name]["launches_moe_tp_decode_tuned_per_step"] = \
             moe_serving["a_per_step_tuned_runs"][key]
-    for key, res in (("ssm", ssm_tp_serving), ("moe", moe_serving)):
+    for key, res in (("ssm", ssm_tp_serving), ("moe", moe_serving), ("rg", rg_serving),
+                     ("vlm", vlm), ("audio", audio)):
         by_name["shift_accumulate"][f"launches_{key}_tp_decode_fused_per_step"] = \
             res["fused_vs_static"]["a_launches_per_step"]
 

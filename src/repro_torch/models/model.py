@@ -73,18 +73,12 @@ def init_lm(cfg, generator: torch.Generator | None = None, device=None, dtype=No
     ctx = ctx or make_ctx()
     if V % ctx.tp:
         raise ValueError(f"padded vocabulary {V} not divisible by tp={ctx.tp}")
-    n_cb = cfg.n_codebooks
-    if n_cb > 1:
-        p = {"final_norm": torch.ones((D,), dtype=dt, device=dev),
-             "embed_cb": trunc_normal(generator, (n_cb, V, D), 0.02, dt),
-             "stack": init_stack(generator, cfg, ctx, dtype)}
-        p["head_cb"] = trunc_normal(generator, (n_cb, D, V), D ** -0.5, dt)
-        return p
+    cb, lead = ("_cb", (cfg.n_codebooks,)) if cfg.n_codebooks > 1 else ("", ())
     p = {"final_norm": torch.ones((D,), dtype=dt, device=dev),
-         "embed": trunc_normal(generator, (V, D), 0.02, dt),
+         "embed" + cb: trunc_normal(generator, (*lead, V, D), 0.02, dt),
          "stack": init_stack(generator, cfg, ctx, dtype)}
-    if not cfg.tie_embeddings:
-        p["head"] = trunc_normal(generator, (D, V), D ** -0.5, dt)
+    if cb or not cfg.tie_embeddings:
+        p["head" + cb] = trunc_normal(generator, (*lead, D, V), D ** -0.5, dt)
     return p
 
 

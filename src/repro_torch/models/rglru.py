@@ -37,7 +37,7 @@ from ..mesh.api import PartitionSpec as PS
 from ..parallel import all_reduce, column_parallel_linear, row_parallel_linear
 from .common import trunc_normal
 from .mlp import _gelu
-from .ssm import _bax, _causal_conv, _rank_stacked, softplus
+from .ssm import _bax, _causal_conv, softplus
 
 #: Griffin's fixed gate sharpness
 _C_GATE = 8.0
@@ -133,10 +133,17 @@ def linear_scan(a, b, dim: int = -2):
     return scan([a, b])[1]
 
 
+def _rank_stacked(tree, ctx):
+    """``tree`` with a rank stack of one on every leaf at tp = 1 (every
+    RG-LRU param and cache leaf is sharded); as given at tp > 1, where
+    :func:`~repro_torch.interop.shard_params` laid it so."""
+    return tree if ctx.tp > 1 else {k: v.unsqueeze(0) for k, v in tree.items()}
+
+
 def apply_rglru(p, x, cfg, ctx):
     """Prefill.  x: (B, S, D) at tp = 1, the sequence-sharded (P, B, S/P, D)
     at tp = P > 1 -> the same shape."""
-    p, P = _rank_stacked(p, ctx, sharded=p)                         # every leaf sharded
+    p, P = _rank_stacked(p, ctx), ctx.tp
     xs = x if ctx.tp > 1 else x.unsqueeze(0)
     _, B, S_loc, D = xs.shape
 
@@ -191,8 +198,7 @@ def decode_rglru(p, x, cache, cfg, ctx):
     """One decode step.  x: (B, 1, D), at tp = P > 1 the rank-stacked
     (P, B, 1, D) of the replicated rows.  Shifts the new input into the conv
     window and advances the state, in place; returns (y like x, cache)."""
-    p, P = _rank_stacked(p, ctx, sharded=p)                         # every leaf sharded
-    c = cache if ctx.tp > 1 else {k: v.unsqueeze(0) for k, v in cache.items()}
+    p, c, P = _rank_stacked(p, ctx), _rank_stacked(cache, ctx), ctx.tp
     B = x.shape[-3]
     x2d = x.reshape(P, B, x.shape[-1])
     br = x2d @ p["w_branch"]

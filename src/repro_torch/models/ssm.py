@@ -107,13 +107,13 @@ _SHARDED = frozenset(k for k, spec in ssm_specs(None, ParallelCtx(model_axis="mo
                      if "model" in spec)
 
 
-def _rank_stacked(p, ctx, sharded=_SHARDED):
-    """The params with a rank dimension on every ``sharded`` leaf: at tp = 1
-    a view with a rank stack of one; at tp > 1 as :func:`shard_params` lays
+def _rank_stacked(p, ctx):
+    """The params with a rank dimension on every sharded leaf: at tp = 1 a
+    view with a rank stack of one; at tp > 1 as :func:`shard_params` lays
     them.  Returns (params, P)."""
     if ctx.tp > 1:
         return p, ctx.tp
-    return {k: v.unsqueeze(0) if k in sharded else v for k, v in p.items()}, 1
+    return {k: v.unsqueeze(0) if k in _SHARDED else v for k, v in p.items()}, 1
 
 
 def _per_head(v, P: int, B: int):
