@@ -179,8 +179,9 @@ non-zero):
     (1, 8), comm_mode="smi:static", ring_attn=True)`` within a row cosine
     of 0.999 of the default TP prefill; both timed in turns (wall and device
     time); the attention wire's ledger bytes a layer of both layouts;
-28. yi-6b at full width and depth served at P = 8 (bfloat16): ``python -m
-    repro_torch.launch.serve --arch yi-6b --mesh 1,8`` with phase 14's
+28. yi-6b at full width served at P = 8 (bfloat16): ``python -m
+    repro_torch.launch.serve --arch yi-6b --mesh 1,8 --layers 16`` (the
+    launcher runs cut to 16 of 32 layers: :data:`SERVE_LAYERS`) with phase 14's
     requests, wave then continuous, on ``smi:static`` and on the bare
     ``smi`` (the tuned plan): every request's tokens equal across the four
     runs, kernel A launched on the tuned wire and never on the static one;
@@ -208,7 +209,8 @@ non-zero):
     form; over ``smi:fused`` bit-equal with A launched once a reduce-scatter
     ring step (455); F gated layer by layer (row cosine >= 0.999 against the plain
     scan) and in float32 end to end (against the plain scan and tp = 1);
-32. ``launch.serve --arch mamba2-2.7b --mesh 1,8``: phase 14's requests,
+32. ``launch.serve --arch mamba2-2.7b --mesh 1,8 --layers 32`` (cut to 32
+    of 64 layers: :data:`SERVE_LAYERS`): phase 14's requests,
     both engines on ``smi:static`` and the bare ``smi``, tokens equal
     across the four runs; a
     pinned ``smi:fused`` decode bit-equal to ``smi:static`` (A never
@@ -225,9 +227,9 @@ non-zero):
     with tp = 1 reported; then a float32 copy cut to 4 layers (256 tokens):
     the chosen experts equal to tp = 1's and the hidden states within 3e-4
     rtol/atol;
-35. ``launch.serve --arch qwen3-moe-30b-a3b`` at tp = 1 (both engines) and
-    at ``--mesh 1,8`` (both engines, on ``smi:static`` and the bare
-    ``smi``): tokens equal across the runs at each tp; the pinned fused
+35. ``launch.serve --arch qwen3-moe-30b-a3b --layers 24`` (cut to 24 of
+    48 layers: :data:`SERVE_LAYERS`) at tp = 1 (both engines) and at ``--mesh 1,8``
+    (both engines, on ``smi:static`` and the bare ``smi``): tokens equal across the runs at each tp; the pinned fused
     decode as phase 32's; ms a decode step beside tp = 1, the idle share,
     A's launches a step;
 36. ``launch.serve --validate-comm`` over ``smi:static`` for mamba2-2.7b and
@@ -248,7 +250,9 @@ non-zero):
     tp = 1 reported; then a float32 copy cut to 5 layers (256 tokens)
     within 3e-4 rtol/atol of the plain tp = 1 prefill and of the plain
     attention at P = 8;
-39. ``launch.serve --arch recurrentgemma-9b`` at tp = 1 and ``--mesh 1,8``
+39. ``launch.serve --arch recurrentgemma-9b --layers 20`` (6 periods and
+    the 2 remainder layers of 38: :data:`SERVE_LAYERS`) at tp = 1 and
+    ``--mesh 1,8``
     (both engines; at P = 8 on ``smi:static`` and the bare ``smi``): tokens
     equal across the runs at each tp; a pinned ``smi:fused`` decode bit-equal to ``smi:static`` over
     4 steps; ms a decode step beside tp = 1 in turns, the idle share, A's
@@ -257,8 +261,9 @@ non-zero):
     text tokens (``data.make_inputs``) prefilled at tp = 1 and P = 8 in
     turns (E 24 and 24, D 960, A 343 over ``smi:fused``); a float32 copy at
     4 layers whose patch positions' embeddings are bit-equal at tp = 1 and
-    P = 8 and whose hidden states lie within 3e-4; served at ``--mesh 1,8``
-    (both engines, on ``smi:static`` and the bare ``smi``, tokens equal
+    P = 8 and whose hidden states lie within 3e-4; served at ``--mesh 1,8
+    --layers 12`` (12 of 24 layers: :data:`SERVE_LAYERS`; both engines, on
+    ``smi:static`` and the bare ``smi``, tokens equal
     across the four runs); a pinned ``smi:fused`` decode bit-equal to
     ``smi:static`` over 4 steps; and a float32 copy served at P = 8 and
     tp = 1 with equal tokens;
@@ -266,11 +271,42 @@ non-zero):
     prefilled at tp = 1 and P = 8 in turns (E 48 and 48, D 1,536, A 679
     over ``smi:fused``); a pinned ``smi:fused`` decode bit-equal to
     ``smi:static``; served at tp = 1 and ``--mesh 1,8`` (both engines; at
-    P = 8 on ``smi:static`` and the bare ``smi``), a list of 4 tokens a
-    step, equal across the runs at each tp; A's launches a step;
+    P = 8 on ``smi:static`` and the bare ``smi``; ``--layers 24``, cut to
+    24 of 48 layers: :data:`SERVE_LAYERS`), a list of 4 tokens a step, equal across
+    the runs at each tp; A's launches a step;
 42. ``launch.serve --validate-comm`` over ``smi:static`` for
     recurrentgemma-9b and musicgen-medium at ``1,8`` and ``2,4`` and
-    internvl2-1b at ``1,8``: every ``serve.*`` tag equal to the prediction.
+    internvl2-1b at ``1,8``: every ``serve.*`` tag equal to the prediction;
+43. each kernel's autograd Function against its plain version's autograd
+    at the training step's shapes: A's two entry points bit for bit
+    (float32 and bfloat16, (8, 1024 x 4096), a ring shift and a partial
+    permutation); D on yi-6b's training ring steps at P = 8 (1024 rows a
+    rank), its backward two more launches of D each; E on (2, 4096, 32,
+    128) causal and F on (80, 4096, 64) at state 128; float32 within 1e-4,
+    bfloat16 within the forward's tolerance;
+44. yi-6b at full width cut to 8 layers, trained at tp = 1 through
+    ``build_train`` on 2 x 4096 tokens a step (bfloat16 compute, float32
+    AdamW, ``remat="nothing"``, 8 loss chunks): E launched 16 times a step
+    (forward and recompute), D never; every leaf's gradient finite and
+    non-zero, within a per-leaf cosine of 0.999 of every kernel off; ms a
+    step, tokens/s, the device time by part (forward, recompute, E's plain
+    backward, the rest of the backward, the optimizer) and the idle share;
+45. the same at P = 8 with D on the GEMMs on the same weights and tokens:
+    the first step's loss and gradients bit-equal over ``smi:fused`` and
+    ``smi:static`` (A on the fused wire only), D 4x a forward's launches,
+    E 16; steps timed on both wires in turns; a float32 copy at 4 layers
+    and 2 x 128 tokens against tp = 1: loss within 1e-5, every gradient
+    and one AdamW step's params within 3e-4 rtol/atol;
+46. mamba2-2.7b trained at tp = 1: at 8 layers the gradients against every
+    kernel off (float32 gated at a per-leaf cosine of 0.999, bfloat16
+    reported); at full depth (64 layers, bfloat16) F launched twice a layer
+    a step, every gradient finite and non-zero, two steps timed and
+    profiled;
+47. ``launch.train`` for yi-6b at phase 44's cut and batch: 2 steps
+    through ``build_train`` and ``train_loop`` at tp = 1 and at ``--mesh
+    1,8`` over ``smi:fused``, each exiting 0 with finite losses; then
+    ``--validate-comm`` at ``1,8`` over ``smi:fused``: every tag equal to
+    ``predict_train_step_stats(eager=True)``.
 
 Earlier phases that time or check one schedule pass ``plan=None``.
 
@@ -287,7 +323,11 @@ and A's ``launches_moe_tp_prefill_fused`` and
 ``launches_rg_prefill``, ``launches_{vlm,audio}_prefill`` and
 ``launches_{rg,vlm,audio}_tp_prefill`` on E's and D's rows, and A's
 ``launches_{rg,vlm,audio}_tp_prefill_fused`` and
-``launches_{rg,vlm,audio}_tp_decode_tuned_per_step``), each
+``launches_{rg,vlm,audio}_tp_decode_tuned_per_step``; phases 43-46's
+are ``launches_train_step`` on E's and F's wgmma rows (tp = 1), and
+``launches_train_tp_step`` on E's and D's rows and A's
+``launches_train_tp_step_fused`` (P = 8), a training step's forward,
+recompute and backward together, and D's ``launches_grad_phase``), each
 with the path its kernel ran (``simt``, ``vector``, ``warp``,
 ``thread``, ``fma`` or ``wgmma``); the rows of A, C, E, F's wgmma path and
 D add ``ms_before``, the time in this run of the kernel their calls ran
@@ -2763,10 +2803,18 @@ def _a_launches() -> dict:
     return {"shift": fused_shift_accumulate.launches, "fold": fused_accumulate.launches}
 
 
+#: the serving launcher runs cut in depth (``--layers``) to keep the script
+#: inside its time limit with the training phases: decode is host-bound,
+#: so a run's time goes with its layers
+SERVE_LAYERS = {"yi-6b": 16, "mamba2-2.7b": 32, "qwen3-moe-30b-a3b": 24,
+                "recurrentgemma-9b": 20, "internvl2-1b": 12, "musicgen-medium": 24}
+
+
 def _launcher_runs(arch: str, mesh: str, wires, extra=()) -> tuple[dict, dict]:
     """``launch.serve --arch arch --mesh mesh`` with phase 14's requests,
-    wave then continuous, on each of ``wires``; kernel A's launches counted
-    per run.  Every request's tokens must be equal across the runs."""
+    wave then continuous, on each of ``wires``, at :data:`SERVE_LAYERS`'s
+    depth where it names the arch; kernel A's launches counted per run.
+    Every request's tokens must be equal across the runs."""
     import torch
 
     from repro_torch.launch import serve as launch_serve
@@ -2777,7 +2825,8 @@ def _launcher_runs(arch: str, mesh: str, wires, extra=()) -> tuple[dict, dict]:
             for engine in ("wave", "continuous"):
                 out = os.path.join(tmp, f"{engine}.json")
                 reset_counts()
-                rc = launch_serve.main(["--arch", arch, *SERVE_ARGS, "--mesh", mesh,
+                depth = ["--layers", str(SERVE_LAYERS[arch])] if arch in SERVE_LAYERS else []
+                rc = launch_serve.main(["--arch", arch, *SERVE_ARGS, *depth, "--mesh", mesh,
                                         "--comm-mode", wire, "--engine", engine, *extra,
                                         "--json", out])
                 torch.cuda.synchronize()
@@ -4069,6 +4118,605 @@ def phase_validate_slice10() -> dict:
     return _validate_comm_runs(VALIDATE_SLICE10)
 
 
+# ----------------------------------------------------------------- training
+#
+# Phases 43-47 (slice 11): gradients through kernels A, D, E and F, and
+# training over the model axis through ``launch.steps.build_train`` and
+# ``launch.train``.
+
+TRAIN_ARCH = "yi-6b"
+#: yi-6b's training cut: 8 of its 32 layers (the float32 params, gradients
+#: and AdamW moments take 16 B a parameter: 30.5 GB at 8 layers, 96 GB at
+#: 32), 2 sequences of train_4k's 4096 tokens (the batch cut from 256)
+TRAIN_LAYERS = 8
+TRAIN_SEQ = 4096
+TRAIN_BATCH = 2
+TRAIN_STEPS = 3
+#: the per-leaf cosine the first step's gradients keep against every
+#: kernel off (bfloat16 compute: the kernels round otherwise)
+TRAIN_GRAD_COS = 0.999
+#: phase 45's float32 check: depth and tokens (2 x 128), and its tolerance
+TRAIN_F32_LAYERS = 4
+TRAIN_F32_SEQ = 128
+TRAIN_F32_TOL = 3e-4
+TRAIN_F32_LOSS_TOL = 1e-5
+#: mamba2-2.7b's training depth: all 64 layers (45.3 GB of float32 state),
+#: and the depth of its float32 check against every kernel off
+SSM_TRAIN_LAYERS = 64
+SSM_F32_LAYERS = 8
+SSM_TRAIN_STEPS = 2
+#: kernel D's ring-step products of yi-6b's training step at P = 8 (2 x 4096
+#: tokens: 1024 rows a rank): Q, out, MLP up and down; and one shared weight
+MM_GRAD_CASES = (
+    ("q_bf16", (8, 1024, 4096), (8, 4096, 512), "bfloat16"),
+    ("out_bf16", (8, 1024, 512), (8, 512, 4096), "bfloat16"),
+    ("mlp_up_bf16", (8, 1024, 4096), (8, 4096, 1376), "bfloat16"),
+    ("mlp_down_bf16", (8, 1024, 1376), (8, 1376, 4096), "bfloat16"),
+    ("shared_w_bf16", (8, 1024, 1024), (1024, 1376), "bfloat16"),
+    ("mlp_up_f32", (8, 1024, 4096), (8, 4096, 1376), "float32"),
+)
+GRAD_TOL = {"float32": 1e-4}
+
+
+def _grads_of(fn, inputs, g):
+    """The gradients of ``sum(fn(*inputs) * g)`` with respect to every
+    floating input (fresh leaves), and the output."""
+    import torch
+
+    leaves = [t.detach().requires_grad_(t.is_floating_point()) for t in inputs]
+    out = fn(*leaves)
+    wanted = [t for t in leaves if t.requires_grad]
+    return out.detach(), torch.autograd.grad(out, wanted, g)
+
+
+def _check_grads(name, got, want, tol, exact=False) -> float:
+    """Each gradient finite, non-zero and within ``tol`` of the largest
+    magnitude of ``want``'s (bit-equal when ``exact``); returns the worst
+    relative error."""
+    import torch
+
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got, want, strict=True)):
+        if a is None or not torch.isfinite(a).all() or not a.abs().max() > 0:
+            raise AssertionError(f"grad {name}[{i}]: missing, not finite or all zero")
+        if exact:
+            if not same_bits(a, b):
+                raise AssertionError(f"grad {name}[{i}]: not bit-equal to the plain version's")
+            continue
+        mag = float(b.abs().max())
+        err = max_abs_err(a, b) / mag
+        if err > tol:
+            raise AssertionError(f"grad {name}[{i}]: max abs err {err:.3e} of {mag:.4g} > {tol}")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_grad_kernels(dev) -> dict:
+    """Phase 43: each kernel's autograd Function against its plain version's
+    autograd on the same inputs and upstream gradient, at this slice's
+    shapes: A's two entry points on a (8, 1024 x 4096) ring step (float32
+    and bfloat16, a ring shift and a partial permutation), bit for bit; D on
+    yi-6b's training ring steps at P = 8 (its backward two launches of D
+    each, counted); E on (2, 4096, 32, 128) causal; F on mamba2's (80, 4096,
+    64) at state 128.  float32 within 1e-4, bfloat16 within the forward's
+    tolerance (D 2e-2, E and F 1.6e-2), of the largest magnitude.  Returns
+    the worst errors and D's launches."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.matmul import matmul, matmul_ref
+    from repro_torch.kernels.ssd import ssd_scan
+    from repro_torch.transport.fused import (
+        accumulate_plain,
+        fused_accumulate,
+        fused_shift_accumulate,
+        shift_accumulate_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(43)
+    res = {}
+    # A: the add and the gather-fused ring step
+    for dtype in (torch.float32, torch.bfloat16):
+        a, b, up = (torch.randn((P, 1024 * 4096), generator=g, device=dev).to(dtype)
+                    for _ in range(3))
+        before = fused_accumulate.launches
+        _, got = _grads_of(fused_accumulate, (a, b), up)
+        _, want = _grads_of(accumulate_plain, (a, b), up)
+        _check_grads(f"accumulate {dtype}", got, want, 0, exact=True)
+        if fused_accumulate.launches != before + 1:
+            raise AssertionError("grad accumulate: kernel A was not launched")
+        for perm in ([(r, (r + 1) % P) for r in range(P)], PARTIAL_PERM):
+            src = [-1] * P
+            for s_, d_ in perm:
+                src[d_] = s_
+            src = torch.tensor(src, dtype=torch.int32, device=dev)
+            before = fused_shift_accumulate.launches
+            _, got = _grads_of(lambda x, y: fused_shift_accumulate(x, y, src), (a, b), up)
+            _, want = _grads_of(lambda x, y: shift_accumulate_plain(x, y, src), (a, b), up)
+            if fused_shift_accumulate.launches != before + 1:
+                raise AssertionError("grad shift_accumulate: kernel A was not launched")
+            for i, (x_, y_) in enumerate(zip(got, want)):
+                if not same_bits(x_, y_):
+                    raise AssertionError(f"grad shift_accumulate[{i}] {dtype}: not bit-equal")
+        del a, b, up
+    log("grad A: accumulate and shift_accumulate (ring, partial permutation) bit-equal to the "
+        "plain versions' autograd, float32 and bfloat16, (8, 4194304)")
+    # D: its backward is two launches of D
+    res["D"] = {}
+    d_launches = 0
+    for name, xs, ws, dtype in MM_GRAD_CASES:
+        dt = getattr(torch, dtype)
+        x = torch.randn(xs, generator=g, device=dev).to(dt)
+        w = (torch.randn(ws, generator=g, device=dev) * ws[-2] ** -0.5).to(dt)
+        up = torch.randn(xs[:-1] + ws[-1:], generator=g, device=dev).to(dt)
+        before = matmul.launches
+        out, got = _grads_of(matmul, (x, w), up)
+        torch.cuda.synchronize()
+        if matmul.launches != before + 3:
+            raise AssertionError(f"grad matmul {name}: {matmul.launches - before} launches of "
+                                 f"D, not 3 (forward, dX, dW)")
+        d_launches += 3
+        _, want = _grads_of(matmul_ref, (x, w), up)
+        tol = GRAD_TOL.get(dtype, MM_TOL[dtype])
+        res["D"][name] = _check_grads(f"matmul {name}", got, want, tol)
+        log(f"grad D {name}: dX, dW within {res['D'][name]:.3e} of the plain autograd "
+            f"(tolerance {tol}); 3 launches")
+        del x, w, up, out, got, want
+    # E: its backward is the refs' recomputed
+    res["E"] = {}
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        q, k, v, up = (torch.randn((TRAIN_BATCH, TRAIN_SEQ, 32, 128), generator=g,
+                                   device=dev).to(dt) for _ in range(4))
+        from repro_torch.kernels.flash_attention import flash_attention_kernel
+
+        before = flash_attention_kernel.launches
+        out, got = _grads_of(flash_attention, (q, k, v), up)
+        if flash_attention_kernel.launches != before + 1:
+            raise AssertionError("grad flash_attention: kernel E was not launched")
+        want_out, want = _grads_of(lambda *t: flash_attention(*t, use_kernel=False), (q, k, v), up)
+        tol = GRAD_TOL.get(dtype, FA_TOL[dtype])
+        res["E"][dtype] = _check_grads(f"flash_attention {dtype}", got, want, tol)
+        err = max_abs_err(out, want_out) / float(want_out.abs().max())
+        log(f"grad E {dtype} (2, 4096, 32, 128) causal: dq, dk, dv within "
+            f"{res['E'][dtype]:.3e} (tolerance {tol}); forward {err:.3e}")
+        del q, k, v, up, out, got, want, want_out
+        torch.cuda.empty_cache()
+    # F: its backward is the plain scan's recomputed
+    res["F"] = {}
+    for dtype in ("bfloat16", "float32"):
+        x, dt_, Bm, Cm, A = _ssd_inputs(dev, g, 80, TRAIN_SEQ, 64, 128, 1, dtype)
+        up = torch.randn(x.shape, generator=g, device=dev).to(x.dtype)
+        from repro_torch.kernels.ssd import ssd_scan_kernel
+
+        before = ssd_scan_kernel.launches
+        out, got = _grads_of(ssd_scan, (x, dt_, Bm, Cm, A), up)
+        if ssd_scan_kernel.launches != before + 1:
+            raise AssertionError("grad ssd_scan: kernel F was not launched")
+        _, want = _grads_of(lambda *t: ssd_scan(*t, use_kernel=False), (x, dt_, Bm, Cm, A), up)
+        tol = GRAD_TOL.get(dtype, SSD_TOL[dtype])
+        res["F"][dtype] = _check_grads(f"ssd_scan {dtype}", got, want, tol)
+        log(f"grad F {dtype} (80, 4096, 64) state 128: dx, ddt, dB, dC, dA within "
+            f"{res['F'][dtype]:.3e} (tolerance {tol})")
+        del x, dt_, Bm, Cm, A, up, out, got, want
+    res["d_launches"] = d_launches
+    return res
+
+
+def _train_cfg(arch: str, layers: int, **kw):
+    from repro_torch.configs import get_arch
+
+    return get_arch(arch).scaled(n_layers=layers, **kw)
+
+
+def _train_settings(comm_mode: str = "smi:fused", **kw):
+    from repro_torch.launch.steps import TrainSettings
+
+    return TrainSettings(comm_mode=comm_mode, remat="nothing", loss_chunks=8, base_lr=3e-4,
+                         warmup_steps=0, total_steps=10, **kw)
+
+
+def _train_batches(cfg, seq: int, batch: int, n: int, seed: int) -> list:
+    from repro_torch.data import SyntheticTokenPipeline
+
+    pipe = SyntheticTokenPipeline(cfg.vocab_size, seq, batch, seed=seed)
+    try:
+        return [pipe.next() for _ in range(n)]
+    finally:
+        pipe.close()
+
+
+def _leaf_cosines(got, want) -> list:
+    """The cosine of each leaf pair, in flatten order."""
+    from repro_torch.models.common import tree_flatten
+
+    return [float((a.double() * b.double()).sum() /
+                  (a.double().norm() * b.double().norm()).clamp_min(1e-300))
+            for a, b in zip(tree_flatten(got), tree_flatten(want), strict=True)]
+
+
+def _finite_nonzero(grads, what: str):
+    """Every gradient leaf finite and not all zero (a dropped gradient
+    upstream of a kernel leaves its leaves at zero)."""
+    import torch
+
+    from repro_torch.models.common import tree_leaves_with_path
+
+    for path, t in tree_leaves_with_path(grads):
+        if not torch.isfinite(t).all() or not t.abs().max() > 0:
+            raise AssertionError(f"{what}: the gradient of {path} is not finite or all zero")
+
+
+def _train_profile(art, state, batch) -> dict:
+    """One training step under ``torch.profiler``: device ms in all and by
+    part (forward, the remat recompute, E's and F's plain backwards, the
+    rest of the backward, the optimizer) and the idle share.  Ranges: the
+    step and its forward on the calling thread; the recompute (entered
+    where the ledger is paused) and the plain backwards on autograd's
+    device thread."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.kernels import common
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import steps
+    from repro_torch.parallel import ledger
+
+    orig_paused, orig_bwd, orig_loss = ledger.paused, common.RecomputeFn.backward, steps.lm_loss
+
+    @contextlib.contextmanager
+    def paused():
+        with record_function("recompute"), orig_paused():
+            yield
+
+    def backward(ctx, g):
+        func = getattr(ctx.plain_fn, "func", None)
+        with record_function("E plain backward" if func is fa_ops._plain else
+                             "F plain backward"):
+            return orig_bwd(ctx, g)
+
+    def forward(*a, **kw):
+        with record_function("forward"):
+            return orig_loss(*a, **kw)
+
+    names = ("step", "forward", "recompute", "E plain backward", "F plain backward")
+    with mock.patch.object(ledger, "paused", paused), \
+            mock.patch.object(common.RecomputeFn, "backward", staticmethod(backward)), \
+            mock.patch.object(steps, "lm_loss", forward):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            with record_function("step"):
+                art["step"](state, batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    part = {n: 0.0 for n in names}
+    busy = 0.0
+    for e in prof.key_averages():
+        if e.key in part:
+            # the host-side range: its ops' kernels (the device-side span of
+            # the same name counts the gaps too, and is left out)
+            if e.device_type == DeviceType.CPU:
+                part[e.key] += e.device_time_total / 1e3
+        elif e.device_type == DeviceType.CUDA:
+            busy += e.self_device_time_total / 1e3
+    split = {"forward": part["forward"], "optimizer": part["step"] - part["forward"],
+             "recompute": part["recompute"], "E plain backward": part["E plain backward"],
+             "F plain backward": part["F plain backward"]}
+    split["backward, the rest"] = busy - sum(split.values())
+    return dict(device_ms=busy, profiled_wall_ms=wall, device_idle_share=1 - busy / wall,
+                device_split_ms=split)
+
+
+def phase_train_dense(dev, seed: int = 44) -> tuple[dict, dict]:
+    """Phase 44: yi-6b at full width, :data:`TRAIN_LAYERS` layers, trained
+    at tp = 1 through ``build_train`` on 2 x 4096 tokens a step (bfloat16
+    compute, float32 AdamW state, ``remat="nothing"``, 8 loss chunks):
+    the first step's gradients finite and non-zero at every leaf, within a
+    per-leaf cosine of :data:`TRAIN_GRAD_COS` of every kernel off; E
+    launched twice a layer a step (the forward and the remat recompute), D
+    never; ms a step, tokens/s, the device time by part and the idle
+    share.  Returns the results and the launches of a step."""
+    import torch
+
+    from repro_torch.models.common import tree_flatten
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.launch.steps import build_train
+    from repro_torch.optim import adamw_init
+
+    cfg = _train_cfg(TRAIN_ARCH, TRAIN_LAYERS)
+    shape = ShapeConfig("train_4k_cut", TRAIN_SEQ, TRAIN_BATCH, "train")
+    art = build_train(cfg, shape, _train_settings(), device=dev)
+    t0 = time.perf_counter()
+    params = art["init_params"](seed)
+    n = sum(t.numel() for t in tree_flatten(params))
+    batches = _train_batches(cfg, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS + 1, seed)
+    torch.cuda.synchronize()
+    log(f"train tp=1: {cfg.name} x {TRAIN_LAYERS} layers, {n} params ({n * 16 / 1e9:.1f} GB "
+        f"of float32 state) drawn in {time.perf_counter() - t0:.1f}s")
+    reset_counts()
+    (loss, _, grads), ms_grads = _timed_ms(lambda: art["grads"](params, batches[0]))
+    launches = dict(E=flash_attention_kernel.launches, D=matmul.launches)
+    if launches != dict(E=2 * TRAIN_LAYERS, D=0):
+        raise AssertionError(f"train tp=1: a step launched {launches}, not E {2 * TRAIN_LAYERS} "
+                             f"(forward and remat recompute) and D 0")
+    _finite_nonzero(grads, "train tp=1")
+    loss_p, _, grads_p = art["grads"](params, batches[0], use_kernel=False)
+    cos = _leaf_cosines(grads, grads_p)
+    del grads, grads_p
+    log(f"train tp=1: loss {float(loss):.6f} (every kernel off {float(loss_p):.6f}); per-leaf "
+        f"gradient cosine min {min(cos):.6f} over {len(cos)} leaves; E {launches['E']} "
+        f"launches, all leaves finite and non-zero")
+    if min(cos) < TRAIN_GRAD_COS:
+        raise AssertionError(f"train tp=1: gradient cosine {min(cos)} < {TRAIN_GRAD_COS}")
+    state = {"params": params, "opt": adamw_init(params)}
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses = [], []
+    for b in batches[:TRAIN_STEPS - 1]:
+        reset_counts()
+        (_, m), t = _timed_ms(lambda: art["step"](state, b))
+        if flash_attention_kernel.launches != 2 * TRAIN_LAYERS:
+            raise AssertionError("train tp=1: E's launches a step changed")
+        ms.append(t)
+        losses.append(float(m["loss"]))
+    prof = _train_profile(art, state, batches[TRAIN_STEPS - 1])
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    log(f"train tp=1: steps {[f'{t:.3f}' for t in ms]} ms ({tokens / ms[-1] * 1e3:.1f} tok/s at "
+        f"the last), losses {losses}; peak {peak:.2f} GB")
+    log(f"train tp=1 profile: device {prof['device_ms']:.3f} ms of "
+        f"{prof['profiled_wall_ms']:.3f} ms wall (idle {prof['device_idle_share']:.1%}): " +
+        ", ".join(f"{k} {v:.3f} ({v / prof['device_ms']:.1%})"
+                  for k, v in prof["device_split_ms"].items()))
+    del state, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(params=n, ms_per_step=ms, tok_per_s=tokens / ms[-1] * 1e3, grads_ms=ms_grads,
+                losses=losses, loss_first=float(loss), loss_plain=float(loss_p),
+                min_grad_cos_vs_plain=min(cos), peak_gb=peak, **prof), launches
+
+
+def phase_train_tp(dev, seed: int = 44) -> tuple[dict, dict]:
+    """Phase 45: yi-6b at phase 44's cut and batch on a (1, 8) mesh with D
+    on the tensor-parallel GEMMs, the same global weights and tokens: the
+    first step's loss and gradients bit-equal over ``smi:fused`` and
+    ``smi:static`` (A launched on the fused wire only), D's launches a step
+    4x a TP forward's (forward, recompute, dX and dW), E's twice a layer;
+    steps timed on both wires in turns; then float32 at
+    :data:`TRAIN_F32_LAYERS` layers and 2 x :data:`TRAIN_F32_SEQ` tokens
+    against tp = 1: the loss within 1e-5, every leaf's gradient and one
+    AdamW step's params within 3e-4 rtol/atol."""
+    import torch
+
+    from repro_torch.models.common import tree_flatten
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.interop import unshard_tree
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.launch.steps import build_train
+    from repro_torch.models import lm_specs
+    from repro_torch.optim import adamw_init
+    from repro_torch.transport.fused import fused_accumulate, fused_shift_accumulate
+
+    cfg = _train_cfg(TRAIN_ARCH, TRAIN_LAYERS)
+    shape = ShapeConfig("train_4k_cut", TRAIN_SEQ, TRAIN_BATCH, "train")
+    arts = {w: build_train(cfg, shape, _train_settings(w), mesh=(1, TP), matmul_fn=matmul,
+                           device=dev) for w in ("smi:fused", "smi:static")}
+    params = arts["smi:fused"]["init_params"](seed)
+    batches = _train_batches(cfg, TRAIN_SEQ, TRAIN_BATCH, 4, seed)
+    want_d = 4 * _d_launches(cfg, TP)
+    first, launches = {}, {}
+    for w, art in arts.items():
+        reset_counts()
+        loss, _, grads = art["grads"](params, batches[0])
+        torch.cuda.synchronize()
+        launches[w] = dict(D=matmul.launches, E=flash_attention_kernel.launches,
+                           A=dict(fold=fused_accumulate.launches,
+                                  shift=fused_shift_accumulate.launches))
+        first[w] = (loss, grads)
+    _finite_nonzero(first["smi:fused"][1], "train P=8")
+    for w, c in launches.items():
+        a = c["A"]["fold"] + c["A"]["shift"]
+        if c["D"] != want_d or c["E"] != 2 * TRAIN_LAYERS or (a > 0) != (w == "smi:fused"):
+            raise AssertionError(f"train P=8 over {w}: launches {c}, want D {want_d}, E "
+                                 f"{2 * TRAIN_LAYERS}, A on smi:fused only")
+    (lf, gf), (ls, gs) = first["smi:fused"], first["smi:static"]
+    if not same_bits(lf.reshape(1), ls.reshape(1)) or not all(same_bits(a, b) for a, b in
+                                        zip(tree_flatten(gf), tree_flatten(gs), strict=True)):
+        raise AssertionError("train P=8: smi:fused's loss or gradients differ from smi:static's")
+    log(f"train P=8: loss {float(lf):.6f} and every gradient bit-equal over smi:fused and "
+        f"smi:static; launches a step {launches}")
+    del first, gf, gs
+    state = {"params": params, "opt": adamw_init(params)}
+    order = ("smi:static", "smi:fused", "smi:fused", "smi:static")
+    turns = {w: [] for w in arts}
+    for w, b in zip(order, batches):
+        turns[w].append(_timed_ms(lambda: arts[w]["step"](state, b))[1])
+    ms = {w: sum(v) / len(v) for w, v in turns.items()}
+    prof = _train_profile(arts["smi:fused"], state, batches[0])
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    log(f"train P=8: ms a step {ms} (in turns {turns}); {tokens / ms['smi:fused'] * 1e3:.1f} "
+        f"tok/s over smi:fused")
+    log(f"train P=8 profile (smi:fused): device {prof['device_ms']:.3f} ms of "
+        f"{prof['profiled_wall_ms']:.3f} ms wall (idle {prof['device_idle_share']:.1%}): " +
+        ", ".join(f"{k} {v:.3f} ({v / prof['device_ms']:.1%})"
+                  for k, v in prof["device_split_ms"].items()))
+    del state, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # float32 against tp = 1
+    cfg32 = _train_cfg(TRAIN_ARCH, TRAIN_F32_LAYERS, dtype="float32")
+    shape32 = ShapeConfig("train_f32", TRAIN_F32_SEQ, TRAIN_BATCH, "train")
+    a1 = build_train(cfg32, shape32, _train_settings(), device=dev)
+    a8 = build_train(cfg32, shape32, _train_settings(), mesh=(1, TP), matmul_fn=matmul,
+                     device=dev)
+    p1, p8 = a1["init_params"](seed), a8["init_params"](seed)
+    specs = lm_specs(cfg32, a8["ctx"])
+    with torch.no_grad():
+        if not all(same_bits(a, b) for a, b in zip(tree_flatten(p1), tree_flatten(
+                unshard_tree(p8, specs, a8["ctx"])))):
+            raise AssertionError("train f32: the P = 8 params are not tp = 1's, sharded")
+    batch = _train_batches(cfg32, TRAIN_F32_SEQ, TRAIN_BATCH, 1, seed)[0]
+    l1, _, g1 = a1["grads"](p1, batch)
+    l8, _, g8 = a8["grads"](p8, batch)
+    g8 = unshard_tree(g8, specs, a8["ctx"])
+    loss_err = abs(float(l1) - float(l8))
+    grad_err = max(float(((a - b).abs() - TRAIN_F32_TOL * b.abs()).max())
+                   for a, b in zip(tree_flatten(g8), tree_flatten(g1)))
+    del g1, g8
+    s1 = {"params": p1, "opt": adamw_init(p1)}
+    s8 = {"params": p8, "opt": adamw_init(p8)}
+    a1["step"](s1, batch)
+    a8["step"](s8, batch)
+    with torch.no_grad():
+        p8g = unshard_tree(s8["params"], specs, a8["ctx"])
+    param_err = max(float(((a.detach() - b.detach()).abs() - TRAIN_F32_TOL * b.abs()).max())
+                    for a, b in zip(tree_flatten(p8g), tree_flatten(s1["params"])))
+    log(f"train f32 ({TRAIN_F32_LAYERS} layers, {TRAIN_BATCH} x {TRAIN_F32_SEQ} tokens): P = 8 "
+        f"against tp = 1: loss {float(l8):.7f} vs {float(l1):.7f} (|diff| {loss_err:.3e}); "
+        f"gradients' excess over {TRAIN_F32_TOL} rtol {grad_err:.3e}, one AdamW step's params' "
+        f"{param_err:.3e} (atol {TRAIN_F32_TOL})")
+    if loss_err > TRAIN_F32_LOSS_TOL or grad_err > TRAIN_F32_TOL or param_err > TRAIN_F32_TOL:
+        raise AssertionError("train f32: P = 8 disagrees with tp = 1")
+    del s1, s8, p1, p8, p8g
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(ms_per_step=ms, turns=turns, tok_per_s=tokens / ms["smi:fused"] * 1e3,
+                launches=launches, f32_loss_err=loss_err, f32_grad_excess=grad_err,
+                f32_param_excess=param_err, **prof), launches["smi:fused"]
+
+
+def phase_train_ssm(dev, seed: int = 46) -> tuple[dict, int]:
+    """Phase 46: mamba2-2.7b trained at tp = 1 on 2 x 4096 tokens a step.
+    Against every kernel off, the first step's per-leaf gradient cosine at
+    :data:`SSM_F32_LAYERS` layers and full width: gated at
+    :data:`TRAIN_GRAD_COS` in float32 (F on its FMA kernel), reported in
+    bfloat16 (F on wgmma; the model's bfloat16 rounding grows over depth,
+    ROADMAP.md §3).  Then at full width and :data:`SSM_TRAIN_LAYERS`
+    layers in bfloat16: F launched in every layer's forward and remat
+    recompute through its Function, every leaf's gradient finite and
+    non-zero, :data:`SSM_TRAIN_STEPS` steps timed, the device time by part
+    and the peak memory."""
+    import torch
+
+    from repro_torch.models.common import tree_flatten
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels.ssd import ssd_scan_kernel
+    from repro_torch.launch.steps import build_train
+    from repro_torch.models.common import tree_leaves_with_path
+    from repro_torch.optim import adamw_init
+
+    shape = ShapeConfig("train_4k_cut", TRAIN_SEQ, TRAIN_BATCH, "train")
+    res = {}
+    for dtype, layers in (("float32", SSM_F32_LAYERS), ("bfloat16", SSM_F32_LAYERS),
+                          ("bfloat16", SSM_TRAIN_LAYERS)):
+        key = f"{dtype}_{layers}"
+        cfg = _train_cfg(SSM_ARCH, layers, dtype=dtype)
+        art = build_train(cfg, shape, _train_settings(), device=dev)
+        params = art["init_params"](seed)
+        n = sum(t.numel() for t in tree_flatten(params))
+        batches = _train_batches(cfg, TRAIN_SEQ, TRAIN_BATCH, SSM_TRAIN_STEPS, seed)
+        reset_counts()
+        loss, _, grads = art["grads"](params, batches[0])
+        torch.cuda.synchronize()
+        f, f_wg = ssd_scan_kernel.launches, ssd_scan_kernel.wgmma_launches
+        if f != 2 * layers or f_wg != (f if dtype == "bfloat16" else 0):
+            raise AssertionError(f"train mamba2 {key}: F launched {f} times ({f_wg} on wgmma), "
+                                 f"not {2 * layers}")
+        _finite_nonzero(grads, f"train mamba2 {key}")
+        res[key] = dict(params=n, layers=layers, loss_first=float(loss), launches_f=f)
+        if layers == SSM_F32_LAYERS:
+            loss_p, _, grads_p = art["grads"](params, batches[0], use_kernel=False)
+            cos = _leaf_cosines(grads, grads_p)
+            names = [".".join(map(str, p)) for p, _ in tree_leaves_with_path(grads)]
+            worst = sorted(zip(cos, names))[:3]
+            del grads, grads_p, params
+            log(f"train mamba2 {dtype}, {layers} layers: loss {float(loss):.6f} (kernels off "
+                f"{float(loss_p):.6f}); F {f} launches ({f_wg} on wgmma); gradient cosine "
+                f"against kernels off, lowest: " + ", ".join(f"{nm} {c:.6f}" for c, nm in worst))
+            res[key].update(loss_plain=float(loss_p), min_grad_cos_vs_plain=min(cos),
+                            lowest_cos=[(nm, c) for c, nm in worst])
+            if dtype == "float32" and min(cos) < TRAIN_GRAD_COS:
+                raise AssertionError(f"train mamba2 float32: gradient cosine {min(cos)} < "
+                                     f"{TRAIN_GRAD_COS}")
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        del grads
+        state = {"params": params, "opt": adamw_init(params)}
+        torch.cuda.reset_peak_memory_stats()
+        ms = [_timed_ms(lambda: art["step"](state, b))[1] for b in batches[:SSM_TRAIN_STEPS - 1]]
+        prof = _train_profile(art, state, batches[SSM_TRAIN_STEPS - 1])
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        tokens = TRAIN_SEQ * TRAIN_BATCH
+        log(f"train mamba2 {layers} layers ({n} params, {n * 16 / 1e9:.1f} GB of state): loss "
+            f"{float(loss):.6f}, F {f} launches ({f_wg} on wgmma), every gradient finite and "
+            f"non-zero; steps {[f'{t:.3f}' for t in ms]} ms ({tokens / ms[-1] * 1e3:.1f} "
+            f"tok/s); peak {peak:.2f} GB; profile: device {prof['device_ms']:.3f} ms of "
+            f"{prof['profiled_wall_ms']:.3f} ms wall (idle {prof['device_idle_share']:.1%}): " +
+            ", ".join(f"{k} {v:.3f} ({v / prof['device_ms']:.1%})"
+                      for k, v in prof["device_split_ms"].items()))
+        res[key].update(ms_per_step=ms, tok_per_s=tokens / ms[-1] * 1e3, peak_gb=peak, **prof)
+        del state, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res, res[f"bfloat16_{SSM_TRAIN_LAYERS}"]["launches_f"]
+
+
+def phase_train_launcher() -> dict:
+    """Phase 47: ``python -m repro_torch.launch.train`` for yi-6b at phase
+    44's cut and batch (``--layers 8 --seq-len 4096 --batch 2``), run in
+    this process: 2 steps through ``build_train`` and ``train_loop`` at tp
+    = 1 and at ``--mesh 1,8`` over ``smi:fused`` (D on the GEMMs), each
+    exiting 0 with a finite loss logged a step; then ``--validate-comm`` at
+    ``1,8`` over ``smi:fused``: one step under a ledger capture, every tag
+    equal to ``predict_train_step_stats(eager=True)``."""
+    import contextlib
+    import io
+    import math
+
+    import torch
+
+    from repro_torch.launch import train as launch_train
+
+    base = ["--arch", TRAIN_ARCH, "--layers", str(TRAIN_LAYERS), "--seq-len", str(TRAIN_SEQ),
+            "--batch", str(TRAIN_BATCH)]
+    res = {}
+    for name, args in (("tp1", ["--steps", "2"]),
+                       (f"p{TP}", ["--steps", "2", "--mesh", f"1,{TP}", "--comm-mode",
+                                   "smi:fused"]),
+                       ("validate", ["--mesh", f"1,{TP}", "--comm-mode", "smi:fused",
+                                     "--validate-comm"])):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = launch_train.main(base + args)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        secs = time.perf_counter() - t0
+        text = out.getvalue()
+        for line in text.splitlines():
+            log(f"train launcher {name}: {line}")
+        if rc != 0:
+            raise AssertionError(f"launch.train {' '.join(args)} exited {rc}")
+        if name == "validate":
+            res[name] = dict(seconds=secs, tags=sum(1 for line in text.splitlines()
+                                                    if line.rstrip().endswith("ok")))
+            continue
+        losses = [float(line.split("loss=")[1].split()[0]) for line in text.splitlines()
+                  if line.startswith("[train] step=")]
+        if len(losses) != 2 or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"launch.train {' '.join(args)} logged losses {losses}")
+        res[name] = dict(seconds=secs, losses=losses)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -4304,6 +4952,37 @@ def main() -> int:
     t0 = time.perf_counter()
     validate10 = phase_validate_slice10()
     log(f"phase 42 (--validate-comm, slice 10): {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    grad_kernels = phase_grad_kernels(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"phase 43 (gradients through A, D, E, F): {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    train_dense, launches_44 = phase_train_dense(dev)
+    torch.cuda.synchronize()
+    log(f"phase 44 (yi-6b trained at tp = 1): {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    train_tp, launches_45 = phase_train_tp(dev)
+    torch.cuda.synchronize()
+    log(f"phase 45 (yi-6b trained at P = {TP}): {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    train_ssm, launches_46 = phase_train_ssm(dev)
+    torch.cuda.synchronize()
+    log(f"phase 46 (mamba2-2.7b trained at tp = 1): {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    train_launcher = phase_train_launcher()
+    log(f"phase 47 (launch.train at tp = 1 and P = {TP}, --validate-comm): "
+        f"{time.perf_counter() - t0:.1f}s")
+    # a training step's launches, forward, remat recompute and backward
+    # together: E in phases 44 and 45, D at P = 8 (its backward's too), A over
+    # smi:fused at P = 8, F in phase 46
+    by_name["flash_attention"]["launches_train_step"] = launches_44["E"]
+    by_name["flash_attention"]["launches_train_tp_step"] = launches_45["E"]
+    by_name["matmul"]["launches_train_tp_step"] = launches_45["D"]
+    by_name["matmul"]["launches_grad_phase"] = grad_kernels["d_launches"]
+    for name, k in (("accumulate", "fold"), ("shift_accumulate", "shift")):
+        by_name[name]["launches_train_tp_step_fused"] = launches_45["A"][k]
+    rows_f["wgmma"]["launches_train_step"] = launches_46
     # the launches of slice 10's paths: E in phase 37, D and E in the TP
     # prefills of phases 38, 40 and 41 (A over smi:fused), E in the tp = 1
     # prefills of 40 and 41, A a decode step on the tuned wire (39-41)
@@ -4393,6 +5072,11 @@ def main() -> int:
     log("musicgen_medium: " + json.dumps(audio))
     log("validate_comm_slice10: " + json.dumps({k: sum(e["bytes"] for e in v.values())
                                                 for k, v in validate10.items()}))
+    log("grad_kernels: " + json.dumps(grad_kernels))
+    log("train_yi6b_tp1: " + json.dumps(train_dense))
+    log("train_yi6b_p8: " + json.dumps(train_tp))
+    log("train_mamba2_tp1: " + json.dumps(train_ssm))
+    log("train_launcher: " + json.dumps(train_launcher))
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,7 +2,11 @@
 
 The helpers take what ``repro`` hands out as JSON strings and numpy
 arrays, so the port and the reference can start from the same state
-without the port importing anything of ``repro``.
+without the port importing anything of ``repro``.  They also move trees of
+leaves between the global layout (the reference's arrays, a checkpoint's)
+and the rank-stacked one of a tensor-parallel context (:func:`shard_tree`,
+:func:`unshard_tree`), and carry a training state (``{"params", "opt":
+{"m", "v", "step"}}``) both ways.
 """
 
 from __future__ import annotations
@@ -74,6 +78,14 @@ def _leaf_from_reference(a, dev) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True)).to(dev)
 
 
+def _tree_from_reference(t, dev):
+    if isinstance(t, dict):
+        return {k: _tree_from_reference(v, dev) for k, v in t.items()}
+    if isinstance(t, (tuple, list)):
+        return tuple(_tree_from_reference(v, dev) for v in t)
+    return None if t is None else _leaf_from_reference(t, dev)
+
+
 def params_from_reference(np_params, cfg, device=None):
     """The reference's ``init_lm`` tree as the port's params on ``device``
     (``cuda`` unless named): the same nesting of dicts and tuples, with the
@@ -83,22 +95,62 @@ def params_from_reference(np_params, cfg, device=None):
     padded vocabulary."""
     from .core.comm import resolve_device
 
-    dev = resolve_device(device)
-
-    def conv(t):
-        if isinstance(t, dict):
-            return {k: conv(v) for k, v in t.items()}
-        if isinstance(t, (tuple, list)):
-            return tuple(conv(v) for v in t)
-        return None if t is None else _leaf_from_reference(t, dev)
-
-    params = conv(np_params)
+    params = _tree_from_reference(np_params, resolve_device(device))
     key, want = "embed", (cfg.padded_vocab, cfg.d_model)
     if cfg.n_codebooks > 1:
         key, want = "embed_cb", (cfg.n_codebooks,) + want
     if tuple(params[key].shape) != want:
         raise ValueError(f"{key} {tuple(params[key].shape)} is not {cfg.name}'s {want}")
     return params
+
+
+def train_state_from_reference(np_state, cfg, device=None):
+    """The reference's training state (``build_train``'s ``{"params",
+    "opt": {"m", "v", "step"}}``, as numpy) as the port's global state on
+    ``device`` (``cuda`` unless named), every leaf with the same bits;
+    :func:`shard_train_state` lays it over a tensor-parallel context."""
+    from .core.comm import resolve_device
+
+    dev = resolve_device(device)
+    opt = np_state["opt"]
+    return {"params": params_from_reference(np_state["params"], cfg, dev),
+            "opt": {"m": _tree_from_reference(opt["m"], dev),
+                    "v": _tree_from_reference(opt["v"], dev),
+                    "step": _leaf_from_reference(opt["step"], dev)}}
+
+
+def train_state_to_numpy(state, cfg, ctx):
+    """A training state of ``ctx``'s tensor-parallel degree as the global
+    numpy tree the reference holds (``{"params", "opt": {"m", "v",
+    "step"}}``, the same nesting): rank-stacked leaves joined
+    (:func:`unshard_train_state`), each copied to the host, bfloat16 leaves
+    widened to float32 exactly."""
+    from .models.common import tree_map
+
+    return tree_map(lambda t: (t.float() if t.dtype == torch.bfloat16 else t)
+                    .detach().cpu().numpy().copy(), unshard_train_state(state, cfg, ctx))
+
+
+def train_state_specs(cfg, ctx):
+    """How each leaf of a training state lies over the mesh: the moments
+    as their params, the step counter replicated."""
+    from .mesh.api import PartitionSpec
+    from .models.model import lm_specs
+
+    sp = lm_specs(cfg, ctx)
+    return {"params": sp, "opt": {"m": sp, "v": sp, "step": PartitionSpec()}}
+
+
+def shard_train_state(state, cfg, ctx):
+    """A global training state laid over ``ctx``'s tensor-parallel degree
+    (:func:`shard_tree`); at tp = 1 it comes back as it is."""
+    return state if ctx.tp == 1 else shard_tree(state, train_state_specs(cfg, ctx), ctx)
+
+
+def unshard_train_state(state, cfg, ctx):
+    """The global training state of a rank-stacked one
+    (:func:`unshard_tree`); at tp = 1 it comes back as it is."""
+    return state if ctx.tp == 1 else unshard_tree(state, train_state_specs(cfg, ctx), ctx)
 
 
 def shard_params(params, cfg, ctx):
@@ -143,5 +195,35 @@ def shard_tree(tree, specs, ctx):
         if isinstance(t, (tuple, list)):
             return tuple(walk(v, s, stacked) for v, s in zip(t, spec, strict=True))
         return None if t is None else split(t, spec, stacked)
+
+    return walk(tree, specs, False)
+
+
+def unshard_tree(tree, specs, ctx):
+    """The inverse of :func:`shard_tree`: a tree of ``ctx``'s rank-stacked
+    leaves (params, their gradients, optimiser moments) as global leaves,
+    each rank's block put back in its place along the dimension its spec
+    splits; replicated leaves come back as they are.  A rank-stacked
+    gradient then compares with a tp = 1 one, and a checkpoint holds the
+    same arrays whatever the tp."""
+    P, m = ctx.tp, ctx.model_axis
+
+    def join(t, spec, stacked):
+        dims = tuple(spec) + (None,) * (t.dim() - 1 - len(tuple(spec)))
+        axes = [i for i, d in enumerate(dims) if d == m]
+        if not axes:
+            return t
+        (d,) = axes
+        s = int(stacked)
+        if t.shape[s] != P:
+            raise ValueError(f"a {tuple(t.shape)} leaf has no rank dimension of {P} at {s}")
+        return t.movedim(s, d).flatten(d, d + 1)
+
+    def walk(t, spec, stacked):
+        if isinstance(t, dict):
+            return {k: walk(v, spec[k], stacked or k == "periods") for k, v in t.items()}
+        if isinstance(t, (tuple, list)):
+            return tuple(walk(v, s, stacked) for v, s in zip(t, spec, strict=True))
+        return None if t is None else join(t, spec, stacked)
 
     return walk(tree, specs, False)

@@ -1,7 +1,8 @@
 """Shared kernel utilities: padding to a block multiple, ceiling division
 (the parts of ``repro.kernels.common`` the port's wrappers use), the
-16-byte alignment TMA needs, and the plain versions' CPU transcendentals
-on the calling thread."""
+16-byte alignment TMA needs, the plain versions' CPU transcendentals
+on the calling thread, and the autograd Function whose backward is a plain
+version's (kernels E and F)."""
 
 from __future__ import annotations
 
@@ -47,3 +48,29 @@ def on_calling_thread(op, t: torch.Tensor) -> torch.Tensor:
     if t.device.type != "cpu" or t.numel() <= SERIAL_ELEMS:
         return op(t)
     return torch.cat([op(p) for p in t.reshape(-1).split(SERIAL_ELEMS)]).view(t.shape)
+
+
+class RecomputeFn(torch.autograd.Function):
+    """``forward_fn(*inputs)`` (a kernel's launch on the card, or any
+    version of the function) whose backward recomputes ``plain_fn(*inputs)``
+    under autograd and takes its gradients: the reference defines no
+    backward kernel for its Pallas kernels, so the backward of kernels E
+    and F is their plain version's.  Every input is a tensor; those that
+    need no gradient get ``None``."""
+
+    @staticmethod
+    def forward(ctx, forward_fn, plain_fn, *inputs):
+        ctx.plain_fn = plain_fn
+        ctx.save_for_backward(*inputs)
+        return forward_fn(*inputs)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = ctx.saved_tensors
+        need = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(n) for t, n in zip(inputs, need)]
+            out = ctx.plain_fn(*leaves)
+        wanted = [t for t, n in zip(leaves, need) if n]
+        got = iter(torch.autograd.grad(out, wanted, g) if wanted else ())
+        return (None, None) + tuple(next(got) if n else None for n in need)

@@ -1,13 +1,24 @@
 """The public flash-attention entry point: layout, padding, dispatch
-(``repro.kernels.flash_attention.ops``)."""
+(``repro.kernels.flash_attention.ops``), and the autograd Function that
+carries gradients through kernel E."""
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from ..common import pad_to
+from ..common import RecomputeFn, pad_to
 from .kernel import flash_attention_kernel
 from .ref import attention_chunked_ref, attention_ref
+
+
+def _plain(q, k, v, *, causal, window, scale):
+    """The refs' dispatch: :func:`attention_ref` up to ``Sq * Skv =
+    2048**2``, :func:`attention_chunked_ref` beyond, as in the reference."""
+    if q.shape[1] * k.shape[1] > 2048 * 2048:
+        return attention_chunked_ref(q, k, v, scale=scale, causal=causal, window=window)
+    return attention_ref(q, k, v, scale=scale, causal=causal, window=window)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
@@ -21,19 +32,35 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     CPU tensors raises (kernel E has no CPU mode); ``False`` runs the refs
     anywhere, which on the card is for comparisons only.  The refs are
     :func:`attention_ref` up to ``Sq * Skv = 2048**2`` and
-    :func:`attention_chunked_ref` beyond, as in the reference."""
+    :func:`attention_chunked_ref` beyond, as in the reference.
+
+    On the card kernel E launches through :class:`RecomputeFn`: its
+    backward recomputes the refs under autograd.  Kernel E counts query
+    positions from 0 and the refs right-align them, so a gradient is taken
+    only where the two agree, ``Sq == Skv`` (every model call); otherwise
+    it raises."""
     on_cuda = q.device.type == "cuda"
     if use_kernel is None:
         use_kernel = on_cuda
+    plain = functools.partial(_plain, causal=causal, window=window, scale=scale)
     if not use_kernel:
-        if q.shape[1] * k.shape[1] > 2048 * 2048:
-            return attention_chunked_ref(q, k, v, scale=scale, causal=causal, window=window)
-        return attention_ref(q, k, v, scale=scale, causal=causal, window=window)
+        return plain(q, k, v)
     if not on_cuda:
         raise ValueError("use_kernel=True needs CUDA tensors: kernel E has no CPU mode")
     if block_q % 64 or block_k % 64:
         raise ValueError(f"block_q and block_k must be multiples of 64, not {block_q}, {block_k}")
+    if torch.is_grad_enabled() and q.shape[1] != k.shape[1] \
+            and any(t.requires_grad for t in (q, k, v)):
+        raise ValueError(f"kernel E's gradient is its refs', which align queries otherwise "
+                         f"when Sq ({q.shape[1]}) != Skv ({k.shape[1]})")
+    kernel = functools.partial(_kernel, causal=causal, window=window, scale=scale,
+                               block_q=block_q, block_k=block_k)
+    return RecomputeFn.apply(kernel, plain, q, k, v)
 
+
+def _kernel(q, k, v, *, causal, window, scale, block_q, block_k):
+    """Kernel E on the padded ``(B*H, S, D)`` layout, back to ``(B, Sq, H,
+    D)``."""
     B, Sq, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     scale = scale if scale is not None else D ** -0.5

@@ -1,5 +1,6 @@
 """The public matmul entry point: layout, checks, dispatch
-(``repro.kernels.matmul.ops``)."""
+(``repro.kernels.matmul.ops``), and the autograd Function that carries
+gradients through kernel D."""
 
 from __future__ import annotations
 
@@ -7,6 +8,38 @@ import torch
 
 from .kernel import MATMUL_DTYPES, WGMMA, launch_matmul
 from .ref import matmul_ref
+
+
+class MatmulFn(torch.autograd.Function):
+    """``forward_fn(x, w, out_dtype)`` (kernel D's launch on the card, or
+    any version of the product) with the product's backward computed by
+    ``forward_fn`` too: ``dX = dY Wᵀ`` and ``dW = Xᵀ dY`` (summed over the
+    batch when one ``(K, N)`` weight serves a ``(Bt, M, K)`` batch), each
+    rounded to its operand's dtype.  On the card the backward's products
+    are kernel D's launches, counted in ``matmul.launches``.  The
+    transposed operands are copied contiguous first (kernel D reads
+    row-major operands)."""
+
+    @staticmethod
+    def forward(ctx, forward_fn, x, w, out_dtype):
+        ctx.forward_fn = forward_fn
+        ctx.save_for_backward(x, w)
+        return forward_fn(x, w, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        mm = ctx.forward_fn
+        g = g.to(x.dtype)
+        gx = gw = None
+        if ctx.needs_input_grad[1]:
+            gx = mm(g, w.transpose(-1, -2), x.dtype)
+        if ctx.needs_input_grad[2]:
+            if w.dim() == 2 and x.dim() == 3:   # one weight for the whole batch
+                gw = mm(x.flatten(0, 1).transpose(0, 1), g.flatten(0, 1), w.dtype)
+            else:
+                gw = mm(x.transpose(-1, -2), g, w.dtype)
+        return None, gx, gw, None
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor, *, out_dtype=None,
@@ -20,9 +53,10 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *, out_dtype=None,
     kernel D on CUDA tensors and runs :func:`matmul_ref` on CPU tensors;
     ``True`` on CPU tensors raises (kernel D has no CPU mode); ``False``
     runs :func:`matmul_ref` anywhere, which on the card is for comparisons
-    only.  ``matmul.launches`` counts kernel launches, and
-    ``matmul.wgmma_launches`` those that took the wgmma path
-    (:func:`~.kernel.matmul_path`)."""
+    only.  On the card the launch goes through :class:`MatmulFn`, so
+    gradients pass, their products on kernel D too.  ``matmul.launches``
+    counts kernel launches, and ``matmul.wgmma_launches`` those that took
+    the wgmma path (:func:`~.kernel.matmul_path`)."""
     on_cuda = x.is_cuda
     if use_kernel is None:
         use_kernel = on_cuda
@@ -39,6 +73,11 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *, out_dtype=None,
             or (w.dim() == 3 and w.shape[0] != x.shape[0]):
         raise ValueError(f"kernel D takes (M, K) @ (K, N), (Bt, M, K) @ (Bt, K, N) or "
                          f"(Bt, M, K) @ (K, N); got {tuple(x.shape)} @ {tuple(w.shape)}")
+    return MatmulFn.apply(_matmul_kernel, x, w, out_dtype)
+
+
+def _matmul_kernel(x: torch.Tensor, w: torch.Tensor, out_dtype) -> torch.Tensor:
+    """One launch of kernel D on checked CUDA operands (made contiguous)."""
     x3 = (x if x.dim() == 3 else x.unsqueeze(0)).contiguous()
     w3 = (w if w.dim() == 3 else w.unsqueeze(0)).contiguous()
     out = torch.empty(x3.shape[:2] + (w3.shape[2],), dtype=out_dtype, device=x.device)

@@ -1,11 +1,15 @@
 """The public SSD entry points: padding and dispatch of the scan, and the
-single-token decode step (``repro.kernels.ssd.ops``)."""
+single-token decode step (``repro.kernels.ssd.ops``).  On the card the scan
+launches kernel F through :class:`~..common.RecomputeFn`, whose backward
+is the plain scan's."""
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from ..common import pad_to
+from ..common import RecomputeFn, pad_to
 from .kernel import ssd_scan_kernel, ssd_scan_plain
 
 
@@ -21,14 +25,23 @@ def ssd_scan(x, dt, B, C, A, *, chunk: int = 128, use_kernel: bool | None = None
     (kernel F has no CPU mode); ``False`` runs the plain version anywhere,
     which on the card is for comparisons only.  For the kernel, S is
     zero-padded up to a multiple of ``chunk``: a padded dt of 0 leaves the
-    state as it is, and the padded rows are cut off the output."""
+    state as it is, and the padded rows are cut off the output.  On the card
+    the launch goes through :class:`~..common.RecomputeFn`: its backward
+    recomputes :func:`ssd_scan_plain` under autograd (the reference has no
+    backward kernel)."""
     on_cuda = x.device.type == "cuda"
     if use_kernel is None:
         use_kernel = on_cuda
+    plain = functools.partial(ssd_scan_plain, chunk=chunk)
     if not use_kernel:
-        return ssd_scan_plain(x, dt, B, C, A, chunk=chunk)
+        return plain(x, dt, B, C, A)
     if not on_cuda:
         raise ValueError("use_kernel=True needs CUDA tensors: kernel F has no CPU mode")
+    return RecomputeFn.apply(functools.partial(_kernel, chunk=chunk), plain, x, dt, B, C, A)
+
+
+def _kernel(x, dt, B, C, A, *, chunk: int):
+    """Kernel F on S zero-padded up to a multiple of ``chunk``."""
     S = x.shape[1]
     x, _ = pad_to(x, chunk, 1)
     dt, _ = pad_to(dt, chunk, 1)

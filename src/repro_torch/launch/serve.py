@@ -132,6 +132,8 @@ def main(argv=None) -> int:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--arch", default="yi-6b")
     ap.add_argument("--smoke", action="store_true", help="the arch's reduced smoke config")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (full width)")
     ap.add_argument("--engine", default="continuous", choices=["continuous", "wave"])
     ap.add_argument("--mesh", default="1,1", help="data,model grid")
     ap.add_argument("--comm-mode", default="smi",
@@ -151,6 +153,8 @@ def main(argv=None) -> int:
     cfg = get_arch(args.arch)
     if args.smoke:
         cfg = smoke(cfg)
+    if args.layers is not None:
+        cfg = cfg.scaled(n_layers=args.layers)
     dims = tuple(int(x) for x in args.mesh.split(","))
     dev = resolve_device(args.device)
     if args.validate_comm:

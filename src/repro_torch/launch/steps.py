@@ -1,6 +1,6 @@
-"""Step builders (``repro.launch.steps``): the prefill step, the wave
-engine's decode step and the continuous engine's tensor-parallel runtime,
-for a model config and a ``(data, model)`` mesh.
+"""Step builders (``repro.launch.steps``): the training step, the prefill
+step, the wave engine's decode step and the continuous engine's
+tensor-parallel runtime, for a model config and a ``(data, model)`` mesh.
 
 The model axis's P ranks are stacked on one card (``mesh/api.py``).  The
 data axis's groups run beside that stack, one after another
@@ -12,7 +12,9 @@ once).  FSDP stays off: it raises where it would shard anything (a
 builder's ``fsdp=False`` replicates the weights over the data axis).  Every
 block kind is served: dense, MoE, Mamba2 and the RG-LRU hybrid, with the
 codebook token streams of an audio model and the patch embeddings of a
-vision model's prefill.
+vision model's prefill.  Training runs over the model axis (meshes ``(1,
+P)``); a data axis of more than one rank raises (FSDP and the gradient sync
+wait for ROADMAP.md §1 item 13).
 """
 
 from __future__ import annotations
@@ -23,8 +25,13 @@ import torch
 
 from ..configs import ModelConfig, ShapeConfig
 from ..core.comm import resolve_device
+from ..data import input_specs
+from ..interop import shard_params
 from ..mesh.api import check_fsdp, make_ctx, over_data_groups
-from ..models import gather_hidden, lm_prefill
+from ..models import gather_hidden, init_lm, lm_loss, lm_prefill
+from ..models.common import tree_flatten, tree_unflatten
+from ..models.transformer import check_remat
+from ..optim import adamw_init, adamw_update, clip_by_global_norm, cosine_warmup
 from ..serving.engine import local_step
 
 
@@ -50,6 +57,102 @@ def _rows(caches, rows: slice, tp: int):
         return t.narrow(cache_batch_dim(path, tp), rows.start, rows.stop - rows.start)
 
     return walk(caches, ())
+
+
+@dataclasses.dataclass
+class TrainSettings:
+    """A training launch's settings (the reference's fields).  ``comm_mode``
+    is ``"smi"``, ``"smi:<backend>"`` or ``"bulk"``; ``remat`` ``"nothing"``
+    (each layer period recomputed in the backward pass) or ``"none"``;
+    ``fsdp`` and ``compressed_grads`` act over a data axis, which waits for
+    ROADMAP.md §1 item 13."""
+
+    comm_mode: str = "smi"
+    remat: str = "nothing"
+    loss_chunks: int = 8
+    base_lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    clip_norm: float = 1.0
+    fsdp: bool = True
+    compressed_grads: bool = False
+    shared_gather: bool = False
+    ring_attn: bool = False
+
+
+def build_train(cfg: ModelConfig, shape: ShapeConfig, st: TrainSettings, *, mesh=None,
+                matmul_fn=None, device=None) -> dict:
+    """The training step of ``cfg`` for ``shape`` on ``device`` (``cuda``
+    unless named), over ``mesh=(1, P)`` (tp = 1 without one).
+
+    Returns ``dict(step, grads, init_state, init_params, input_specs, ctx,
+    cfg, settings, device)``:
+
+    * ``init_params(seed=0)``: the float32 params drawn from a generator
+      seeded ``seed`` on the device (rank-stacked at tp > 1,
+      :func:`~repro_torch.interop.shard_params`), requiring gradients;
+      ``init_state(seed=0)``: ``{"params", "opt": {"m", "v", "step"}}``
+      with float32 AdamW moments and an int32 step;
+    * ``grads(params, batch, use_kernel=None)``: ``(loss, ce, gradients)``
+      of one batch, nothing updated (the gradients a tree shaped as the
+      params);
+    * ``step(state, batch, use_kernel=None)``: one step on ``batch``
+      (``tokens``, ``labels`` and a vision model's ``pixel_embeds``,
+      tensors or numpy arrays): the loss (:func:`~repro_torch.models.
+      lm_loss`, computed in the model's dtype with ``st.remat`` and
+      ``st.loss_chunks``), its gradients, clipped to ``st.clip_norm``, and
+      AdamW at the ``cosine_warmup`` rate.  The state is updated in place
+      and returned with ``{"loss", "ce", "gnorm", "lr"}`` (0-dim float32
+      tensors; ``loss`` includes the MoE load-balancing term).
+
+    The gradients are those of the loss itself: at tp > 1 the loss is rank
+    0's copy, a replicated leaf is stored once (its gradient sums every
+    rank's share) and a sharded one holds each rank's block, so they equal
+    tp = 1's.  On the card attention is kernel E and the SSD scan kernel F,
+    forward and backward (``use_kernel=False``: their plain versions);
+    ``matmul_fn`` puts a kernel on the tensor-parallel GEMMs
+    (``repro_torch.kernels.matmul.matmul``: kernel D, whose backward
+    products are kernel D too).  A data axis of more than one rank raises
+    ``NotImplementedError`` (ROADMAP.md §1 item 13)."""
+    dev = resolve_device(device)
+    # over a data axis training needs FSDP or the gradient sync: both item 13
+    check_fsdp(True, mesh, cfg.param_count())
+    check_remat(st.remat)
+    ctx = make_ctx(mesh, comm_mode=st.comm_mode, matmul_fn=matmul_fn,
+                   opt_shared_gather=st.shared_gather, opt_ring_attn=st.ring_attn,
+                   plan=_layer_plan(cfg, st.comm_mode), device=dev)
+    ispecs = input_specs(cfg, shape)
+
+    def init_params(seed: int = 0):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = shard_params(init_lm(cfg, gen, device=dev, ctx=ctx), cfg, ctx)
+        for p in tree_flatten(params):
+            p.requires_grad_(True)
+        return params
+
+    def init_state(seed: int = 0) -> dict:
+        params = init_params(seed)
+        return {"params": params, "opt": adamw_init(params)}
+
+    def grads(params, batch, use_kernel=None):
+        args = {k: torch.as_tensor(batch[k]).to(dev) for k in ispecs}
+        loss, (ce, _) = lm_loss(params, args["tokens"], args["labels"], cfg, ctx,
+                                extra_embeds=args.get("pixel_embeds"), remat=st.remat,
+                                loss_chunks=st.loss_chunks, use_kernel=use_kernel)
+        g = tree_unflatten(params, torch.autograd.grad(loss, tree_flatten(params)))
+        return loss.detach(), ce.detach(), g
+
+    def step(state, batch, use_kernel=None):
+        params = state["params"]
+        loss, ce, g = grads(params, batch, use_kernel)
+        g, gnorm = clip_by_global_norm(g, st.clip_norm)
+        lr = cosine_warmup(state["opt"]["step"], base_lr=st.base_lr,
+                           warmup_steps=st.warmup_steps, total_steps=st.total_steps)
+        adamw_update(params, g, state["opt"], lr=lr)
+        return state, {"loss": loss, "ce": ce, "gnorm": gnorm, "lr": lr}
+
+    return dict(step=step, grads=grads, init_state=init_state, init_params=init_params,
+                input_specs=ispecs, ctx=ctx, cfg=cfg, settings=st, device=dev)
 
 
 def build_prefill(cfg: ModelConfig, shape: ShapeConfig, *, mesh=None, comm_mode: str = "smi",

@@ -45,8 +45,9 @@ from ..core.comm import Communicator
 from ..transport.registry import resolve_comm_mode
 
 #: what FSDP over a data axis of more than one rank raises with
-DATA_AXIS_ROADMAP = ("FSDP (weights sharded over a data axis of more than one rank) waits for "
-                     "the training slice (ROADMAP.md §1, item 13)")
+DATA_AXIS_ROADMAP = ("FSDP (weights sharded over a data axis of more than one rank) and the "
+                     "gradient sync over such an axis wait for the second half of the training "
+                     "slice (ROADMAP.md §1, item 13)")
 #: the mesh axes, outermost first
 MESH_AXES = ("data", "model")
 

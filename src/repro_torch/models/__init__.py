@@ -1,5 +1,5 @@
-"""The dense, MoE and Mamba2 model families (``repro.models``): prefill
-and decode at any tensor-parallel degree."""
+"""The model families (``repro.models``): prefill, decode and the training
+loss at any tensor-parallel degree."""
 
 from .model import (
     assemble_logits,
@@ -8,9 +8,10 @@ from .model import (
     lm_cache_specs,
     lm_caches,
     lm_decode_step,
+    lm_loss,
     lm_prefill,
     lm_specs,
 )
 
 __all__ = ["assemble_logits", "gather_hidden", "init_lm", "lm_cache_specs", "lm_caches",
-           "lm_decode_step", "lm_prefill", "lm_specs"]
+           "lm_decode_step", "lm_loss", "lm_prefill", "lm_specs"]

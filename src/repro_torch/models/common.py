@@ -93,3 +93,31 @@ def tree_leaves_with_path(tree, path=()):
     if isinstance(tree, (tuple, list)):
         return [kv for i, t in enumerate(tree) for kv in tree_leaves_with_path(t, path + (i,))]
     return [] if tree is None else [(path, tree)]
+
+
+def tree_flatten(tree) -> list:
+    """The leaves of nested dicts, tuples and lists in ``jax.tree.flatten``'s
+    order: dict keys sorted, sequences in order, ``None`` no leaf."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_flatten(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [leaf for t in tree for leaf in tree_flatten(t)]
+    return [] if tree is None else [tree]
+
+
+def tree_unflatten(like, leaves):
+    """``leaves`` (in :func:`tree_flatten`'s order) in the structure of
+    ``like``."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, (tuple, list)):
+            return tuple(build(v) for v in t)
+        return None if t is None else next(it)
+
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the structure holds")
+    return out

@@ -15,6 +15,10 @@ The vocabulary stays padded to a multiple of 256 (``cfg.padded_vocab``):
 greedy decoding takes the argmax over every padded column, as the reference
 does.
 
+:func:`lm_loss` is the training loss: the causal-LM cross entropy over
+vocabulary-sharded logits, in chunks of the sequence, plus the MoE
+load-balancing loss.
+
 The modality frontends are the reference's stubs.  An audio model's
 ``n_codebooks`` token streams (tokens ``(B, S, n_cb)``, a decode step's
 ``(B, n_cb)``) each have an embedding and a head (``embed_cb`` (n_cb, V, D),
@@ -38,6 +42,7 @@ from ..parallel import (
     parallel_embedding_partial,
     psum_tagged,
     reduce_scatter_sequence,
+    vocab_parallel_cross_entropy,
 )
 from .common import rms_norm, tree_map, trunc_normal
 from .transformer import (
@@ -45,6 +50,7 @@ from .transformer import (
     decode_stack,
     init_stack,
     init_stack_cache,
+    recomputed,
     stack_cache_specs,
     stack_specs,
 )
@@ -168,6 +174,85 @@ def gather_hidden(h: torch.Tensor) -> torch.Tensor:
     return h.transpose(0, 1).reshape(B, P * S_loc, D)
 
 
+def _head_tables(pf, cfg, ctx):
+    """The output projection(s) ``(.., D, V_loc)``: each codebook's head,
+    the tied embedding transposed, or the head."""
+    if cfg.n_codebooks > 1:
+        return [_codebook(pf["head_cb"], cb, ctx) for cb in range(cfg.n_codebooks)]
+    if cfg.tie_embeddings:
+        return [pf["embed"].transpose(-1, -2)]
+    return [pf["head"]]
+
+
+def lm_loss(params, tokens, labels, cfg, ctx, *, extra_embeds=None, remat: str = "nothing",
+            loss_chunks: int = 1, aux_weight: float = 1e-2, use_kernel=None):
+    """The causal-LM loss: the mean cross entropy over the labels that are
+    not ``-100``, plus ``aux_weight`` times the MoE load-balancing loss.
+    Returns ``(loss, (ce, aux))``, 0-dim float32 tensors.
+
+    ``tokens`` and ``labels`` are ``(B, S)`` (``(B, S, n_cb)`` for a
+    codebook model, each codebook's cross entropy summed into one mean);
+    ``extra_embeds`` (B, n_patches, D) take the first positions.  ``params``
+    are the global ones at tp = 1 and
+    :func:`~repro_torch.interop.shard_params`'s at tp = P > 1.  The final
+    hidden states are taken in ``loss_chunks`` chunks of each rank's
+    sequence shard: at tp > 1 each chunk is gathered over the
+    ``tp.loss.gather`` channel, and the vocabulary-parallel cross entropy
+    reduces over ``tp.loss.ce``; with more than one chunk each chunk's
+    logits are recomputed in the backward pass (the reference's
+    ``jax.checkpoint``).  ``remat`` is :func:`~.transformer.apply_stack`'s.
+
+    At tp > 1 every rank of the stack computes the same loss; this returns
+    rank 0's, so that its gradient is the loss's own (the sum over the
+    stack would be P times it).  ``use_kernel`` goes to every attention and
+    SSM block (kernels E and F on the card)."""
+    tp = ctx.tp
+    pf = _cast(params, model_dtype(cfg))
+    x = embed_tokens_sp(pf, tokens, cfg, ctx, extra_embeds)
+    x, aux = apply_stack(pf["stack"], x, cfg, ctx, use_kernel=use_kernel, remat=remat)
+    x = rms_norm(x, pf["final_norm"], cfg.norm_eps)     # (B, S_loc, D) or (P, B, S_loc, D)
+    tables = _head_tables(pf, cfg, ctx)
+    B, S_loc, D = x.shape[-3:]
+    if S_loc % loss_chunks:
+        raise ValueError(f"{loss_chunks} loss chunks do not split {S_loc} positions a rank")
+    csz = S_loc // loss_chunks
+    lead = labels.shape[2:]
+
+    def chunk_ce(xc, labc):
+        """xc: a chunk of every rank's shard; labc: (B, tp*csz[, n_cb]) in
+        the gathered chunk's order.  Returns (sum of CE, count of labels),
+        every rank's at tp > 1."""
+        if tp > 1:
+            xg = gather_sequence(xc.reshape(tp, B * csz, D), ctx, tag="tp.loss.gather")
+            xc = xg.reshape(tp, tp, B, csz, D).transpose(1, 2).reshape(tp, B, tp * csz, D)
+        total = count = 0.0
+        for cb, table in enumerate(tables):
+            logits = (xc @ (table.unsqueeze(1) if tp > 1 else table)).float()
+            lab = labc[..., cb] if cfg.n_codebooks > 1 else labc
+            valid = lab >= 0
+            ce = vocab_parallel_cross_entropy(logits, lab.clamp_min(0), ctx)
+            total = total + torch.where(valid, ce, 0.0).sum(dim=(-2, -1))
+            count = count + valid.float().sum()
+        return total, count
+
+    total = count = 0.0
+    for ci in range(loss_chunks):
+        xc = x[..., ci * csz:(ci + 1) * csz, :]
+        if tp > 1:
+            # the gathered chunk's labels: (B, tp, csz) -> (B, tp*csz), rank-major
+            lb = labels.reshape((B, tp, S_loc) + lead)[:, :, ci * csz:(ci + 1) * csz]
+            lb = lb.reshape((B, tp * csz) + lead)
+        else:
+            lb = labels[:, ci * csz:(ci + 1) * csz]
+        t, c = recomputed(chunk_ce, xc, lb) if loss_chunks > 1 else chunk_ce(xc, lb)
+        total = total + t
+        count = count + c
+    if tp > 1:
+        total = total[0]
+    ce = total / count.clamp(min=1.0)
+    return ce + aux_weight * aux, (ce, aux)
+
+
 def lm_decode_step(params, caches, token, pos, cfg, ctx, *, gather_logits: bool = True):
     """One decode step.  token (B,) int (or (B, n_cb)); pos a scalar or a
     (B,) vector.  Returns (float32 logits, caches) with the caches updated
@@ -184,11 +269,11 @@ def lm_decode_step(params, caches, token, pos, cfg, ctx, *, gather_logits: bool 
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     x, caches = decode_stack(pf["stack"], caches, x, pos, cfg, ctx)
     x = rms_norm(x, pf["final_norm"], cfg.norm_eps).squeeze(-2)        # (.., B, D)
+    tables = _head_tables(pf, cfg, ctx)
     if cfg.n_codebooks > 1:
-        logits = torch.stack([x @ _codebook(pf["head_cb"], cb, ctx)
-                              for cb in range(cfg.n_codebooks)], dim=-1)  # (.., B, V_loc, n_cb)
+        logits = torch.stack([x @ t for t in tables], dim=-1)          # (.., B, V_loc, n_cb)
     else:
-        logits = x @ (pf["embed"].transpose(-1, -2) if cfg.tie_embeddings else pf["head"])
+        logits = x @ tables[0]
     if ctx.tp > 1 and gather_logits:
         # the vocabulary shards, gathered: (P, V_loc, B[, n_cb]) -> (P, V, B[, n_cb])
         logits = gather_sequence(logits.movedim(2, 1), ctx, tag="tp.loss.gather").movedim(1, 2)

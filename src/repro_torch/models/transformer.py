@@ -6,7 +6,8 @@ MLP), stacked per pattern period.
 Parameters keep the reference's layout: ``{"periods": tuple of per-position
 block trees whose leaves carry a leading layer dim, "rem": tuple of
 remainder blocks}``.  The periods run as a Python loop over that dim (the
-reference's ``lax.scan``; there is no remat to port).  At tp > 1 the
+reference's ``lax.scan``), each period under ``torch.utils.checkpoint``
+when the training step asks for remat (:func:`apply_stack`).  At tp > 1 the
 activations are the rank-stacked ``(P, B, S/P, D)`` and the sharded leaves
 of a period are laid out ``(L, P, ...)`` (``interop.shard_params``), so a
 layer's slice is rank-stacked; so are the decode caches, ``(L, P, B, ...)``.
@@ -17,9 +18,13 @@ raises ``ValueError``.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..mesh.api import PartitionSpec as PS
+from ..parallel import ledger
 from .attention import (
     apply_attention,
     attention_specs,
@@ -43,6 +48,34 @@ from .ssm import apply_ssm, decode_ssm, init_ssm, init_ssm_cache, ssm_cache_spec
 
 #: the block kinds of the reference, all run by the port
 KINDS = ("attn", "moe", "ssm", "rec")
+#: the reference's remat policies the port runs: ``"none"`` keeps every
+#: activation, ``"nothing"`` recomputes each period from its input in the
+#: backward pass
+REMAT_POLICIES = ("none", "nothing")
+#: the reference's policies that save the matrix products' outputs
+REMAT_DOTS = ("dots", "dots_nb")
+#: what the policies that save the products raise with
+REMAT_ROADMAP = ("the remat policies that save the matrix products ('dots', 'dots_nb') wait "
+                 "for the second half of the training slice (ROADMAP.md §1, item 13)")
+
+
+def check_remat(remat: str):
+    """Raise on a remat policy the port does not run."""
+    if remat in REMAT_DOTS:
+        raise NotImplementedError(REMAT_ROADMAP)
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {remat!r}")
+
+
+def recomputed(fn, *args):
+    """``fn(*args)`` whose activations are recomputed in the backward pass
+    (``jax.checkpoint`` with ``nothing_saveable``).  The recompute runs the
+    Python forward again, so it runs with the ledger paused: the capture
+    holds each collective once, as the reference's trace does (its
+    AD-transposed collectives tally nothing either).  Kernel launches are
+    real work and count in both."""
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(), ledger.paused()))
 
 
 def _check_kind(kind: str):
@@ -206,16 +239,27 @@ def stack_specs(cfg, ctx):
                                              for j in range(rem))}
 
 
-def apply_stack(params, x, cfg, ctx, *, use_kernel=None):
+def apply_stack(params, x, cfg, ctx, *, use_kernel=None, remat: str = "none"):
     """Every layer over x; returns (x, the layers' load-balancing losses
-    summed)."""
+    summed).  ``remat="nothing"`` recomputes each period from its input in
+    the backward pass (:func:`recomputed`), as the reference's
+    ``jax.checkpoint`` around its period body; the remainder layers are not
+    recomputed there either.  ``"dots"`` and ``"dots_nb"`` raise."""
+    check_remat(remat)
     pattern, period, n_full, _ = _layout(cfg)
+
+    def period_fn(x, i):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for j in range(period):
+            x, a = apply_block(_layer(params["periods"][j], i), pattern[j], x, cfg, ctx,
+                               use_kernel=use_kernel)
+            aux = aux + a
+        return x, aux
+
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n_full if params["periods"] is not None else 0):
-        for j in range(period):
-            x, aux = apply_block(_layer(params["periods"][j], i), pattern[j], x, cfg, ctx,
-                                 use_kernel=use_kernel)
-            aux_total = aux_total + aux
+        x, aux = period_fn(x, i) if remat == "none" else recomputed(period_fn, x, i)
+        aux_total = aux_total + aux
     for j, p in enumerate(params["rem"]):
         x, aux = apply_block(p, pattern[j], x, cfg, ctx, use_kernel=use_kernel)
         aux_total = aux_total + aux

@@ -13,7 +13,8 @@ that model executable:
   and backpressure;
 * :mod:`.schedule` — schedule builders mirroring the transports, exact
   ``TransportStats`` prediction, and the serving decode step's per-tag
-  ledger (``predict_decode_step_stats``);
+  ledger (``predict_decode_step_stats``) and a training step's
+  (``predict_train_step_stats``);
 * :mod:`.calibrate` — fit a LinkModel from measured runs and gate the
   drift between prediction and measurement;
 * :mod:`.tune` — the autotuner and its cached :class:`TuningTable` s, which
@@ -38,6 +39,7 @@ from .schedule import (
     predict_decode_step_stats,
     predict_halo_stats,
     predict_halo_time,
+    predict_train_step_stats,
     predict_transport_stats,
     ring_perm_round,
 )
@@ -75,6 +77,7 @@ __all__ = [
     "predict_decode_step_stats",
     "predict_halo_stats",
     "predict_halo_time",
+    "predict_train_step_stats",
     "predict_transport_stats",
     "ring_perm_round",
     "fit",

@@ -19,8 +19,9 @@ Two jobs:
 
 3. **Whole-step prediction** of the serving decode ledger
    (:func:`predict_decode_step_stats`, per ``serve.*`` tag), the gate of
-   ``launch/serve --validate-comm``.  The training step's predictor comes
-   with the training slice.
+   ``launch/serve --validate-comm``, and of a training step's ledger
+   (:func:`predict_train_step_stats`, at a data axis of one rank), the gate
+   of ``launch/train --validate-comm``.
 """
 
 from __future__ import annotations
@@ -490,6 +491,127 @@ def _slot_nbytes(cfg, tp: int, capacity: int) -> int:
         else:
             raise ValueError(kind)
     return total
+
+
+def predict_train_step_stats(cfg, mesh_shape, shape, settings, *, pkt_elems=32, slack_steps=4,
+                             eager=False):
+    """Per-tag predicted channel traffic of ONE training step (the forward
+    with its loss and the backward) as the channel ledger measures it:
+    ``{tag: {"steps": int, "bytes": int}}``, bytes one rank's.
+
+    ``mesh_shape`` is ``(dp, tp)``, ``shape`` a ShapeConfig (seq_len,
+    global_batch), ``settings`` duck-types ``TrainSettings`` (comm_mode,
+    fsdp, loss_chunks, shared_gather, ring_attn, compressed_grads).  The
+    backward's collectives mirror their forward channels and are counted
+    there, by the ledger and by this table alike.
+
+    The reference's ledger is filled while it traces, and a ``lax.scan`` over
+    layer periods traces each period position once: its per-block tags count
+    once per traced position, which is this table by default (equal to the
+    reference's function).  The port runs every layer, and recomputes a
+    rematerialised layer with its ledger paused, so its ledger holds every
+    layer's traffic once: ``eager=True`` counts the per-block tags once a
+    layer, and an RG-LRU block's MLP, which the reference's table leaves
+    out.  FSDP's gather and gradient sync over a data axis of more than
+    one rank (``_fsdp_leaf_walk``) wait for ROADMAP.md §1 item 13 and
+    raise."""
+    from ..mesh.api import DATA_AXIS_ROADMAP
+    from ..transport.registry import resolve_comm_mode
+
+    dp, tp = int(mesh_shape[0]), int(mesh_shape[1])
+    base_mode, key = resolve_comm_mode(settings.comm_mode)
+    if base_mode != "smi":
+        raise ValueError(f"predict_train_step_stats models smi comm modes; got "
+                         f"{settings.comm_mode!r}")
+    if getattr(settings, "fsdp", False) and dp > 1:
+        raise NotImplementedError(DATA_AXIS_ROADMAP)
+    esz = 2 if cfg.dtype == "bfloat16" else 4
+    B = shape.global_batch // dp
+    S = shape.seq_len
+    S_loc = S // tp if tp > 1 else S
+    rows = B * S_loc
+    D = cfg.d_model
+    shared = bool(getattr(settings, "shared_gather", False))
+    acc: dict = {}
+
+    def add(tag, steps, nbytes):
+        e = acc.setdefault(tag, {"steps": 0, "bytes": 0})
+        e["steps"] += int(steps)
+        e["bytes"] += int(nbytes)
+
+    def ring(tag, leaves, P, n_shifts=None, tkey=key):
+        if P <= 1:
+            return
+        ns = (P - 1) if n_shifts is None else n_shifts
+        s, b = _shift_cost(leaves, tkey, pkt_elems=pkt_elems, slack_steps=slack_steps)
+        add(tag, s * ns, b * ns)
+
+    def psum(tag, nbytes, n=1):
+        if tp > 1:
+            add(tag, n, nbytes * n)
+
+    def act(elems):
+        return [(int(elems), esz, True)]
+
+    # forward activations: embed -> block positions -> loss
+    if tp > 1:
+        ring("tp.embed", act(rows * D), tp)
+
+    period = len(cfg.pattern)
+    n_full = cfg.n_layers // period
+    rem = cfg.n_layers % period
+    if eager:
+        blocks = list(cfg.pattern) * n_full + list(cfg.pattern[:rem])
+    else:
+        blocks = (list(cfg.pattern) if n_full > 0 else []) + list(cfg.pattern[:rem])
+
+    for kind in blocks:
+        if tp <= 1:
+            break
+        if kind in ("attn", "moe"):
+            if getattr(settings, "ring_attn", False):
+                hd = cfg.hd
+                Hp = -(-cfg.n_heads // tp) * tp
+                ring("tp.attn.qkv", act(D * Hp * hd // tp), tp)
+                if cfg.qkv_bias:
+                    ring("tp.attn.qkv", act(Hp * hd // tp), tp)
+                ring("tp.attn.out", act(Hp * hd // tp * D), tp)
+                kv = B * S_loc * cfg.n_kv_heads * hd
+                ring("tp.attn.ring", act(kv) + act(kv), tp)
+            else:
+                ring("tp.attn.qkv", act(rows * D), tp)
+                if not shared:
+                    ring("tp.attn.kv", act(rows * D), tp)
+                ring("tp.attn.out", act(rows * D), tp)
+        # an RG-LRU block's MLP streams too, which the reference's traced
+        # table leaves out (ROADMAP.md §3): the eager table counts it
+        if kind == "attn" or (kind == "moe" and cfg.shared_expert) or (kind == "rec" and eager):
+            n_up = 1 if (cfg.mlp_type != "swiglu" or shared) else 2
+            ring("tp.mlp.up", act(rows * D), tp, n_shifts=n_up * (tp - 1))
+            ring("tp.mlp.down", act(rows * D), tp)
+        if kind == "moe":
+            ring("ep.dispatch", act(rows * D), tp)
+            ring("ep.combine", act(rows * D), tp)
+        if kind == "ssm":
+            n_in = 1 if shared else 2
+            ring("ssm.in", act(rows * D), tp, n_shifts=n_in * (tp - 1))
+            if not shared:
+                ring("ssm.gather", act(rows * D), tp)
+            ring("ssm.out", act(rows * D), tp)
+        if kind == "rec":
+            n_in = 1 if shared else 2
+            ring("ssm.in", act(rows * D), tp, n_shifts=n_in * (tp - 1))
+            ring("ssm.out", act(rows * D), tp)
+
+    lc = int(getattr(settings, "loss_chunks", 1))
+    csz = S_loc // lc
+    n_tables = cfg.n_codebooks if cfg.n_codebooks > 1 else 1
+    if tp > 1:
+        for _ in range(lc):
+            ring("tp.loss.gather", act(B * csz * D), tp)
+            psum("tp.loss.ce", B * tp * csz * 4, n=3 * n_tables)
+
+    return {t: acc[t] for t in sorted(acc)}
 
 
 def predict_decode_step_stats(cfg, mesh_shape, batch_slots, settings, *, capacity=128,

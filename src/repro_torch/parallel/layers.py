@@ -30,7 +30,9 @@ under a bare ``comm_mode="smi"``) lets the netsim tuning table pick each
 layer call's backend and wire, recorded per tag in the capture ledger's
 ``plans``.
 
-Not ported yet: the loss, gradient and pipeline layers.
+The vocab-parallel cross entropy is the loss layer of training
+(:func:`vocab_parallel_cross_entropy`).  Not ported yet: the gradient and
+pipeline layers (the data axis, ROADMAP.md §1 item 13).
 """
 
 from __future__ import annotations
@@ -315,3 +317,27 @@ def parallel_embedding_partial(table_local, ids, ctx):
     ok = (local >= 0) & (local < V_local)
     emb = table_local[r, local.clamp(0, V_local - 1)]
     return torch.where(ok[..., None], emb, zero)
+
+
+def vocab_parallel_cross_entropy(logits_local, labels, ctx, *, tag: str = "tp.loss.ce"):
+    """Cross entropy with vocabulary-sharded logits, every position's
+    ``log sum exp - picked``: the max, the sum of exps and the label's logit
+    each cross the model axis once, as tagged reductions (the Megatron
+    scheme).  At tp = 1 ``logits_local`` is ``(B, S, V)`` and the result
+    ``(B, S)``; at tp = P > 1 it is the rank-stacked ``(P, B, S, V/P)``,
+    ``labels`` the replicated ``(B, S)`` ids, and every rank's copy of the
+    result ``(P, B, S)`` (the ranks' copies are equal).  The max is
+    gradient-neutral and detached (the reference's ``stop_gradient``);
+    labels outside the vocabulary pick nothing."""
+    V_local = logits_local.shape[-1]
+    lf = logits_local.float()
+    m = pmax_tagged(lf.amax(dim=-1).detach(), ctx, tag)
+    z = psum_tagged(torch.exp(lf - m[..., None]).sum(dim=-1), ctx, tag)
+    r = ctx.rank(labels.dim() + 1) if ctx.tp > 1 else 0
+    local = labels - r * V_local
+    ok = (local >= 0) & (local < V_local)
+    if ctx.tp > 1:
+        local = local.expand(lf.shape[:-1])
+    picked = torch.gather(lf, -1, local.clamp(0, V_local - 1).long()[..., None])[..., 0]
+    picked = psum_tagged(torch.where(ok, picked, torch.zeros((), device=lf.device)), ctx, tag)
+    return torch.log(z) + m - picked

@@ -12,6 +12,12 @@ shifted copy is never written), and every other plain-add fold goes through
 Kernel and plain version are equal bit for bit, and the stats tally what
 the static backend tallies, so results and counters match it exactly.
 Operands go through ``.contiguous()`` (a no-op on the ring's own tensors).
+
+On the card each entry point launches through a ``torch.autograd.Function``
+(:class:`AccumulateFn`, :class:`ShiftAccumulateFn`), whose backward routes
+the gradient as the add and the gather do: the kernel writes into a
+``torch.empty``, which autograd would otherwise cut from the graph.  On the
+CPU the plain version carries autograd by itself.
 """
 
 from __future__ import annotations
@@ -31,9 +37,23 @@ def accumulate_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a + b
 
 
+class AccumulateFn(torch.autograd.Function):
+    """``forward_fn(a, b)`` (kernel A's launch on the card, or any version
+    of ``a + b``) with the add's backward: the gradient to both operands."""
+
+    @staticmethod
+    def forward(ctx, forward_fn, a, b):
+        return forward_fn(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g, g
+
+
 def fused_accumulate(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a + b`` elementwise: the CUDA kernel on a CUDA tensor, the plain
-    version on a CPU tensor.
+    """``a + b`` elementwise: the CUDA kernel on a CUDA tensor (through
+    :class:`AccumulateFn`, so gradients pass), the plain version on a CPU
+    tensor.
 
     Takes contiguous tensors of one shape and dtype (float32, bfloat16,
     float16 or int32) on one device; raises on anything else, and on a
@@ -48,6 +68,11 @@ def fused_accumulate(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return accumulate_plain(a, b)
     if a.device.type != "cuda":
         raise ValueError(f"fused_accumulate runs on cuda or cpu, not {a.device}")
+    return AccumulateFn.apply(_accumulate_kernel, a, b)
+
+
+def _accumulate_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One launch of the add kernel on CUDA operands of one shape."""
     if a.dtype not in DTYPE_CODES:
         raise TypeError(f"fused_accumulate kernel does not take {a.dtype}")
     if not (a.is_contiguous() and b.is_contiguous()):
@@ -93,11 +118,44 @@ def shift_accumulate_plain(x: torch.Tensor, addend: torch.Tensor,
     return shifted + addend
 
 
+class ShiftAccumulateFn(torch.autograd.Function):
+    """``forward_fn(x, addend, src_idx)`` (kernel A's gather-fused launch on
+    the card, or any version of ``out[r] = x[src_idx[r]] + addend[r]``) with
+    the backward of the gather and the add: ``addend`` takes the gradient as
+    it is, and row ``s`` of ``x`` the gradient of the row it was sent to
+    (zero for a rank that sends nothing).  ``src_idx`` is a partial
+    permutation, so each source row has at most one destination; the
+    inverse is built on the device, without a host read."""
+
+    @staticmethod
+    def forward(ctx, forward_fn, x, addend, src_idx):
+        ctx.save_for_backward(src_idx)
+        return forward_fn(x, addend, src_idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (src,) = ctx.saved_tensors
+        grad_x = None
+        if ctx.needs_input_grad[1]:
+            P = src.shape[0]
+            ranks = torch.arange(P, device=src.device)
+            # dst[s]: the rank that received row s, or -1; every rank that
+            # receives nothing writes the spare slot P
+            dst = torch.full((P + 1,), -1, dtype=torch.long, device=src.device)
+            dst.scatter_(0, torch.where(src >= 0, src.long(), P), ranks)
+            dst = dst[:P]
+            sent = (dst >= 0).reshape((P,) + (1,) * (g.dim() - 1))
+            grad_x = torch.where(sent, g[dst.clamp_min(0)], torch.zeros((), dtype=g.dtype,
+                                                                       device=g.device))
+        return None, grad_x, g, None
+
+
 def fused_shift_accumulate(x: torch.Tensor, addend: torch.Tensor,
                            src_idx: torch.Tensor) -> torch.Tensor:
     """``out[r] = x[src_idx[r]] + addend[r]`` over the rank-stacked ``(P,
     ...)`` operands, zeros in place of ``x``'s row where ``src_idx[r] < 0``:
-    one launch of the CUDA kernel on CUDA tensors, the plain version on CPU
+    one launch of the CUDA kernel on CUDA tensors (through
+    :class:`ShiftAccumulateFn`, so gradients pass), the plain version on CPU
     tensors.
 
     Takes contiguous ``x`` and ``addend`` of one shape and dtype (float32,
@@ -117,6 +175,12 @@ def fused_shift_accumulate(x: torch.Tensor, addend: torch.Tensor,
         return shift_accumulate_plain(x, addend, src_idx)
     if x.device.type != "cuda":
         raise ValueError(f"fused_shift_accumulate runs on cuda or cpu, not {x.device}")
+    return ShiftAccumulateFn.apply(_shift_accumulate_kernel, x, addend, src_idx)
+
+
+def _shift_accumulate_kernel(x: torch.Tensor, addend: torch.Tensor,
+                             src_idx: torch.Tensor) -> torch.Tensor:
+    """One launch of the gather-fused kernel on checked CUDA operands."""
     if x.dtype not in DTYPE_CODES or src_idx.dtype != torch.int32:
         raise TypeError(f"fused_shift_accumulate kernel does not take {x.dtype} operands "
                         f"with a {src_idx.dtype} src_idx")

@@ -103,3 +103,35 @@ def test_entry_points_default_to_cuda():
         launch_stencil.main(["--domain", "16x16", "--steps", "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         launch_serve.main(["--smoke"])
+
+
+#: the training slice's modules (each also in the scans above)
+TRAINING_MODULES = ("optim/adamw.py", "optim/grad.py", "optim/schedule.py", "data/pipeline.py",
+                    "checkpoint/checkpointer.py", "ft/watchdog.py", "ft/elastic.py",
+                    "launch/train.py", "launch/steps.py", "models/model.py", "interop.py")
+
+
+@pytest.mark.parametrize("module", TRAINING_MODULES)
+def test_training_modules_stand_alone(module):
+    """The training modules are the port's own copies: none imports JAX or
+    ``repro`` (not even the jax-free ``repro.data.pipeline`` or
+    ``repro.checkpoint``), and each is imported by the package walk."""
+    path = PORT / module
+    assert path in _port_files()
+    assert _forbidden_imports(path) == []
+
+
+def test_training_entry_points_default_to_cuda():
+    from repro_torch.configs import ShapeConfig, get_arch, smoke
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.steps import TrainSettings, build_train
+
+    cfg = smoke(get_arch("yi-6b"))
+    shape = ShapeConfig("t", 32, 2, "train")
+    if torch.cuda.is_available():
+        assert build_train(cfg, shape, TrainSettings())["device"].type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_train(cfg, shape, TrainSettings())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_train.main(["--smoke", "--steps", "1"])

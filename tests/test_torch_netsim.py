@@ -447,8 +447,7 @@ def test_tuner_constants_equal_reference(R):
                  "WIRES"):
         assert getattr(ptune, name) == getattr(R.tune, name), name
     assert ptune.DEFAULT_PLAN.to_dict() == R.tune.DEFAULT_PLAN.to_dict()
-    # the training step's predictor comes with the training slice (item 13)
-    assert sorted(pn.__all__) == sorted(set(R.ns.__all__) - {"predict_train_step_stats"})
+    assert sorted(pn.__all__) == sorted(R.ns.__all__)
 
 
 def test_tuning_tables_cross_between_the_packages_as_json(R, tmp_path):
