@@ -232,10 +232,10 @@ non-zero):
     (both engines, on ``smi:static`` and the bare ``smi``): tokens equal across the runs at each tp; the pinned fused
     decode as phase 32's; ms a decode step beside tp = 1, the idle share,
     A's launches a step;
-36. ``launch.serve --validate-comm`` over ``smi:static`` for mamba2-2.7b and
-    qwen3-moe-30b-a3b at ``1,8`` and ``2,4`` (the latter with ``--fsdp
-    off``: the port has no FSDP): every ``serve.*`` tag equal to the
-    prediction;
+36. ``launch.serve --validate-comm`` over ``smi:static`` for mamba2-2.7b at
+    ``1,8`` and ``2,4`` and qwen3-moe-30b-a3b at ``1,8`` and ``2,4``, the
+    last on FSDP weights (``fsdp.gather`` a layer): every tag equal to the
+    port's prediction;
 37. recurrentgemma-9b at full width and depth (38 layers, the last 2
     remainder ``rec`` layers, 19.1 GB of bfloat16) through ``build_prefill``
     on 4096 tokens: ms, tokens/s, E launched 12 times (the attention
@@ -306,7 +306,36 @@ non-zero):
     through ``build_train`` and ``train_loop`` at tp = 1 and at ``--mesh
     1,8`` over ``smi:fused``, each exiting 0 with finite losses; then
     ``--validate-comm`` at ``1,8`` over ``smi:fused``: every tag equal to
-    ``predict_train_step_stats(eager=True)``.
+    ``predict_train_step_stats(eager=True)``;
+48. yi-6b at phase 44's cut on a (2, 4) mesh with FSDP over the data axis
+    and D: the first step's loss and gradients bit-equal over
+    ``smi:fused`` and ``smi:static`` (A on the fused wire only), D, E and A
+    counted; 2 steps a wire timed in turns; the device time by range
+    (forward, FSDP gather, recompute, backward, gradient sync, optimizer),
+    the idle share and the peak memory; a float32 4-layer check against
+    (1, 4) on the whole batch (loss 1e-5; gradients and one AdamW step
+    3e-4, 3e-4 + 2 lr where the two gradients lie within 3e-4 of 0 with
+    opposite signs, those counted);
+49. mamba2-2.7b at 16 layers on (2, 4) over ``smi:fused``: the ``"grad"``
+    ring alone on odd lengths bit-equal over the fused and static wires;
+    2 steps with raw gradients (A launched on the ring, each launch re-run
+    against its plain version) and 2 with ``compressed_grads`` (the int8
+    ring; its losses beside the raw ones); F twice a layer a group; the
+    float32 4-layer check against (1, 4), gated as phase 48's;
+50. yi-6b at phase 45's cut at P = 8: one step under each of
+    ``"nothing"``, ``"dots"`` and ``"dots_nb"``, the gradients bit-equal
+    (else named and within cosine 0.999), D's recompute launches 320 under
+    ``"nothing"`` and 0 under ``"dots"``; ms, the recompute's device ms and
+    the peak memory of each;
+51. GPipe over a chain channel: 8 stages, 16 microbatches of (512, 4096)
+    bfloat16, a stage a product on D then a GELU: ``pipeline_loss`` and its
+    gradients bit-equal to the stages run one after another, ``pp.stage``
+    23 hops, D once a tick in the forward; ms forward and backward;
+52. ``launch.train --mesh 2,4 --compressed-grads --validate-comm`` over
+    ``smi:fused`` for yi-6b (8 layers) and mamba2-2.7b (16 layers), every
+    tag (``fsdp.gather`` and ``grad`` with them) equal to the prediction;
+    qwen3-moe-30b-a3b cut to 12 layers served at ``2,4`` on the continuous
+    runtime with ``fsdp=True`` then ``False``: the same tokens.
 
 Earlier phases that time or check one schedule pass ``plan=None``.
 
@@ -327,7 +356,12 @@ and A's ``launches_moe_tp_prefill_fused`` and
 are ``launches_train_step`` on E's and F's wgmma rows (tp = 1), and
 ``launches_train_tp_step`` on E's and D's rows and A's
 ``launches_train_tp_step_fused`` (P = 8), a training step's forward,
-recompute and backward together, and D's ``launches_grad_phase``), each
+recompute and backward together, and D's ``launches_grad_phase``;
+phases 48-51's are ``launches_train_dp_step`` on E's, D's and F's wgmma
+rows and A's ``launches_train_dp_step_fused`` (a (2, 4) step, both data
+groups), A's ``launches_grad_ring`` (the ``"grad"`` ring of phase 49's
+raw steps), D's ``launches_remat_recompute`` by policy and
+``launches_pipeline_forward``), each
 with the path its kernel ran (``simt``, ``vector``, ``warp``,
 ``thread``, ``fma`` or ``wgmma``); the rows of A, C, E, F's wgmma path and
 D add ``ms_before``, the time in this run of the kernel their calls ran
@@ -1330,6 +1364,9 @@ FA_CASES = (
     ("audio_d64_bf16", 24, 24, 24, 4096, 4096, 4096, 64, True, None, "bfloat16"),
     ("audio_d64_f32", 24, 24, 24, 4096, 4096, 4096, 64, True, None, "float32"),
     ("rg_tp8_window2048_d256_bf16", 16, 2, 2, 4096, 4096, 4096, 256, True, 2048, "bfloat16"),
+    # slice 12's (2, 4) training: a data group's yi-6b at tp = 4, 8 query
+    # heads and 1 KV head a rank over 4096 positions
+    ("train_tp4_gqa8_bf16", 32, 8, 1, 4096, 4096, 4096, 128, True, None, "bfloat16"),
 )
 FA_TOL = {"float32": 1e-4, "bfloat16": 1.6e-2}
 
@@ -1683,6 +1720,9 @@ SSD_CASES = (
     ("s640_five_chunks_bf16", 16, 640, 64, 128, 2, 128, "bfloat16", False, "wgmma"),
     ("ragged_s1000_bf16", 16, 1000, 64, 128, 2, 128, "bfloat16", True, "wgmma"),
     ("small_vs_sequential_f32", 4, 256, 16, 8, 4, 64, "float32", True, "fma"),
+    # slice 12's (2, 4) training: a data group's mamba2-2.7b at tp = 4, 20
+    # heads a rank, one B/C row a rank
+    ("train_tp4_bf16", 80, 4096, 64, 128, 4, 128, "bfloat16", False, "wgmma"),
 )
 SSD_TOL = {"float32": 1e-4, "bfloat16": 1.6e-2}
 #: the wgmma path against the plain version, both bfloat16: the mean over
@@ -1877,6 +1917,16 @@ MM_CASES = (
     ("odd_k_bf16", (3, 65, 131), (3, 131, 33), "bfloat16", False, "mma_sync"),
     ("strided_batch_bf16", (8, 512, 1024), (8, 1024, 1376), "bfloat16", True, "wgmma"),
     ("shared_w_bf16", (8, 512, 1024), (1024, 1376), "bfloat16", False, "wgmma"),
+    # slice 12: a data group's ring steps at tp = 4 (1,024 rows a rank) for
+    # yi-6b (Q, out, MLP up and down) and mamba2-2.7b (ssm.in, ssm.out), and
+    # the GPipe stage product of phase 51
+    ("yi_tp4_q_bf16", (4, 1024, 4096), (4, 4096, 1024), "bfloat16", False, "wgmma"),
+    ("yi_tp4_out_bf16", (4, 1024, 1024), (4, 1024, 4096), "bfloat16", False, "wgmma"),
+    ("yi_tp4_mlp_up_bf16", (4, 1024, 4096), (4, 4096, 2752), "bfloat16", False, "wgmma"),
+    ("yi_tp4_mlp_down_bf16", (4, 1024, 2752), (4, 2752, 4096), "bfloat16", False, "wgmma"),
+    ("ssm_tp4_in_bf16", (4, 1024, 2560), (4, 2560, 1280), "bfloat16", False, "wgmma"),
+    ("ssm_tp4_out_bf16", (4, 1024, 1280), (4, 1280, 2560), "bfloat16", False, "wgmma"),
+    ("pipe_stage_bf16", (8, 512, 4096), (8, 4096, 4096), "bfloat16", False, "wgmma"),
 )
 MM_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 #: the TP prefill's tensor-parallel degree: the paper's 8-rank testbed
@@ -2805,7 +2855,8 @@ def _a_launches() -> dict:
 
 #: the serving launcher runs cut in depth (``--layers``) to keep the script
 #: inside its time limit with the training phases: decode is host-bound,
-#: so a run's time goes with its layers
+#: so a run's time goes with its layers (halved again with the data axis's
+#: phases 48-52: 1050 s passed)
 SERVE_LAYERS = {"yi-6b": 16, "mamba2-2.7b": 32, "qwen3-moe-30b-a3b": 24,
                 "recurrentgemma-9b": 20, "internvl2-1b": 12, "musicgen-medium": 24}
 
@@ -3239,10 +3290,12 @@ SLICE9_TICKS = 3
 #: float32 sums), and phase 28's tolerance
 MOE_F32_LAYERS = 4
 MOE_F32_TOKENS = 256
-#: phase 36's runs (arch, mesh); qwen3-moe at 2,4 is not among them: a
-#: model shard's 15 GB of weights would be sharded over the data axis (the
-#: reference's FSDP rule), and FSDP is item 13, so that run must raise
-VALIDATE_SLICE9 = ((SSM_ARCH, "1,8"), (SSM_ARCH, "2,4"), (MOE_ARCH, "1,8"))
+#: phase 36's runs (arch, mesh); qwen3-moe at 2,4 runs on FSDP weights: a
+#: model shard's 15.3 GB of bfloat16 weights (30.53 B parameters over 4
+#: model ranks) passes the FSDP rule's 10 GB.  The reference counts the
+#: parameters in int32 there (4.763 B) and would not shard them
+#: (ROADMAP.md §3); the port counts them from the config
+VALIDATE_SLICE9 = ((SSM_ARCH, "1,8"), (SSM_ARCH, "2,4"), (MOE_ARCH, "1,8"), (MOE_ARCH, "2,4"))
 
 
 def _tp_prefill_checks(cfg, params, tokens, extra, dev, name: str,
@@ -3665,22 +3718,14 @@ def phase_moe_serving(dev, seed: int = 35) -> dict:
 def phase_validate_slice9() -> dict:
     """Phase 36: ``launch.serve --validate-comm`` over ``smi:static``, 4
     slots, 256 positions, full width and depth, for mamba2-2.7b and
-    qwen3-moe-30b-a3b at :data:`VALIDATE_SLICE9`'s meshes: every ``serve.*``
-    tag, migration legs included, equal to the prediction byte for byte and
-    step for step; qwen3-moe at ``2,4`` refused with FSDP's roadmap
-    error."""
-    from repro_torch.launch import serve as launch_serve
-
+    qwen3-moe-30b-a3b at :data:`VALIDATE_SLICE9`'s meshes: every tag,
+    migration legs included, equal to the prediction byte for byte and
+    step for step; qwen3-moe at ``2,4`` on FSDP weights (the launcher's rule),
+    its step gathering every layer's over the data ring (``fsdp.gather``,
+    in the port's prediction only)."""
     out = _validate_comm_runs(VALIDATE_SLICE9)
-    try:
-        launch_serve.main(["--arch", MOE_ARCH, "--mesh", "2,4", "--comm-mode", "smi:static",
-                           "--validate-comm"])
-    except NotImplementedError as e:
-        if "item 13" not in str(e):
-            raise
-        log(f"validate-comm {MOE_ARCH} mesh 2,4: refused, as FSDP waits ({e})")
-    else:
-        raise AssertionError(f"validate-comm {MOE_ARCH} mesh 2,4 ran; FSDP's rule should refuse it")
+    if "fsdp.gather" not in out[f"{MOE_ARCH} 2,4"]:
+        raise AssertionError(f"validate-comm {MOE_ARCH} mesh 2,4: not on FSDP weights")
     return out
 
 
@@ -4309,10 +4354,10 @@ def _train_cfg(arch: str, layers: int, **kw):
     return get_arch(arch).scaled(n_layers=layers, **kw)
 
 
-def _train_settings(comm_mode: str = "smi:fused", **kw):
+def _train_settings(comm_mode: str = "smi:fused", remat: str = "nothing", **kw):
     from repro_torch.launch.steps import TrainSettings
 
-    return TrainSettings(comm_mode=comm_mode, remat="nothing", loss_chunks=8, base_lr=3e-4,
+    return TrainSettings(comm_mode=comm_mode, remat=remat, loss_chunks=8, base_lr=3e-4,
                          warmup_steps=0, total_steps=10, **kw)
 
 
@@ -4688,7 +4733,7 @@ def phase_train_launcher() -> dict:
     base = ["--arch", TRAIN_ARCH, "--layers", str(TRAIN_LAYERS), "--seq-len", str(TRAIN_SEQ),
             "--batch", str(TRAIN_BATCH)]
     res = {}
-    for name, args in (("tp1", ["--steps", "2"]),
+    for name, args in (("tp1", ["--steps", "2", "--mesh", "1,1"]),
                        (f"p{TP}", ["--steps", "2", "--mesh", f"1,{TP}", "--comm-mode",
                                    "smi:fused"]),
                        ("validate", ["--mesh", f"1,{TP}", "--comm-mode", "smi:fused",
@@ -4714,6 +4759,636 @@ def phase_train_launcher() -> dict:
         if len(losses) != 2 or not all(math.isfinite(v) for v in losses):
             raise AssertionError(f"launch.train {' '.join(args)} logged losses {losses}")
         res[name] = dict(seconds=secs, losses=losses)
+    return res
+
+
+# ----------------------------------------------------------- the data axis
+#
+# Phases 48-52 (slice 12): training over a (data, model) mesh of (2, 4) with
+# FSDP and the gradient sync over the "dp" ring, the remat policies that
+# save the products, GPipe over a chain channel, and the launchers at 2,4.
+
+DP_MESH = (2, 4)
+#: mamba2-2.7b's depth at (2, 4), and the steps a run of each gradient
+#: wire (three: step 0's learning rate is 0, so the third loss is the first
+#: to follow an update)
+SSM_DP_LAYERS = 16
+DP_STEPS = 3
+#: the GPipe phase: stages, microbatches and each microbatch's (rows, width)
+PIPE_STAGES = 8
+PIPE_MICRO = 16
+PIPE_ROWS, PIPE_WIDTH = 512, 4096
+#: phase 52's qwen3-moe serving cut and its decode
+FSDP_SERVE_LAYERS = 12
+
+
+def _grad_ring_a(record: list):
+    """A context that wraps ``mesh.api.grad_sync`` (the ``"grad"`` ring) to
+    count kernel A's launches inside it into ``record``, and re-runs each of
+    A's gather-fused steps there against its plain version (bit for bit):
+    the ring's operands are the chunks of the leaves stored whole, float32,
+    their lengths the leaves' over the data ranks."""
+    import contextlib
+    from unittest import mock
+
+    from repro_torch.mesh import api
+    from repro_torch.transport import fused
+
+    orig_sync, orig_step = api.grad_sync, fused.FusedTransport.shift_accumulate
+
+    def checked(self, x, addend, comm, step: int = 1):
+        out = orig_step(self, x, addend, comm, step)
+        src = fused.source_index(tuple(comm.ring_perm(step)), x.shape[0], x.device)
+        want = fused.shift_accumulate_plain(x.contiguous(), addend.contiguous(), src)
+        if not same_bits(out, want):
+            raise AssertionError(f"grad ring: A's shift_accumulate on {tuple(x.shape)} "
+                                 f"{x.dtype} differs from its plain version")
+        record.append(("shape", tuple(x.shape)))
+        return out
+
+    def sync(*a, **kw):
+        before = fused.fused_shift_accumulate.launches + fused.fused_accumulate.launches
+        with mock.patch.object(fused.FusedTransport, "shift_accumulate", checked):
+            out = orig_sync(*a, **kw)
+        record.append(("launches", fused.fused_shift_accumulate.launches +
+                       fused.fused_accumulate.launches - before))
+        return out
+
+    @contextlib.contextmanager
+    def ctx():
+        with mock.patch.object(api, "grad_sync", sync):
+            yield
+
+    return ctx()
+
+
+def _dp_profile(art, state, batch) -> dict:
+    """One (dp, P) training step under ``torch.profiler``: device ms by
+    range (the forward, the FSDP gathers, the remat recompute, E's plain
+    backward, the rest of the backward, the gradient sync and the
+    optimizer) and the idle share.  The gathers are split out of the
+    forward and the recompute they run in (the recompute's run with the
+    ledger paused, inside a capture)."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.kernels import common
+    from repro_torch.launch import steps
+    from repro_torch.mesh import api
+    from repro_torch.parallel import ledger
+
+    orig_paused, orig_bwd, orig_loss = ledger.paused, common.RecomputeFn.backward, steps.lm_loss
+    orig_gather, orig_sync = api.fsdp_gather, steps.grad_sync_fsdp
+    in_recompute = []
+
+    @contextlib.contextmanager
+    def paused():
+        in_recompute.append(1)
+        try:
+            with record_function("recompute"), orig_paused():
+                yield
+        finally:
+            in_recompute.pop()
+
+    def backward(ctx, g):
+        with record_function("E plain backward"):
+            return orig_bwd(ctx, g)
+
+    def forward(*a, **kw):
+        with record_function("forward"):
+            return orig_loss(*a, **kw)
+
+    def gather(*a, **kw):
+        with record_function("gather recompute" if in_recompute else "gather forward"):
+            return orig_gather(*a, **kw)
+
+    def sync(*a, **kw):
+        with record_function("gradient sync"):
+            return orig_sync(*a, **kw)
+
+    names = ("step", "forward", "recompute", "E plain backward", "gather forward",
+             "gather recompute", "gradient sync")
+    with mock.patch.object(ledger, "paused", paused), \
+            mock.patch.object(common.RecomputeFn, "backward", staticmethod(backward)), \
+            mock.patch.object(steps, "lm_loss", forward), \
+            mock.patch.object(api, "fsdp_gather", gather), \
+            mock.patch.object(steps, "grad_sync_fsdp", sync), ledger.capture():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            with record_function("step"):
+                art["step"](state, batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    part = {n: 0.0 for n in names}
+    busy = 0.0
+    for e in prof.key_averages():
+        if e.key in part:
+            if e.device_type == DeviceType.CPU:
+                part[e.key] += e.device_time_total / 1e3
+        elif e.device_type == DeviceType.CUDA:
+            busy += e.self_device_time_total / 1e3
+    # ranges on autograd's thread (the recompute and E's backward) and on the
+    # calling thread (the step, its forward, the sync) do not nest across
+    split = {"forward": part["forward"] - part["gather forward"],
+             "FSDP gather": part["gather forward"] + part["gather recompute"],
+             "recompute": part["recompute"] - part["gather recompute"],
+             "E plain backward": part["E plain backward"],
+             "gradient sync": part["gradient sync"],
+             "optimizer": part["step"] - part["forward"] - part["gradient sync"]}
+    split["backward, the rest"] = busy - sum(split.values())
+    return dict(device_ms=busy, profiled_wall_ms=wall, device_idle_share=1 - busy / wall,
+                device_split_ms=split)
+
+
+def _dp_f32_check(arch: str, layers: int, seed: int, dev) -> dict:
+    """``arch`` in float32 at ``layers`` layers and 2 x :data:`TRAIN_F32_SEQ`
+    tokens on :data:`DP_MESH` against the port's ``(1, 4)`` run on the whole
+    batch: the loss within :data:`TRAIN_F32_LOSS_TOL`, every unsharded
+    gradient within :data:`TRAIN_F32_TOL` rtol/atol, and one AdamW step's
+    params too, with the leaf and the two gradients at its worst element
+    reported.  AdamW's first step moves an element by less than ``lr``
+    times its gradient's sign, so where the gradient lies within the
+    gradient tolerance of 0 on both meshes with opposite signs (a
+    cancelling sum whose two float32 orders differ in sign) the two steps
+    legitimately land up to ``2 lr`` apart: those elements (counted) are
+    held within the tolerance plus ``2 lr``, every other within the
+    tolerance."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.interop import unshard_params
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.launch.steps import build_train
+    from repro_torch.models.common import tree_flatten, tree_leaves_with_path
+    from repro_torch.optim import adamw_init
+
+    cfg32 = _train_cfg(arch, layers, dtype="float32")
+    shape32 = ShapeConfig("train_f32", TRAIN_F32_SEQ, TRAIN_BATCH, "train")
+    tp = DP_MESH[1]
+    a1 = build_train(cfg32, shape32, _train_settings(), mesh=(1, tp), matmul_fn=matmul,
+                     device=dev)
+    a2 = build_train(cfg32, shape32, _train_settings(), mesh=DP_MESH, matmul_fn=matmul,
+                     device=dev)
+    p1, p2 = a1["init_params"](seed), a2["init_params"](seed)
+    with torch.no_grad():
+        if not all(same_bits(a, b) for a, b in zip(tree_flatten(unshard_params(
+                p1, cfg32, a1["ctx"])), tree_flatten(unshard_params(p2, cfg32, a2["ctx"],
+                                                                    a2["plan"])))):
+            raise AssertionError(f"{arch} f32: the (2, 4) params are not (1, 4)'s, stored")
+    batch = _train_batches(cfg32, TRAIN_F32_SEQ, TRAIN_BATCH, 1, seed)[0]
+    l1, _, g1 = a1["grads"](p1, batch)
+    l2, _, g2 = a2["grads"](p2, batch)
+    g1 = unshard_params(g1, cfg32, a1["ctx"])
+    g2 = unshard_params(g2, cfg32, a2["ctx"], a2["plan"])
+    loss_err = abs(float(l1) - float(l2))
+    grad_err = max(float(((a - b).abs() - TRAIN_F32_TOL * b.abs()).max())
+                   for a, b in zip(tree_flatten(g2), tree_flatten(g1)))
+    # on the host for the worst element's report: the AdamW steps below hold
+    # two float32 copies of the state on the card
+    flat1, flat2 = ([t.cpu() for t in tree_flatten(g)] for g in (g1, g2))
+    del g1, g2
+    s1 = {"params": p1, "opt": adamw_init(p1)}
+    s2 = {"params": p2, "opt": adamw_init(p2)}
+    a1["step"](s1, batch)
+    a2["step"](s2, batch)
+    with torch.no_grad():
+        q1 = unshard_params(s1["params"], cfg32, a1["ctx"])
+        q2 = unshard_params(s2["params"], cfg32, a2["ctx"], a2["plan"])
+        flips = [((a.abs() <= TRAIN_F32_TOL) & (b.abs() <= TRAIN_F32_TOL)
+                  & (a.sign() != b.sign())).to(dev) for a, b in zip(flat2, flat1)]
+        lr2 = 2 * _train_settings().base_lr
+        excess = [(a - b).abs() - TRAIN_F32_TOL * b.abs() - lr2 * f
+                  for a, b, f in zip(tree_flatten(q2), tree_flatten(q1), flips)]
+        n_flips = sum(int(f.sum()) for f in flips)
+        param_err = max(float(e.max()) for e in excess)
+        k = max(range(len(excess)), key=lambda i: float(excess[i].max()))
+        at = int(excess[k].argmax())
+        names = [".".join(map(str, p)) for p, _ in tree_leaves_with_path(q1)]
+        worst = dict(leaf=names[k], grad_1x4=float(flat1[k].reshape(-1)[at]),
+                     grad_2x4=float(flat2[k].reshape(-1)[at]))
+    log(f"train {arch} f32 ({layers} layers, {TRAIN_BATCH} x {TRAIN_F32_SEQ} tokens): (2, 4) "
+        f"against (1, 4) on the whole batch: loss {float(l2):.7f} vs {float(l1):.7f} (|diff| "
+        f"{loss_err:.3e}); gradients' excess over {TRAIN_F32_TOL} rtol {grad_err:.3e}, one "
+        f"AdamW step's params' {param_err:.3e} (worst at {worst}; {n_flips} elements whose "
+        f"gradients lie within {TRAIN_F32_TOL} of 0 with opposite signs held {lr2} wider)")
+    if loss_err > TRAIN_F32_LOSS_TOL or grad_err > TRAIN_F32_TOL or param_err > TRAIN_F32_TOL:
+        raise AssertionError(f"train {arch} f32: (2, 4) disagrees with (1, 4)")
+    del s1, s2, p1, p2, q1, q2, flat1, flat2, flips, excess
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(f32_loss_err=loss_err, f32_grad_excess=grad_err, f32_param_excess=param_err,
+                f32_param_worst=worst, f32_step_sign_flips=n_flips)
+
+
+def phase_train_dp(dev, seed: int = 48) -> tuple[dict, dict]:
+    """Phase 48: yi-6b at phase 44's cut (8 layers, full width, 2 x 4096
+    tokens: one sequence a data group) on a (2, 4) mesh, FSDP over the data
+    axis, D on the tensor-parallel GEMMs, ``remat="nothing"``: the first
+    step's loss and gradients bit-equal over ``smi:fused`` and
+    ``smi:static`` (A on the fused wire only), E launched twice a layer a
+    group; 2 steps a wire timed in turns, the device time by range, the
+    idle share and the peak memory; then the float32 check against (1, 4)
+    on the whole batch (:func:`_dp_f32_check`)."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.launch.steps import build_train
+    from repro_torch.models.common import tree_flatten
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel import ledger
+    from repro_torch.transport.fused import fused_accumulate, fused_shift_accumulate
+
+    cfg = _train_cfg(TRAIN_ARCH, TRAIN_LAYERS)
+    shape = ShapeConfig("train_4k_cut", TRAIN_SEQ, TRAIN_BATCH, "train")
+    arts = {w: build_train(cfg, shape, _train_settings(w), mesh=DP_MESH, matmul_fn=matmul,
+                           device=dev) for w in ("smi:fused", "smi:static")}
+    dp = DP_MESH[0]
+    if arts["smi:fused"]["plan"] is None:
+        raise AssertionError("train (2, 4): FSDP is off")
+    torch.cuda.reset_peak_memory_stats()
+    params = arts["smi:fused"]["init_params"](seed)
+    n = sum(t.numel() for t in tree_flatten(params))
+    order = ("smi:static", "smi:fused", "smi:fused", "smi:static")   # 2 steps a wire
+    batches = _train_batches(cfg, TRAIN_SEQ, TRAIN_BATCH, len(order) + 1, seed)
+    first, launches, tags = {}, {}, {}
+    for w, art in arts.items():
+        reset_counts()
+        with ledger.capture() as led:
+            loss, _, g = art["grads"](params, batches[0])
+        torch.cuda.synchronize()
+        launches[w] = dict(D=matmul.launches, E=flash_attention_kernel.launches,
+                           A=dict(fold=fused_accumulate.launches,
+                                  shift=fused_shift_accumulate.launches))
+        tags[w] = {t: dict(e) for t, e in led.by_tag.items()}
+        first[w] = (loss, g)
+        del g
+    _finite_nonzero(first["smi:fused"][1], "train (2, 4)")
+    want_d = 4 * _d_launches(cfg, DP_MESH[1]) * dp
+    for w, c in launches.items():
+        a = c["A"]["fold"] + c["A"]["shift"]
+        if c["D"] != want_d or c["E"] != 2 * TRAIN_LAYERS * dp or (a > 0) != (w == "smi:fused"):
+            raise AssertionError(f"train (2, 4) over {w}: launches {c}, want D {want_d}, E "
+                                 f"{2 * TRAIN_LAYERS * dp}, A on smi:fused only")
+    (lf, gf), (ls, gs) = first["smi:fused"], first["smi:static"]
+    if not same_bits(lf.reshape(1), ls.reshape(1)) or not all(same_bits(a, b) for a, b in
+                                        zip(tree_flatten(gf), tree_flatten(gs), strict=True)):
+        raise AssertionError("train (2, 4): smi:fused's loss or gradients differ from "
+                             "smi:static's")
+    if "fsdp.gather" not in tags["smi:fused"] or tags["smi:fused"] != tags["smi:static"]:
+        raise AssertionError(f"train (2, 4): the ledgers {tags}")
+    log(f"train (2, 4): {n} params ({n * 16 / 1e9:.1f} GB of float32 state, FSDP-stored); loss "
+        f"{float(lf):.6f} and every gradient bit-equal over smi:fused and smi:static; launches "
+        f"a step {launches}; fsdp.gather {tags['smi:fused']['fsdp.gather']}")
+    del first, gf, gs
+    state = {"params": params, "opt": adamw_init(params)}
+    turns = {w: [] for w in arts}
+    losses = []
+    for w, b in zip(order, batches[1:]):
+        (_, m), t = _timed_ms(lambda: arts[w]["step"](state, b))
+        turns[w].append(t)
+        losses.append(float(m["loss"]))
+    ms = {w: sum(v) / len(v) for w, v in turns.items()}
+    prof = _dp_profile(arts["smi:fused"], state, batches[-1])
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    log(f"train (2, 4): ms a step {ms} (in turns {turns}); {tokens / ms['smi:fused'] * 1e3:.1f} "
+        f"tok/s over smi:fused; losses {losses}; peak {peak:.2f} GB")
+    log(f"train (2, 4) profile (smi:fused): device {prof['device_ms']:.3f} ms of "
+        f"{prof['profiled_wall_ms']:.3f} ms wall (idle {prof['device_idle_share']:.1%}): " +
+        ", ".join(f"{k} {v:.3f} ({v / prof['device_ms']:.1%})"
+                  for k, v in prof["device_split_ms"].items()))
+    del state, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32 = _dp_f32_check(TRAIN_ARCH, TRAIN_F32_LAYERS, seed, dev)
+    return dict(params=n, ms_per_step=ms, turns=turns, tok_per_s=tokens / ms["smi:fused"] * 1e3,
+                losses=losses, launches=launches, fsdp_gather=tags["smi:fused"]["fsdp.gather"],
+                peak_gb=peak, **prof, **f32), launches["smi:fused"]
+
+
+def phase_train_dp_ssm(dev, seed: int = 49) -> tuple[dict, dict]:
+    """Phase 49: mamba2-2.7b at full width and :data:`SSM_DP_LAYERS` layers
+    on (2, 4) over ``smi:fused``, FSDP on: :data:`DP_STEPS` steps with raw
+    gradients and :data:`DP_STEPS` with ``compressed_grads``; the ``"grad"``
+    ring runs on the leaves stored whole (A launched on its raw folds, each
+    launch re-run against its plain version; none on the int8 wire, whose
+    sums are float32 adds); F launched twice a layer a group; the int8
+    run's losses beside the raw run's; first the ring alone on odd lengths
+    (1, 3, 161, 1283 float32 elements over the two data ranks), bit-equal
+    over ``smi:fused`` and ``smi:static``; then the float32 check against
+    (1, 4) at 4 layers."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.kernels.ssd import ssd_scan_kernel
+    from repro_torch.launch.steps import build_train
+    from repro_torch.mesh.api import make_ctx
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel import grad_allreduce, ledger
+    from repro_torch.transport.fused import fused_shift_accumulate
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    odd = {}
+    for m in (1, 3, 161, 1283):
+        x = torch.randn((DP_MESH[0], m), generator=g, device=dev)
+        out = {}
+        for w in ("smi:fused", "smi:static"):
+            comm = make_ctx(DP_MESH, comm_mode=w, device=dev).data_comm
+            before = fused_shift_accumulate.launches
+            out[w] = grad_allreduce(x, comm)
+            odd.setdefault(m, {})[w] = fused_shift_accumulate.launches - before
+        if not same_bits(out["smi:fused"], out["smi:static"]) or odd[m]["smi:fused"] == 0:
+            raise AssertionError(f"grad ring of {m} elements: fused {odd[m]} launches, or its "
+                                 f"sum differs from the static wire's")
+    log(f"grad ring on odd lengths: bit-equal over smi:fused and smi:static, A's launches {odd}")
+
+    cfg = _train_cfg(SSM_ARCH, SSM_DP_LAYERS)
+    shape = ShapeConfig("train_4k_cut", TRAIN_SEQ, TRAIN_BATCH, "train")
+    dp = DP_MESH[0]
+    res = {"odd_ring_a_launches": odd}
+    params = None
+    torch.cuda.reset_peak_memory_stats()
+    for name, comp in (("raw", False), ("int8", True)):
+        art = build_train(cfg, shape, _train_settings(compressed_grads=comp), mesh=DP_MESH,
+                          matmul_fn=matmul, device=dev)
+        if params is None:
+            params = art["init_params"](seed)
+            state = {"params": params, "opt": adamw_init(params)}
+            snapshot = [t.detach().clone() for t in _flat(state)]
+        else:   # the int8 run starts from the raw run's initial state
+            for t, s in zip(_flat(state), snapshot):
+                with torch.no_grad():
+                    t.copy_(s)
+        batches = _train_batches(cfg, TRAIN_SEQ, TRAIN_BATCH, DP_STEPS, seed)
+        ring, ms, losses = [], [], []
+        for b in batches:
+            reset_counts()
+            with _grad_ring_a(ring), ledger.capture() as led:
+                (_, m), t = _timed_ms(lambda: art["step"](state, b))
+            f = ssd_scan_kernel.launches
+            if f != 2 * SSM_DP_LAYERS * dp:
+                raise AssertionError(f"train mamba2 (2, 4) {name}: F launched {f} times, not "
+                                     f"{2 * SSM_DP_LAYERS * dp}")
+            ms.append(t)
+            losses.append(float(m["loss"]))
+        a_ring = sum(v for k, v in ring if k == "launches")
+        shapes = sorted({v for k, v in ring if k == "shape"})
+        if (a_ring > 0) == comp or "grad" not in led.by_tag:
+            raise AssertionError(f"train mamba2 (2, 4) {name}: A launched {a_ring} times on "
+                                 f"the grad ring ({led.by_tag.get('grad')})")
+        res[name] = dict(ms_per_step=ms, losses=losses, a_launches_grad_ring=a_ring,
+                         grad_ring_shapes=shapes, grad=led.by_tag["grad"],
+                         fsdp_gather=led.by_tag["fsdp.gather"], launches_f=f)
+        log(f"train mamba2 (2, 4) {name} gradients ({SSM_DP_LAYERS} layers): steps "
+            f"{[f'{t:.3f}' for t in ms]} ms, losses {losses}; F {f} launches a step; grad "
+            f"ring {led.by_tag['grad']}, A {a_ring} launches on it (operands {shapes}, each "
+            f"bit-equal to its plain version)")
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del state, params, snapshot
+    gc.collect()
+    torch.cuda.empty_cache()
+    res.update(_dp_f32_check(SSM_ARCH, TRAIN_F32_LAYERS, seed, dev))
+    return res, dict(F=res["raw"]["launches_f"], A_grad_ring=res["raw"]["a_launches_grad_ring"])
+
+
+def _flat(state):
+    from repro_torch.models.common import tree_flatten
+
+    return tree_flatten(state)
+
+
+def phase_remat(dev, seed: int = 50) -> dict:
+    """Phase 50: yi-6b at phase 45's cut and batch at P = 8 with D, one
+    step under each of ``"nothing"``, ``"dots"`` and ``"dots_nb"`` from the
+    same params: the gradients bit-equal across the three (else within
+    phase 45's bfloat16 cosine, the differing leaves named), D's launches
+    in the recompute (inside the ledger's paused ranges) 320 under
+    ``"nothing"`` and 0 under ``"dots"``; for each, ms of the gradients
+    and of a step, the recompute's ms (CUDA events around its paused
+    ranges) and the peak memory."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.launch.steps import build_train
+    from repro_torch.models.common import tree_flatten, tree_leaves_with_path
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel import ledger
+
+    cfg = _train_cfg(TRAIN_ARCH, TRAIN_LAYERS)
+    shape = ShapeConfig("train_4k_cut", TRAIN_SEQ, TRAIN_BATCH, "train")
+    batch = _train_batches(cfg, TRAIN_SEQ, TRAIN_BATCH, 1, seed)[0]
+    res, differ, base = {}, {}, None
+    orig_paused = ledger.paused
+    rec = {"D": 0, "events": []}
+
+    @contextlib.contextmanager
+    def paused():
+        before = matmul.launches
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        try:
+            with orig_paused():
+                yield
+        finally:
+            end.record()
+            rec["events"].append((start, end))
+            rec["D"] += matmul.launches - before
+
+    for remat in ("nothing", "dots", "dots_nb"):
+        art = build_train(cfg, shape, _train_settings("smi:fused", remat=remat),
+                          mesh=(1, TP), matmul_fn=matmul, device=dev)
+        params = art["init_params"](seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        rec.update(D=0, events=[])
+        with mock.patch.object(ledger, "paused", paused):
+            (_, _, grads), t = _timed_ms(lambda: art["grads"](params, batch))
+        rec_ms = sum(s.elapsed_time(e) for s, e in rec["events"])
+        res[remat] = dict(grads_ms=t, d_launches=matmul.launches, d_recompute=rec["D"],
+                          recompute_ms=rec_ms, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        if base is None:
+            base = grads
+            names = [".".join(map(str, p)) for p, _ in tree_leaves_with_path(grads)]
+        else:
+            bad = [nm for nm, a, b in zip(names, tree_flatten(grads), tree_flatten(base))
+                   if not same_bits(a, b)]
+            if bad:
+                cos = min(_leaf_cosines(grads, base))
+                differ[remat] = dict(leaves=bad[:5], n=len(bad), min_cos=cos)
+                if cos < TRAIN_GRAD_COS:
+                    raise AssertionError(f"remat {remat}: the gradients of {bad[:5]} differ "
+                                         f"from 'nothing''s beyond cosine {TRAIN_GRAD_COS} "
+                                         f"({cos})")
+            del grads
+        state = {"params": params, "opt": adamw_init(params)}
+        res[remat]["step_ms"] = _timed_ms(lambda: art["step"](state, batch))[1]
+        log(f"remat {remat}: gradients {t:.3f} ms (the recompute {rec_ms:.3f}), a step "
+            f"{res[remat]['step_ms']:.3f} ms; D {res[remat]['d_launches']} launches, "
+            f"{rec['D']} of them in the recompute; peak {res[remat]['peak_gb']:.2f} GB")
+        del state, params
+    want_rec = _d_launches(cfg, TP)
+    if res["nothing"]["d_recompute"] != want_rec or res["dots"]["d_recompute"] != 0:
+        raise AssertionError(f"remat: D's recompute launches {res}, want {want_rec} under "
+                             f"'nothing' and 0 under 'dots'")
+    log("remat: gradients bit-equal across nothing, dots and dots_nb" if not differ else
+        f"remat: gradients differ from 'nothing''s at {differ}, within cosine "
+        f"{TRAIN_GRAD_COS}")
+    res["differ"] = differ
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_pipeline(dev, seed: int = 51) -> dict:
+    """Phase 51: GPipe over a chain channel (``core/pipeline.py``):
+    :data:`PIPE_STAGES` stages, :data:`PIPE_MICRO` microbatches of
+    (:data:`PIPE_ROWS`, :data:`PIPE_WIDTH`) bfloat16, each stage a
+    (4096, 4096) product on kernel D then a GELU.  ``pipeline_loss`` and
+    its gradients bit-equal to the same stages run one after another;
+    ``pp.stage`` tallies M + P - 1 hops; D launches once a tick in the
+    forward, over all the rank-stacked stages at once; ms of the forward
+    and of the backward."""
+    import torch
+
+    from repro_torch.core import Communicator
+    from repro_torch.core.pipeline import pipeline_loss
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.parallel import ledger
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    P_, M = PIPE_STAGES, PIPE_MICRO
+    W0 = (torch.randn((P_, PIPE_WIDTH, PIPE_WIDTH), generator=g, device=dev)
+          * PIPE_WIDTH ** -0.5).bfloat16()
+    X = torch.randn((M, PIPE_ROWS, PIPE_WIDTH), generator=g, device=dev).bfloat16()
+    Y = torch.randn((M, PIPE_ROWS, PIPE_WIDTH), generator=g, device=dev).bfloat16()
+    comm = Communicator.create("pp", (P_,), transport="static", device=dev)
+
+    def stage(w, x):
+        return torch.nn.functional.gelu(matmul(x, w))
+
+    def loss_fn(p, t):
+        return ((p.float() - t.float()) ** 2).mean()
+
+    W = W0.clone().requires_grad_(True)
+    reset_counts()
+    torch.cuda.synchronize()
+    with ledger.capture() as led:
+        (loss, t_fwd) = _timed_ms(lambda: pipeline_loss(stage, loss_fn, W, X, Y, comm))
+    d_fwd = matmul.launches
+    ((gw,), t_bwd) = _timed_ms(lambda: torch.autograd.grad(loss, (W,)))
+    hops = led.by_tag.get("pp.stage", {})
+    if d_fwd != M + P_ - 1 or hops != {"steps": M + P_ - 1,
+                                       "bytes": (M + P_ - 1) * PIPE_ROWS * PIPE_WIDTH * 2}:
+        raise AssertionError(f"pipeline: D {d_fwd} launches in the forward, pp.stage {hops}; "
+                             f"want {M + P_ - 1} each")
+    Ws = W0.clone().requires_grad_(True)
+    per = []
+    for m in range(M):
+        h = X[m]
+        for s in range(P_):
+            h = stage(Ws[s:s + 1], h.unsqueeze(0))[0]
+        per.append(loss_fn(h, Y[m]))
+    seq = torch.stack(per).mean()
+    (gs,) = torch.autograd.grad(seq, (Ws,))
+    if not same_bits(loss.reshape(1), seq.reshape(1)) or not same_bits(gw, gs):
+        raise AssertionError(f"pipeline: loss {float(loss)} vs sequential {float(seq)}, or its "
+                             f"gradients differ (max {max_abs_err(gw, gs)})")
+    log(f"pipeline ({P_} stages, {M} x ({PIPE_ROWS}, {PIPE_WIDTH}) bf16): loss and gradients "
+        f"bit-equal to the stages one after another; forward {t_fwd:.3f} ms ({d_fwd} D "
+        f"launches, one a tick), backward {t_bwd:.3f} ms; pp.stage {hops}")
+    del W, Ws, gw, gs
+    torch.cuda.empty_cache()
+    return dict(forward_ms=t_fwd, backward_ms=t_bwd, d_forward=d_fwd, pp_stage=hops,
+                loss=float(loss.detach()))
+
+
+def phase_validate_dp() -> dict:
+    """Phase 52: the launchers at ``2,4``.  ``launch.train --validate-comm``
+    over ``smi:fused`` with ``--compressed-grads``, yi-6b at phase 44's cut
+    and mamba2-2.7b at :data:`SSM_DP_LAYERS` layers, 2 x 4096 tokens: every
+    tag, ``fsdp.gather`` and ``grad`` included, equal to
+    ``predict_train_step_stats(eager=True)``.  Then qwen3-moe-30b-a3b cut
+    to :data:`FSDP_SERVE_LAYERS` layers, served by the launcher's continuous
+    runtime (``launch.steps.build_continuous_serve``, the launcher's
+    params and prompts) at ``2,4`` over ``smi:static``, ``fsdp=True`` and
+    ``fsdp=False`` one after the other (never both held): 2 requests of 4
+    new tokens, the tokens equal."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.steps import build_continuous_serve
+    from repro_torch.serving import ContinuousEngine
+
+    res = {}
+    for arch, layers in ((TRAIN_ARCH, TRAIN_LAYERS), (SSM_ARCH, SSM_DP_LAYERS)):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = launch_train.main(["--arch", arch, "--layers", str(layers), "--seq-len",
+                                    str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH), "--mesh", "2,4",
+                                    "--comm-mode", "smi:fused", "--compressed-grads",
+                                    "--validate-comm"])
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        text = out.getvalue()
+        for line in text.splitlines():
+            log(f"train launcher {arch} 2,4: {line}")
+        if rc != 0 or "fsdp.gather" not in text:
+            raise AssertionError(f"launch.train {arch} --mesh 2,4 --validate-comm exited {rc}")
+        res[f"train {arch}"] = dict(seconds=time.perf_counter() - t0, tags=sum(
+            1 for line in text.splitlines() if line.rstrip().endswith("ok")))
+    cfg = get_arch(MOE_ARCH).scaled(n_layers=FSDP_SERVE_LAYERS)
+    dev = torch.device("cuda")
+    outs = {}
+    for fsdp in (True, False):
+        rt = build_continuous_serve(cfg, mesh=(2, 4), comm_mode="smi:static", batch_slots=2,
+                                    capacity=64, fsdp=fsdp, device=dev)
+        if (rt["plan"] is not None) != fsdp:
+            raise AssertionError(f"serve {MOE_ARCH} 2,4 fsdp={fsdp}: plan {rt['plan']}")
+        eng = ContinuousEngine(cfg, launch_serve._params(cfg, rt, dev), runtime=rt)
+        launch_serve._submit_all(eng, cfg, 2, 4)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = eng.run(max_steps=1024)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        eng.shutdown()
+        if len(done) != 2:
+            raise AssertionError(f"serve {MOE_ARCH} 2,4 fsdp={fsdp}: {len(done)} of 2 done")
+        outs[fsdp] = {r.uid: r.out for r in done}
+        toks = sum(len(r.out) for r in done)
+        r = dict(tok_per_s=toks / dt, ms_per_step=dt * 1e3 / max(eng.decode_steps, 1),
+                 decode_steps=eng.decode_steps, tokens=toks)
+        res[f"serve fsdp {'on' if fsdp else 'off'}"] = r
+        log(f"serve {MOE_ARCH} x {FSDP_SERVE_LAYERS} layers 2,4 fsdp={fsdp}: {toks} tokens, "
+            f"{r['ms_per_step']:.3f} ms a decode step; {outs[fsdp]}")
+        del eng, rt, done
+        gc.collect()
+        torch.cuda.empty_cache()
+    if outs[True] != outs[False]:
+        raise AssertionError(f"serve {MOE_ARCH} 2,4: FSDP weights gave {outs[True]}, "
+                             f"replicated {outs[False]}")
+    log(f"serve {MOE_ARCH} 2,4: tokens equal on FSDP and replicated weights")
     return res
 
 
@@ -4973,6 +5648,39 @@ def main() -> int:
     train_launcher = phase_train_launcher()
     log(f"phase 47 (launch.train at tp = 1 and P = {TP}, --validate-comm): "
         f"{time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    train_dp, launches_48 = phase_train_dp(dev)
+    torch.cuda.synchronize()
+    log(f"phase 48 (yi-6b trained at (2, 4), FSDP): {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    train_dp_ssm, launches_49 = phase_train_dp_ssm(dev)
+    torch.cuda.synchronize()
+    log(f"phase 49 (mamba2-2.7b trained at (2, 4), raw and int8 gradients): "
+        f"{time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    remat = phase_remat(dev)
+    torch.cuda.synchronize()
+    log(f"phase 50 (remat nothing, dots, dots_nb at P = {TP}): {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    pipe = phase_pipeline(dev)
+    torch.cuda.synchronize()
+    log(f"phase 51 (GPipe, {PIPE_STAGES} stages on D): {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    validate_dp = phase_validate_dp()
+    torch.cuda.synchronize()
+    log(f"phase 52 (launch.train and launch.serve at 2,4): {time.perf_counter() - t0:.1f}s")
+    # the launches of slice 12's paths: a (2, 4) training step's E, D and A
+    # (phase 48, both groups), F's and A's on the "grad" ring (phase 49), D's
+    # in the remat recompute (phase 50) and in the pipeline's forward (51)
+    by_name["flash_attention"]["launches_train_dp_step"] = launches_48["E"]
+    by_name["matmul"]["launches_train_dp_step"] = launches_48["D"]
+    for name, k in (("accumulate", "fold"), ("shift_accumulate", "shift")):
+        by_name[name]["launches_train_dp_step_fused"] = launches_48["A"][k]
+    rows_f["wgmma"]["launches_train_dp_step"] = launches_49["F"]
+    by_name["shift_accumulate"]["launches_grad_ring"] = launches_49["A_grad_ring"]
+    by_name["matmul"]["launches_remat_recompute"] = {k: v["d_recompute"]
+                                                     for k, v in remat.items() if k != "differ"}
+    by_name["matmul"]["launches_pipeline_forward"] = pipe["d_forward"]
     # a training step's launches, forward, remat recompute and backward
     # together: E in phases 44 and 45, D at P = 8 (its backward's too), A over
     # smi:fused at P = 8, F in phase 46
@@ -5077,6 +5785,11 @@ def main() -> int:
     log("train_yi6b_p8: " + json.dumps(train_tp))
     log("train_mamba2_tp1: " + json.dumps(train_ssm))
     log("train_launcher: " + json.dumps(train_launcher))
+    log("train_yi6b_dp2_tp4: " + json.dumps(train_dp))
+    log("train_mamba2_dp2_tp4: " + json.dumps(train_dp_ssm))
+    log("remat_p8: " + json.dumps(remat))
+    log("pipeline: " + json.dumps(pipe))
+    log("validate_dp: " + json.dumps(validate_dp))
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

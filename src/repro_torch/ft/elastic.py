@@ -26,10 +26,11 @@ def elastic_restart_plan(old_n: int, new_n: int, *, prefer_model: int = 4) -> di
     return {"mesh_shape": shape, "topology": topo, "route_table": compute_route_table(topo)}
 
 
-def reshard_state(host_state, like, cfg, ctx):
+def reshard_state(host_state, like, cfg, ctx, fsdp_plan=None):
     """A global host training state (a checkpoint's numpy tree) as
-    ``ctx``'s rank-stacked state, each leaf on the device and in the dtype
-    of ``like``'s matching leaf (a state of the same structure, such as
+    ``ctx``'s stacked state (FSDP-stored by ``fsdp_plan``, ``build_train``'s
+    ``plan``), each leaf on the device and in the dtype of ``like``'s
+    matching leaf (a state of the same structure, such as
     ``build_train``'s ``init_state()``); params come back requiring
     gradients, as the training step takes them."""
     from ..interop import shard_train_state
@@ -37,7 +38,7 @@ def reshard_state(host_state, like, cfg, ctx):
 
     leaves = [torch.from_numpy(a).to(device=r.device, dtype=r.dtype)
               for a, r in zip(tree_flatten(host_state), tree_flatten(like), strict=True)]
-    state = shard_train_state(tree_unflatten(like, leaves), cfg, ctx)
+    state = shard_train_state(tree_unflatten(like, leaves), cfg, ctx, fsdp_plan)
     for p in tree_flatten(state["params"]):
         p.requires_grad_(True)
     return state

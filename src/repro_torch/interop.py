@@ -18,6 +18,7 @@ import torch
 
 from .core.comm import Communicator
 from .core.topology import Topology
+from .models.common import tree_map_specs
 
 
 def communicator_from_reference(topology_json: str, axis_names, axis_sizes,
@@ -119,111 +120,154 @@ def train_state_from_reference(np_state, cfg, device=None):
                     "step": _leaf_from_reference(opt["step"], dev)}}
 
 
-def train_state_to_numpy(state, cfg, ctx):
-    """A training state of ``ctx``'s tensor-parallel degree as the global
-    numpy tree the reference holds (``{"params", "opt": {"m", "v",
-    "step"}}``, the same nesting): rank-stacked leaves joined
-    (:func:`unshard_train_state`), each copied to the host, bfloat16 leaves
-    widened to float32 exactly."""
+def train_state_to_numpy(state, cfg, ctx, fsdp_plan=None):
+    """A training state of ``ctx``'s layout (tensor-parallel, and FSDP by
+    ``fsdp_plan``) as the global numpy tree the reference holds
+    (``{"params", "opt": {"m", "v", "step"}}``, the same nesting):
+    stacked leaves joined (:func:`unshard_train_state`), each copied to the
+    host, bfloat16 leaves widened to float32 exactly."""
     from .models.common import tree_map
 
     return tree_map(lambda t: (t.float() if t.dtype == torch.bfloat16 else t)
-                    .detach().cpu().numpy().copy(), unshard_train_state(state, cfg, ctx))
+                    .detach().cpu().numpy().copy(),
+                    unshard_train_state(state, cfg, ctx, fsdp_plan))
 
 
-def train_state_specs(cfg, ctx):
-    """How each leaf of a training state lies over the mesh: the moments
-    as their params, the step counter replicated."""
-    from .mesh.api import PartitionSpec
+def _stored(ctx, fsdp_plan) -> bool:
+    return ctx.tp > 1 or fsdp_plan is not None
+
+
+def param_specs(cfg, ctx, fsdp_plan=None):
+    """How each leaf of the params lies over the mesh: the model specs
+    (:func:`~repro_torch.models.lm_specs`), with the data axis at each
+    leaf's FSDP dim when a plan is given (``mesh.api.fsdp_storage_specs``)."""
     from .models.model import lm_specs
 
     sp = lm_specs(cfg, ctx)
+    if fsdp_plan is None:
+        return sp
+    from .mesh.api import fsdp_storage_specs
+
+    return fsdp_storage_specs(sp, fsdp_plan, ctx.batch_axes)
+
+
+def train_state_specs(cfg, ctx, fsdp_plan=None):
+    """How each leaf of a training state lies over the mesh: the moments
+    as their params (FSDP-stored with them under a plan), the step counter
+    replicated."""
+    from .mesh.api import PartitionSpec
+
+    sp = param_specs(cfg, ctx, fsdp_plan)
     return {"params": sp, "opt": {"m": sp, "v": sp, "step": PartitionSpec()}}
 
 
-def shard_train_state(state, cfg, ctx):
-    """A global training state laid over ``ctx``'s tensor-parallel degree
-    (:func:`shard_tree`); at tp = 1 it comes back as it is."""
-    return state if ctx.tp == 1 else shard_tree(state, train_state_specs(cfg, ctx), ctx)
+def shard_train_state(state, cfg, ctx, fsdp_plan=None):
+    """A global training state laid over ``ctx`` (:func:`shard_tree`); at
+    tp = 1 without a plan it comes back as it is."""
+    if not _stored(ctx, fsdp_plan):
+        return state
+    return shard_tree(state, train_state_specs(cfg, ctx, fsdp_plan), ctx)
 
 
-def unshard_train_state(state, cfg, ctx):
-    """The global training state of a rank-stacked one
-    (:func:`unshard_tree`); at tp = 1 it comes back as it is."""
-    return state if ctx.tp == 1 else unshard_tree(state, train_state_specs(cfg, ctx), ctx)
+def unshard_train_state(state, cfg, ctx, fsdp_plan=None):
+    """The global training state of a stacked one (:func:`unshard_tree`);
+    at tp = 1 without a plan it comes back as it is."""
+    if not _stored(ctx, fsdp_plan):
+        return state
+    return unshard_tree(state, train_state_specs(cfg, ctx, fsdp_plan), ctx)
 
 
-def shard_params(params, cfg, ctx):
+def shard_params(params, cfg, ctx, fsdp_plan=None):
     """Global params (the port's ``init_lm``, or :func:`params_from_reference`'s)
-    as the rank-stacked params of ``ctx``'s tensor-parallel degree P, by
-    :func:`~repro_torch.models.lm_specs` (:func:`shard_tree`).  At tp = 1
-    the params come back as they are."""
-    if ctx.tp == 1:
+    as the stacked params of ``ctx``: rank-stacked over the model axis by
+    :func:`~repro_torch.models.lm_specs`, and each leaf ``fsdp_plan``
+    shards stored as its blocks over the data axis (:func:`shard_tree`).
+    At tp = 1 without a plan the params come back as they are."""
+    if not _stored(ctx, fsdp_plan):
         return params
-    from .models.model import lm_specs
+    return shard_tree(params, param_specs(cfg, ctx, fsdp_plan), ctx)
 
-    return shard_tree(params, lm_specs(cfg, ctx), ctx)
+
+def unshard_params(params, cfg, ctx, fsdp_plan=None):
+    """The global params of :func:`shard_params`' (or of their gradients)."""
+    if not _stored(ctx, fsdp_plan):
+        return params
+    return unshard_tree(params, param_specs(cfg, ctx, fsdp_plan), ctx)
+
+
+def _axes(ctx):
+    """The stacked mesh axes of ``ctx``, innermost first, with their sizes:
+    the model axis's P ranks, then the data axis's groups in front of them."""
+    out = []
+    if ctx.tp > 1:
+        out.append((ctx.model_axis, ctx.tp))
+    out.extend((a, ctx.dp) for a in ctx.batch_axes if ctx.dp > 1)
+    return out
+
+
+def _split_dim(dims, axis) -> int | None:
+    hits = [i for i, d in enumerate(dims) if d == axis]
+    if len(hits) > 1:
+        raise ValueError(f"a spec {dims} splits two dimensions over {axis!r}")
+    return hits[0] if hits else None
 
 
 def shard_tree(tree, specs, ctx):
-    """A tree of global leaves as ``ctx``'s rank-stacked leaves, by the
-    matching tree of specs: a leaf split over the model axis along one
-    dimension becomes its P blocks stacked on a new leading rank dimension
-    -- after the layer dimension for the leaves of a period (under a
-    ``"periods"`` key), so they lie
-    ``(L, P, ...)`` and a layer's slice is rank-stacked.  A replicated leaf
-    stays the one global copy (broadcasting hands it to every rank).  A leaf
-    split along its first dimension after the layers (the experts of an MoE
-    block, ``(L, E, D, f)`` -> ``(L, P, E/P, D, f)``) is a view of the
-    global leaf: no copy; the rest are copies, contiguous per rank."""
-    P, m = ctx.tp, ctx.model_axis
+    """A tree of global leaves as ``ctx``'s stacked leaves, by the matching
+    tree of specs.  A leaf split over the model axis along one dimension
+    becomes its P blocks stacked on a new leading rank dimension; a leaf
+    split over the data axis too (an FSDP leaf) becomes its ``dp`` blocks
+    stacked in front of that, ``(dp, P, ...)`` -- both after the layer
+    dimension for the leaves of a period (under a ``"periods"`` key), so
+    they lie ``(L, [dp,] [P,] ...)`` and a layer's slice is stacked.  A
+    replicated leaf stays the one global copy (broadcasting hands it to
+    every rank).  A leaf split over the model axis along its first
+    dimension after the layers (the experts of an MoE block, ``(L, E, D,
+    f)`` -> ``(L, P, E/P, D, f)``) is a view of the global leaf, and so is
+    every split over the data axis: no copy; the other model splits are
+    copies, contiguous per rank."""
+    axes = _axes(ctx)
 
     def split(t, spec, stacked):
         dims = tuple(spec) + (None,) * (t.dim() - len(tuple(spec)))
-        axes = [i for i, d in enumerate(dims) if d == m]
-        if not axes:
-            return t
-        (d,) = axes
-        if t.shape[d] % P:
-            raise ValueError(f"dimension {d} of a {tuple(t.shape)} leaf does not split "
-                             f"into {P} ranks")
-        return t.unflatten(d, (P, t.shape[d] // P)).movedim(d, int(stacked)).contiguous()
+        s, n_in = int(stacked), 0
+        for axis, n in axes:
+            d = _split_dim(dims, axis)
+            if d is None:
+                continue
+            cd = d + n_in                # the dim among the rank dims already inserted
+            if t.shape[cd] % n:
+                raise ValueError(f"dimension {d} of a {tuple(t.shape)} leaf does not split "
+                                 f"into {n} ranks")
+            t = t.unflatten(cd, (n, t.shape[cd] // n)).movedim(cd, s)
+            if axis == ctx.model_axis and d != s:
+                t = t.contiguous()
+            n_in += 1
+        return t
 
-    def walk(t, spec, stacked):
-        if isinstance(t, dict):
-            return {k: walk(v, spec[k], stacked or k == "periods") for k, v in t.items()}
-        if isinstance(t, (tuple, list)):
-            return tuple(walk(v, s, stacked) for v, s in zip(t, spec, strict=True))
-        return None if t is None else split(t, spec, stacked)
-
-    return walk(tree, specs, False)
+    return tree_map_specs(split, tree, specs)
 
 
 def unshard_tree(tree, specs, ctx):
-    """The inverse of :func:`shard_tree`: a tree of ``ctx``'s rank-stacked
+    """The inverse of :func:`shard_tree`: a tree of ``ctx``'s stacked
     leaves (params, their gradients, optimiser moments) as global leaves,
     each rank's block put back in its place along the dimension its spec
-    splits; replicated leaves come back as they are.  A rank-stacked
-    gradient then compares with a tp = 1 one, and a checkpoint holds the
-    same arrays whatever the tp."""
-    P, m = ctx.tp, ctx.model_axis
+    splits; replicated leaves come back as they are.  A stacked gradient
+    then compares with a tp = 1 one, and a checkpoint holds the same arrays
+    whatever the mesh."""
+    axes = _axes(ctx)
 
     def join(t, spec, stacked):
-        dims = tuple(spec) + (None,) * (t.dim() - 1 - len(tuple(spec)))
-        axes = [i for i, d in enumerate(dims) if d == m]
-        if not axes:
-            return t
-        (d,) = axes
+        present = [(a, n) for a, n in axes if a in tuple(spec)]
+        dims = tuple(spec) + (None,) * (t.dim() - len(present) - len(tuple(spec)))
         s = int(stacked)
-        if t.shape[s] != P:
-            raise ValueError(f"a {tuple(t.shape)} leaf has no rank dimension of {P} at {s}")
-        return t.movedim(s, d).flatten(d, d + 1)
+        n_in = len(present)
+        for axis, n in reversed(present):
+            d = _split_dim(dims, axis)
+            if t.shape[s] != n:
+                raise ValueError(f"a {tuple(t.shape)} leaf has no rank dimension of {n} at {s}")
+            t = t.movedim(s, d + n_in - 1).flatten(d + n_in - 1, d + n_in)
+            n_in -= 1
+        return t
 
-    def walk(t, spec, stacked):
-        if isinstance(t, dict):
-            return {k: walk(v, spec[k], stacked or k == "periods") for k, v in t.items()}
-        if isinstance(t, (tuple, list)):
-            return tuple(walk(v, s, stacked) for v, s in zip(t, spec, strict=True))
-        return None if t is None else join(t, spec, stacked)
-
-    return walk(tree, specs, False)
+    return tree_map_specs(join, tree, specs)

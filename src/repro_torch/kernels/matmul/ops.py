@@ -73,19 +73,51 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *, out_dtype=None,
             or (w.dim() == 3 and w.shape[0] != x.shape[0]):
         raise ValueError(f"kernel D takes (M, K) @ (K, N), (Bt, M, K) @ (Bt, K, N) or "
                          f"(Bt, M, K) @ (K, N); got {tuple(x.shape)} @ {tuple(w.shape)}")
-    return MatmulFn.apply(_matmul_kernel, x, w, out_dtype)
+    return MatmulFn.apply(_matmul_launch, x, w, out_dtype)
 
 
-def _matmul_kernel(x: torch.Tensor, w: torch.Tensor, out_dtype) -> torch.Tensor:
+def _launch(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
     """One launch of kernel D on checked CUDA operands (made contiguous)."""
     x3 = (x if x.dim() == 3 else x.unsqueeze(0)).contiguous()
     w3 = (w if w.dim() == 3 else w.unsqueeze(0)).contiguous()
-    out = torch.empty(x3.shape[:2] + (w3.shape[2],), dtype=out_dtype, device=x.device)
+    out = torch.empty(x.shape[:-1] + (w3.shape[2],), dtype=out_dtype, device=x.device)
     if out.numel():
-        path = launch_matmul(x3, w3, out)
+        path = launch_matmul(x3, w3, out if x.dim() == 3 else out.unsqueeze(0))
         matmul.launches += 1
         matmul.wgmma_launches += int(path == WGMMA)
-    return out if x.dim() == 3 else out[0]
+    return out
+
+
+def _plain(x, w, out_dtype):
+    return matmul_ref(x, w, out_dtype=out_dtype)
+
+
+#: kernel D as the dispatcher op ``repro_torch::matmul_d`` (CUDA: the
+#: launch; CPU: :func:`matmul_ref`; Meta: the shape), so that a dispatch
+#: mode sees it as a matrix product: a selective-checkpoint policy
+#: (``models/transformer.py recomputed``) saves its outputs, and a product
+#: it saves is not launched again in the recompute.  Registered without a
+#: Python wrapper: one call costs the dispatcher's hop into Python.
+_LIB = torch.library.Library("repro_torch", "DEF")
+_LIB.define("matmul_d(Tensor x, Tensor w, ScalarType out_dtype) -> Tensor")
+_LIB.impl("matmul_d", _launch, "CUDA")
+_LIB.impl("matmul_d", _plain, "CPU")
+_LIB.impl("matmul_d", lambda x, w, out_dtype: x.new_empty(x.shape[:-1] + (w.shape[-1],),
+                                                          dtype=out_dtype), "Meta")
+
+#: kernel D's dispatcher op (what a remat policy names)
+matmul_op = torch.ops.repro_torch.matmul_d.default
+
+
+def _matmul_launch(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    """Kernel D's product as :class:`MatmulFn` runs it: through
+    :data:`matmul_op` while a dispatch mode is active (a selective-checkpoint
+    policy, or a test counting products), else straight to its kernel for
+    the operands' device, which skips the dispatcher's cost on every launch
+    that no mode looks at (the serving and prefill paths)."""
+    if torch._C._len_torch_dispatch_stack():
+        return matmul_op(x, w, out_dtype)
+    return (_launch if x.is_cuda else _plain)(x, w, out_dtype)
 
 
 matmul.launches = 0

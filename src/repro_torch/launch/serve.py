@@ -14,6 +14,10 @@ decode of random-weight requests, at any ``(data, model)`` mesh.
 
     # the MoE, Mamba2, RG-LRU hybrid and audio (codebook) families at tp > 1
     python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --mesh 1,8
+
+    # FSDP weights over the data axis (where one model shard's bfloat16
+    # weights pass 10 GB, as qwen3-moe-30b-a3b's do at 2,4)
+    python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --mesh 2,4
     python -m repro_torch.launch.serve --arch mamba2-2.7b --mesh 1,8 --comm-mode smi:static
     python -m repro_torch.launch.serve --arch recurrentgemma-9b --mesh 1,8
     python -m repro_torch.launch.serve --arch musicgen-medium --mesh 1,8
@@ -25,7 +29,8 @@ split by ``interop.shard_params``); prompts come from
 submit the same prompts (a codebook model's a ``(plen, n_cb)`` draw each).
 At tp > 1 the continuous engine decodes over ONE persistent channel a layer
 tag from the serving ``ChannelPool``, released at shutdown, and the wave
-engine over ``launch.steps.build_serve``'s step.
+engine over ``launch.steps.build_serve``'s step.  On FSDP weights every
+step gathers each layer's over the data ring (tag ``fsdp.gather``).
 Prints tokens/s and each request's tokens; ``--json`` writes them with the
 decode steps and the milliseconds per step.  The device is ``cuda`` unless
 ``--device cpu`` is given.
@@ -50,31 +55,29 @@ from ..serving.engine import token_shape
 from .steps import build_continuous_serve, build_serve
 
 
-def _params(cfg, ctx, dev):
-    """Seeded global params in the model dtype, split for ``ctx``."""
+def _params(cfg, rt, dev):
+    """Seeded global params in the model dtype, laid out for the runtime
+    ``rt`` (split over its context's model axis, FSDP-stored by its plan:
+    views of the global leaves where they can be, so one copy is held)."""
     gen = torch.Generator(device=dev).manual_seed(0)
-    return shard_params(init_lm(cfg, gen, dev, dtype=model_dtype(cfg), ctx=ctx), cfg, ctx)
+    ctx = rt["ctx"]
+    return shard_params(init_lm(cfg, gen, dev, dtype=model_dtype(cfg), ctx=ctx), cfg, ctx,
+                        rt["plan"])
 
 
-def validate_comm(cfg, dims, args, dev) -> int:
-    """Predicted-vs-measured channel traffic gate of the serving step: runs
-    one continuous decode step plus one slot migration under a ledger
-    capture and diffs the per-tag ledger against
-    :func:`repro_torch.netsim.predict_decode_step_stats` (every layer's
-    traffic: the port runs each layer), per ``serve.*`` tag, byte for byte
-    and step for step.  A bare ``smi`` returns 2: the tuner would pick
-    schedules the predictor does not see."""
+def step_ledger(cfg, rt, settings, capacity: int, dev) -> tuple[dict, dict, int]:
+    """One decode step of the continuous runtime ``rt`` (seeded params laid
+    out for it), plus one slot migration at tp > 1, under a ledger capture:
+    the measured per-tag table, its prediction by
+    :func:`repro_torch.netsim.predict_decode_step_stats` (``eager=True``:
+    the port runs each layer; the FSDP gathers where ``rt`` has a plan),
+    and the number of migrations.  ``settings`` duck-types ``comm_mode``.
+    Closes the runtime's channel pool."""
     from ..netsim import predict_decode_step_stats
     from ..parallel import ledger
 
-    if ":" not in args.comm_mode:
-        print("[validate-comm] need a pinned backend (smi:<backend>); bare 'smi' lets the "
-              "per-tag tuner pick schedules the predictor cannot see")
-        return 2
-    dp, tp = int(np.prod(dims[:-1])), dims[-1]
-    rt = build_continuous_serve(cfg, mesh=dims, comm_mode=args.comm_mode,
-                                batch_slots=args.slots, capacity=args.capacity, device=dev)
-    params = _params(cfg, rt["ctx"], dev)
+    dp, tp = rt["ctx"].dp, rt["ctx"].tp
+    params = _params(cfg, rt, dev)
     caches = rt["init_caches"]()
     B = rt["batch_slots"]
     tok = torch.zeros(token_shape(cfg, B), dtype=torch.int32, device=dev)
@@ -85,13 +88,32 @@ def validate_comm(cfg, dims, args, dev) -> int:
         if migrations:
             rt["migrate_finish"](caches, rt["migrate_start"](caches, 0), 1)
     measured = {t: dict(e) for t, e in led.by_tag.items()}
-    predicted = predict_decode_step_stats(cfg, (dp, tp), B, args, capacity=args.capacity,
-                                          migrations=migrations, eager=True)
+    predicted = predict_decode_step_stats(cfg, (dp, tp), B, settings, capacity=capacity,
+                                          migrations=migrations, eager=True,
+                                          fsdp=rt["plan"] is not None)
     if rt["pool"] is not None:
         rt["pool"].close()
+    return measured, predicted, migrations
+
+
+def validate_comm(cfg, dims, args, dev) -> int:
+    """Predicted-vs-measured channel traffic gate of the serving step: runs
+    :func:`step_ledger` on a continuous runtime and diffs the per-tag ledger
+    against the prediction, per ``serve.*`` tag, byte for byte and step for
+    step.  A bare ``smi`` returns 2: the tuner would pick schedules the
+    predictor does not see."""
+    if ":" not in args.comm_mode:
+        print("[validate-comm] need a pinned backend (smi:<backend>); bare 'smi' lets the "
+              "per-tag tuner pick schedules the predictor cannot see")
+        return 2
+    rt = build_continuous_serve(cfg, mesh=dims, comm_mode=args.comm_mode,
+                                batch_slots=args.slots, capacity=args.capacity, device=dev)
+    B = rt["batch_slots"]
+    measured, predicted, migrations = step_ledger(cfg, rt, args, args.capacity, dev)
 
     print(f"[validate-comm] arch={cfg.name} mesh={','.join(map(str, dims))} "
-          f"comm={args.comm_mode} slots={B} migrations={migrations} layers={cfg.n_layers}")
+          f"comm={args.comm_mode} slots={B} migrations={migrations} layers={cfg.n_layers} "
+          f"fsdp={rt['plan'] is not None}")
     print(f"  {'tag':<22} {'pred bytes':>12} {'meas bytes':>12} {'pred steps':>11} "
           f"{'meas steps':>11}")
     failures = 0
@@ -163,11 +185,11 @@ def main(argv=None) -> int:
     if args.engine == "wave":
         rt = build_serve(cfg, ShapeConfig("serve", args.capacity, args.slots, "decode"),
                          mesh=dims, comm_mode=args.comm_mode, device=dev)
-        eng = ServeEngine(cfg, _params(cfg, rt["ctx"], dev), runtime=rt)
+        eng = ServeEngine(cfg, _params(cfg, rt, dev), runtime=rt)
     else:
         rt = build_continuous_serve(cfg, mesh=dims, comm_mode=args.comm_mode,
                                     batch_slots=args.slots, capacity=args.capacity, device=dev)
-        eng = ContinuousEngine(cfg, _params(cfg, rt["ctx"], dev), runtime=rt)
+        eng = ContinuousEngine(cfg, _params(cfg, rt, dev), runtime=rt)
         if rt["pool"] is not None:
             print(f"[serve] persistent channels: {sorted(rt['pool'].ports().items())}")
     _submit_all(eng, cfg, args.requests, args.max_new)
@@ -181,7 +203,8 @@ def main(argv=None) -> int:
     toks = sum(len(r.out) for r in done)
     ms_step = dt * 1e3 / max(eng.decode_steps, 1)
     print(f"[serve] engine={args.engine} arch={cfg.name} mesh={args.mesh} comm={args.comm_mode} "
-          f"device={dev} completed {len(done)}/{args.requests} requests, {toks} tokens in "
+          f"fsdp={rt['plan'] is not None} device={dev} completed {len(done)}/{args.requests} "
+          f"requests, {toks} tokens in "
           f"{dt:.3f}s ({toks / dt:.1f} tok/s), {eng.decode_steps} decode steps "
           f"({ms_step:.3f} ms/step)")
     for r in done:
@@ -189,7 +212,8 @@ def main(argv=None) -> int:
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"engine": args.engine, "arch": cfg.name, "mesh": list(dims),
-                       "comm_mode": args.comm_mode, "device": str(dev),
+                       "comm_mode": args.comm_mode, "fsdp": rt["plan"] is not None,
+                       "device": str(dev),
                        "requests": args.requests, "completed": len(done), "tokens": toks,
                        "seconds": dt, "tok_per_s": toks / dt, "decode_steps": eng.decode_steps,
                        "ms_per_step": ms_step, "out": {str(r.uid): r.out for r in done}}, f)

@@ -5,21 +5,26 @@ tensor-parallel runtime, for a model config and a ``(data, model)`` mesh.
 The model axis's P ranks are stacked on one card (``mesh/api.py``).  The
 data axis's groups run beside that stack, one after another
 (``mesh.api.over_data_groups``): the batch is split over them where it
-divides (prefill, ``build_serve``), and the serving slots are replicated
-over them (``build_continuous_serve``: slot scheduling is a global
-decision, so every group computes the same step, which the stack runs
-once).  FSDP stays off: it raises where it would shard anything (a
-builder's ``fsdp=False`` replicates the weights over the data axis).  Every
-block kind is served: dense, MoE, Mamba2 and the RG-LRU hybrid, with the
+divides (training, prefill, ``build_serve``), and the serving slots are
+replicated over them (``build_continuous_serve``: slot scheduling is a
+global decision, so every group computes the same step, which the stack
+runs once).  Under FSDP (``fsdp=True``, or ``"auto"`` where one model
+shard's bfloat16 weights pass 10 GB) the weights are stored as their data
+blocks (``interop.shard_params(..., fsdp_plan=)``, the builder's
+``plan``) and each layer's are gathered over the data ring as it runs, in
+training, prefill and both engines.  Training syncs the gradients over the
+data axis: an FSDP leaf's through the gather's transposed ring, a leaf
+stored whole through a ``"grad"`` ring (the int8 wire with
+``compressed_grads``); without FSDP, in one bulk mean.  Every block kind
+is served and trained: dense, MoE, Mamba2 and the RG-LRU hybrid, with the
 codebook token streams of an audio model and the patch embeddings of a
-vision model's prefill.  Training runs over the model axis (meshes ``(1,
-P)``); a data axis of more than one rank raises (FSDP and the gradient sync
-wait for ROADMAP.md §1 item 13).
+vision model.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from contextlib import nullcontext as _nullcontext
 
 import torch
 
@@ -27,11 +32,18 @@ from ..configs import ModelConfig, ShapeConfig
 from ..core.comm import resolve_device
 from ..data import input_specs
 from ..interop import shard_params
-from ..mesh.api import check_fsdp, make_ctx, over_data_groups
-from ..models import gather_hidden, init_lm, lm_loss, lm_prefill
+from ..mesh.api import (
+    build_fsdp_plan,
+    check_fsdp,
+    grad_sync_fsdp,
+    make_ctx,
+    over_data_groups,
+)
+from ..models import gather_hidden, init_lm, lm_loss, lm_prefill, lm_specs, param_shapes
 from ..models.common import tree_flatten, tree_unflatten
 from ..models.transformer import check_remat
 from ..optim import adamw_init, adamw_update, clip_by_global_norm, cosine_warmup
+from ..parallel import ledger
 from ..serving.engine import local_step
 
 
@@ -62,10 +74,9 @@ def _rows(caches, rows: slice, tp: int):
 @dataclasses.dataclass
 class TrainSettings:
     """A training launch's settings (the reference's fields).  ``comm_mode``
-    is ``"smi"``, ``"smi:<backend>"`` or ``"bulk"``; ``remat`` ``"nothing"``
-    (each layer period recomputed in the backward pass) or ``"none"``;
-    ``fsdp`` and ``compressed_grads`` act over a data axis, which waits for
-    ROADMAP.md §1 item 13."""
+    is ``"smi"``, ``"smi:<backend>"`` or ``"bulk"``; ``remat`` one of
+    ``models.transformer.REMAT_POLICIES``; ``fsdp`` and
+    ``compressed_grads`` act over a data axis of more than one rank."""
 
     comm_mode: str = "smi"
     remat: str = "nothing"
@@ -80,22 +91,36 @@ class TrainSettings:
     ring_attn: bool = False
 
 
+def _fsdp_plan(cfg, ctx, fsdp, mesh):
+    """The FSDP plan of a builder (None when FSDP is off): ``fsdp``
+    resolved by :func:`~repro_torch.mesh.api.check_fsdp`."""
+    if not check_fsdp(fsdp, mesh, cfg.param_count()):
+        return None
+    return build_fsdp_plan(param_shapes(cfg, ctx), lm_specs(cfg, ctx), mesh, ctx.batch_axes)
+
+
+def _group_ctxs(ctx):
+    """``ctx`` for each data group (its ``data_group`` set)."""
+    return [dataclasses.replace(ctx, data_group=g) for g in range(ctx.dp)]
+
+
 def build_train(cfg: ModelConfig, shape: ShapeConfig, st: TrainSettings, *, mesh=None,
                 matmul_fn=None, device=None) -> dict:
     """The training step of ``cfg`` for ``shape`` on ``device`` (``cuda``
     unless named), over ``mesh=(1, P)`` (tp = 1 without one).
 
     Returns ``dict(step, grads, init_state, init_params, input_specs, ctx,
-    cfg, settings, device)``:
+    plan, cfg, settings, device)``:
 
     * ``init_params(seed=0)``: the float32 params drawn from a generator
-      seeded ``seed`` on the device (rank-stacked at tp > 1,
-      :func:`~repro_torch.interop.shard_params`), requiring gradients;
+      seeded ``seed`` on the device (rank-stacked at tp > 1 and
+      FSDP-stored by ``plan``, :func:`~repro_torch.interop.shard_params`),
+      requiring gradients;
       ``init_state(seed=0)``: ``{"params", "opt": {"m", "v", "step"}}``
       with float32 AdamW moments and an int32 step;
     * ``grads(params, batch, use_kernel=None)``: ``(loss, ce, gradients)``
       of one batch, nothing updated (the gradients a tree shaped as the
-      params);
+      params, synced over the data axis);
     * ``step(state, batch, use_kernel=None)``: one step on ``batch``
       (``tokens``, ``labels`` and a vision model's ``pixel_embeds``,
       tensors or numpy arrays): the loss (:func:`~repro_torch.models.
@@ -112,20 +137,31 @@ def build_train(cfg: ModelConfig, shape: ShapeConfig, st: TrainSettings, *, mesh
     forward and backward (``use_kernel=False``: their plain versions);
     ``matmul_fn`` puts a kernel on the tensor-parallel GEMMs
     (``repro_torch.kernels.matmul.matmul``: kernel D, whose backward
-    products are kernel D too).  A data axis of more than one rank raises
-    ``NotImplementedError`` (ROADMAP.md §1 item 13)."""
+    products are kernel D too).
+
+    ``mesh=(dp, P)`` splits the batch over ``dp`` data groups (the whole
+    batch to each when it does not split), which run one after another
+    beside the model-axis stack, the ledger paused after the first.  Each
+    group's gradient of a leaf stored whole is its own (the group computes
+    on an alias of the leaf) until the data ring sums it: over a
+    ``"grad"`` channel under FSDP (``st.fsdp``, the reference's default;
+    ``plan`` from :func:`~repro_torch.mesh.api.build_fsdp_plan`), in one
+    untallied mean without.  An FSDP leaf's gradient sums the groups'
+    through the gather's transposed ring and is divided by ``dp``.  The
+    loss and ``ce`` are the groups' mean."""
     dev = resolve_device(device)
-    # over a data axis training needs FSDP or the gradient sync: both item 13
-    check_fsdp(True, mesh, cfg.param_count())
     check_remat(st.remat)
     ctx = make_ctx(mesh, comm_mode=st.comm_mode, matmul_fn=matmul_fn,
                    opt_shared_gather=st.shared_gather, opt_ring_attn=st.ring_attn,
                    plan=_layer_plan(cfg, st.comm_mode), device=dev)
     ispecs = input_specs(cfg, shape)
+    plan = _fsdp_plan(cfg, ctx, st.fsdp, mesh)
+    dp = ctx.dp
+    gctxs = _group_ctxs(ctx)
 
     def init_params(seed: int = 0):
         gen = torch.Generator(device=dev).manual_seed(seed)
-        params = shard_params(init_lm(cfg, gen, device=dev, ctx=ctx), cfg, ctx)
+        params = shard_params(init_lm(cfg, gen, device=dev, ctx=ctx), cfg, ctx, plan)
         for p in tree_flatten(params):
             p.requires_grad_(True)
         return params
@@ -134,11 +170,50 @@ def build_train(cfg: ModelConfig, shape: ShapeConfig, st: TrainSettings, *, mesh
         params = init_params(seed)
         return {"params": params, "opt": adamw_init(params)}
 
+    def loss_of(params, args, rows, gctx, use_kernel):
+        extra = args.get("pixel_embeds")
+        return lm_loss(params, args["tokens"][rows], args["labels"][rows], cfg, gctx,
+                       extra_embeds=None if extra is None else extra[rows], remat=st.remat,
+                       loss_chunks=st.loss_chunks, use_kernel=use_kernel, fsdp_plan=plan)
+
+    def grads_dp(params, args, use_kernel):
+        """Every data group's loss and gradients, synced over the data axis."""
+        leaves = tree_flatten(params)
+        dims = tree_flatten(plan) if plan is not None else [-1] * len(leaves)
+        whole = [i for i, d in enumerate(dims) if d < 0]
+        n = args["tokens"].shape[0]
+        m = n // dp if n % dp == 0 else n          # the whole batch to each group
+        aliases, total, ce_sum = [], 0.0, 0.0
+        for g, gctx in enumerate(gctxs):
+            own = list(leaves)
+            for i in whole:                        # this group's own gradient
+                own[i] = leaves[i].detach().requires_grad_(True)
+            aliases.extend(own[i] for i in whole)
+            rows = slice(g * m, g * m + m) if m < n else slice(0, n)
+            with ledger.paused() if g else _nullcontext():
+                loss, (ce, _) = loss_of(tree_unflatten(params, own), args, rows, gctx, use_kernel)
+            total = total + loss
+            ce_sum = ce_sum + ce.detach()
+        sharded = [p for p, d in zip(leaves, dims) if d >= 0]
+        got = iter(torch.autograd.grad(total, sharded + aliases))
+        out = [next(got) if d >= 0 else None for d in dims]
+        per_group = [[next(got) for _ in whole] for _ in gctxs]
+        for k, i in enumerate(whole):              # (dp, ...): row g group g's
+            out[i] = torch.stack([gs[k] for gs in per_group])
+        if plan is None:                           # the reference's bulk pmean: untallied
+            out = [t.sum(0) / dp for t in out]
+        else:
+            out = tree_flatten(grad_sync_fsdp(tree_unflatten(params, out), plan, ctx,
+                                              compressed=st.compressed_grads,
+                                              specs=lm_specs(cfg, ctx)))
+            out = [t if d >= 0 else t[0] for t, d in zip(out, dims)]
+        return (total / dp).detach(), ce_sum / dp, tree_unflatten(params, out)
+
     def grads(params, batch, use_kernel=None):
         args = {k: torch.as_tensor(batch[k]).to(dev) for k in ispecs}
-        loss, (ce, _) = lm_loss(params, args["tokens"], args["labels"], cfg, ctx,
-                                extra_embeds=args.get("pixel_embeds"), remat=st.remat,
-                                loss_chunks=st.loss_chunks, use_kernel=use_kernel)
+        if dp > 1:
+            return grads_dp(params, args, use_kernel)
+        loss, (ce, _) = loss_of(params, args, slice(None), ctx, use_kernel)
         g = tree_unflatten(params, torch.autograd.grad(loss, tree_flatten(params)))
         return loss.detach(), ce.detach(), g
 
@@ -152,7 +227,7 @@ def build_train(cfg: ModelConfig, shape: ShapeConfig, st: TrainSettings, *, mesh
         return state, {"loss": loss, "ce": ce, "gnorm": gnorm, "lr": lr}
 
     return dict(step=step, grads=grads, init_state=init_state, init_params=init_params,
-                input_specs=ispecs, ctx=ctx, cfg=cfg, settings=st, device=dev)
+                input_specs=ispecs, ctx=ctx, plan=plan, cfg=cfg, settings=st, device=dev)
 
 
 def build_prefill(cfg: ModelConfig, shape: ShapeConfig, *, mesh=None, comm_mode: str = "smi",
@@ -179,11 +254,14 @@ def build_prefill(cfg: ModelConfig, shape: ShapeConfig, *, mesh=None, comm_mode:
     gathering the sequence (``models/attention.py apply_attention_ring``).
     The products are ``torch.matmul``, as the reference's are unless a
     caller injects a kernel through ``make_ctx(..., matmul_fn=...)``.
+    Under FSDP (``fsdp``, resolved by ``mesh.api.check_fsdp``) ``params``
+    are stored by ``prefill.plan`` and each group gathers each layer's.
     """
     dev = resolve_device(device)
     ctx = make_ctx(mesh, comm_mode=comm_mode, opt_shared_gather=shared_gather,
                    opt_ring_attn=ring_attn, plan=_layer_plan(cfg, comm_mode), device=dev)
-    check_fsdp(fsdp, mesh, cfg.param_count())
+    plan = _fsdp_plan(cfg, ctx, fsdp, mesh)
+    gctxs = _group_ctxs(ctx)
 
     want_dim = 3 if cfg.n_codebooks > 1 else 2
 
@@ -195,16 +273,17 @@ def build_prefill(cfg: ModelConfig, shape: ShapeConfig, *, mesh=None, comm_mode:
         tokens = tokens.to(dev)
         extra = None if pixel_embeds is None else pixel_embeds.to(dev)
 
-        def group(rows):
-            h = lm_prefill(params, tokens[rows], cfg, ctx, capacity=shape.seq_len,
+        def group(g, rows):
+            h = lm_prefill(params, tokens[rows], cfg, gctxs[g], capacity=shape.seq_len,
                            extra_embeds=None if extra is None else extra[rows],
-                           use_kernel=use_kernel)
+                           use_kernel=use_kernel, fsdp_plan=plan)
             return gather_hidden(h) if ctx.tp > 1 else h
 
         return torch.cat(over_data_groups(ctx, tokens.shape[0], group))
 
     prefill.device = dev
     prefill.ctx = ctx
+    prefill.plan = plan
     return prefill
 
 
@@ -214,34 +293,36 @@ def build_serve(cfg: ModelConfig, shape: ShapeConfig, *, mesh=None, comm_mode: s
     (``shape.global_batch`` rows) against a full KV cache of
     ``shape.seq_len`` positions, on ``device`` (``cuda`` unless named).
 
-    Returns ``dict(step, ctx, batch, capacity)``:
+    Returns ``dict(step, ctx, plan, batch, capacity)``:
     ``step(params, caches, token, pos) -> (float32 logits (B, V), caches)``
     (token (B, n_cb) and logits (B, V, n_cb) for a codebook model)
     runs :func:`~repro_torch.models.lm_decode_step` with
     ``gather_logits=False`` and assembles the vocabulary shards without a
     wire (the reference's ``out_specs``), the batch split over the data
     groups where it divides (their caches the rows of one cache tree).
+    Under FSDP (``fsdp``) the params are stored by ``plan`` and each group
+    gathers each layer's before it runs, as the reference's step does.
     Pass it to :class:`~repro_torch.serving.ServeEngine` as ``runtime=``.
     """
     dev = resolve_device(device)
     ctx = make_ctx(mesh, comm_mode=comm_mode, plan=_layer_plan(cfg, comm_mode), device=dev)
-    check_fsdp(fsdp, mesh, cfg.param_count())
+    plan = _fsdp_plan(cfg, ctx, fsdp, mesh)
     B, capacity = shape.global_batch, shape.seq_len
 
-    decode = local_step(cfg, ctx)
+    decodes = [local_step(cfg, gctx, plan) for gctx in _group_ctxs(ctx)]
 
     def step(params, caches, token, pos):
         token = token.to(dev)
         pos = torch.as_tensor(pos, dtype=torch.int32, device=dev)
 
-        def group(rows):
-            logits, _ = decode(params, _rows(caches, rows, ctx.tp), token[rows],
-                               pos if pos.dim() == 0 else pos[rows])
+        def group(g, rows):
+            logits, _ = decodes[g](params, _rows(caches, rows, ctx.tp), token[rows],
+                                   pos if pos.dim() == 0 else pos[rows])
             return logits
 
         return torch.cat(over_data_groups(ctx, token.shape[0], group)), caches
 
-    return dict(step=step, ctx=ctx, batch=B, capacity=capacity)
+    return dict(step=step, ctx=ctx, plan=plan, batch=B, capacity=capacity)
 
 
 def build_continuous_serve(cfg: ModelConfig, *, mesh=None, comm_mode: str = "smi",
@@ -251,8 +332,8 @@ def build_continuous_serve(cfg: ModelConfig, *, mesh=None, comm_mode: str = "smi
     (:class:`~repro_torch.serving.ContinuousEngine` ``runtime=``), on
     ``device`` (``cuda`` unless named).
 
-    Returns ``dict(ctx, pool, step, reset, migrate_start, migrate_finish,
-    init_caches, batch_slots, capacity)``: the per-slot decode step (``pos``
+    Returns ``dict(ctx, pool, plan, step, reset, migrate_start,
+    migrate_finish, init_caches, batch_slots, capacity)``: the per-slot decode step (``pos``
     a (B,) vector; the vocabulary shards assembled without a wire), the
     slot invalidation, the two migration legs on the pool's
     ``serve.migrate`` gather/scatter channels, and the
@@ -264,7 +345,10 @@ def build_continuous_serve(cfg: ModelConfig, *, mesh=None, comm_mode: str = "smi
 
     Slots are batch rows replicated over the data axes; the KV cache is
     sequence-sharded over the model axis, which is what migration streams
-    across ranks.
+    across ranks.  Under FSDP (``fsdp``) the params are stored by ``plan``
+    and the step gathers each layer's over the data ring for the first
+    group, the one the stack runs (the reference's runtime leaves the
+    blocks ungathered here, ROADMAP.md §3).
     """
     from ..channels import ChannelPool
     from ..serving.continuous import (
@@ -275,14 +359,16 @@ def build_continuous_serve(cfg: ModelConfig, *, mesh=None, comm_mode: str = "smi
     )
 
     dev = resolve_device(device)
-    ctx = make_ctx(mesh, batch_axes=(), comm_mode=comm_mode,
+    fsdp = check_fsdp(fsdp, mesh, cfg.param_count())
+    # the data axis is the FSDP gather's alone: slots are not split over it
+    ctx = make_ctx(mesh, batch_axes=("data",) if fsdp else (), comm_mode=comm_mode,
                    plan=_layer_plan(cfg, comm_mode), device=dev)
-    check_fsdp(fsdp, mesh, cfg.param_count())
+    plan = _fsdp_plan(cfg, ctx, fsdp, mesh)
     pool = None
     if ctx.is_smi and ctx.tp > 1:
         pool = ChannelPool(ctx.model_comm, prefix="serve.")
         ctx = dataclasses.replace(ctx, channels=pool)
-    rt = local_runtime(cfg, ctx, batch_slots, capacity, dev)
+    rt = local_runtime(cfg, ctx, batch_slots, capacity, dev, plan)
     if pool is not None:
         gspec, sspec = open_migration(pool)
         rt.update(
@@ -290,4 +376,5 @@ def build_continuous_serve(cfg: ModelConfig, *, mesh=None, comm_mode: str = "smi
             migrate_start=lambda caches, slot: migrate_gather(caches, slot, gspec, ctx.tp),
             migrate_finish=lambda caches, inflight, slot: migrate_scatter(caches, inflight, slot,
                                                                            sspec, ctx.tp))
+    rt["plan"] = plan
     return rt

@@ -3,14 +3,18 @@ training step -> synthetic data pipeline -> checkpoints -> watchdog.
 
     python -m repro_torch.launch.train --arch yi-6b --layers 8 --seq-len 4096 --batch 2
     python -m repro_torch.launch.train --arch yi-6b --layers 8 --mesh 1,8 --comm-mode smi:fused
-    python -m repro_torch.launch.train --arch yi-6b --smoke --device cpu --mesh 1,4 --steps 3
-    python -m repro_torch.launch.train --arch yi-6b --layers 8 --mesh 1,8 --validate-comm
+    python -m repro_torch.launch.train --arch yi-6b --smoke --device cpu --steps 3
+    python -m repro_torch.launch.train --arch mamba2-2.7b --layers 16 --seq-len 4096 \
+        --batch 2 --comm-mode smi:fused --compressed-grads --validate-comm
 
 ``--smoke`` takes the arch's reduced config; ``--layers`` cuts the depth at
 full width (yi-6b's 32 layers with float32 AdamW state need 96 GB, more
-than one card holds).  Runs on ``cuda`` unless ``--device cpu``.  At tp > 1
-on the card the tensor-parallel GEMMs are kernel D.  A data axis of more
-than one rank raises ``NotImplementedError`` (ROADMAP.md §1 item 13).
+than one card holds).  Runs on ``cuda`` unless ``--device cpu``.  The mesh
+is ``data,model`` (``2,4`` unless named, as the reference's): the data
+groups split the batch, with the weights FSDP-stored over them, and
+``--compressed-grads`` rings the gradients of the leaves stored whole over
+the int8 wire.  At tp > 1 on the card the tensor-parallel GEMMs are
+kernel D.
 """
 
 from __future__ import annotations
@@ -44,7 +48,7 @@ def train_loop(cfg, shape, settings: TrainSettings, *, mesh=None, steps: int,
     art = build_train(cfg, shape, settings, mesh=mesh, matmul_fn=matmul_fn, device=device)
     if state is None:
         state = art["init_state"](seed)
-    ctx = art["ctx"]
+    ctx, plan = art["ctx"], art["plan"]
     ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
     pipe = SyntheticTokenPipeline(cfg.vocab_size, shape.seq_len, shape.global_batch, seed=seed,
                                   n_codebooks=cfg.n_codebooks)
@@ -70,9 +74,9 @@ def train_loop(cfg, shape, settings: TrainSettings, *, mesh=None, steps: int,
                 print(f"[train] step={step} loss={m['loss']:.4f} ce={m['ce']:.4f} "
                       f"gnorm={m['gnorm']:.3f} lr={m['lr']:.2e}", flush=True)
             if ckpt and step > 0 and step % ckpt_every == 0:
-                ckpt.save(unshard_train_state(state, cfg, ctx), step, async_=True)
+                ckpt.save(unshard_train_state(state, cfg, ctx, plan), step, async_=True)
         if ckpt:
-            ckpt.save(unshard_train_state(state, cfg, ctx), steps)
+            ckpt.save(unshard_train_state(state, cfg, ctx, plan), steps)
     finally:
         pipe.close()
         if ckpt:
@@ -137,13 +141,14 @@ def main(argv=None) -> int:
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth to this many layers (full width)")
     ap.add_argument("--steps", type=int, default=50)
-    ap.add_argument("--mesh", default="1,1", help="data,model grid (a data axis raises)")
+    ap.add_argument("--mesh", default="2,4", help="data,model grid")
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--comm-mode", default="smi", choices=list(COMM_MODES),
                     help="collective mode; smi:<backend> pins the transport")
     ap.add_argument("--remat", default="nothing")
-    ap.add_argument("--compressed-grads", action="store_true")
+    ap.add_argument("--compressed-grads", action="store_true",
+                    help="the gradient ring over the data axis on the int8 wire")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--validate-comm", action="store_true",

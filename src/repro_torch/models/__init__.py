@@ -11,7 +11,8 @@ from .model import (
     lm_loss,
     lm_prefill,
     lm_specs,
+    param_shapes,
 )
 
 __all__ = ["assemble_logits", "gather_hidden", "init_lm", "lm_cache_specs", "lm_caches",
-           "lm_decode_step", "lm_loss", "lm_prefill", "lm_specs"]
+           "lm_decode_step", "lm_loss", "lm_prefill", "lm_specs", "param_shapes"]

@@ -17,6 +17,8 @@ def trunc_normal(generator: torch.Generator, shape, scale: float, dtype=torch.fl
     generator's device by inverting the normal CDF over the uniform band
     that maps onto [-2, 2] (on the CPU, on the calling thread: the same bits
     on every call)."""
+    if generator.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     lo, hi = (0.5 * (1.0 + math.erf(b / math.sqrt(2.0))) for b in (-2.0, 2.0))
     u = torch.empty(shape, dtype=torch.float32, device=generator.device)
     u.uniform_(2.0 * lo - 1.0, 2.0 * hi - 1.0, generator=generator)
@@ -83,6 +85,18 @@ def tree_map(fn, tree, *rest):
     if tree is None:
         return None
     return fn(tree, *rest)
+
+
+def tree_map_specs(fn, tree, specs, stacked: bool = False):
+    """``fn(leaf, spec, stacked)`` over a params tree and the matching tree
+    of specs (``PartitionSpec`` leaves), ``stacked`` true under a
+    ``"periods"`` key (the leaves with a leading layer dimension)."""
+    if isinstance(tree, dict):
+        return {k: tree_map_specs(fn, v, specs[k], stacked or k == "periods")
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(tree_map_specs(fn, v, s, stacked) for v, s in zip(tree, specs, strict=True))
+    return None if tree is None else fn(tree, specs, stacked)
 
 
 def tree_leaves_with_path(tree, path=()):

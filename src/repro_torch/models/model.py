@@ -88,6 +88,38 @@ def init_lm(cfg, generator: torch.Generator | None = None, device=None, dtype=No
     return p
 
 
+class _ShapesOnly:
+    """A stand-in generator for :func:`param_shapes`: its leaves lie on the
+    ``meta`` device, shapes and dtypes without storage."""
+
+    device = torch.device("meta")
+
+
+def param_shapes(cfg, ctx=None):
+    """:func:`init_lm`'s global leaves on the ``meta`` device (shapes and
+    dtypes, no storage; the reference's ``jax.eval_shape(init_lm)``), for
+    :func:`~repro_torch.mesh.api.build_fsdp_plan`."""
+    return init_lm(cfg, _ShapesOnly(), device="meta", ctx=ctx)
+
+
+_FSDP_TOP = ("embed", "head", "embed_cb", "head_cb", "final_norm")
+
+
+def _gather_top(pf, cfg, ctx, fsdp_plan):
+    """The embedding, heads and final norm with their FSDP leaves gathered
+    for ``ctx``'s data group (the block stack gathers its own, layer by
+    layer)."""
+    if fsdp_plan is None:
+        return pf
+    from ..mesh.api import fsdp_gather
+
+    specs = lm_specs(cfg, ctx)
+    keys = [k for k in _FSDP_TOP if k in pf]
+    got = fsdp_gather({k: pf[k] for k in keys}, {k: fsdp_plan[k] for k in keys}, ctx,
+                      {k: specs[k] for k in keys})
+    return {**pf, **got}
+
+
 def lm_specs(cfg, ctx):
     """How each leaf of the LM params lies over the mesh: the embedding
     split by vocabulary rows, the head by vocabulary columns, the final norm
@@ -149,7 +181,8 @@ def embed_tokens_sp(params, tokens, cfg, ctx, extra_embeds=None):
     return emb.to(model_dtype(cfg))
 
 
-def lm_prefill(params, tokens, cfg, ctx, *, capacity: int, extra_embeds=None, use_kernel=None):
+def lm_prefill(params, tokens, cfg, ctx, *, capacity: int, extra_embeds=None, use_kernel=None,
+               fsdp_plan=None):
     """Prefill: the full forward over ``tokens`` (B, S) (or (B, S, n_cb)),
     the first positions taken by ``extra_embeds`` (B, n_patches, D) when
     given; returns the final hidden states, (B, S, D) at tp = 1 and the
@@ -159,10 +192,12 @@ def lm_prefill(params, tokens, cfg, ctx, *, capacity: int, extra_embeds=None, us
     reference, it fills no cache (the serving engines replay prompts through
     decode).  ``use_kernel`` goes to every attention and SSM block
     (``None``: kernels E and F on the card; ``False``: their plain versions,
-    for comparisons)."""
-    pf = _cast(params, model_dtype(cfg))
+    for comparisons).  ``fsdp_plan`` gathers the FSDP-stored leaves over
+    the data ring for ``ctx.data_group``, each layer's as it runs."""
+    pf = _gather_top(_cast(params, model_dtype(cfg)), cfg, ctx, fsdp_plan)
     x = embed_tokens_sp(pf, tokens, cfg, ctx, extra_embeds)
-    x, _ = apply_stack(pf["stack"], x, cfg, ctx, use_kernel=use_kernel)  # the aux loss: unused
+    x, _ = apply_stack(pf["stack"], x, cfg, ctx, use_kernel=use_kernel, remat="none",
+                       fsdp_plan=None if fsdp_plan is None else fsdp_plan["stack"])
     return rms_norm(x, pf["final_norm"], cfg.norm_eps)
 
 
@@ -184,8 +219,8 @@ def _head_tables(pf, cfg, ctx):
     return [pf["head"]]
 
 
-def lm_loss(params, tokens, labels, cfg, ctx, *, extra_embeds=None, remat: str = "nothing",
-            loss_chunks: int = 1, aux_weight: float = 1e-2, use_kernel=None):
+def lm_loss(params, tokens, labels, cfg, ctx, *, extra_embeds=None, remat: str = "dots",
+            loss_chunks: int = 1, aux_weight: float = 1e-2, use_kernel=None, fsdp_plan=None):
     """The causal-LM loss: the mean cross entropy over the labels that are
     not ``-100``, plus ``aux_weight`` times the MoE load-balancing loss.
     Returns ``(loss, (ce, aux))``, 0-dim float32 tensors.
@@ -205,11 +240,16 @@ def lm_loss(params, tokens, labels, cfg, ctx, *, extra_embeds=None, remat: str =
     At tp > 1 every rank of the stack computes the same loss; this returns
     rank 0's, so that its gradient is the loss's own (the sum over the
     stack would be P times it).  ``use_kernel`` goes to every attention and
-    SSM block (kernels E and F on the card)."""
+    SSM block (kernels E and F on the card).  ``fsdp_plan`` gathers the
+    FSDP-stored leaves over the data ring for ``ctx.data_group`` (the
+    reference's ZeRO-3 streaming: the stack's layer by layer), and the
+    gather's backward sums the group's gradients into the owners'
+    blocks."""
     tp = ctx.tp
-    pf = _cast(params, model_dtype(cfg))
+    pf = _gather_top(_cast(params, model_dtype(cfg)), cfg, ctx, fsdp_plan)
     x = embed_tokens_sp(pf, tokens, cfg, ctx, extra_embeds)
-    x, aux = apply_stack(pf["stack"], x, cfg, ctx, use_kernel=use_kernel, remat=remat)
+    x, aux = apply_stack(pf["stack"], x, cfg, ctx, use_kernel=use_kernel, remat=remat,
+                         fsdp_plan=None if fsdp_plan is None else fsdp_plan["stack"])
     x = rms_norm(x, pf["final_norm"], cfg.norm_eps)     # (B, S_loc, D) or (P, B, S_loc, D)
     tables = _head_tables(pf, cfg, ctx)
     B, S_loc, D = x.shape[-3:]
@@ -253,7 +293,8 @@ def lm_loss(params, tokens, labels, cfg, ctx, *, extra_embeds=None, remat: str =
     return ce + aux_weight * aux, (ce, aux)
 
 
-def lm_decode_step(params, caches, token, pos, cfg, ctx, *, gather_logits: bool = True):
+def lm_decode_step(params, caches, token, pos, cfg, ctx, *, gather_logits: bool = True,
+                   fsdp_plan=None):
     """One decode step.  token (B,) int (or (B, n_cb)); pos a scalar or a
     (B,) vector.  Returns (float32 logits, caches) with the caches updated
     in place: the logits are (B, padded_vocab) at tp = 1; at tp = P > 1
@@ -261,13 +302,16 @@ def lm_decode_step(params, caches, token, pos, cfg, ctx, *, gather_logits: bool 
     ``gather_logits=False`` every rank's own vocabulary shard, (P, B,
     padded_vocab / P), for the caller to assemble (the reference's
     ``out_specs``).  A codebook model's logits gain a trailing ``n_cb``
-    dimension, and its gather carries ``n_cb`` times the bytes."""
-    pf = _cast(params, model_dtype(cfg))
+    dimension, and its gather carries ``n_cb`` times the bytes.
+    ``fsdp_plan`` gathers the FSDP-stored leaves over the data ring for
+    ``ctx.data_group``, each layer's before it runs."""
+    pf = _gather_top(_cast(params, model_dtype(cfg)), cfg, ctx, fsdp_plan)
     emb = _embed_partial(pf, token, cfg, ctx)
     x = psum_tagged(emb, ctx, "tp.embed").unsqueeze(-2).to(model_dtype(cfg))  # (.., B, 1, D)
     # on the device once, not once a layer (a copy from the host waits for the card)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
-    x, caches = decode_stack(pf["stack"], caches, x, pos, cfg, ctx)
+    x, caches = decode_stack(pf["stack"], caches, x, pos, cfg, ctx,
+                             fsdp_plan=None if fsdp_plan is None else fsdp_plan["stack"])
     x = rms_norm(x, pf["final_norm"], cfg.norm_eps).squeeze(-2)        # (.., B, D)
     tables = _head_tables(pf, cfg, ctx)
     if cfg.n_codebooks > 1:

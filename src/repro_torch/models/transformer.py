@@ -7,7 +7,9 @@ Parameters keep the reference's layout: ``{"periods": tuple of per-position
 block trees whose leaves carry a leading layer dim, "rem": tuple of
 remainder blocks}``.  The periods run as a Python loop over that dim (the
 reference's ``lax.scan``), each period under ``torch.utils.checkpoint``
-when the training step asks for remat (:func:`apply_stack`).  At tp > 1 the
+when the training step asks for remat (:func:`apply_stack`).  Under FSDP
+(``fsdp_plan``) a period's leaves are stored ``(L, dp, ...)``, each
+layer's gathered over the data ring as the layer runs.  At tp > 1 the
 activations are the rank-stacked ``(P, B, S/P, D)`` and the sharded leaves
 of a period are laid out ``(L, P, ...)`` (``interop.shard_params``), so a
 layer's slice is rank-stacked; so are the decode caches, ``(L, P, B, ...)``.
@@ -21,6 +23,7 @@ from __future__ import annotations
 import contextlib
 
 import torch
+from torch.overrides import TorchFunctionMode
 from torch.utils.checkpoint import checkpoint
 
 from ..mesh.api import PartitionSpec as PS
@@ -48,34 +51,115 @@ from .ssm import apply_ssm, decode_ssm, init_ssm, init_ssm_cache, ssm_cache_spec
 
 #: the block kinds of the reference, all run by the port
 KINDS = ("attn", "moe", "ssm", "rec")
-#: the reference's remat policies the port runs: ``"none"`` keeps every
-#: activation, ``"nothing"`` recomputes each period from its input in the
-#: backward pass
-REMAT_POLICIES = ("none", "nothing")
-#: the reference's policies that save the matrix products' outputs
-REMAT_DOTS = ("dots", "dots_nb")
-#: what the policies that save the products raise with
-REMAT_ROADMAP = ("the remat policies that save the matrix products ('dots', 'dots_nb') wait "
-                 "for the second half of the training slice (ROADMAP.md §1, item 13)")
+#: the reference's remat policies: ``"none"`` keeps every activation;
+#: ``"dots"`` saves every matrix product's output and recomputes the rest
+#: in the backward pass; ``"dots_nb"`` saves only the products without
+#: batch dimensions (the projections, not attention's score blocks);
+#: ``"nothing"`` recomputes each period from its input
+REMAT_POLICIES = ("none", "dots", "dots_nb", "nothing")
 
 
 def check_remat(remat: str):
-    """Raise on a remat policy the port does not run."""
-    if remat in REMAT_DOTS:
-        raise NotImplementedError(REMAT_ROADMAP)
+    """Raise on a remat policy the reference does not define."""
     if remat not in REMAT_POLICIES:
         raise ValueError(f"unknown remat policy {remat!r}")
 
 
-def recomputed(fn, *args):
-    """``fn(*args)`` whose activations are recomputed in the backward pass
-    (``jax.checkpoint`` with ``nothing_saveable``).  The recompute runs the
-    Python forward again, so it runs with the ledger paused: the capture
-    holds each collective once, as the reference's trace does (its
-    AD-transposed collectives tally nothing either).  Kernel launches are
-    real work and count in both."""
+def _product_ops():
+    """The dispatcher's matrix products: ATen's (``torch.matmul`` and
+    ``einsum`` reach them) and kernel D's op, which its autograd Function
+    launches."""
+    from ..kernels.matmul.ops import matmul_op
+
+    a = torch.ops.aten
+    plain = (a.mm.default, a.addmm.default)
+    batched = (a.bmm.default, a.baddbmm.default)
+    return plain, batched, matmul_op
+
+
+class _Projections(TorchFunctionMode):
+    """Marks the rank-stacked projections of tp = P > 1 while they
+    dispatch: a product called as ``(P, t, K) @ (P, K, N)``, each rank's
+    2-D product stacked (the reference's per-device dot without batch
+    dimensions).  The batched products (attention's scores, the experts')
+    are called through ``einsum`` or with more dimensions, so they stay
+    unmarked even where their flattened batch happens to equal P."""
+
+    _FUNCS = (torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__, torch.bmm)
+
+    def __init__(self, tp: int):
+        super().__init__()
+        self.tp = tp
+        self.depth = 0
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func in self._FUNCS and len(args) == 2 and all(
+                isinstance(a, torch.Tensor) and a.dim() == 3 and a.shape[0] == self.tp
+                for a in args):
+            self.depth += 1
+            try:
+                return func(*args, **kwargs)
+            finally:
+                self.depth -= 1
+        return func(*args, **kwargs)
+
+
+def _saves_product(remat: str, marks: _Projections | None = None):
+    """The selective-checkpoint policy of a ``"dots"`` remat: which op
+    outputs to keep for the backward pass.  ``"dots_nb"`` keeps the 2-D
+    products, kernel D's, and the batched products that ``marks`` (an
+    active :class:`_Projections`, at tp > 1) holds for rank-stacked
+    projections; it recomputes the products with a batch (attention's
+    score blocks, the experts')."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    plain, batched, kernel = _product_ops()
+
+    def policy(_ctx, op, *args, **kwargs):
+        if op in plain or op is kernel:
+            keep = True
+        elif op in batched:
+            keep = remat == "dots" or (marks is not None and marks.depth > 0)
+        else:
+            keep = False
+        return CheckpointPolicy.MUST_SAVE if keep else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return policy
+
+
+@contextlib.contextmanager
+def _all(*cms):
+    with contextlib.ExitStack() as stack:
+        for cm in cms:
+            stack.enter_context(cm)
+        yield
+
+
+def recomputed(fn, *args, remat: str = "nothing", tp: int = 1):
+    """``fn(*args)`` whose activations are recomputed in the backward pass,
+    as the reference's ``jax.checkpoint`` with ``remat``'s policy
+    (``"nothing"``: every one; ``"dots"``/``"dots_nb"``: all but the
+    matrix products the policy saves, through
+    ``torch.utils.checkpoint.create_selective_checkpoint_contexts``).  The
+    recompute runs the Python forward again, so it runs with the ledger
+    paused: the capture holds each collective once, as the reference's
+    trace does (its AD-transposed collectives tally nothing either).
+    Kernel launches are real work and count in both; a product the policy
+    saves is not launched again."""
+    if remat == "nothing":
+        def context_fn():
+            return contextlib.nullcontext(), ledger.paused()
+    else:
+        from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+        def context_fn():
+            marks = _Projections(tp) if remat == "dots_nb" and tp > 1 else None
+            fwd, rec = create_selective_checkpoint_contexts(_saves_product(remat, marks))
+            extra = (marks,) if marks is not None else ()
+            return _all(fwd, *extra), _all(rec, *extra, ledger.paused())
     return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
-                      context_fn=lambda: (contextlib.nullcontext(), ledger.paused()))
+                      context_fn=context_fn)
 
 
 def _check_kind(kind: str):
@@ -239,28 +323,58 @@ def stack_specs(cfg, ctx):
                                              for j in range(rem))}
 
 
-def apply_stack(params, x, cfg, ctx, *, use_kernel=None, remat: str = "none"):
+def _period_specs(cfg, ctx):
+    """One layer's specs at each period position (the leaves' model
+    layout, which an FSDP gather reads)."""
+    return tuple(block_specs(kind, cfg, ctx) for kind in cfg.pattern)
+
+
+def _gathered(blocks, plan, specs, ctx):
+    """``blocks`` with their FSDP leaves gathered for ``ctx``'s data group
+    (no plan: as they are)."""
+    if plan is None:
+        return blocks
+    from ..mesh.api import fsdp_gather
+
+    return fsdp_gather(blocks, plan, ctx, specs)
+
+
+def apply_stack(params, x, cfg, ctx, *, use_kernel=None, remat: str = "dots",
+                fsdp_plan=None):
     """Every layer over x; returns (x, the layers' load-balancing losses
-    summed).  ``remat="nothing"`` recomputes each period from its input in
-    the backward pass (:func:`recomputed`), as the reference's
-    ``jax.checkpoint`` around its period body; the remainder layers are not
-    recomputed there either.  ``"dots"`` and ``"dots_nb"`` raise."""
+    summed).  ``remat`` other than ``"none"`` recomputes each period in the
+    backward pass under that policy (:func:`recomputed`), as the
+    reference's ``jax.checkpoint`` around its period body; the remainder
+    layers are not recomputed there either.  ``fsdp_plan`` (the params'
+    ``stack`` subtree of :func:`~repro_torch.mesh.api.build_fsdp_plan`)
+    gathers each layer's FSDP leaves over the data ring as the layer runs
+    (inside the recomputed period, so the recompute gathers again)."""
+    from ..mesh.api import _shift_plan
+
     check_remat(remat)
     pattern, period, n_full, _ = _layout(cfg)
+    plan = fsdp_plan
+    period_plan = (_shift_plan(plan["periods"])
+                   if plan is not None and plan["periods"] is not None else None)
+    specs = _period_specs(cfg, ctx) if plan is not None else None
 
     def period_fn(x, i):
+        blocks = _gathered(tuple(_layer(params["periods"][j], i) for j in range(period)),
+                           period_plan, specs, ctx)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for j in range(period):
-            x, a = apply_block(_layer(params["periods"][j], i), pattern[j], x, cfg, ctx,
-                               use_kernel=use_kernel)
+            x, a = apply_block(blocks[j], pattern[j], x, cfg, ctx, use_kernel=use_kernel)
             aux = aux + a
         return x, aux
 
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n_full if params["periods"] is not None else 0):
-        x, aux = period_fn(x, i) if remat == "none" else recomputed(period_fn, x, i)
+        x, aux = (period_fn(x, i) if remat == "none"
+                  else recomputed(period_fn, x, i, remat=remat, tp=ctx.tp))
         aux_total = aux_total + aux
     for j, p in enumerate(params["rem"]):
+        p = _gathered(p, None if plan is None else plan["rem"][j],
+                      None if specs is None else specs[j], ctx)
         x, aux = apply_block(p, pattern[j], x, cfg, ctx, use_kernel=use_kernel)
         aux_total = aux_total + aux
     return x, aux_total
@@ -293,14 +407,26 @@ def stack_cache_specs(cfg, ctx, shard_batch: bool = True):
                                              for j in range(rem))}
 
 
-def decode_stack(params, caches, x, pos, cfg, ctx):
+def decode_stack(params, caches, x, pos, cfg, ctx, *, fsdp_plan=None):
     """One decode step through every layer; each layer's cache is a view of
-    the stacked cache and is updated in place.  Returns (x, caches)."""
+    the stacked cache and is updated in place.  ``fsdp_plan`` (the
+    ``stack`` subtree) gathers each layer's FSDP leaves over the data ring
+    before it runs.  Returns (x, caches)."""
+    from ..mesh.api import _shift_plan
+
     pattern, period, n_full, _ = _layout(cfg)
+    plan = fsdp_plan
+    period_plan = (_shift_plan(plan["periods"])
+                   if plan is not None and plan["periods"] is not None else None)
+    specs = _period_specs(cfg, ctx) if plan is not None else None
     for i in range(n_full if params["periods"] is not None else 0):
+        blocks = _gathered(tuple(_layer(params["periods"][j], i) for j in range(period)),
+                           period_plan, specs, ctx)
         for j in range(period):
-            x, _ = decode_block(_layer(params["periods"][j], i), pattern[j], x,
-                                _layer(caches["periods"][j], i), pos, cfg, ctx)
+            x, _ = decode_block(blocks[j], pattern[j], x, _layer(caches["periods"][j], i), pos,
+                                cfg, ctx)
     for j, p in enumerate(params["rem"]):
+        p = _gathered(p, None if plan is None else plan["rem"][j],
+                      None if specs is None else specs[j], ctx)
         x, _ = decode_block(p, pattern[j], x, caches["rem"][j], pos, cfg, ctx)
     return x, caches

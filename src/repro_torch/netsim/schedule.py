@@ -512,10 +512,11 @@ def predict_train_step_stats(cfg, mesh_shape, shape, settings, *, pkt_elems=32, 
     rematerialised layer with its ledger paused, so its ledger holds every
     layer's traffic once: ``eager=True`` counts the per-block tags once a
     layer, and an RG-LRU block's MLP, which the reference's table leaves
-    out.  FSDP's gather and gradient sync over a data axis of more than
-    one rank (``_fsdp_leaf_walk``) wait for ROADMAP.md §1 item 13 and
-    raise."""
-    from ..mesh.api import DATA_AXIS_ROADMAP
+    out.  Over a data axis of more than one rank with ``fsdp``, each
+    FSDP leaf's gather (``fsdp.gather``: the reference's one a traced
+    gather site, the port's one a layer with ``eager=True``) and each leaf
+    stored whole's gradient ring (``grad``, on the compressed link with
+    ``compressed_grads``) are counted by :func:`_fsdp_leaf_walk`."""
     from ..transport.registry import resolve_comm_mode
 
     dp, tp = int(mesh_shape[0]), int(mesh_shape[1])
@@ -523,8 +524,6 @@ def predict_train_step_stats(cfg, mesh_shape, shape, settings, *, pkt_elems=32, 
     if base_mode != "smi":
         raise ValueError(f"predict_train_step_stats models smi comm modes; got "
                          f"{settings.comm_mode!r}")
-    if getattr(settings, "fsdp", False) and dp > 1:
-        raise NotImplementedError(DATA_AXIS_ROADMAP)
     esz = 2 if cfg.dtype == "bfloat16" else 4
     B = shape.global_batch // dp
     S = shape.seq_len
@@ -611,12 +610,55 @@ def predict_train_step_stats(cfg, mesh_shape, shape, settings, *, pkt_elems=32, 
             ring("tp.loss.gather", act(B * csz * D), tp)
             psum("tp.loss.ce", B * tp * csz * 4, n=3 * n_tables)
 
+    # the FSDP gathers and the gradient sync over the data ring
+    if getattr(settings, "fsdp", False) and dp > 1:
+        gathered, grad_rings = _fsdp_leaf_walk(cfg, dp, tp, n_full, eager=eager)
+        for loc_elems in gathered:
+            ring("fsdp.gather", act(loc_elems), dp)
+        gkey = key
+        if getattr(settings, "compressed_grads", False) and key.partition(":")[0] != "compressed":
+            gkey = f"compressed:{key}"
+        for loc_elems in grad_rings:
+            m = -(-loc_elems // dp)  # the padded ring chunk
+            ring("grad", [(m, 4, True)], dp, n_shifts=2 * (dp - 1), tkey=gkey)
+
     return {t: acc[t] for t in sorted(acc)}
+
+
+def _fsdp_leaf_walk(cfg, dp: int, tp: int, n_full: int, *, eager: bool = False):
+    """One device's element counts of the FSDP plan's leaves at ``(dp,
+    tp)``: ``(gathered, rings)``.  ``gathered`` lists a gather's payload a
+    shift for every FSDP leaf (its model shard, a layer's of a period leaf,
+    over ``dp``), once a traced gather site (the reference's) or, with
+    ``eager``, once a layer (the port's, which gathers every layer).
+    ``rings`` lists the model shard of every leaf stored whole, which the
+    gradient sync all-reduces over a ``"grad"`` channel."""
+    from ..mesh.api import fsdp_dim_for, make_ctx
+    from ..models.common import tree_leaves_with_path
+    from ..models.model import lm_specs, param_shapes
+
+    ctx = make_ctx((dp, tp), comm_mode="smi:static", device="cpu")
+    shapes = tree_leaves_with_path(param_shapes(cfg, ctx))
+    specs = dict(tree_leaves_with_path(lm_specs(cfg, ctx)))
+    gathered, rings = [], []
+    for path, sh in shapes:
+        sp = specs[path]
+        stacked = "periods" in path
+        dim = fsdp_dim_for(tuple(sh.shape), sp, dp, skip_dim0=stacked)
+        tp_div = tp ** sum(d is not None for d in tuple(sp))
+        loc = sh.numel() // tp_div
+        if dim < 0:
+            rings.append(loc)
+        elif stacked:
+            gathered.extend([loc // n_full // dp] * (n_full if eager else 1))
+        else:
+            gathered.append(loc // dp)
+    return gathered, rings
 
 
 def predict_decode_step_stats(cfg, mesh_shape, batch_slots, settings, *, capacity=128,
                               migrations=0, prefix="serve.", pkt_elems=32, slack_steps=4,
-                              eager=False):
+                              eager=False, fsdp=False):
     """Per-tag predicted channel traffic of ONE serving decode step
     (``lm_decode_step`` with ``gather_logits=False``, as
     ``launch.steps.build_continuous_serve`` runs it), plus ``migrations``
@@ -634,10 +676,16 @@ def predict_decode_step_stats(cfg, mesh_shape, batch_slots, settings, *, capacit
     over layer periods traces each period position once: its per-block
     tags count once per traced position, which is this table by default.
     The port runs every layer, so its ledger holds every layer's traffic:
-    ``eager=True`` counts the per-block tags once a layer."""
+    ``eager=True`` counts the per-block tags once a layer.  On FSDP
+    weights (``fsdp``, a data axis of more than one rank) the port's step
+    gathers every FSDP leaf over the data ring, a layer's as it runs:
+    ``eager=True`` counts those gathers under ``fsdp.gather`` (the data
+    ring's own channel, outside the pool's prefix).  The reference's
+    continuous runtime gathers nothing there (ROADMAP.md §3), and its
+    table has no such term."""
     from ..transport.registry import resolve_comm_mode
 
-    tp = int(mesh_shape[1])
+    dp, tp = int(mesh_shape[0]), int(mesh_shape[1])
     base_mode, key = resolve_comm_mode(settings.comm_mode)
     if base_mode != "smi":
         raise ValueError(f"predict_decode_step_stats models smi comm modes; got "
@@ -714,5 +762,12 @@ def predict_decode_step_stats(cfg, mesh_shape, batch_slots, settings, *, capacit
         n = _slot_nbytes(cfg, tp, capacity)
         ring("migrate", [(n, 1, False)], tp, n_shifts=2 * (tp - 1) * int(migrations),
              tkey="static")
+
+    if fsdp and eager and dp > 1:
+        for loc_elems in _fsdp_leaf_walk(cfg, dp, tp, n_full, eager=True)[0]:
+            s, b = _shift_cost(act(loc_elems), key, pkt_elems=pkt_elems, slack_steps=slack_steps)
+            e = acc.setdefault("fsdp.gather", {"steps": 0, "bytes": 0})
+            e["steps"] += s * (dp - 1)
+            e["bytes"] += b * (dp - 1)
 
     return {t: acc[t] for t in sorted(acc)}

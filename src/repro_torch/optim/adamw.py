@@ -2,10 +2,10 @@
 
 The moments are float32 and the step an int32 counter, as the reference's.
 The update works leaf by leaf, so it runs on the rank-stacked leaves of a
-tensor-parallel state as it is and needs no collective: each rank's block
-of a sharded leaf is its own, and a replicated leaf is stored once.  The
-reference's ZeRO-1 layout of the moments over a data axis (``opt_specs``)
-waits for the data axis (ROADMAP.md §1, item 13).
+tensor-parallel or FSDP-stored state as it is and needs no collective:
+each rank's block of a sharded leaf is its own, and a replicated leaf is
+stored once.  :func:`opt_specs` is the reference's ZeRO-1 layout of the
+moments over a data axis.
 """
 
 from __future__ import annotations
@@ -13,6 +13,29 @@ from __future__ import annotations
 import torch
 
 from ..models.common import tree_flatten, tree_map
+
+
+def opt_specs(param_specs, mesh, params_shape, data_axes=("data",)) -> dict:
+    """ZeRO-1 (the reference's ``opt_specs``): each moment split over the
+    data axes on the first dimension its param spec leaves unsharded whose
+    size the data axis divides; ``{"m", "v", "step"}`` specs."""
+    from ..mesh.api import PartitionSpec, mesh_sizes
+
+    sizes = mesh_sizes(None if mesh is None else tuple(int(n) for n in mesh))
+    dp = 1
+    for a in data_axes:
+        dp *= sizes.get(a, 1)
+    ax = tuple(data_axes) if len(data_axes) > 1 else data_axes[0]
+
+    def spec_for(ps, shape_leaf):
+        dims = tuple(ps) + (None,) * (len(shape_leaf.shape) - len(tuple(ps)))
+        for i, (d, s) in enumerate(zip(dims, shape_leaf.shape)):
+            if d is None and s % dp == 0 and s > 0 and dp > 1:
+                return PartitionSpec(*dims[:i], ax, *dims[i + 1:])
+        return PartitionSpec(*dims)
+
+    moments = tree_map(spec_for, param_specs, params_shape)
+    return {"m": moments, "v": moments, "step": PartitionSpec()}
 
 
 def adamw_init(params) -> dict:

@@ -1,8 +1,10 @@
 """Gradient utilities (``repro.optim.grad``): global-norm clipping and the
 end-to-end error feedback of a lossy (int8) gradient sync.
 
-The error feedback's arithmetic is here; the sync it wraps runs over the
-data axis, which waits for ROADMAP.md §1 item 13 (pass ``sync_fn``).
+Two error-feedback levels cooperate: per hop, inside the compressed
+link's ring reduce-scatter (``transport/compressed.py``), and end to end,
+here: the residual between what a step meant to sync and what the lossy
+ring delivered is added to the next step's gradients (EF-SGD).
 """
 
 from __future__ import annotations
@@ -10,10 +12,6 @@ from __future__ import annotations
 import torch
 
 from ..models.common import tree_flatten, tree_map
-
-#: what a sync over a data-axis channel raises with
-GRAD_SYNC_ROADMAP = ("the gradient sync over a data axis waits for the second half of the "
-                     "training slice (ROADMAP.md §1, item 13): pass sync_fn")
 
 
 @torch.no_grad()
@@ -56,11 +54,22 @@ class ErrorFeedback:
         return tree_map(lambda c, s: c - s.float(), corrected, synced)
 
     @classmethod
-    def sync(cls, ef_state, grads, sync_fn=None):
-        """Correct, sync through ``sync_fn`` (any lossy all-reduce of a
-        tree) and roll the residual; returns ``(synced, new_state)``."""
+    def sync(cls, ef_state, grads, sync_fn=None, *, comm=None, tag: str = "grad",
+             wire: str = "int8"):
+        """Correct, sync and roll the residual; returns ``(synced,
+        new_state)``.  The sync is ``sync_fn`` (any lossy all-reduce of a
+        tree), or, given the data ranks' ``comm``, a ring all-reduce of
+        each ``(dp, ...)`` stack over a fresh ``tag`` channel
+        (:func:`~repro_torch.parallel.grad_allreduce`, the int8 wire by
+        default: the compressed link's per-hop feedback stacks under this
+        one)."""
         if sync_fn is None:
-            raise NotImplementedError(GRAD_SYNC_ROADMAP)
+            if comm is None:
+                raise ValueError("ErrorFeedback.sync needs sync_fn or comm")
+            from ..parallel import grad_allreduce
+
+            def sync_fn(tree):
+                return tree_map(lambda g: grad_allreduce(g, comm, tag=tag, wire=wire), tree)
         corrected = cls.add(ef_state, grads)
         synced = sync_fn(corrected)
         return synced, cls.update(corrected, synced)

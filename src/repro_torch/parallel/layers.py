@@ -31,8 +31,11 @@ layer call's backend and wire, recorded per tag in the capture ledger's
 ``plans``.
 
 The vocab-parallel cross entropy is the loss layer of training
-(:func:`vocab_parallel_cross_entropy`).  Not ported yet: the gradient and
-pipeline layers (the data axis, ROADMAP.md §1 item 13).
+(:func:`vocab_parallel_cross_entropy`).  Over the data axis's ``"dp"``
+communicator, :func:`grad_allreduce` rings one gradient tensor over a
+tagged ``"grad"`` channel and :func:`fsdp_allgather` gathers one FSDP
+leaf over an ``"fsdp.gather"`` channel; :func:`stage_transport` is the
+pipeline's chain channel (``core/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -341,3 +344,59 @@ def vocab_parallel_cross_entropy(logits_local, labels, ctx, *, tag: str = "tp.lo
     picked = torch.gather(lf, -1, local.clamp(0, V_local - 1).long()[..., None])[..., 0]
     picked = psum_tagged(torch.where(ok, picked, torch.zeros((), device=lf.device)), ctx, tag)
     return torch.log(z) + m - picked
+
+
+# ------------------------------------------------------ gradient sync (DP)
+
+
+def grad_allreduce(g, comm, *, tag: str = "grad", transport=None, wire: str = "raw"):
+    """One tensor's data-parallel ring all-reduce over a tagged ``"grad"``
+    channel: ``g`` is the ``(dp, ...)`` stack of the data ranks' tensors,
+    and every row of the result holds its rank's sum.  ``wire="int8"``
+    composes the compressed link (blockwise scales, per-hop error
+    feedback).  The transport resolves fresh a call, so the int8 wire's
+    residuals do not bleed between tensors, unless a live instance is
+    passed."""
+    spec = ChannelSpec(comm=comm, kind="allreduce", tag=tag, wire=wire, transport=transport,
+                       port=None)
+    t = _open(spec, g)
+    with _tagged(t, spec.stats_tag):
+        return _stream_allreduce_impl(g, comm, transport=t)
+
+
+def fsdp_allgather(p, comm, dim: int, *, tag: str = "fsdp.gather", transport=None,
+                   lanes: int = 1):
+    """One FSDP leaf all-gathered along ``dim`` over a tagged channel:
+    ``p`` is the ``(dp, ...)`` stack of the data ranks' blocks, ``dim`` a
+    block's dimension; returns every rank's full copy, ``(dp, ...)``.  A
+    block stacked over ``lanes`` model ranks (its leading dim) is that many
+    devices' shares, and a step tallies one's.  Autograd transposes the
+    ring into the reduce-scatter of the gradient."""
+    spec = ChannelSpec(comm=comm, kind="gather", tag=tag, transport=transport, port=None)
+    t = _open(spec, p)
+    x = t
+    while x is not None:
+        x.lanes = lanes
+        x = getattr(x, "inner", None)
+    with _tagged(t, spec.stats_tag):
+        g = stream_allgather(p.movedim(dim + 1, 1), comm, transport=t)
+        return g.movedim(1, dim + 1)
+
+
+# ------------------------------------------------------------ pipeline hop
+
+
+def stage_transport(comm, *, tag: str = "pp.stage", transport=None):
+    """The chain channel's transport of a pipeline schedule, resolved once
+    for the schedule (the paper's open-once channel) and driven once a
+    tick.  A runtime-stats backend (the packet router) or a lossy wire
+    falls back to the static wire, which moves the same values: a stage hop
+    must deliver its activations exactly.  Returns ``(spec, transport)``,
+    the transport mirrored into an active ledger capture."""
+    spec = ChannelSpec(comm=comm, kind="exchange", tag=tag, transport=transport, port=None)
+    t = spec.resolve()
+    if getattr(t, "runtime_stats", False) or getattr(t, "lossy_wire", False):
+        from ..transport.registry import get_transport
+
+        t = get_transport("static", device=comm.device)
+    return spec, ledger.attach(t)

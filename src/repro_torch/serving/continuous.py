@@ -153,13 +153,14 @@ def migrate_scatter(caches, inflight, slot, sspec, tp: int):
     return unpack_slot(caches, image[:, 0], slot, tp)
 
 
-def local_runtime(cfg, ctx, batch_slots: int, capacity: int, device) -> dict:
+def local_runtime(cfg, ctx, batch_slots: int, capacity: int, device, fsdp_plan=None) -> dict:
     """The runtime of an engine on ``ctx`` alone: the transient channel
     lifecycle (no pool), and migration holding the image locally, as the
-    reference's engine does without a TP runtime."""
+    reference's engine does without a TP runtime.  ``fsdp_plan`` gathers
+    FSDP-stored params in the step."""
     tp = ctx.tp
     return dict(
-        ctx=ctx, pool=None, step=local_step(cfg, ctx), batch_slots=batch_slots,
+        ctx=ctx, pool=None, step=local_step(cfg, ctx, fsdp_plan), batch_slots=batch_slots,
         capacity=capacity,
         init_caches=lambda: lm_caches(cfg, batch_slots, capacity, ctx, device),
         reset=lambda caches, slot: reset_slot(caches, slot, tp),

@@ -55,16 +55,17 @@ def params_device(params) -> torch.device:
     return tree_leaves_with_path(params)[0][1].device
 
 
-def local_step(cfg, ctx):
+def local_step(cfg, ctx, fsdp_plan=None):
     """The decode step ``step(params, caches, token, pos) -> (logits (B, V)
     or (B, V, n_cb), caches)`` of ``ctx``: at tp = P > 1 every rank's vocabulary shard,
-    assembled without a wire (the reference's ``out_specs``)."""
+    assembled without a wire (the reference's ``out_specs``).  ``fsdp_plan``
+    gathers FSDP-stored params for ``ctx.data_group``."""
     if ctx.tp == 1:
-        return lambda p, c, t, pos: lm_decode_step(p, c, t, pos, cfg, ctx)
+        return lambda p, c, t, pos: lm_decode_step(p, c, t, pos, cfg, ctx, fsdp_plan=fsdp_plan)
 
     def step(params, caches, token, pos):
         logits, caches = lm_decode_step(params, caches, token, pos, cfg, ctx,
-                                        gather_logits=False)
+                                        gather_logits=False, fsdp_plan=fsdp_plan)
         return assemble_logits(logits), caches
 
     return step

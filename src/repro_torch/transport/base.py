@@ -104,6 +104,12 @@ class Transport(abc.ABC):
     #: active message tag (see :meth:`tagged`)
     _tag: str | None = None
 
+    #: devices a rank row carries: a ring over the data axis moves blocks
+    #: that are stacked over the model axis's ranks too, one device's share
+    #: each (:func:`~repro_torch.parallel.fsdp_allgather`); a step's bytes
+    #: are one device's
+    lanes = 1
+
     def __post_init__(self):
         self.device = resolve_device(self.device)
 
@@ -189,8 +195,8 @@ class Transport(abc.ABC):
 
     def account(self, x, steps: int = 1):
         """Tally ``steps`` steps that each carry one rank row of ``x`` (of
-        each member of a tuple ``x``)."""
-        self.tally(steps, rank_bytes(x) * steps)
+        each member of a tuple ``x``), one lane's share of it."""
+        self.tally(steps, rank_bytes(x) // self.lanes * steps)
 
     def reset_stats(self):
         self.stats = TransportStats()

@@ -121,6 +121,10 @@ class PacketTransport(Transport):
     kernel on the card and the vector path on the CPU).
     """
 
+    #: the router's loss counter is a value of the run (the pipeline's
+    #: stage hop takes the static wire instead, as the reference's does)
+    runtime_stats = True
+
     pkt_elems: int = 32
     slack_steps: int = 4
     transit_cap: int | None = None
@@ -212,7 +216,7 @@ class PacketTransport(Transport):
         cfg, tbl, pay, inq_dst, inq_len, n_steps = self.router_job(vec, comm, active)
         out_pay, out_cnt, ovf, _ = run_router(cfg, comm, tbl, pay, inq_dst, inq_len, n_steps,
                                               impl=self.router_impl)
-        self.tally(n_steps, rank_bytes(x))
+        self.tally(n_steps, rank_bytes(x) // self.lanes)
         # Undelivered packets (an under-provisioned n_steps bound) would
         # silently back-fill zeros below — fold the delivery shortfall into
         # the loss counter so the "overflow == 0" oracle catches it.

@@ -135,3 +135,42 @@ def test_training_entry_points_default_to_cuda():
         build_train(cfg, shape, TrainSettings())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         launch_train.main(["--smoke", "--steps", "1"])
+
+
+#: the data axis's modules (slice 12), new or grown
+DATA_AXIS_MODULES = ("core/pipeline.py", "mesh/api.py", "parallel/layers.py",
+                     "models/transformer.py", "netsim/schedule.py", "kernels/matmul/ops.py",
+                     "serving/engine.py", "launch/serve.py")
+
+
+@pytest.mark.parametrize("module", DATA_AXIS_MODULES)
+def test_data_axis_modules_stand_alone(module):
+    """The data axis's modules import neither JAX nor ``repro`` (the
+    pipeline is the port's own copy of ``repro.core.pipeline``), and each
+    is imported by the package walk."""
+    path = PORT / module
+    assert path in _port_files()
+    assert _forbidden_imports(path) == []
+
+
+def test_data_axis_entry_points_default_to_cuda():
+    """A data axis's ring and the builders on FSDP weights run on ``cuda``
+    unless ``device="cpu"`` is asked for."""
+    from repro_torch.configs import ShapeConfig, get_arch, smoke
+    from repro_torch.core import Communicator
+    from repro_torch.launch.steps import build_serve
+    from repro_torch.mesh.api import make_ctx
+
+    cfg = smoke(get_arch("yi-6b"))
+    makers = [lambda: make_ctx((2, 4), comm_mode="smi:static").data_comm.device,
+              lambda: make_ctx((2, 1), comm_mode="smi:fused").data_comm.device,
+              lambda: Communicator.create("pp", (8,)).device,
+              lambda: build_serve(cfg, ShapeConfig("s", 32, 2, "decode"), mesh=(2, 4),
+                                  comm_mode="smi:static", fsdp=True)["ctx"].data_comm.device]
+    if torch.cuda.is_available():
+        assert all(m().type == "cuda" for m in makers)
+        return
+    for make in makers:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert make_ctx((2, 4), comm_mode="smi:static", device="cpu").data_comm.device.type == "cpu"

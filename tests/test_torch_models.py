@@ -430,22 +430,32 @@ def test_ssm_specs_at_tp4():
 
 
 def _fsdp_at_2x4():
+    """FSDP over the data axis (once refused): the prefill on FSDP-stored
+    weights equals the one on replicated weights, bit for bit."""
+    from repro_torch.interop import shard_params
     from repro_torch.launch.steps import build_prefill
 
-    build_prefill(configs.smoke(configs.get_arch("yi-6b")),
-                  configs.ShapeConfig("t", 32, 2, "prefill"), mesh=(2, 4),
-                  comm_mode="smi:static", fsdp=True, device="cpu")
+    cfg = configs.smoke(configs.get_arch("yi-6b"))
+    shape = configs.ShapeConfig("t", 32, 2, "prefill")
+    tok = torch.arange(64, dtype=torch.int32).reshape(2, 32) % cfg.vocab_size
+    out = []
+    for fsdp in (True, False):
+        pre = build_prefill(cfg, shape, mesh=(2, 4), comm_mode="smi:static", fsdp=fsdp,
+                            device="cpu")
+        params = init_lm(cfg, torch.Generator().manual_seed(0), "cpu", ctx=pre.ctx)
+        out.append(pre(shard_params(params, cfg, pre.ctx, pre.plan), tok))
+        assert (pre.plan is not None) == fsdp
+    assert torch.equal(out[0], out[1])
 
 
 @pytest.mark.parametrize("kw", [
     _fsdp_at_2x4,                                               # FSDP over the data axis (13)
 ])
 def test_tensor_parallel_options_raise(kw):
-    """What tensor parallelism does not run yet raises, naming its ROADMAP
-    item; a mesh without a model axis, and any comm mode without a mesh,
-    is tensor-parallel degree 1."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kw()
+    """What tensor parallelism once refused runs (FSDP over the data axis,
+    item 13); a mesh without a model axis, and any comm mode without a
+    mesh, is tensor-parallel degree 1."""
+    kw()
     assert make_ctx((1, 1)).tp == 1 and make_ctx().rank() == 0
     assert make_ctx(comm_mode="smi").tp == 1 and make_ctx(comm_mode="bulk").tp == 1
 

@@ -580,13 +580,29 @@ def test_combine_row_independent_on_card(cuda_device):
 
 
 def test_serve_cli_moe_at_2x4(tmp_path):
-    """The launcher at ``--mesh 2,4``: qwen3-moe's 61 GB of weights would be
-    sharded over the data axis (the reference's FSDP rule), so the full
-    config raises (FSDP waits for item 13); the smoke config stays under the
-    rule, and its gate at (2, 4) passes."""
-    with pytest.raises(NotImplementedError, match="item 13"):
-        launch_serve.main(["--arch", "qwen3-moe-30b-a3b", "--device", "cpu", "--mesh", "2,4",
-                           "--comm-mode", "smi:static", "--validate-comm"])
+    """The launcher at ``--mesh 2,4``: qwen3-moe's weights pass the FSDP
+    rule's 10 GB a model shard (from the config's count, 30.5 B
+    parameters), so the launcher stores them over the data axis (the plan
+    checked here at full size, without drawing 61 GB); the smoke config
+    stays under the rule, and its gate at (2, 4) passes, and so does the
+    serving step's ledger on its continuous runtime with FSDP forced on
+    and off."""
+    from repro_torch.launch.steps import _fsdp_plan, build_continuous_serve
+    from repro_torch.mesh.api import check_fsdp
+
+    full = configs.get_arch("qwen3-moe-30b-a3b")
+    assert check_fsdp("auto", (2, 4), full.param_count())
+    ctx = make_ctx((2, 4), comm_mode="smi:static", device="cpu")
+    plan = _fsdp_plan(full, ctx, "auto", (2, 4))
+    assert plan is not None and plan["stack"]["periods"][0]["moe"]["w_up"] >= 0
+    small = configs.smoke(full)
+    for fsdp in (True, False):
+        rt = build_continuous_serve(small, mesh=(2, 4), comm_mode="smi:static", batch_slots=2,
+                                    capacity=64, fsdp=fsdp, device="cpu")
+        measured, predicted, _ = launch_serve.step_ledger(
+            small, rt, SimpleNamespace(comm_mode="smi:static"), 64, "cpu")
+        assert predicted == measured
+        assert ("fsdp.gather" in measured) == fsdp
     out = tmp_path / "validate.json"
     assert launch_serve.main(["--arch", "qwen3-moe-30b-a3b", "--smoke", "--device", "cpu",
                               "--mesh", "2,4", "--comm-mode", "smi:static",

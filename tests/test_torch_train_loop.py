@@ -8,16 +8,18 @@ tolerance and the launcher.
   bit (codebooks included).
 * 6 steps of ``train_loop`` at tp = 1 from the reference's initial state
   against the reference's ``train_loop`` on a (1, 1) mesh: losses within
-  1e-4; the same 6 steps at (1, 4) against the port's tp = 1 history.
+  1e-4; the same 6 steps at (1, 4) against the port's tp = 1 history (the
+  other families in tests/test_torch_train_families.py).
 * Checkpoints in the reference's layout (``step_<N>/manifest.json`` and
   ``arrays.npz``, leaves in ``jax.tree.flatten``'s order, saved global at
   any tp): the round trip through ``reshard_state``, each package reading
   the other's, ``keep``, and a restart through ``run_with_restarts``.
 * The watchdog on a scripted clock, ``best_mesh_shape`` and
   ``elastic_restart_plan`` against the reference's.
-* ``launch.train`` on the CPU (``--smoke``, ``--mesh 1,4``,
-  ``--validate-comm``), a data axis raising ``DATA_AXIS_ROADMAP``, and the
-  remat policies that wait for item 13 raising.
+* ``launch.train`` on the CPU (``--smoke``, ``--mesh 1,4``, ``2,4``,
+  ``--validate-comm``), ``ErrorFeedback.sync`` over a data ring, and the
+  remat policies that save the products (once refused) equal to
+  ``"none"``.
 """
 
 import functools
@@ -138,7 +140,22 @@ def test_error_feedback_matches_reference():
                                            lambda t: tree_map(lambda x: (x * 4).round() / 4, t))
         _close(synced, ref_synced)
         _close(state, ref_state)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # over a data ring: each tensor rings over a fresh "grad" channel
+    from repro_torch.core import Communicator
+
+    comm = Communicator.create("data", (2,), name="dp", device="cpu")
+    stack = tree_map(lambda t: torch.stack([t, 2 * t]), _torch(grads[0]))
+    ef0 = ErrorFeedback.init(stack)
+    raw, res = ErrorFeedback.sync(ef0, stack, comm=comm, wire="raw")
+    tree_map(lambda s, t: torch.testing.assert_close(s, (t[:1] + t[1:]).expand_as(t),
+                                                     rtol=0, atol=0), raw, stack)
+    tree_map(lambda s, t, r: torch.testing.assert_close(r, t - s, rtol=0, atol=0), raw, stack,
+             res)
+    q, res = ErrorFeedback.sync(ef0, stack, comm=comm)
+    tree_map(lambda s, t, r: torch.testing.assert_close(r, t - s, rtol=0, atol=0), q, stack, res)
+    tree_map(lambda s, t: torch.testing.assert_close(s, (t[:1] + t[1:]).expand_as(t),
+                                                     rtol=0.05, atol=0.05), q, stack)
+    with pytest.raises(ValueError, match="sync_fn or comm"):
         ErrorFeedback.sync(state, _torch(grads[0]))
 
 
@@ -372,18 +389,31 @@ def test_launcher_trains_on_the_cpu(capsys):
     assert launch_train.main(base + ["--mesh", "1,4", "--validate-comm"]) == 0
     out = capsys.readouterr().out
     assert "[validate-comm] ok" in out and "tp.loss.ce" in out
-    with pytest.raises(NotImplementedError, match="item 13"):
-        launch_train.main(base + ["--mesh", "2,4"])
+    assert launch_train.main(base + ["--mesh", "2,4"]) == 0
+    assert launch_train.main(base + ["--mesh", "2,4", "--comm-mode", "smi:fused",
+                                     "--compressed-grads", "--validate-comm"]) == 0
+    out = capsys.readouterr().out
+    assert "[validate-comm] ok" in out and "fsdp.gather" in out
 
 
 @pytest.mark.parametrize("remat", ["dots", "dots_nb"])
 def test_remat_policies_that_save_products_wait_for_item_13(remat):
+    """The policies that save the products (once refused) run: the loss and
+    its gradients equal ``"none"``'s bit for bit, through ``lm_loss`` and
+    through a training step built with the policy."""
     cfg = configs.smoke(configs.get_arch("yi-6b"))
     art = build_train(cfg, configs.ShapeConfig("t", S, B, "train"),
                       _settings(TrainSettings), device="cpu")
-    tok = torch.zeros((B, S), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        lm_loss(art["init_params"](0), tok, tok, cfg, art["ctx"], remat=remat)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        build_train(cfg, configs.ShapeConfig("t", S, B, "train"),
-                    TrainSettings(remat=remat), device="cpu")
+    params = art["init_params"](0)
+    tok = torch.arange(B * S, dtype=torch.int32).reshape(B, S) % cfg.vocab_size
+    want, _ = lm_loss(params, tok, tok, cfg, art["ctx"], remat="none", loss_chunks=2)
+    got, _ = lm_loss(params, tok, tok, cfg, art["ctx"], remat=remat, loss_chunks=2)
+    assert torch.equal(got, want)
+    gw = torch.autograd.grad(want, tree_flatten(params))
+    gg = torch.autograd.grad(got, tree_flatten(params))
+    assert all(torch.equal(a, b) for a, b in zip(gg, gw))
+    art2 = build_train(cfg, configs.ShapeConfig("t", S, B, "train"),
+                       TrainSettings(remat=remat, loss_chunks=2), device="cpu")
+    loss, _, g = art2["grads"](params, {"tokens": tok, "labels": tok})
+    assert torch.equal(loss, want.detach())
+    assert all(torch.equal(a, b) for a, b in zip(tree_flatten(g), gw))

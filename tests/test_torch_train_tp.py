@@ -147,7 +147,14 @@ def test_predict_train_step_stats_equals_reference(arch, P, mode, opts):
 
 
 def test_predict_train_step_stats_refuses_a_data_axis():
-    _, cfg = _cfgs("yi-6b")
+    """A data axis (once refused) adds the FSDP gathers and the gradient
+    ring: the traced table equals the reference's at (2, 4), and the eager
+    one counts a gather a layer."""
+    ref_cfg, cfg = _cfgs("yi-6b")
     shape = configs.ShapeConfig("t", 64, 4, "train")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        predict_train_step_stats(cfg, (2, 4), shape, TrainSettings())
+    got = predict_train_step_stats(cfg, (2, 4), shape, TrainSettings())
+    assert got == ref_predict(ref_cfg, (2, 4), ref_configs.ShapeConfig("t", 64, 4, "train"),
+                              RefTrainSettings())
+    assert got["fsdp.gather"]["steps"] > 0
+    eager = predict_train_step_stats(cfg, (2, 4), shape, TrainSettings(), eager=True)
+    assert eager["fsdp.gather"]["steps"] > got["fsdp.gather"]["steps"]
