@@ -180,8 +180,8 @@ non-zero):
     of 0.999 of the default TP prefill; both timed in turns (wall and device
     time); the attention wire's ledger bytes a layer of both layouts;
 28. yi-6b at full width served at P = 8 (bfloat16): ``python -m
-    repro_torch.launch.serve --arch yi-6b --mesh 1,8 --layers 16`` (the
-    launcher runs cut to 16 of 32 layers: :data:`SERVE_LAYERS`) with phase 14's
+    repro_torch.launch.serve --arch yi-6b --mesh 1,8 --layers 8`` (the
+    launcher runs cut to 8 of 32 layers: :data:`SERVE_LAYERS`) with phase 14's
     requests, wave then continuous, on ``smi:static`` and on the bare
     ``smi`` (the tuned plan): every request's tokens equal across the four
     runs, kernel A launched on the tuned wire and never on the static one;
@@ -209,7 +209,7 @@ non-zero):
     form; over ``smi:fused`` bit-equal with A launched once a reduce-scatter
     ring step (455); F gated layer by layer (row cosine >= 0.999 against the plain
     scan) and in float32 end to end (against the plain scan and tp = 1);
-32. ``launch.serve --arch mamba2-2.7b --mesh 1,8 --layers 32`` (cut to 32
+32. ``launch.serve --arch mamba2-2.7b --mesh 1,8 --layers 16`` (cut to 16
     of 64 layers: :data:`SERVE_LAYERS`): phase 14's requests,
     both engines on ``smi:static`` and the bare ``smi``, tokens equal
     across the four runs; a
@@ -227,7 +227,7 @@ non-zero):
     with tp = 1 reported; then a float32 copy cut to 4 layers (256 tokens):
     the chosen experts equal to tp = 1's and the hidden states within 3e-4
     rtol/atol;
-35. ``launch.serve --arch qwen3-moe-30b-a3b --layers 24`` (cut to 24 of
+35. ``launch.serve --arch qwen3-moe-30b-a3b --layers 12`` (cut to 12 of
     48 layers: :data:`SERVE_LAYERS`) at tp = 1 (both engines) and at ``--mesh 1,8``
     (both engines, on ``smi:static`` and the bare ``smi``): tokens equal across the runs at each tp; the pinned fused
     decode as phase 32's; ms a decode step beside tp = 1, the idle share,
@@ -250,7 +250,7 @@ non-zero):
     tp = 1 reported; then a float32 copy cut to 5 layers (256 tokens)
     within 3e-4 rtol/atol of the plain tp = 1 prefill and of the plain
     attention at P = 8;
-39. ``launch.serve --arch recurrentgemma-9b --layers 20`` (6 periods and
+39. ``launch.serve --arch recurrentgemma-9b --layers 11`` (3 periods and
     the 2 remainder layers of 38: :data:`SERVE_LAYERS`) at tp = 1 and
     ``--mesh 1,8``
     (both engines; at P = 8 on ``smi:static`` and the bare ``smi``): tokens
@@ -262,7 +262,7 @@ non-zero):
     turns (E 24 and 24, D 960, A 343 over ``smi:fused``); a float32 copy at
     4 layers whose patch positions' embeddings are bit-equal at tp = 1 and
     P = 8 and whose hidden states lie within 3e-4; served at ``--mesh 1,8
-    --layers 12`` (12 of 24 layers: :data:`SERVE_LAYERS`; both engines, on
+    --layers 6`` (6 of 24 layers: :data:`SERVE_LAYERS`; both engines, on
     ``smi:static`` and the bare ``smi``, tokens equal
     across the four runs); a pinned ``smi:fused`` decode bit-equal to
     ``smi:static`` over 4 steps; and a float32 copy served at P = 8 and
@@ -271,8 +271,8 @@ non-zero):
     prefilled at tp = 1 and P = 8 in turns (E 48 and 48, D 1,536, A 679
     over ``smi:fused``); a pinned ``smi:fused`` decode bit-equal to
     ``smi:static``; served at tp = 1 and ``--mesh 1,8`` (both engines; at
-    P = 8 on ``smi:static`` and the bare ``smi``; ``--layers 24``, cut to
-    24 of 48 layers: :data:`SERVE_LAYERS`), a list of 4 tokens a step, equal across
+    P = 8 on ``smi:static`` and the bare ``smi``; ``--layers 12``, cut to
+    12 of 48 layers: :data:`SERVE_LAYERS`), a list of 4 tokens a step, equal across
     the runs at each tp; A's launches a step;
 42. ``launch.serve --validate-comm`` over ``smi:static`` for
     recurrentgemma-9b and musicgen-medium at ``1,8`` and ``2,4`` and
@@ -335,7 +335,29 @@ non-zero):
     ``smi:fused`` for yi-6b (8 layers) and mamba2-2.7b (16 layers), every
     tag (``fsdp.gather`` and ``grad`` with them) equal to the prediction;
     qwen3-moe-30b-a3b cut to 12 layers served at ``2,4`` on the continuous
-    runtime with ``fsdp=True`` then ``False``: the same tokens.
+    runtime with ``fsdp=True`` then ``False``: the same tokens;
+53. ``launch.stencil`` at phase 4's cell over ``smi:fused`` with ``--trace
+    --metrics``, in turns with the same run untraced (untraced, traced,
+    traced, untraced): every result bit-equal to the single-rank sweep and
+    the traced steps' to the untraced run's, B launched, the trace parsed
+    back to its events with 8 rank lanes and the host's, one netsim lane a
+    directed link (24), 32 ``halo.start`` and 32 ``halo.finish``, a
+    ``run.step`` slice a step and rank timed by CUDA events, the snapshot's
+    ``halo`` steps and bytes equal to phase 4's per rank; the wall a step
+    of both modes.  The halo exchange has no fold, so A runs in a traced
+    all-reduce channel over ``smi:fused`` of the stencil's state: A 7
+    gather-fused launches, the channel's events, bits equal to
+    ``smi:static``;
+54. phase 53's stencil over ``smi:packet``: C launched on its warp path,
+    the ``router.*`` events present, the snapshot's overflow 0 and its
+    ``halo`` equal to phase 10's;
+55. ``python -m repro_torch.analysis.lint --json`` (the AST, capture and
+    corpus passes; the capture programs on the card at the reference's
+    smoke sizes): exit 0, no diagnostic, no real step; then yi-6b cut to
+    16 layers at P = 8 over ``smi:static``, served by the continuous
+    runtime (4 requests, 8 new tokens), a decode step and a migration
+    captured on its params (``analysis.programs.capture_serve``), served
+    again: no diagnostic, no real step, the same tokens.
 
 Earlier phases that time or check one schedule pass ``plan=None``.
 
@@ -361,7 +383,11 @@ phases 48-51's are ``launches_train_dp_step`` on E's, D's and F's wgmma
 rows and A's ``launches_train_dp_step_fused`` (a (2, 4) step, both data
 groups), A's ``launches_grad_ring`` (the ``"grad"`` ring of phase 49's
 raw steps), D's ``launches_remat_recompute`` by policy and
-``launches_pipeline_forward``), each
+``launches_pipeline_forward``; phases 53-55's are B's
+``launches_traced_stencil`` by wire, C's warp row's
+``launches_traced_stencil``, A's gather-fused row's
+``launches_traced_allreduce``, and D's and E's
+``launches_captured_serve``), each
 with the path its kernel ran (``simt``, ``vector``, ``warp``,
 ``thread``, ``fma`` or ``wgmma``); the rows of A, C, E, F's wgmma path and
 D add ``ms_before``, the time in this run of the kernel their calls ran
@@ -2854,11 +2880,11 @@ def _a_launches() -> dict:
 
 
 #: the serving launcher runs cut in depth (``--layers``) to keep the script
-#: inside its time limit with the training phases: decode is host-bound,
-#: so a run's time goes with its layers (halved again with the data axis's
-#: phases 48-52: 1050 s passed)
-SERVE_LAYERS = {"yi-6b": 16, "mamba2-2.7b": 32, "qwen3-moe-30b-a3b": 24,
-                "recurrentgemma-9b": 20, "internvl2-1b": 12, "musicgen-medium": 24}
+#: inside its time limit: decode is host-bound, so a run's time goes with
+#: its layers (halved again with the tooling's phases 53-55, when a whole
+#: run at the earlier depths took 1261.6 s on a slow host)
+SERVE_LAYERS = {"yi-6b": 8, "mamba2-2.7b": 16, "qwen3-moe-30b-a3b": 12,
+                "recurrentgemma-9b": 11, "internvl2-1b": 6, "musicgen-medium": 12}
 
 
 def _launcher_runs(arch: str, mesh: str, wires, extra=()) -> tuple[dict, dict]:
@@ -5391,6 +5417,246 @@ def phase_validate_dp() -> dict:
     log(f"serve {MOE_ARCH} 2,4: tokens equal on FSDP and replicated weights")
     return res
 
+#: the traced stencil runs of phases 53-54 (phase 4's cell, ``--comm-mode``
+#: added per wire)
+TRACE_STENCIL_ARGS = ["--grid", "2x4", "--domain", "8192x8192", "--steps", "32"]
+#: yi-6b served under capture at 16 of its 32 layers
+CAPTURE_SERVE_LAYERS = 16
+
+
+def _trace_doc_checks(doc, events, comm, steps: int, what: str) -> dict:
+    """The trace gates of phases 53-54: the document parses back to its
+    events, one measured lane a rank (and the host lane of the channel
+    events), one netsim lane a directed link, one ``halo.start`` and one
+    ``halo.finish`` a step, and one timed ``run.step`` slice a step on
+    every rank."""
+    from repro_torch.obs import export
+
+    if export.parse_chrome_trace(json.dumps(doc)) != events:
+        raise AssertionError(f"{what}: the trace does not parse back to its events")
+    kinds = [e["kind"] for e in events]
+    n_links = len(export.directed_links(comm.topology))
+    lanes = export.lane_count(doc, export.PID_RANKS)
+    sim_lanes = export.lane_count(doc, export.PID_SIM_LINKS)
+    ranks = {e["rank"] for e in events if e["kind"] == "run.step"}
+    run_steps = [e for e in events if e["kind"] == "run.step"]
+    if (lanes != comm.size + 1 or ranks != set(range(comm.size)) or sim_lanes != n_links
+            or kinds.count("halo.start") != steps or kinds.count("halo.finish") != steps
+            or len(run_steps) != comm.size * steps
+            or not all(e["attrs"]["dur"] > 0 for e in run_steps)):
+        raise AssertionError(
+            f"{what}: {lanes} rank lanes (want {comm.size} + host), {sim_lanes} link lanes "
+            f"(want {n_links}), halo.start x{kinds.count('halo.start')}, halo.finish "
+            f"x{kinds.count('halo.finish')}, run.step x{len(run_steps)} (want {steps} each)")
+    return {k: kinds.count(k) for k in sorted(set(kinds))}
+
+
+def phase_traced_stencil(dev, comm_mode: str, halo_per_rank: tuple) -> dict:
+    """Phases 53 (``smi:fused``) and 54 (``smi:packet``):
+    ``launch.stencil`` at phase 4's cell with ``--trace --metrics``, run in
+    turns with the same command untraced (untraced, traced, traced,
+    untraced).  Gates, on every run: the result bit-equal to the
+    single-rank sweep and, traced, the traced steps' result bit-equal to
+    the untraced run's (the launcher's ``ok``); kernel B launched (and C,
+    on its warp path, over the packet wire); the trace as
+    :func:`_trace_doc_checks` says; the metrics snapshot's ``halo`` steps
+    and bytes equal to the launcher's own and to ``halo_per_rank`` (phase
+    4's, or phase 10's on the packet wire); over the packet wire the four
+    ``router.*`` events present and the snapshot's overflow 0.  Prints the
+    wall a step of both modes."""
+    import torch
+
+    from repro_torch.apps import DistributedStencil
+    from repro_torch.kernels.router import router_run
+    from repro_torch.kernels.stencil import stencil_sweep
+    from repro_torch.launch import stencil as launch_stencil
+    from repro_torch.obs import export
+    from repro_torch.transport.fused import fused_accumulate, fused_shift_accumulate
+
+    comm = DistributedStencil.create((2, 4), device=dev).comm
+    steps = int(TRACE_STENCIL_ARGS[-1])
+    packet = comm_mode == "smi:packet"
+    walls = {"untraced": [], "traced": []}
+    res = {"comm_mode": comm_mode}
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts()
+        for i, mode in enumerate(("untraced", "traced", "traced", "untraced")):
+            out = os.path.join(tmp, f"{i}.json")
+            argv = [*TRACE_STENCIL_ARGS, "--comm-mode", comm_mode, "--json", out]
+            if mode == "traced":
+                argv += ["--trace", os.path.join(tmp, f"{i}.trace.json"),
+                         "--metrics", os.path.join(tmp, f"{i}.metrics.json")]
+            rc = launch_stencil.main(argv)
+            torch.cuda.synchronize()
+            run = json.loads(Path(out).read_text())
+            if rc != 0 or not run["ok"] or run["max_err"] != 0.0:
+                raise AssertionError(f"{comm_mode} {mode} stencil: rc={rc} result={run}")
+            walls[mode].append(run["wall_per_step_s"] * 1e3)
+            own = (run["halo_steps"], run["halo_bytes_per_rank"])
+            if own != tuple(halo_per_rank):
+                raise AssertionError(f"{comm_mode} {mode} stencil: halo {own}, phase 4/10 "
+                                     f"gave {tuple(halo_per_rank)} per rank")
+            if mode == "untraced":
+                continue
+            doc = json.loads(Path(argv[argv.index("--trace") + 1]).read_text())
+            snap = json.loads(Path(argv[argv.index("--metrics") + 1]).read_text())
+            events = export.parse_chrome_trace(doc)
+            res["event_counts"] = _trace_doc_checks(doc, events, comm, steps,
+                                                    f"{comm_mode} traced stencil")
+            halo = snap["transports"]["halo"]
+            if (halo["steps"], halo["bytes"]) != own or \
+                    halo["by_tag"]["halo"] != {"steps": own[0], "bytes": own[1]}:
+                raise AssertionError(f"{comm_mode}: the snapshot's halo {halo} is not the "
+                                     f"launcher's {own}")
+            res["snapshot_halo"] = halo
+            res["drift_wall_vs_model"] = snap["gauges"]["drift/stencil/wall_vs_model"]
+            if packet:
+                kinds = set(res["event_counts"])
+                want = {"router.run", "router.tick_batch", "router.drain", "router.overflow"}
+                if not want <= kinds or halo["overflow"] != 0:
+                    raise AssertionError(f"packet traced stencil: events {sorted(kinds)}, "
+                                         f"overflow {halo['overflow']}")
+        launches = {"B": stencil_sweep.launches, "C": router_run.launches,
+                    "C_warp": router_run.warp_launches, "A_fold": fused_accumulate.launches,
+                    "A_shift": fused_shift_accumulate.launches}
+    if launches["B"] == 0 or (packet and (launches["C"] == 0
+                                          or launches["C_warp"] != launches["C"])):
+        raise AssertionError(f"{comm_mode} traced stencil launched {launches}")
+    res["launches"] = launches
+    res["wall_per_step_ms"] = {k: sum(v) / len(v) for k, v in walls.items()}
+    res["turns_ms"] = walls
+    w = res["wall_per_step_ms"]
+    log(f"traced stencil over {comm_mode}: {w['traced']:.4f} ms/step traced, "
+        f"{w['untraced']:.4f} untraced (turns {walls}); events {res['event_counts']}; "
+        f"launches {launches} over the four runs; snapshot halo {res['snapshot_halo']}; "
+        f"drift wall/model {res['drift_wall_vs_model']:.3f}")
+    return res
+
+
+def phase_traced_allreduce(dev) -> dict:
+    """Phase 53, second part: kernel A under the tracer.  The halo exchange
+    moves its slabs by index copies on every wire (there is no fold in it to
+    fuse), so the traced stencil over ``smi:fused`` launches no A; the fused
+    wire's A runs in reductions.  An all-reduce channel over ``smi:fused``
+    of the stencil's state (8 x 4096 x 2048 float32) runs traced: A
+    launched gather-fused once a reduce-scatter ring step, the channel's
+    open, transfer start and finish events present, the result bit-equal to
+    the same transfer over ``smi:static``."""
+    import torch
+
+    from repro_torch.channels import open_allreduce_channel
+    from repro_torch.core import Communicator
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.transport.fused import fused_accumulate, fused_shift_accumulate
+
+    comm = Communicator.create(("x", "y"), DIMS, device=dev)
+    g = torch.Generator(device=dev).manual_seed(53)
+    x = torch.randn((P, 4096, 2048), generator=g, device=dev)
+    reset_counts()
+    with obs_trace.enabled() as tr:
+        got = open_allreduce_channel(comm, port=None, tag="traced.allreduce",
+                                     transport="fused").transfer(x)
+    torch.cuda.synchronize()
+    launched = {"fold": fused_accumulate.launches, "shift": fused_shift_accumulate.launches}
+    want = open_allreduce_channel(comm, port=None, transport="static").transfer(x)
+    torch.cuda.synchronize()
+    kinds = [e["kind"] for e in tr.events()]
+    if not same_bits(got, want) or launched["shift"] != P - 1 or kinds != [
+            "channel.open", "channel.transfer.start", "channel.transfer.finish"]:
+        raise AssertionError(f"traced all-reduce over smi:fused: equal={same_bits(got, want)}, "
+                             f"A {launched}, events {kinds}")
+    log(f"traced all-reduce channel over smi:fused: A launched {launched['shift']} times "
+        f"gather-fused, events {kinds}, bit-equal to smi:static")
+    return {"launches": launched, "events": kinds}
+
+
+def phase_lint_capture(dev) -> dict:
+    """Phase 55: smilint.  ``python -m repro_torch.analysis.lint --json``
+    runs its three passes, the capture pass's programs on the card (the
+    reference's smoke sizes): exit 0, no diagnostic, every capture's real
+    steps 0, every corpus case its golden ids.  Then yi-6b at full width,
+    cut to :data:`CAPTURE_SERVE_LAYERS` layers, served at P = 8 over
+    ``smi:static`` by the continuous runtime (4 requests, 8 new tokens),
+    the decode step and a slot migration captured on the same params
+    (``analysis.programs.capture_serve``: every collective the abstract
+    backend's zeros, the compute on the card), and served again: zero
+    diagnostics, zero real steps, the tokens after the capture equal to
+    those before it."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.analysis import lint, programs
+    from repro_torch.analysis.verify import verify_ledger
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch.steps import build_continuous_serve
+    from repro_torch.serving import ContinuousEngine
+    from repro_torch.transport.fused import fused_accumulate, fused_shift_accumulate
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        report_path = os.path.join(tmp, "smilint.json")
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = lint.main(["--root", str(ROOT), "--json", report_path, "--device", dev.type])
+        torch.cuda.synchronize()
+        res["lint_s"] = time.perf_counter() - t0
+        for line in out.getvalue().splitlines():
+            log(f"smilint: {line}")
+        report = json.loads(Path(report_path).read_text())
+    rows = report["capture"]["programs"]
+    if rc != 0 or not report["ok"] or report["ast"]["diagnostics"] or \
+            any(r["real_steps"] or r["diagnostics"] for r in rows) or \
+            not all(r["ok"] for r in report["corpus"]["corpus"]):
+        raise AssertionError(f"smilint exited {rc}: {json.dumps(report)[:2000]}")
+    res["programs"] = {r["program"]: {"ops": sum(r["ops"].values()),
+                                      "real_steps": r["real_steps"]} for r in rows}
+
+    cfg = get_arch("yi-6b").scaled(n_layers=CAPTURE_SERVE_LAYERS)
+    mesh = (1, TP)
+
+    def serve(params):
+        rt = build_continuous_serve(cfg, mesh=mesh, comm_mode="smi:static", device=dev)
+        if params is None:
+            params = launch_serve._params(cfg, rt, dev)
+        eng = ContinuousEngine(cfg, params, runtime=rt)
+        launch_serve._submit_all(eng, cfg, 4, 8)
+        done = eng.run(max_steps=256)
+        torch.cuda.synchronize()
+        eng.shutdown()
+        if len(done) != 4:
+            raise AssertionError(f"capture phase: {len(done)} of 4 requests served")
+        return params, {r.uid: r.out for r in done}
+
+    params, before = serve(None)
+    reset_counts()
+    t0 = time.perf_counter()
+    led = programs.capture_serve(mesh, "smi:static", cfg=cfg, params=params, device=dev)
+    torch.cuda.synchronize()
+    res["capture_s"] = time.perf_counter() - t0
+    inside = {"D": matmul.launches, "E": flash_attention_kernel.launches,
+              "A_fold": fused_accumulate.launches, "A_shift": fused_shift_accumulate.launches}
+    diags = verify_ledger(led, name="yi-6b serve capture")
+    _, after = serve(params)
+    if diags or led.real_steps != 0 or before != after or not led.transport_steps:
+        raise AssertionError(f"yi-6b serve capture: {[str(d) for d in diags]}, real steps "
+                             f"{led.real_steps}, tokens before {before} after {after}")
+    res["serve_capture"] = {"ops": led.counts(), "real_steps": led.real_steps,
+                            "transport_steps": led.transport_steps,
+                            "launches_inside": inside, "tokens": before}
+    log(f"yi-6b x {CAPTURE_SERVE_LAYERS} layers at P = {TP}: capture of a decode step and a "
+        f"migration {led.counts()}, real steps 0, no diagnostic, {res['capture_s']:.1f} s; "
+        f"kernel launches inside {inside}; tokens after the capture equal to before {before}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
 
 def main() -> int:
     import torch
@@ -5669,6 +5935,35 @@ def main() -> int:
     validate_dp = phase_validate_dp()
     torch.cuda.synchronize()
     log(f"phase 52 (launch.train and launch.serve at 2,4): {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    halo_static = (stencil["overlapped"]["halo_steps"],
+                   stencil["overlapped"]["halo_bytes_per_rank"])
+    traced_fused = phase_traced_stencil(dev, "smi:fused", halo_static)
+    traced_allreduce = phase_traced_allreduce(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"phase 53 (traced stencil over smi:fused, traced all-reduce): "
+        f"{time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    traced_packet = phase_traced_stencil(dev, "smi:packet", PACKET_HALO)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"phase 54 (traced stencil over smi:packet): {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    lint_capture = phase_lint_capture(dev)
+    torch.cuda.synchronize()
+    log(f"phase 55 (smilint, yi-6b serve capture at P = {TP}): {time.perf_counter() - t0:.1f}s")
+    # the launches of slice 13's paths: B in the four launcher runs of each
+    # traced stencil (53, 54), C in 54's, A in 53's traced all-reduce; D and
+    # E inside phase 55's captured decode step
+    by_name["stencil_sweep"]["launches_traced_stencil"] = {
+        "smi:fused": traced_fused["launches"]["B"], "smi:packet": traced_packet["launches"]["B"]}
+    c_warp["launches_traced_stencil"] = traced_packet["launches"]["C"]
+    by_name["shift_accumulate"]["launches_traced_allreduce"] = \
+        traced_allreduce["launches"]["shift"]
+    inside = lint_capture["serve_capture"]["launches_inside"]
+    by_name["matmul"]["launches_captured_serve"] = inside["D"]
+    by_name["flash_attention"]["launches_captured_serve"] = inside["E"]
     # the launches of slice 12's paths: a (2, 4) training step's E, D and A
     # (phase 48, both groups), F's and A's on the "grad" ring (phase 49), D's
     # in the remat recompute (phase 50) and in the pipeline's forward (51)
@@ -5790,6 +6085,9 @@ def main() -> int:
     log("remat_p8: " + json.dumps(remat))
     log("pipeline: " + json.dumps(pipe))
     log("validate_dp: " + json.dumps(validate_dp))
+    log("traced_stencil: " + json.dumps({"smi:fused": traced_fused, "smi:packet": traced_packet,
+                                         "allreduce": traced_allreduce}))
+    log("lint_capture: " + json.dumps(lint_capture))
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -40,6 +40,7 @@ from ..netsim.schedule import (
     predict_halo_stats,
     predict_halo_time,
 )
+from ..obs import trace as obs
 
 #: the tag halo wire traffic is accounted under (TransportStats.by_tag)
 HALO_TAG = "halo"
@@ -96,14 +97,21 @@ class HaloExchange:
 
     def start(self, x, transport=None):
         """Launch the four neighbour permutes; returns the in-flight slabs
-        (tallied under ``"halo"`` in the backend's stats)."""
+        (tallied under ``"halo"`` in the backend's stats).  A traced
+        ``halo.start`` carries one rank's tile shape, as the reference's
+        per-shard event does."""
+        t = self.resolve_transport(x, transport)
+        if obs.TRACING:
+            obs.emit("halo.start", tag=self.spec.stats_tag, grid=list(self.grid),
+                     tile=list(x.shape[1:]), transport=t.name)
         return halo_exchange_2d_start(
-            x, self.comm, grid=self.grid, halo=self.halo,
-            transport=self.resolve_transport(x, transport), tag=self.spec.stats_tag,
+            x, self.comm, grid=self.grid, halo=self.halo, transport=t, tag=self.spec.stats_tag,
         )
 
     def finish(self, x, inflight):
         """Assemble the halo-padded tiles from ``x`` + the in-flight slabs."""
+        if obs.TRACING:
+            obs.emit("halo.finish", tag=self.spec.stats_tag, grid=list(self.grid))
         return halo_exchange_2d_finish(x, inflight, self.comm, grid=self.grid, halo=self.halo)
 
     def exchange(self, x, transport=None):

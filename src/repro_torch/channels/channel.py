@@ -28,7 +28,10 @@ from dataclasses import dataclass
 
 import torch
 
+from ..analysis import capture as _capture
 from ..core.comm import Communicator, PortAllocator
+from ..obs import trace as obs
+from ..transport.base import rank_bytes
 from .spec import ChannelSpec
 
 #: the package-level default allocator open_* claims ports from
@@ -81,6 +84,11 @@ class _ChannelBase:
 
     def close(self):
         """Release the channel's port claim (idempotent)."""
+        if obs.TRACING:
+            obs.emit("channel.close", tag=self.spec.stats_tag, port=self.spec.port,
+                     channel_kind=self.spec.kind)
+        if _capture.ACTIVE:
+            _capture.record("close", self.spec)
         self.spec.release_port()
 
     def __enter__(self):
@@ -132,6 +140,11 @@ class Channel(_ChannelBase):
         ``elem`` is one element of the channel's shape (the source's) or a
         rank-stacked ``(P, *elem_shape)`` tensor of which the source's row
         counts.  The element starts moving on the next :meth:`pop`."""
+        if obs.TRACING:
+            obs.emit("channel.push", tag=self.spec.stats_tag, port=self.spec.port,
+                     src=self.spec.src)
+        if _capture.ACTIVE:
+            _capture.record("push", self.spec)
         at_src = self.spec.comm.rank() == self.spec.src
         return Channel(
             self.spec,
@@ -152,6 +165,11 @@ class Channel(_ChannelBase):
         accounted under its stats tag.  A bounded channel (``count`` set)
         delivers at most ``count`` valid elements."""
         spec = self.spec
+        if obs.TRACING:
+            obs.emit("channel.pop", tag=spec.stats_tag, port=spec.port, dst=spec.dst,
+                     hops=spec.hops)
+        if _capture.ACTIVE:
+            _capture.record("pop", spec)
         pairs = spec.comm.path_perm(spec.path)
         t = spec.step_transport()
         with _tagged(t, spec.stats_tag):
@@ -172,8 +190,17 @@ class Channel(_ChannelBase):
         spec's plan may pick backend and chunk count); zeros elsewhere."""
         spec = self.spec
         t, nc = self._resolve_transfer(x, n_chunks, "p2p")
+        if _capture.ACTIVE:
+            _capture.record("transfer", spec, dtype=_capture.dtype_name(x.dtype))
+        if obs.TRACING:
+            obs.emit("channel.transfer.start", tag=spec.stats_tag, port=spec.port, src=spec.src,
+                     dst=spec.dst, nbytes=rank_bytes(x), n_chunks=int(nc), transport=t.name)
         with _tagged(t, spec.stats_tag):
-            return t.p2p(x, src=spec.src, dst=spec.dst, comm=spec.comm, n_chunks=nc)
+            y = t.p2p(x, src=spec.src, dst=spec.dst, comm=spec.comm, n_chunks=nc)
+        if obs.TRACING:
+            obs.emit("channel.transfer.finish", tag=spec.stats_tag, port=spec.port,
+                     src=spec.src, dst=spec.dst)
+        return y
 
 
 def open_channel(comm: Communicator, *, count: int | None = None, src: int = 0, dst: int = 0,
@@ -190,6 +217,11 @@ def open_channel(comm: Communicator, *, count: int | None = None, src: int = 0, 
     spec = _claim(ChannelSpec(comm=comm, kind="p2p", count=count, src=src, dst=dst, port=port,
                               transport=transport, wire=wire, tag=tag, plan=plan,
                               n_chunks=n_chunks), allocator)
+    if obs.TRACING:
+        obs.emit("channel.open", tag=spec.stats_tag, port=spec.port, channel_kind="p2p", src=src,
+                 dst=dst, count=count, wire=wire)
+    if _capture.ACTIVE:
+        _capture.record("open", spec, dtype=_capture.dtype_name(dtype))
     P, dev = comm.size, comm.device
     return Channel(
         spec=spec,

@@ -33,7 +33,10 @@ from dataclasses import dataclass
 
 import torch
 
+from ..analysis import capture as _capture
 from ..core.comm import Communicator
+from ..obs import trace as obs
+from ..transport.base import rank_bytes
 from .channel import _ChannelBase, _claim, _mask_sel, _stacked, _tagged
 from .spec import ChannelSpec
 
@@ -80,6 +83,11 @@ class CollectiveChannel(_ChannelBase):
         refused — not staged, not counted in ``pushed`` — and never
         overwrites an element the schedule has not consumed."""
         kind = self.spec.kind
+        if obs.TRACING:
+            obs.emit("channel.push", tag=self.spec.stats_tag, port=self.spec.port,
+                     channel_kind=kind)
+        if _capture.ACTIVE:
+            _capture.record("push", self.spec)
         P = self.spec.comm.size
         if kind in ("bcast", "reduce"):
             # the consumption pointer of this rank's FIFO: the root (bcast)
@@ -109,6 +117,11 @@ class CollectiveChannel(_ChannelBase):
         (root only); scatter: this rank's element of the next pushed row;
         gather: the ``(P, *elem_shape)`` row of pushed elements (root only);
         allreduce: the next reduced element (every rank)."""
+        if obs.TRACING:
+            obs.emit("channel.pop", tag=self.spec.stats_tag, port=self.spec.port,
+                     channel_kind=self.spec.kind)
+        if _capture.ACTIVE:
+            _capture.record("pop", self.spec)
         return getattr(self, f"_pop_{self.spec.kind}")()
 
     def _pop_bcast(self):
@@ -235,6 +248,19 @@ class CollectiveChannel(_ChannelBase):
         channel's backend and stats tag, equal bit for bit to the direct
         call.  Extra keywords reach the schedule (``bidir=``; a reduce's
         ``op`` defaults to the spec's)."""
+        spec = self.spec
+        if _capture.ACTIVE:
+            _capture.record("transfer", spec, dtype=_capture.dtype_name(x.dtype))
+        if obs.TRACING:
+            obs.emit("channel.transfer.start", tag=spec.stats_tag, port=spec.port,
+                     channel_kind=spec.kind, nbytes=rank_bytes(x))
+        y = self._transfer_impl(x, n_chunks, **kw)
+        if obs.TRACING:
+            obs.emit("channel.transfer.finish", tag=spec.stats_tag, port=spec.port,
+                     channel_kind=spec.kind)
+        return y
+
+    def _transfer_impl(self, x, n_chunks, **kw):
         from ..core import collectives as C
 
         spec = self.spec
@@ -281,6 +307,11 @@ def _open(kind: str, comm: Communicator, *, count, root, port, elem_shape, dtype
     spec = _claim(ChannelSpec(comm=comm, kind=kind, count=count, root=root, port=port,
                               transport=transport, wire=wire, tag=tag, plan=plan,
                               n_chunks=n_chunks, op=op), allocator)
+    if obs.TRACING:
+        obs.emit("channel.open", tag=spec.stats_tag, port=spec.port, channel_kind=kind, root=root,
+                 count=count, wire=wire)
+    if _capture.ACTIVE:
+        _capture.record("open", spec, dtype=_capture.dtype_name(dtype))
     P, es = comm.size, tuple(elem_shape)
 
     def z(shape, dt=dtype):

@@ -18,7 +18,9 @@ scope) at shutdown.
 
 from __future__ import annotations
 
+from ..analysis import capture as _capture
 from ..core.comm import Communicator, PortAllocator
+from ..obs import trace as obs
 from .channel import PORTS, _claim
 from .spec import ChannelSpec
 
@@ -71,6 +73,11 @@ class ChannelPool:
                 plan=plan if plan is not None else self.plan,
                 transport=transport if transport is not None else self.transport,
                 n_chunks=n_chunks, op=op), self.allocator)
+            if obs.TRACING:
+                obs.emit("channel.open", tag=s.stats_tag, port=s.port, channel_kind=kind,
+                         wire=s.wire, persistent=True)
+            if _capture.ACTIVE:
+                _capture.record("pool.open", s)
             self._specs[k] = s
         return s
 
@@ -104,6 +111,11 @@ class ChannelPool:
             return
         self.closed = True
         for s in self._specs.values():
+            if obs.TRACING:
+                obs.emit("channel.close", tag=s.stats_tag, port=s.port, channel_kind=s.kind,
+                         persistent=True)
+            if _capture.ACTIVE:
+                _capture.record("pool.close", s)
             s.release_port()
         self._specs.clear()
 
@@ -116,11 +128,15 @@ class ChannelPool:
 
     def __del__(self):
         # a pool collected with live claims would leak its persistent ports
-        # for good: release them (the reference also emits an ``ft.leak``
-        # event, which comes with the port of its event stream)
+        # for good: report it (the ft.* fault-tolerance event family) and
+        # release them
         try:
             if getattr(self, "closed", True) or not self._specs:
                 return
+            if obs.TRACING:
+                obs.emit("ft.leak", tag=self.prefix,
+                         ports=sorted(s.port for s in self._specs.values()),
+                         n_claims=len(self._specs))
             self.close()
         except Exception:
             pass  # interpreter teardown: modules may already be gone

@@ -18,14 +18,14 @@ communication config:
   count (a collective channel's schedule too) to the plan, ``"auto"`` to
   the netsim tuning table under the channel kind's op.
 
-The reference's capture mode (``repro.analysis.capture``, which resolves
-every spec to an abstract accounting backend) is not ported, so
-:meth:`ChannelSpec.resolve` and :meth:`ChannelSpec.step_transport` always
-return a real backend.
+Under :func:`repro_torch.analysis.capture` every resolution yields the
+abstract accounting backend instead (:meth:`ChannelSpec.resolve`,
+:meth:`ChannelSpec.step_transport`, and ``transport.get_transport``).
 """
 
 from __future__ import annotations
 
+import sys
 from dataclasses import dataclass, field, replace
 
 from ..core.comm import Communicator
@@ -108,7 +108,15 @@ class ChannelSpec:
         """A Transport instance realising this spec's backend and wire: a
         string key (or ``None``, the communicator's default) resolves to a
         fresh instance on the communicator's device; a live instance passes
-        through, wrapped in the compressed link when ``wire="int8"``."""
+        through, wrapped in the compressed link when ``wire="int8"``.
+
+        Under :func:`repro_torch.analysis.capture` every resolution — string
+        key, ``None`` *and* live instance — yields the abstract accounting
+        backend instead: the seam that lets capture mode run whole programs
+        without moving a byte."""
+        cap = sys.modules.get("repro_torch.analysis.capture")
+        if cap is not None and cap.ACTIVE:
+            return cap.AbstractTransport(device=self.comm.device)
         from ..transport.base import Transport
         from ..transport.registry import get_transport
 
@@ -124,11 +132,17 @@ class ChannelSpec:
 
     def step_transport(self):
         """The instance the element-level push/pop pipeline drives: resolved
-        once per spec, so a channel's counters accumulate in one place."""
-        cached = self.__dict__.get("_step_transport")
+        once per spec, so a channel's counters accumulate in one place.
+        Capture mode uses a cache slot of its own, so a spec resolved both
+        inside and outside a capture block never hands the wrong backend to
+        either."""
+        cap = sys.modules.get("repro_torch.analysis.capture")
+        slot = ("_abstract_step_transport" if cap is not None and cap.ACTIVE
+                else "_step_transport")
+        cached = self.__dict__.get(slot)
         if cached is None:
             cached = self.resolve()
-            object.__setattr__(self, "_step_transport", cached)
+            object.__setattr__(self, slot, cached)
         return cached
 
     # -- lifecycle -----------------------------------------------------------

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..kernels.router import router_run, router_run_ref, tick_spec_of
+from ..obs import trace as obs
 from .comm import Communicator
 from .routing import compute_route_table, physical_link_map
 from .topology import Topology
@@ -202,6 +203,9 @@ def run_router(
         # degenerate fabrics (no links) and other wire dtypes keep the
         # reference path; the packetised wire is always float32
         impl = "scalar"
+    if obs.TRACING:
+        obs.emit("router.run", impl=impl, n_steps=int(n_steps), n_links=len(links),
+                 n_ports=int(cfg.n_ports), dims=list(cfg.dims))
     route_tbl = route_tbl.to(torch.int32)
     inq_dst, inq_len = inq_dst.to(torch.int32), inq_len.to(torch.int32)
     if impl == "scalar":
@@ -209,6 +213,16 @@ def run_router(
                                   links)
     spec = tick_spec_of(cfg, n, link_ids)
     batch = 4 if cfg.tick_batch is None else cfg.tick_batch
+    if obs.TRACING:
+        # the drain test's batch (clamped to divide n_steps, as the plain
+        # run clamps it) and how the pending count is read: summed over the
+        # rank stack, the reference's psum mode (its lane mode reads the
+        # packed exchange's own pending lane on pre-VMA runtimes)
+        B = max(1, min(int(batch), int(n_steps)))
+        while n_steps % B:
+            B -= 1
+        obs.emit("router.tick_batch", batch=B, n_batches=int(n_steps) // B, lane_live=False)
+        obs.emit("router.drain", mode="psum")
     if impl == "vector":
         out = router_run_ref(spec, route_tbl, src, inq_pay, inq_dst, inq_len, n_steps, batch)
     else:

@@ -1,11 +1,12 @@
-"""Straggler watchdog and checkpoint/restart driver (``repro.ft.watchdog``).
-The reference also emits ``ft.*`` trace events; the port's tracing waits for
-ROADMAP.md §1 item 4."""
+"""Straggler watchdog and checkpoint/restart driver (``repro.ft.watchdog``),
+each emitting its ``ft.*`` trace event while tracing is on."""
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
+
+from ..obs import trace as obs
 
 
 @dataclass
@@ -34,6 +35,9 @@ class StepWatchdog:
         slow = self.ema is not None and dt > self.threshold * self.ema
         if slow:
             self.events.append({"step": step, "dt": dt, "ema": self.ema})
+            if obs.TRACING:
+                obs.emit("ft.straggler", tag="ft", step=step, dt=dt, ema=self.ema,
+                         threshold=self.threshold)
         self.ema = dt if self.ema is None else (1 - self.alpha) * self.ema + self.alpha * dt
         return slow
 
@@ -56,3 +60,6 @@ def run_with_restarts(make_loop, checkpointer, state_like, *, max_restarts: int 
                 raise
             state, manifest = checkpointer.restore(state_like)
             step = manifest["step"]
+            if obs.TRACING:
+                obs.emit("ft.restart", tag="ft", restart=restarts, resume_step=step,
+                         max_restarts=max_restarts)

@@ -17,9 +17,9 @@ selects a plan the simulator scores worse than it.
 Tables are cheap to build (pure-Python simulation) and cached per topology
 signature in-process (:data:`_TABLES`); :meth:`TuningTable.save` /
 :meth:`TuningTable.load` persist them as JSON in the reference's format, so
-a table written by either package loads in the other.  The reference's
-``tuner.plan`` trace event waits for the port's ``obs`` layer (ROADMAP.md
-§1, item 4).
+a table written by either package loads in the other.  Each recorded
+winner emits a ``tuner.plan`` trace event while tracing is on
+(:mod:`repro_torch.obs.trace`).
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from __future__ import annotations
 import json
 from dataclasses import dataclass, field
 
+from ..obs import trace as obs
 from .model import LinkModel
 from .schedule import (
     HALO_DIRECTIONS,
@@ -334,6 +335,9 @@ def autotune(
             table.entries[(op, size)] = {
                 **plan.to_dict(), "score": s, "static_score": default_score,
             }
+            if obs.TRACING:
+                obs.emit("tuner.plan", tag=op, nbytes=int(size), topology=topo.name, score=s,
+                         static_score=default_score, **plan.to_dict())
     return table
 
 

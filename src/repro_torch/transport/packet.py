@@ -35,6 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..obs import trace as obs
 from .base import Transport, rank_bytes
 from .registry import register_transport
 
@@ -224,6 +225,11 @@ class PacketTransport(Transport):
         _, _, is_recv, keeps = _roles(pairs, n, K, vec.device)
         shortfall = torch.where(is_recv, K - out_cnt[:, 0], torch.zeros_like(out_cnt[:, 0]))
         self.stats.add_overflow(ovf + shortfall)
+        if obs.TRACING:
+            # the counter stays on the device; the event marks where it
+            # accrues and carries the schedule's static bounds
+            obs.emit("router.overflow", tag=self._tag, n_steps=int(n_steps), packets=int(K),
+                     transit_cap=int(cfg.transit_cap), counter="stats.overflow")
 
         got = out_pay[:, 0].reshape(n, K * cfg.pkt_elems)[:, :T]
         wire = torch.where(is_recv.view(-1, 1), got,

@@ -12,6 +12,7 @@ the packet router; comm modes spell it ``"smi:compressed:packet"``.
 
 from __future__ import annotations
 
+import sys
 from typing import Union
 
 _REGISTRY: dict[str, type] = {}
@@ -60,7 +61,16 @@ def is_transport_key(key: str) -> bool:
 
 def get_transport(name: str | None = None, **kw):
     """New Transport instance for ``name`` (None -> DEFAULT_TRANSPORT);
-    ``kw`` (e.g. ``device=``) goes to the constructor."""
+    ``kw`` (e.g. ``device=``) goes to the constructor.
+
+    Under :func:`repro_torch.analysis.capture` every key resolves to the
+    abstract accounting backend (on ``kw``'s device): the registry is the
+    second seam, after ``ChannelSpec.resolve``, that keeps capture mode
+    from moving a byte, covering the call sites that name backends by
+    string."""
+    cap = sys.modules.get("repro_torch.analysis.capture")
+    if cap is not None and cap.ACTIVE:
+        return cap.AbstractTransport(device=kw.get("device"))
     _ensure_builtins()
     key = name or DEFAULT_TRANSPORT
     if key in _REGISTRY:

@@ -108,7 +108,13 @@ def test_entry_points_default_to_cuda():
 #: the training slice's modules (each also in the scans above)
 TRAINING_MODULES = ("optim/adamw.py", "optim/grad.py", "optim/schedule.py", "data/pipeline.py",
                     "checkpoint/checkpointer.py", "ft/watchdog.py", "ft/elastic.py",
-                    "launch/train.py", "launch/steps.py", "models/model.py", "interop.py")
+                    "launch/train.py", "launch/steps.py", "models/model.py", "interop.py",
+                    # the tooling slice: the port's own copies of repro.obs and
+                    # repro.analysis (even their modules that import no JAX)
+                    "obs/__init__.py", "obs/trace.py", "obs/metrics.py", "obs/export.py",
+                    "analysis/__init__.py", "analysis/ops.py", "analysis/verify.py",
+                    "analysis/rules.py", "analysis/corpus.py", "analysis/capture.py",
+                    "analysis/programs.py", "analysis/lint.py")
 
 
 @pytest.mark.parametrize("module", TRAINING_MODULES)
