@@ -180,8 +180,8 @@ non-zero):
     of 0.999 of the default TP prefill; both timed in turns (wall and device
     time); the attention wire's ledger bytes a layer of both layouts;
 28. yi-6b at full width served at P = 8 (bfloat16): ``python -m
-    repro_torch.launch.serve --arch yi-6b --mesh 1,8 --layers 8`` (the
-    launcher runs cut to 8 of 32 layers: :data:`SERVE_LAYERS`) with phase 14's
+    repro_torch.launch.serve --arch yi-6b --mesh 1,8 --layers 4`` (the
+    launcher runs cut to 4 of 32 layers: :data:`SERVE_LAYERS`) with phase 14's
     requests, wave then continuous, on ``smi:static`` and on the bare
     ``smi`` (the tuned plan): every request's tokens equal across the four
     runs, kernel A launched on the tuned wire and never on the static one;
@@ -227,7 +227,7 @@ non-zero):
     with tp = 1 reported; then a float32 copy cut to 4 layers (256 tokens):
     the chosen experts equal to tp = 1's and the hidden states within 3e-4
     rtol/atol;
-35. ``launch.serve --arch qwen3-moe-30b-a3b --layers 12`` (cut to 12 of
+35. ``launch.serve --arch qwen3-moe-30b-a3b --layers 6`` (cut to 6 of
     48 layers: :data:`SERVE_LAYERS`) at tp = 1 (both engines) and at ``--mesh 1,8``
     (both engines, on ``smi:static`` and the bare ``smi``): tokens equal across the runs at each tp; the pinned fused
     decode as phase 32's; ms a decode step beside tp = 1, the idle share,
@@ -265,14 +265,14 @@ non-zero):
     --layers 6`` (6 of 24 layers: :data:`SERVE_LAYERS`; both engines, on
     ``smi:static`` and the bare ``smi``, tokens equal
     across the four runs); a pinned ``smi:fused`` decode bit-equal to
-    ``smi:static`` over 4 steps; and a float32 copy served at P = 8 and
+    ``smi:static`` over 2 steps; and a float32 copy served at P = 8 and
     tp = 1 with equal tokens;
 41. musicgen-medium at full width and depth: 4096 frames x 4 codebooks
     prefilled at tp = 1 and P = 8 in turns (E 48 and 48, D 1,536, A 679
     over ``smi:fused``); a pinned ``smi:fused`` decode bit-equal to
     ``smi:static``; served at tp = 1 and ``--mesh 1,8`` (both engines; at
-    P = 8 on ``smi:static`` and the bare ``smi``; ``--layers 12``, cut to
-    12 of 48 layers: :data:`SERVE_LAYERS`), a list of 4 tokens a step, equal across
+    P = 8 on ``smi:static`` and the bare ``smi``; ``--layers 6``, cut to
+    6 of 48 layers: :data:`SERVE_LAYERS`), a list of 4 tokens a step, equal across
     the runs at each tp; A's launches a step;
 42. ``launch.serve --validate-comm`` over ``smi:static`` for
     recurrentgemma-9b and musicgen-medium at ``1,8`` and ``2,4`` and
@@ -357,7 +357,32 @@ non-zero):
     16 layers at P = 8 over ``smi:static``, served by the continuous
     runtime (4 requests, 8 new tokens), a decode step and a migration
     captured on its params (``analysis.programs.capture_serve``), served
-    again: no diagnostic, no real step, the same tokens.
+    again: no diagnostic, no real step, the same tokens;
+56. the dry run (``launch/dryrun.py``: each step built on the meta device
+    at full width, depth and shape and counted, nothing run, kernels D, E
+    and F as their own ops; its worker processes start after phase 55 and
+    run beside phase 58) of yi-6b,
+    mamba2-2.7b and qwen3-moe-30b-a3b x ``train_4k``, ``prefill_32k`` and
+    ``decode_32k`` at ``16x16``, command-r-plus-104b ``train_4k`` and
+    mamba2-2.7b ``long_500k`` at ``2x16x16``, and phase 57's cuts, on
+    worker processes: every record ``ok``; per cell a device's GB, FLOPs,
+    collective bytes, the roofline's dominant term and fraction
+    (``launch/roofline.py``), and the cells past 80 GB a device named;
+57. the cuts phases 13 (yi-6b prefill, 4096 positions, tp = 1), 44
+    (yi-6b, 8 layers, 2 x 4096 tokens, tp = 1), 45 (the same at P = 8)
+    and 46 (mamba2-2.7b, 64 layers) ran, each dry-run at its own mesh and
+    shape and held against that phase's readings (not run again): the
+    predicted state bytes equal to the ``nbytes`` of the state the phase
+    held, exactly; the predicted peak beside ``max_memory_allocated``; the
+    model FLOPs over the measured step as a share of 989e12 (the measured
+    roofline fraction) beside the roofline's own;
+58. ``python -m repro_torch.launch.train --arch yi-6b --layers 4 --mesh
+    2,2,2 --seq-len 4096 --batch 4 --steps 2 --comm-mode smi:fused``, the
+    same at ``--mesh 4,2``, and ``--validate-comm`` at ``2,2,2``: every tag
+    equal to netsim's prediction, each step's loss bit-equal to ``4,2``'s;
+    ms a step of each in turns, and A's, D's and E's launches a step; then
+    yi-6b in float32 at both meshes on the same rows: the loss bit-equal,
+    every stored gradient leaf within 1e-5 of its largest magnitude.
 
 Earlier phases that time or check one schedule pass ``plan=None``.
 
@@ -387,7 +412,9 @@ raw steps), D's ``launches_remat_recompute`` by policy and
 ``launches_traced_stencil`` by wire, C's warp row's
 ``launches_traced_stencil``, A's gather-fused row's
 ``launches_traced_allreduce``, and D's and E's
-``launches_captured_serve``), each
+``launches_captured_serve``; phase 58's are ``launches_pod_train_step`` on
+E's and D's rows and A's ``launches_pod_train_step_fused``, a step's at
+``2,2,2``), each
 with the path its kernel ran (``simt``, ``vector``, ``warp``,
 ``thread``, ``fma`` or ``wgmma``); the rows of A, C, E, F's wgmma path and
 D add ``ms_before``, the time in this run of the kernel their calls ran
@@ -417,12 +444,14 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-#: H100 SXM device-memory rate (NVIDIA data sheet), bytes per second
-HBM_BYTES_PER_S = 3.35e12
-#: H100 SXM float32 rate outside the tensor cores, operations per second
-F32_OPS_PER_S = 67e12
-#: H100 SXM dense bfloat16 tensor-core rate, operations per second
-BF16_OPS_PER_S = 989e12
+#: the H100 SXM data sheet's peaks, the roofline's own: device-memory bytes
+#: per second, float32 operations per second outside the tensor cores, dense
+#: bfloat16 tensor-core operations per second
+from repro_torch.launch.roofline import (  # noqa: E402
+    BF16_OPS_PER_S,
+    F32_OPS_PER_S,
+    HBM_BYTES_PER_S,
+)
 
 P = 8
 REDUCE_ELEMS = 16 * 1024 * 1024  # per rank
@@ -1393,6 +1422,11 @@ FA_CASES = (
     # slice 12's (2, 4) training: a data group's yi-6b at tp = 4, 8 query
     # heads and 1 KV head a rank over 4096 positions
     ("train_tp4_gqa8_bf16", 32, 8, 1, 4096, 4096, 4096, 128, True, None, "bfloat16"),
+    # slice 14's (2, 2, 2) training: a data group's yi-6b at tp = 2 over one
+    # 4096-token sequence, 16 query heads a rank over their KV heads expanded
+    # (the model path), and over 2 KV heads (yi-6b's GQA map of a rank)
+    ("train_tp2_bf16", 32, 16, 16, 4096, 4096, 4096, 128, True, None, "bfloat16"),
+    ("train_tp2_gqa16_bf16", 32, 16, 2, 4096, 4096, 4096, 128, True, None, "bfloat16"),
 )
 FA_TOL = {"float32": 1e-4, "bfloat16": 1.6e-2}
 
@@ -1534,10 +1568,13 @@ def phase_prefill(dev, arch: str = "yi-6b", kernel: str = "E", seed: int = 13
     prefill(params, tokens)
     torch.cuda.synchronize()
     reset_counts()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     hidden = prefill(params, tokens)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    state_bytes = sum(t.nbytes for _, t in tree_leaves_with_path(params))
     launches = wrapper.launches
     if launches != cfg.n_layers:
         raise AssertionError(f"{cfg.name} prefill launched kernel {kernel} {launches} times, "
@@ -1571,7 +1608,8 @@ def phase_prefill(dev, arch: str = "yi-6b", kernel: str = "E", seed: int = 13
     res = dict(ms=ms, tok_per_s=PREFILL_TOKENS / ms * 1e3, device_ms=busy, kernel_ms=k_ms,
                kernel_share=k_ms / busy, profiled_wall_ms=prof_wall,
                device_idle_share=idle, min_cos=float(cos.min()),
-               max_abs_diff=err, params=n_params)
+               max_abs_diff=err, params=n_params, state_bytes=state_bytes,
+               peak_bytes=peak)
     if kernel == "E" and float(cos.min()) < 0.999:
         raise AssertionError(f"prefill hidden states disagree with the plain run: min row cosine "
                              f"{float(cos.min())}")
@@ -1953,6 +1991,12 @@ MM_CASES = (
     ("ssm_tp4_in_bf16", (4, 1024, 2560), (4, 2560, 1280), "bfloat16", False, "wgmma"),
     ("ssm_tp4_out_bf16", (4, 1024, 1280), (4, 1280, 2560), "bfloat16", False, "wgmma"),
     ("pipe_stage_bf16", (8, 512, 4096), (8, 4096, 4096), "bfloat16", False, "wgmma"),
+    # slice 14: a data group's ring steps at tp = 2 (2,048 rows a rank) for
+    # yi-6b at (2, 2, 2): Q, out, MLP up and down
+    ("yi_tp2_q_bf16", (2, 2048, 4096), (2, 4096, 2048), "bfloat16", False, "wgmma"),
+    ("yi_tp2_out_bf16", (2, 2048, 2048), (2, 2048, 4096), "bfloat16", False, "wgmma"),
+    ("yi_tp2_mlp_up_bf16", (2, 2048, 4096), (2, 4096, 5504), "bfloat16", False, "wgmma"),
+    ("yi_tp2_mlp_down_bf16", (2, 2048, 5504), (2, 5504, 4096), "bfloat16", False, "wgmma"),
 )
 MM_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 #: the TP prefill's tensor-parallel degree: the paper's 8-rank testbed
@@ -2617,8 +2661,8 @@ def phase_tuned_collectives(dev) -> tuple[dict, dict]:
     against ``plan=None``, checked (bcast bit for bit; reduce and allreduce
     on a raw plan within 1e-6 of the largest magnitude, bit for bit where the
     tuned algorithm is the default's; an int8 plan within the codec's bound)
-    and timed in turns (auto, default, default, auto) by CUDA events and
-    device time beside the tuner's predicted ratio.  Then ``launch.stencil
+    and timed in turns (auto, then default) by CUDA events and device
+    time beside the tuner's predicted ratio.  Then ``launch.stencil
     --plan auto`` at 8192x8192 on the 2x4 grid, equal to the single-rank
     sweep bit for bit, kernel B launched.  Returns the results and the
     kernel launches of the checked runs."""
@@ -2678,7 +2722,7 @@ def phase_tuned_collectives(dev) -> tuple[dict, dict]:
                 del got, want
                 reps, dreps = (5, 3) if elems >= AUTO_ELEMS[-1] else (20, 10)
                 ms, dev_ms = {"auto": [], "default": []}, {"auto": [], "default": []}
-                for who in ("auto", "default", "default", "auto"):
+                for who in ("auto", "default"):
                     kw = {"plan": "auto" if who == "auto" else None}
                     ms[who].append(time_ms(lambda: call(x, comm, **kw), reps=reps, warmup=2))
                     dev_ms[who].append(device_ms(lambda: call(x, comm, **kw), reps=dreps,
@@ -2854,8 +2898,9 @@ def phase_tp_auto(dev, tp_params, seed: int = 19) -> dict:
 #: config's comm_plan="auto"), tokens equal across the two
 TP_SERVE_WIRES = ("smi:static", "smi")
 #: phase 28's in-process checks: decode steps compared, ticks timed a turn
+#: (6 before the planning phases 56-58 needed the time)
 TP_DECODE_STEPS = 4
-TP_TICKS = 6
+TP_TICKS = 2
 #: phase 28's float32 copy at full width: its depth, and the reference's own
 #: tolerance for a parallel decode against a single-device one
 #: (tests/test_model_parallel.py::test_parallel_decode_matches_single)
@@ -2882,9 +2927,10 @@ def _a_launches() -> dict:
 #: the serving launcher runs cut in depth (``--layers``) to keep the script
 #: inside its time limit: decode is host-bound, so a run's time goes with
 #: its layers (halved again with the tooling's phases 53-55, when a whole
-#: run at the earlier depths took 1261.6 s on a slow host)
-SERVE_LAYERS = {"yi-6b": 8, "mamba2-2.7b": 16, "qwen3-moe-30b-a3b": 12,
-                "recurrentgemma-9b": 11, "internvl2-1b": 6, "musicgen-medium": 12}
+#: run at the earlier depths took 1261.6 s on a slow host, and yi-6b's,
+#: qwen3-moe's and musicgen's once more with the planning phases 56-58)
+SERVE_LAYERS = {"yi-6b": 4, "mamba2-2.7b": 16, "qwen3-moe-30b-a3b": 6,
+                "recurrentgemma-9b": 11, "internvl2-1b": 6, "musicgen-medium": 6}
 
 
 def _launcher_runs(arch: str, mesh: str, wires, extra=()) -> tuple[dict, dict]:
@@ -3310,7 +3356,7 @@ SSM_ARCH = "mamba2-2.7b"
 MOE_ARCH = "qwen3-moe-30b-a3b"
 #: ticks a turn of phases 32's and 35's in-process decode timing (a
 #: qwen3-moe tick at P = 8 takes 0.3-0.9 s of host time)
-SLICE9_TICKS = 3
+SLICE9_TICKS = 2
 #: phase 34's float32 check: its depth, its tokens (few, so that a near-tie
 #: of the k-th and (k+1)-th expert is unlikely to flip between the two runs'
 #: float32 sums), and phase 28's tolerance
@@ -3949,7 +3995,7 @@ def phase_rg_serving(dev, seed: int = 39) -> dict:
     ``smi:static`` and the tuned wire: tokens equal across the runs at each
     tp (whether P = 8's equal
     tp = 1's is reported); a pinned ``smi:fused`` decode bit-equal to
-    ``smi:static`` over 4 steps (``_fused_against_static``); ms a decode
+    ``smi:static`` over 2 steps (``_fused_against_static``); ms a decode
     step at P = 8 beside tp = 1 in turns, the idle share, and A's launches a
     step on the tuned wire."""
     import numpy as np
@@ -3991,7 +4037,7 @@ def phase_vlm(dev, seed: int = 40) -> tuple[dict, dict]:
     states lie within :data:`TP_F32_TOL` rtol and atol; then served at
     ``--mesh 1,8`` (both engines, on ``smi:static`` and the tuned wire,
     tokens equal across the four runs; a pinned ``smi:fused`` decode
-    bit-equal to ``smi:static`` over 4 steps, A's operands re-run against
+    bit-equal to ``smi:static`` over 2 steps, A's operands re-run against
     its plain version; ms a decode step at P = 8 beside tp = 1 in turns, the
     idle share), and a
     float32 copy at full depth served at P = 8 and at tp = 1 with
@@ -4099,7 +4145,7 @@ def phase_audio(dev, seed: int = 41) -> tuple[dict, dict]:
     requests (4-codebook prompts) at tp = 1 and ``--mesh 1,8`` (both
     engines; at P = 8 on ``smi:static`` and the tuned wire): every step's
     token a list of 4, equal across the runs at each tp; a pinned ``smi:fused`` decode bit-equal to
-    ``smi:static`` over 4 steps; ms a decode step at P = 8 beside tp = 1 in
+    ``smi:static`` over 2 steps; ms a decode step at P = 8 beside tp = 1 in
     turns and the idle share; A's launches a step on the tuned wire."""
     import numpy as np
     import torch
@@ -4214,10 +4260,12 @@ TRAIN_F32_LOSS_TOL = 1e-5
 #: mamba2-2.7b's training depth: all 64 layers (45.3 GB of float32 state),
 #: and the depth of its float32 check against every kernel off
 SSM_TRAIN_LAYERS = 64
-SSM_F32_LAYERS = 8
+SSM_F32_LAYERS = 4
 SSM_TRAIN_STEPS = 2
 #: kernel D's ring-step products of yi-6b's training step at P = 8 (2 x 4096
-#: tokens: 1024 rows a rank): Q, out, MLP up and down; and one shared weight
+#: tokens: 1024 rows a rank): Q, out, MLP up and down; one shared weight; and
+#: those of a data group at (2, 2, 2) (tp = 2, one 4096-token sequence: 2048
+#: rows a rank)
 MM_GRAD_CASES = (
     ("q_bf16", (8, 1024, 4096), (8, 4096, 512), "bfloat16"),
     ("out_bf16", (8, 1024, 512), (8, 512, 4096), "bfloat16"),
@@ -4225,6 +4273,10 @@ MM_GRAD_CASES = (
     ("mlp_down_bf16", (8, 1024, 1376), (8, 1376, 4096), "bfloat16"),
     ("shared_w_bf16", (8, 1024, 1024), (1024, 1376), "bfloat16"),
     ("mlp_up_f32", (8, 1024, 4096), (8, 4096, 1376), "float32"),
+    ("tp2_q_bf16", (2, 2048, 4096), (2, 4096, 2048), "bfloat16"),
+    ("tp2_out_bf16", (2, 2048, 2048), (2, 2048, 4096), "bfloat16"),
+    ("tp2_mlp_up_bf16", (2, 2048, 4096), (2, 4096, 5504), "bfloat16"),
+    ("tp2_mlp_down_bf16", (2, 2048, 5504), (2, 5504, 4096), "bfloat16"),
 )
 GRAD_TOL = {"float32": 1e-4}
 
@@ -4526,6 +4578,7 @@ def phase_train_dense(dev, seed: int = 44) -> tuple[dict, dict]:
     if min(cos) < TRAIN_GRAD_COS:
         raise AssertionError(f"train tp=1: gradient cosine {min(cos)} < {TRAIN_GRAD_COS}")
     state = {"params": params, "opt": adamw_init(params)}
+    state_bytes = sum(t.nbytes for t in tree_flatten(state))
     torch.cuda.reset_peak_memory_stats()
     ms, losses = [], []
     for b in batches[:TRAIN_STEPS - 1]:
@@ -4549,7 +4602,8 @@ def phase_train_dense(dev, seed: int = 44) -> tuple[dict, dict]:
     torch.cuda.empty_cache()
     return dict(params=n, ms_per_step=ms, tok_per_s=tokens / ms[-1] * 1e3, grads_ms=ms_grads,
                 losses=losses, loss_first=float(loss), loss_plain=float(loss_p),
-                min_grad_cos_vs_plain=min(cos), peak_gb=peak, **prof), launches
+                min_grad_cos_vs_plain=min(cos), peak_gb=peak, state_bytes=state_bytes,
+                **prof), launches
 
 
 def phase_train_tp(dev, seed: int = 44) -> tuple[dict, dict]:
@@ -4604,10 +4658,13 @@ def phase_train_tp(dev, seed: int = 44) -> tuple[dict, dict]:
         f"smi:static; launches a step {launches}")
     del first, gf, gs
     state = {"params": params, "opt": adamw_init(params)}
+    state_bytes = sum(t.nbytes for t in tree_flatten(state))
     order = ("smi:static", "smi:fused", "smi:fused", "smi:static")
     turns = {w: [] for w in arts}
+    torch.cuda.reset_peak_memory_stats()
     for w, b in zip(order, batches):
         turns[w].append(_timed_ms(lambda: arts[w]["step"](state, b))[1])
+    peak = torch.cuda.max_memory_allocated() / 1e9
     ms = {w: sum(v) / len(v) for w, v in turns.items()}
     prof = _train_profile(arts["smi:fused"], state, batches[0])
     tokens = TRAIN_SEQ * TRAIN_BATCH
@@ -4659,7 +4716,8 @@ def phase_train_tp(dev, seed: int = 44) -> tuple[dict, dict]:
     gc.collect()
     torch.cuda.empty_cache()
     return dict(ms_per_step=ms, turns=turns, tok_per_s=tokens / ms["smi:fused"] * 1e3,
-                launches=launches, f32_loss_err=loss_err, f32_grad_excess=grad_err,
+                launches=launches, peak_gb=peak, state_bytes=state_bytes,
+                f32_loss_err=loss_err, f32_grad_excess=grad_err,
                 f32_param_excess=param_err, **prof), launches["smi:fused"]
 
 
@@ -4721,6 +4779,7 @@ def phase_train_ssm(dev, seed: int = 46) -> tuple[dict, int]:
             continue
         del grads
         state = {"params": params, "opt": adamw_init(params)}
+        res[key]["state_bytes"] = sum(t.nbytes for t in tree_flatten(state))
         torch.cuda.reset_peak_memory_stats()
         ms = [_timed_ms(lambda: art["step"](state, b))[1] for b in batches[:SSM_TRAIN_STEPS - 1]]
         prof = _train_profile(art, state, batches[SSM_TRAIN_STEPS - 1])
@@ -5658,6 +5717,322 @@ def phase_lint_capture(dev) -> dict:
     return res
 
 
+
+# ---------------------------------------------------------------- planning
+#
+# Phases 56-58 (slice 14): the dry run (``launch/dryrun.py``: every step
+# built on the meta device at full width and counted, nothing run) at the
+# production meshes and at the cuts phases 13 and 44-46 ran on the card,
+# the roofline of each (``launch/roofline.py``), and yi-6b trained over a
+# (pod, data, model) mesh.
+
+#: phase 56's cells, (arch, shape, multi-pod), longest first
+DRY_CELLS = (
+    ("command-r-plus-104b", "train_4k", True),
+    ("mamba2-2.7b", "train_4k", False),
+    ("qwen3-moe-30b-a3b", "train_4k", False),
+    ("yi-6b", "train_4k", False),
+    ("yi-6b", "prefill_32k", False),
+    ("mamba2-2.7b", "prefill_32k", False),
+    ("qwen3-moe-30b-a3b", "prefill_32k", False),
+    ("yi-6b", "decode_32k", False),
+    ("mamba2-2.7b", "decode_32k", False),
+    ("qwen3-moe-30b-a3b", "decode_32k", False),
+    ("mamba2-2.7b", "long_500k", True),
+)
+#: worker processes of the dry run (meta tensors only: host work, one core
+#: each; two of the card machine's 8 cores left to the phases beside them),
+#: its host budget in seconds, and a card's memory in GB
+DRY_WORKERS = 6
+DRY_BUDGET_S = 60
+DEVICE_GB = 80
+#: phase 58: yi-6b over the pod axis, its launcher's arguments and the mesh it
+#: is held against (the same rows: every step's loss bit-equal), and the
+#: float32 gradient check's tolerance, of each leaf's largest magnitude (the
+#: two meshes run the same products in the same order; only the atomic sums
+#: of a gather's backward may differ)
+POD_MESH = "2,2,2"
+POD_FLAT_MESH = "4,2"
+POD_LAYERS = 4
+POD_BATCH = 4
+POD_ARGS = ["--arch", "yi-6b", "--layers", str(POD_LAYERS), "--seq-len", "4096", "--batch",
+            str(POD_BATCH), "--steps", "2", "--comm-mode", "smi:fused"]
+POD_F32_TOL = 1e-5
+
+
+def _dry_cuts() -> dict:
+    """Phase 57's cuts, each as the phase that ran it on the card: (arch,
+    layers, seq, batch, kind, mesh, train comm_mode or None)."""
+    return {
+        "13": ("yi-6b", 32, PREFILL_TOKENS, 1, "prefill", (1,), None),
+        "44": (TRAIN_ARCH, TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, "train", (1,), "smi:fused"),
+        "45": (TRAIN_ARCH, TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, "train", (1, TP), "smi:fused"),
+        "46": (SSM_ARCH, SSM_TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, "train", (1,), "smi:fused"),
+    }
+
+
+def _cut_of(spec):
+    from repro_torch.configs import ShapeConfig
+
+    arch, layers, seq, batch, kind, _mesh, _wire = spec
+    return _train_cfg(arch, layers), ShapeConfig(f"{kind}_cut", seq, batch, kind)
+
+
+def _dry_job(job: tuple) -> dict:
+    """One dry-run job, in a worker process (the meta device only):
+    ``("cell", arch, shape, multi_pod)`` through ``run_cell``, or ``("cut",
+    name, spec)`` (:func:`_dry_cuts`) through ``dry_run``."""
+    import torch
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    if job[0] == "cell":
+        from repro_torch.launch.dryrun import run_cell
+
+        rec = run_cell(job[1], job[2], multi_pod=job[3], verbose=False)
+    else:
+        from repro_torch.launch.dryrun import dry_run
+
+        name, spec = job[1], job[2]
+        cfg, shape = _cut_of(spec)
+        wire = spec[6]
+        rec = dry_run(cfg, shape, spec[5], settings=_train_settings(wire) if wire else None)
+        rec.update(arch=spec[0], shape=shape.name, kind=shape.kind, ok=True,
+                   mesh="x".join(map(str, spec[5])))
+    rec["host_s"] = time.perf_counter() - t0
+    rec["done_at"] = time.time()
+    return rec
+
+
+def start_dryrun():
+    """Phase 56's start: the dry run of :data:`DRY_CELLS` at their
+    production meshes and of phase 57's cuts submitted to
+    :data:`DRY_WORKERS` worker processes (spawned: this process holds the
+    card; meta tensors only, so phase 58 runs on the card meanwhile),
+    longest first.  Returns what :func:`phase_dryrun` collects."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    jobs = [("cell", *c) for c in DRY_CELLS[:4]] + \
+        [("cut", k, v) for k, v in _dry_cuts().items()] + [("cell", *c) for c in DRY_CELLS[4:]]
+    pool = ProcessPoolExecutor(max_workers=DRY_WORKERS, mp_context=mp.get_context("spawn"))
+    return pool, jobs, [pool.submit(_dry_job, j) for j in jobs], time.time()
+
+
+def phase_dryrun(started) -> tuple[dict, dict]:
+    """Phase 56: the records of :func:`start_dryrun`'s jobs, every one
+    ``ok``.  Per cell: the per-device GB (arguments and the peak above
+    them), FLOPs and collective bytes, the roofline's dominant term and
+    fraction; the cells past :data:`DEVICE_GB` a device named (not gated).
+    Returns the cells' records with their roofline rows, and the cuts'
+    records."""
+    from repro_torch.launch.roofline import analyze_cell
+
+    pool, jobs, futures, t0 = started
+    with pool:
+        recs = [f.result() for f in futures]
+    wall = max(r["done_at"] for r in recs) - t0      # from the start to the last job's end
+    bad = [f"{r['arch']} {r['shape']} {r['mesh']}: {r.get('error')}" for r in recs if not r["ok"]]
+    if bad:
+        raise AssertionError("dry run failed: " + "; ".join(bad))
+    cells, cut_recs, over = {}, {}, []
+    for job, rec in zip(jobs, recs):
+        if job[0] == "cut":
+            cut_recs[job[1]] = rec
+            continue
+        row = analyze_cell(rec)
+        gb = (rec["memory_bytes"]["argument"] + rec["memory_bytes"]["temp"]) / 1e9
+        if gb > DEVICE_GB:
+            over.append(f"{rec['arch']} {rec['shape']} {rec['mesh']} ({gb:.1f} GB)")
+        t = row["terms_s"]
+        log(f"dry run {rec['arch']} {rec['shape']} {rec['mesh']}: {rec['host_s']:.1f} s host; "
+            f"a device {rec['memory']['argument_gb']:.3f} GiB arguments + "
+            f"{rec['memory']['temp_gb']:.3f} GiB peak above them ({gb:.2f} GB), "
+            f"{rec['cost']['flops']:.4g} FLOPs, {rec['cost']['bytes_accessed']:.4g} B accessed, "
+            f"{rec['collectives']['total']:.4g} collective B; compute {t['compute_s']:.4f} s, "
+            f"memory {t['memory_s']:.4f} s, collective {t['collective_s']:.4f} s: "
+            f"{row['dominant']} dominates, roofline fraction {row['roofline_fraction']:.4f}, "
+            f"counted/model FLOPs {row['hlo_over_model_flops']:.3f}")
+        cells[f"{rec['arch']} {rec['shape']} {rec['mesh']}"] = dict(
+            host_s=rec["host_s"], memory_bytes=rec["memory_bytes"], cost=rec["cost"],
+            collective_bytes=rec["collectives"]["total"], terms_s=t, dominant=row["dominant"],
+            roofline_fraction=row["roofline_fraction"],
+            hlo_over_model_flops=row["hlo_over_model_flops"])
+    log(f"dry run: {len(cells)} cells and {len(cut_recs)} cuts ok on {DRY_WORKERS} workers in "
+        f"{wall:.1f} s host (budget {DRY_BUDGET_S} s); past {DEVICE_GB} GB a device: "
+        f"{', '.join(over) or 'none'}")
+    return dict(cells=cells, wall_s=wall, over_device_gb=over), cut_recs
+
+
+def phase_dry_vs_card(cut_recs: dict, measured: dict) -> dict:
+    """Phase 57: each cut's dry run (phase 56's workers) held against what
+    its phase measured on the card, not run again: the predicted state
+    bytes of the rank stack equal to the ``nbytes`` of the state the phase
+    held (params; training: and the AdamW moments and step), exactly; the
+    predicted peak (state, inputs and the peak above them) beside
+    ``torch.cuda.max_memory_allocated`` and their ratio; the model FLOPs
+    over the measured step time as a share of the dense bfloat16 peak (the
+    measured roofline fraction) beside the roofline's own fraction.
+    ``measured`` maps a cut to ``(state_bytes, peak_bytes, ms)``."""
+    from repro_torch.launch.roofline import model_flops_per_device, roofline_row
+
+    out = {}
+    for name, spec in _dry_cuts().items():
+        rec = cut_recs[name]
+        cfg, shape = _cut_of(spec)
+        state, peak, ms = measured[name]
+        pred_state, pred_peak = rec["stack"]["state_bytes"], rec["stack"]["peak_bytes"]
+        if pred_state != state:
+            raise AssertionError(f"phase {name}'s cut: the dry run predicts {pred_state} B of "
+                                 f"state, the card held {state}")
+        row = roofline_row(rec, cfg, shape)
+        meas_frac = model_flops_per_device(cfg, shape, 1) / (ms / 1e3) / BF16_OPS_PER_S
+        is_bound = meas_frac <= row["roofline_fraction"]
+        out[name] = dict(state_bytes=state, predicted_peak_bytes=pred_peak, peak_bytes=peak,
+                         peak_ratio=pred_peak / peak, ms=ms, measured_fraction=meas_frac,
+                         roofline_fraction=row["roofline_fraction"], roofline_is_bound=is_bound,
+                         dominant=row["dominant"],
+                         terms_s=row["terms_s"], hlo_over_model_flops=row["hlo_over_model_flops"])
+        log(f"phase {name}'s cut ({spec[0]} x {spec[1]} layers, {spec[3]} x {spec[2]} tokens, "
+            f"{shape.kind}, mesh {rec['mesh']}): state {state} B predicted exactly; peak "
+            f"predicted {pred_peak / 1e9:.3f} GB against {peak / 1e9:.3f} measured (ratio "
+            f"{pred_peak / peak:.3f}); {ms:.3f} ms measured: measured roofline fraction "
+            f"{meas_frac:.4f} of {BF16_OPS_PER_S:.3g}, the roofline's {row['roofline_fraction']:.4f} "
+            f"({row['dominant']} dominates{'' if is_bound else '; the card beat it: not a bound'})")
+    return out
+
+
+def _pod_f32_check(dev, seed: int = 58) -> dict:
+    """yi-6b in float32 at :data:`POD_LAYERS` layers and :data:`POD_BATCH` x
+    :data:`TRAIN_F32_SEQ` tokens over ``smi:fused`` at ``2,2,2`` against
+    ``4,2`` on the same rows: the params stored alike and bit-equal, the
+    loss bit-equal, and every gradient leaf as stored (the FSDP blocks
+    summed over the pod x data torus, or over the 4-ring) within
+    :data:`POD_F32_TOL` of its largest magnitude at ``4,2``, the bit-equal
+    leaves counted."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.launch.steps import build_train
+    from repro_torch.models.common import tree_flatten
+
+    cfg32 = _train_cfg("yi-6b", POD_LAYERS, dtype="float32")
+    shape32 = ShapeConfig("train_f32", TRAIN_F32_SEQ, POD_BATCH, "train")
+    batch = _train_batches(cfg32, TRAIN_F32_SEQ, POD_BATCH, 1, seed)[0]
+    got = {}
+    for mesh in (POD_MESH, POD_FLAT_MESH):
+        art = build_train(cfg32, shape32, _train_settings(), mesh=tuple(map(int, mesh.split(","))),
+                          matmul_fn=matmul, device=dev)
+        params = art["init_params"](seed)
+        loss, _, g = art["grads"](params, batch)
+        got[mesh] = (loss, tree_flatten(params), tree_flatten(g))
+        del art
+    (l_pod, p_pod, g_pod), (l_flat, p_flat, g_flat) = got[POD_MESH], got[POD_FLAT_MESH]
+    with torch.no_grad():
+        if [t.shape for t in p_pod] != [t.shape for t in p_flat] or \
+                not all(same_bits(a, b) for a, b in zip(p_pod, p_flat)):
+            raise AssertionError(f"pod axis f32: the params at {POD_MESH} are not stored as at "
+                                 f"{POD_FLAT_MESH}")
+        errs = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(g_pod, g_flat)]
+        n_same = sum(same_bits(a, b) for a, b in zip(g_pod, g_flat))
+    res = dict(loss=float(l_pod), loss_bit_equal=same_bits(l_pod.reshape(1), l_flat.reshape(1)),
+               grad_max_rel_err=max(errs), grad_leaves=len(errs), grad_leaves_bit_equal=n_same)
+    log(f"pod axis f32 ({POD_LAYERS} layers, {POD_BATCH} x {TRAIN_F32_SEQ} tokens): loss "
+        f"{float(l_pod)!r} at {POD_MESH}, {float(l_flat)!r} at {POD_FLAT_MESH}; gradients "
+        f"within {max(errs):.3e} of each leaf's largest magnitude (tolerance {POD_F32_TOL}), "
+        f"{n_same} of {len(errs)} leaves bit-equal")
+    if not res["loss_bit_equal"] or max(errs) > POD_F32_TOL:
+        raise AssertionError(f"pod axis f32: {POD_MESH} disagrees with {POD_FLAT_MESH}: {res}")
+    del got, p_pod, p_flat, g_pod, g_flat
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_pod_axis(dev) -> tuple[dict, dict]:
+    """Phase 58: ``python -m repro_torch.launch.train`` (run in this process)
+    for yi-6b at 4 layers, 4 x 4096 tokens, over ``smi:fused`` at ``--mesh
+    2,2,2`` (pod, data, model: FSDP over the pod x data torus) and at ``4,2``,
+    2 steps each, then ``--validate-comm`` at ``2,2,2``: every run exits 0,
+    every tag equal to netsim's prediction, each step's loss bit-equal to
+    ``4,2``'s (the same rows, bfloat16); ms a step of each in turns (2,2,2,
+    4,2, and the validated step at 2,2,2), and A's, D's and E's launches a
+    step.  Then the gradients in float32 (:func:`_pod_f32_check`).  Returns
+    the results and ``2,2,2``'s launches a step."""
+    import contextlib
+    import io
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.launch import train as launch_train
+    from repro_torch.transport.fused import fused_accumulate, fused_shift_accumulate
+
+    step_ms, step_loss = [], []
+    orig_build = launch_train.build_train
+
+    def timed_build(*a, **kw):
+        art = orig_build(*a, **kw)
+        orig_step = art["step"]
+
+        def step(*sa, **skw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = orig_step(*sa, **skw)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            step_loss.append(got[1]["loss"].reshape(1).clone())
+            return got
+
+        art["step"] = step
+        return art
+
+    res, per_step, loss_of = {}, {}, {}
+    for name, mesh, extra in (("pod", POD_MESH, []), ("flat", POD_FLAT_MESH, []),
+                              ("validate", POD_MESH, ["--validate-comm"])):
+        out = io.StringIO()
+        step_ms.clear()
+        step_loss.clear()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), mock.patch.object(launch_train, "build_train",
+                                                                timed_build):
+            rc = launch_train.main(POD_ARGS + ["--mesh", mesh] + extra)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        text = out.getvalue()
+        for line in text.splitlines():
+            log(f"pod axis {name} ({mesh}): {line}")
+        if rc != 0 or (name == "validate" and "[validate-comm] ok" not in text):
+            raise AssertionError(f"launch.train --mesh {mesh} {' '.join(extra)} exited {rc}")
+        n = len(step_ms)
+        launches = dict(A=dict(fold=fused_accumulate.launches / n,
+                               shift=fused_shift_accumulate.launches / n),
+                        D=matmul.launches / n, E=flash_attention_kernel.launches / n)
+        per_step[name] = launches
+        loss_of[name] = list(step_loss)
+        res[name] = dict(seconds=secs, step_ms=list(step_ms),
+                         losses=[float(v[0]) for v in step_loss], launches_per_step=launches)
+        gc.collect()
+        torch.cuda.empty_cache()
+    l_pod, l_flat = loss_of["pod"], loss_of["flat"]
+    if len(l_pod) != len(l_flat) or not all(same_bits(a, b) for a, b in zip(l_pod, l_flat)):
+        raise AssertionError(f"pod axis: the losses {res['pod']['losses']} at {POD_MESH} are "
+                             f"not {POD_FLAT_MESH}'s {res['flat']['losses']} bit for bit")
+    if per_step["pod"]["E"] <= 0 or per_step["pod"]["D"] <= 0 or \
+            per_step["pod"]["A"]["shift"] <= 0:
+        raise AssertionError(f"pod axis: a step at {POD_MESH} launched {per_step['pod']}")
+    log(f"pod axis: every step's loss {res['pod']['losses']!r} at {POD_MESH} bit-equal to "
+        f"{POD_FLAT_MESH}'s; ms a step in turns: {POD_MESH} {res['pod']['step_ms']}, "
+        f"{POD_FLAT_MESH} {res['flat']['step_ms']}, {POD_MESH} validated "
+        f"{res['validate']['step_ms']}; launches a step {per_step}")
+    res["f32"] = _pod_f32_check(dev)
+    return res, per_step['pod']
+
+
 def main() -> int:
     import torch
 
@@ -5953,6 +6328,34 @@ def main() -> int:
     lint_capture = phase_lint_capture(dev)
     torch.cuda.synchronize()
     log(f"phase 55 (smilint, yi-6b serve capture at P = {TP}): {time.perf_counter() - t0:.1f}s")
+    # phase 56's dry run works on host cores beside phase 58 only: every
+    # phase before it has run
+    started = start_dryrun()
+    t0 = time.perf_counter()
+    pod, launches_58 = phase_pod_axis(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"phase 58 (yi-6b trained at {POD_MESH}): {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    dry, cut_recs = phase_dryrun(started)
+    log(f"phase 56 (the dry run: {len(DRY_CELLS)} cells and phase 57's cuts, done "
+        f"{dry['wall_s']:.1f}s after its start): {time.perf_counter() - t0:.1f}s more")
+    t0 = time.perf_counter()
+    ssm64 = train_ssm[f"bfloat16_{SSM_TRAIN_LAYERS}"]
+    dry_vs_card = phase_dry_vs_card(cut_recs, {
+        "13": (prefill["state_bytes"], prefill["peak_bytes"], prefill["ms"]),
+        "44": (train_dense["state_bytes"], round(train_dense["peak_gb"] * 1e9),
+               train_dense["ms_per_step"][-1]),
+        "45": (train_tp["state_bytes"], round(train_tp["peak_gb"] * 1e9),
+               train_tp["ms_per_step"]["smi:fused"]),
+        "46": (ssm64["state_bytes"], round(ssm64["peak_gb"] * 1e9), ssm64["ms_per_step"][-1])})
+    log(f"phase 57 (the dry run against the card): {time.perf_counter() - t0:.1f}s")
+    # the launches of slice 14's path: a training step's at (2, 2, 2) over
+    # smi:fused (phase 58)
+    by_name["flash_attention"]["launches_pod_train_step"] = launches_58["E"]
+    by_name["matmul"]["launches_pod_train_step"] = launches_58["D"]
+    for name, k in (("accumulate", "fold"), ("shift_accumulate", "shift")):
+        by_name[name]["launches_pod_train_step_fused"] = launches_58["A"][k]
     # the launches of slice 13's paths: B in the four launcher runs of each
     # traced stencil (53, 54), C in 54's, A in 53's traced all-reduce; D and
     # E inside phase 55's captured decode step
@@ -6088,6 +6491,9 @@ def main() -> int:
     log("traced_stencil: " + json.dumps({"smi:fused": traced_fused, "smi:packet": traced_packet,
                                          "allreduce": traced_allreduce}))
     log("lint_capture: " + json.dumps(lint_capture))
+    log("dryrun: " + json.dumps(dry))
+    log("dryrun_vs_card: " + json.dumps(dry_vs_card))
+    log("pod_axis: " + json.dumps(pod))
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,7 +3,7 @@
 backends, comm_mode strings, stencil cells)."""
 
 from .base import SHAPES, ModelConfig, ShapeConfig, pad_vocab
-from .registry import ARCHS, COMM_MODES, STENCIL_CASES, TRANSPORT_BACKENDS, get_arch, smoke
+from .registry import ARCHS, COMM_MODES, STENCIL_CASES, TRANSPORT_BACKENDS, cells, get_arch, smoke
 
 __all__ = ["ARCHS", "COMM_MODES", "SHAPES", "STENCIL_CASES", "TRANSPORT_BACKENDS", "ModelConfig",
-           "ShapeConfig", "get_arch", "pad_vocab", "smoke"]
+           "ShapeConfig", "cells", "get_arch", "pad_vocab", "smoke"]

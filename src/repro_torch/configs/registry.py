@@ -4,7 +4,7 @@ port has."""
 
 from __future__ import annotations
 
-from .base import ModelConfig
+from .base import SHAPES, ModelConfig
 
 #: transport backends of the port (``comm_mode="smi:<backend>"``); bare
 #: ``"smi"`` means ``smi:static``
@@ -136,3 +136,16 @@ def smoke(cfg: ModelConfig) -> ModelConfig:
     if cfg.family == "audio":
         kw.update(vocab_size=256)
     return cfg.scaled(**kw)
+
+
+def cells():
+    """Every (arch, shape, skip) dry-run cell (the reference's ``cells``):
+    ``skip`` names why a cell is not run, or is None."""
+    out = []
+    for name, cfg in ARCHS.items():
+        for sname in SHAPES:
+            skip = None
+            if sname == "long_500k" and not cfg.sub_quadratic:
+                skip = "pure full-attention arch: 512k dense KV excluded (DESIGN.md §4)"
+            out.append((name, sname, skip))
+    return out

@@ -197,11 +197,15 @@ def unshard_params(params, cfg, ctx, fsdp_plan=None):
 
 def _axes(ctx):
     """The stacked mesh axes of ``ctx``, innermost first, with their sizes:
-    the model axis's P ranks, then the data axis's groups in front of them."""
+    the model axis's P ranks, then the data groups in front of them (the
+    batch axes as one spec entry, ``("pod", "data")`` on a three-axis mesh,
+    as ``mesh.api.fsdp_storage_specs`` writes them)."""
     out = []
     if ctx.tp > 1:
         out.append((ctx.model_axis, ctx.tp))
-    out.extend((a, ctx.dp) for a in ctx.batch_axes if ctx.dp > 1)
+    if ctx.dp > 1:
+        b = ctx.batch_axes
+        out.append((b if len(b) > 1 else b[0], ctx.dp))
     return out
 
 

@@ -5,6 +5,7 @@ gradients through kernel D."""
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .kernel import MATMUL_DTYPES, WGMMA, launch_matmul
 from .ref import matmul_ref
@@ -56,7 +57,12 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *, out_dtype=None,
     only.  On the card the launch goes through :class:`MatmulFn`, so
     gradients pass, their products on kernel D too.  ``matmul.launches``
     counts kernel launches, and ``matmul.wgmma_launches`` those that took
-    the wgmma path (:func:`~.kernel.matmul_path`)."""
+    the wgmma path (:func:`~.kernel.matmul_path`).  On the ``meta`` device
+    (the dry run, ``launch/dryrun.py``) it goes through :class:`MatmulFn`
+    and :data:`matmul_op` as on the card, shapes only, so that a dispatch
+    mode counts kernel D's products, forward and backward."""
+    if x.is_meta and use_kernel is None:
+        return MatmulFn.apply(_matmul_launch, x, w, out_dtype or x.dtype)
     on_cuda = x.is_cuda
     if use_kernel is None:
         use_kernel = on_cuda
@@ -107,6 +113,16 @@ _LIB.impl("matmul_d", lambda x, w, out_dtype: x.new_empty(x.shape[:-1] + (w.shap
 
 #: kernel D's dispatcher op (what a remat policy names)
 matmul_op = torch.ops.repro_torch.matmul_d.default
+
+
+@register_flop_formula(torch.ops.repro_torch.matmul_d)
+def _matmul_flops(x_shape, w_shape, out_dtype=None, *, out_shape=None, **_) -> int:
+    """Kernel D's operations for ``torch.utils.flop_counter``: two a
+    multiply-add, ``(..., M, K) @ ([Bt,] K, N)``."""
+    rows = 1
+    for n in x_shape[:-1]:
+        rows *= n
+    return 2 * rows * x_shape[-1] * w_shape[-1]
 
 
 def _matmul_launch(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:

@@ -8,6 +8,7 @@ from __future__ import annotations
 import functools
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from ..common import RecomputeFn, pad_to
 from .kernel import ssd_scan_kernel, ssd_scan_plain
@@ -28,14 +29,16 @@ def ssd_scan(x, dt, B, C, A, *, chunk: int = 128, use_kernel: bool | None = None
     state as it is, and the padded rows are cut off the output.  On the card
     the launch goes through :class:`~..common.RecomputeFn`: its backward
     recomputes :func:`ssd_scan_plain` under autograd (the reference has no
-    backward kernel)."""
-    on_cuda = x.device.type == "cuda"
+    backward kernel).  On the ``meta`` device (the dry run,
+    ``launch/dryrun.py``) it goes through :class:`~..common.RecomputeFn` and
+    :data:`ssd_scan_op` as on the card, shapes only."""
+    on_card = x.device.type in ("cuda", "meta")
     if use_kernel is None:
-        use_kernel = on_cuda
+        use_kernel = on_card
     plain = functools.partial(ssd_scan_plain, chunk=chunk)
     if not use_kernel:
         return plain(x, dt, B, C, A)
-    if not on_cuda:
+    if not on_card:
         raise ValueError("use_kernel=True needs CUDA tensors: kernel F has no CPU mode")
     return RecomputeFn.apply(functools.partial(_kernel, chunk=chunk), plain, x, dt, B, C, A)
 
@@ -47,7 +50,32 @@ def _kernel(x, dt, B, C, A, *, chunk: int):
     dt, _ = pad_to(dt, chunk, 1)
     B, _ = pad_to(B, chunk, 1)
     C, _ = pad_to(C, chunk, 1)
-    return ssd_scan_kernel(x, dt, B, C, A, chunk=chunk)[:, :S]
+    launch = ssd_scan_op if x.is_meta else ssd_scan_kernel
+    return launch(x, dt, B, C, A, chunk=chunk)[:, :S]
+
+
+#: kernel F on the ``meta`` device as the dispatcher op
+#: ``repro_torch::ssd_scan_f`` (Meta: the output's shape; the card launches
+#: :func:`ssd_scan_kernel` directly), so that the dry run's dispatch modes
+#: see one op moving its inputs and output, its operations counted by
+#: :func:`_ssd_flops`
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("ssd_scan_f(Tensor x, Tensor dt, Tensor B, Tensor C, Tensor A, *, int chunk) "
+            "-> Tensor")
+_LIB.impl("ssd_scan_f", lambda x, *_, **__: torch.empty_like(x), "Meta")
+ssd_scan_op = torch.ops.repro_torch.ssd_scan_f.default
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan_f)
+def _ssd_flops(x_shape, dt_shape, B_shape, C_shape, A_shape, *, chunk, out_shape=None,
+               **_) -> int:
+    """Kernel F's operations for ``torch.utils.flop_counter``: per chunk of
+    ``L`` positions and head, the causal products of the chunked form (the
+    lower triangle of C B^T and of the scores x dt x, C h_in and the state
+    update), two a multiply-add."""
+    BH, S, Dh = x_shape
+    Dst, L = B_shape[-1], chunk
+    return 2 * (L * (L + 1) // 2 * (Dst + Dh) + 2 * L * Dst * Dh) * BH * (S // L)
 
 
 def ssd_decode_step(h, xt, dtt, Bt, Ct, A):

@@ -1,5 +1,6 @@
 """Serving driver (``repro.launch.serve``): wave or continuous-batching
-decode of random-weight requests, at any ``(data, model)`` mesh.
+decode of random-weight requests, at any ``(data, model)`` or ``(pod,
+data, model)`` mesh.
 
     python -m repro_torch.launch.serve --arch yi-6b --requests 8 --max-new 16 \\
         --slots 4 --capacity 256 --engine wave
@@ -157,7 +158,7 @@ def main(argv=None) -> int:
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth to this many layers (full width)")
     ap.add_argument("--engine", default="continuous", choices=["continuous", "wave"])
-    ap.add_argument("--mesh", default="1,1", help="data,model grid")
+    ap.add_argument("--mesh", default="1,1", help="data,model or pod,data,model grid")
     ap.add_argument("--comm-mode", default="smi",
                     choices=[*COMM_MODES, "smi:compressed", "bulk"])
     ap.add_argument("--requests", type=int, default=4)

@@ -1,10 +1,13 @@
 """Step builders (``repro.launch.steps``): the training step, the prefill
 step, the wave engine's decode step and the continuous engine's
-tensor-parallel runtime, for a model config and a ``(data, model)`` mesh.
+tensor-parallel runtime, for a model config and a ``(model,)``, ``(data,
+model)`` or ``(pod, data, model)`` mesh.
 
 The model axis's P ranks are stacked on one card (``mesh/api.py``).  The
-data axis's groups run beside that stack, one after another
-(``mesh.api.over_data_groups``): the batch is split over them where it
+data groups of the batch axes (``pod`` times ``data`` of them) run beside
+that stack, one after another (``mesh.api.run_groups``, each training
+group's forward and backward before the next's): the batch is split over
+them where it
 divides (training, prefill, ``build_serve``), and the serving slots are
 replicated over them (``build_continuous_serve``: slot scheduling is a
 global decision, so every group computes the same step, which the stack
@@ -24,7 +27,7 @@ vision model.
 from __future__ import annotations
 
 import dataclasses
-from contextlib import nullcontext as _nullcontext
+import functools
 
 import torch
 
@@ -38,12 +41,12 @@ from ..mesh.api import (
     grad_sync_fsdp,
     make_ctx,
     over_data_groups,
+    run_groups,
 )
 from ..models import gather_hidden, init_lm, lm_loss, lm_prefill, lm_specs, param_shapes
 from ..models.common import tree_flatten, tree_unflatten
 from ..models.transformer import check_remat
 from ..optim import adamw_init, adamw_update, clip_by_global_norm, cosine_warmup
-from ..parallel import ledger
 from ..serving.engine import local_step
 
 
@@ -139,9 +142,10 @@ def build_train(cfg: ModelConfig, shape: ShapeConfig, st: TrainSettings, *, mesh
     (``repro_torch.kernels.matmul.matmul``: kernel D, whose backward
     products are kernel D too).
 
-    ``mesh=(dp, P)`` splits the batch over ``dp`` data groups (the whole
-    batch to each when it does not split), which run one after another
-    beside the model-axis stack, the ledger paused after the first.  Each
+    ``mesh=(dp, P)`` (or ``(pod, data, P)``, ``dp = pod * data``) splits
+    the batch over ``dp`` data groups (the whole batch to each when it does
+    not split), which run one after another beside the model-axis stack,
+    each its forward and backward, the ledger paused after the first.  Each
     group's gradient of a leaf stored whole is its own (the group computes
     on an alias of the leaf) until the data ring sums it: over a
     ``"grad"`` channel under FSDP (``st.fsdp``, the reference's default;
@@ -181,25 +185,31 @@ def build_train(cfg: ModelConfig, shape: ShapeConfig, st: TrainSettings, *, mesh
         leaves = tree_flatten(params)
         dims = tree_flatten(plan) if plan is not None else [-1] * len(leaves)
         whole = [i for i, d in enumerate(dims) if d < 0]
+        sharded = [i for i, d in enumerate(dims) if d >= 0]
         n = args["tokens"].shape[0]
         m = n // dp if n % dp == 0 else n          # the whole batch to each group
-        aliases, total, ce_sum = [], 0.0, 0.0
-        for g, gctx in enumerate(gctxs):
+        # the groups' shares of the FSDP leaves' gradients, summed as they come
+        acc = [torch.zeros_like(leaves[i]) for i in sharded]
+
+        def group(g):
             own = list(leaves)
             for i in whole:                        # this group's own gradient
                 own[i] = leaves[i].detach().requires_grad_(True)
-            aliases.extend(own[i] for i in whole)
             rows = slice(g * m, g * m + m) if m < n else slice(0, n)
-            with ledger.paused() if g else _nullcontext():
-                loss, (ce, _) = loss_of(tree_unflatten(params, own), args, rows, gctx, use_kernel)
-            total = total + loss
-            ce_sum = ce_sum + ce.detach()
-        sharded = [p for p, d in zip(leaves, dims) if d >= 0]
-        got = iter(torch.autograd.grad(total, sharded + aliases))
-        out = [next(got) if d >= 0 else None for d in dims]
-        per_group = [[next(got) for _ in whole] for _ in gctxs]
+            loss, (ce, _) = loss_of(tree_unflatten(params, own), args, rows, gctxs[g],
+                                    use_kernel)
+            got = torch.autograd.grad(loss, [leaves[i] for i in sharded] +
+                                      [own[i] for i in whole])
+            for a, t in zip(acc, got):
+                a.add_(t)
+            return loss.detach(), ce.detach(), got[len(sharded):]
+
+        runs = run_groups(dp, group)
+        out = [None] * len(leaves)
+        for k, i in enumerate(sharded):
+            out[i] = acc[k]
         for k, i in enumerate(whole):              # (dp, ...): row g group g's
-            out[i] = torch.stack([gs[k] for gs in per_group])
+            out[i] = torch.stack([r[2][k] for r in runs])
         if plan is None:                           # the reference's bulk pmean: untallied
             out = [t.sum(0) / dp for t in out]
         else:
@@ -207,7 +217,9 @@ def build_train(cfg: ModelConfig, shape: ShapeConfig, st: TrainSettings, *, mesh
                                               compressed=st.compressed_grads,
                                               specs=lm_specs(cfg, ctx)))
             out = [t if d >= 0 else t[0] for t, d in zip(out, dims)]
-        return (total / dp).detach(), ce_sum / dp, tree_unflatten(params, out)
+        loss = functools.reduce(torch.add, (r[0] for r in runs))
+        ce = functools.reduce(torch.add, (r[1] for r in runs))
+        return loss / dp, ce / dp, tree_unflatten(params, out)
 
     def grads(params, batch, use_kernel=None):
         args = {k: torch.as_tensor(batch[k]).to(dev) for k in ispecs}
@@ -360,8 +372,8 @@ def build_continuous_serve(cfg: ModelConfig, *, mesh=None, comm_mode: str = "smi
 
     dev = resolve_device(device)
     fsdp = check_fsdp(fsdp, mesh, cfg.param_count())
-    # the data axis is the FSDP gather's alone: slots are not split over it
-    ctx = make_ctx(mesh, batch_axes=("data",) if fsdp else (), comm_mode=comm_mode,
+    # the batch axes are the FSDP gather's alone: slots are not split over them
+    ctx = make_ctx(mesh, batch_axes=None if fsdp else (), comm_mode=comm_mode,
                    plan=_layer_plan(cfg, comm_mode), device=dev)
     plan = _fsdp_plan(cfg, ctx, fsdp, mesh)
     pool = None

@@ -6,12 +6,15 @@ training step -> synthetic data pipeline -> checkpoints -> watchdog.
     python -m repro_torch.launch.train --arch yi-6b --smoke --device cpu --steps 3
     python -m repro_torch.launch.train --arch mamba2-2.7b --layers 16 --seq-len 4096 \
         --batch 2 --comm-mode smi:fused --compressed-grads --validate-comm
+    python -m repro_torch.launch.train --arch yi-6b --layers 4 --mesh 2,2,2 --seq-len 4096 \
+        --batch 4 --steps 2 --comm-mode smi:fused
 
 ``--smoke`` takes the arch's reduced config; ``--layers`` cuts the depth at
 full width (yi-6b's 32 layers with float32 AdamW state need 96 GB, more
 than one card holds).  Runs on ``cuda`` unless ``--device cpu``.  The mesh
-is ``data,model`` (``2,4`` unless named, as the reference's): the data
-groups split the batch, with the weights FSDP-stored over them, and
+is ``data,model`` (``2,4`` unless named, as the reference's) or
+``pod,data,model``: the ``pod x data`` groups split the batch, with the
+weights FSDP-stored over them, and
 ``--compressed-grads`` rings the gradients of the leaves stored whole over
 the int8 wire.  At tp > 1 on the card the tensor-parallel GEMMs are
 kernel D.
@@ -141,7 +144,7 @@ def main(argv=None) -> int:
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth to this many layers (full width)")
     ap.add_argument("--steps", type=int, default=50)
-    ap.add_argument("--mesh", default="2,4", help="data,model grid")
+    ap.add_argument("--mesh", default="2,4", help="data,model or pod,data,model grid")
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--comm-mode", default="smi", choices=list(COMM_MODES),

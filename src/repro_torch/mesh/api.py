@@ -11,8 +11,9 @@ The context selects
   a sum in one pass), the paper's host-orchestrated baseline;
 * ``comm_mode="none"`` — one device, tensor-parallel degree 1.
 
-A mesh is the tuple of its axis sizes, ``(data, model)`` (or ``(model,)``).
-Its model axis becomes a :class:`~repro_torch.core.Communicator` of P
+A mesh is the tuple of its axis sizes, right-aligned to :data:`MESH_AXES`:
+``(model,)``, ``(data, model)`` or ``(pod, data, model)`` (the reference's
+multi-pod layout, ``repro.launch.mesh``).  Its model axis becomes a :class:`~repro_torch.core.Communicator` of P
 ranks on a ring, stacked on one card as the leading dimension of every
 tensor (``core/comm.py``).  Sharding layout (TP over the model axis,
 Megatron-style with sequence parallelism): the residual stream is
@@ -25,7 +26,10 @@ GEMMs (``make_ctx(..., matmul_fn=repro_torch.kernels.matmul.matmul)``).
 table picks each layer call's backend; a launch's bare ``"smi"`` passes a
 config's ``comm_plan``).
 
-A data axis of more than one rank carries data groups: the batch is split
+The batch axes, ``"pod"`` and ``"data"`` where the mesh has them
+(:func:`batch_axes_of`), carry the data groups, ``dp`` their product: the
+``"dp"`` communicator is their torus, ``(pod, data)``, as the reference's
+``_dp_comm`` builds it.  More than one data group splits the batch
 over them (``build_serve``, ``build_prefill``) or the serving slots are
 replicated over them (``build_continuous_serve``).  On one card the groups
 run beside the model-axis rank stack, one after another, each on its own
@@ -52,6 +56,7 @@ pass, untallied, as the reference's ``lax.all_gather``/``lax.pmean`` do.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 from typing import Callable
 
@@ -60,8 +65,10 @@ import torch
 from ..core.comm import Communicator
 from ..transport.registry import resolve_comm_mode
 
-#: the mesh axes, outermost first
-MESH_AXES = ("data", "model")
+#: the mesh axes, outermost first; a shorter mesh tuple names the last ones
+MESH_AXES = ("pod", "data", "model")
+#: the axes that carry data groups (the reference's ``batch_axes_of``)
+BATCH_AXES = ("pod", "data")
 
 
 class PartitionSpec:
@@ -134,20 +141,24 @@ class ParallelCtx:
 
 
 def make_ctx(mesh=None, *, model_axis: str | None = "model",
-             batch_axes: tuple[str, ...] = ("data",), comm_mode: str = "bulk",
+             batch_axes: tuple[str, ...] | None = None, comm_mode: str = "bulk",
              matmul_fn=None, opt_shared_gather: bool = False, opt_ring_attn: bool = False,
              plan=None, device=None) -> ParallelCtx:
     """The context of a launch.  With no mesh, or a model axis of one rank,
     it is the tensor-parallel-degree-1 context whatever the comm mode (the
-    reference's, which drops ``matmul_fn`` there too); a data axis of more
-    than one rank gets its ``"dp"`` ring in an smi mode.  A model axis of P > 1
-    ranks gives a ring communicator of P ranks stacked on ``device``
-    (``cuda`` unless named)."""
+    reference's, which drops ``matmul_fn`` there too).  ``batch_axes``
+    defaults to every batch axis the mesh has (:func:`batch_axes_of`); more
+    than one data group gets its ``"dp"`` communicator in an smi mode, the
+    torus of those axes.  A model axis of P > 1 ranks gives a ring
+    communicator of P ranks stacked on ``device`` (``cuda`` unless named)."""
     base_mode, transport = resolve_comm_mode(comm_mode)
     mesh = None if mesh is None else tuple(int(n) for n in mesh)
     if mesh is not None and not 1 <= len(mesh) <= len(MESH_AXES):
-        raise ValueError(f"mesh {mesh}: give (data, model) or (model,) sizes")
+        raise ValueError(f"mesh {mesh}: give (pod, data, model), (data, model) or (model,) "
+                         f"sizes")
     sizes = mesh_sizes(mesh)
+    if batch_axes is None:
+        batch_axes = batch_axes_of(mesh)
     batch = tuple(a for a in batch_axes if a in sizes and a != model_axis)
     dp = 1
     for a in batch:
@@ -182,8 +193,24 @@ def make_ctx(mesh=None, *, model_axis: str | None = "model",
 
 
 def mesh_sizes(mesh) -> dict:
-    """``{axis name: size}`` of a ``(data, model)`` or ``(model,)`` mesh."""
+    """``{axis name: size}`` of a mesh tuple, right-aligned to
+    :data:`MESH_AXES`."""
     return {} if mesh is None else dict(zip(MESH_AXES[-len(mesh):], mesh))
+
+
+def batch_axes_of(mesh) -> tuple[str, ...]:
+    """The mesh's batch axes, outermost first: every one of ``"pod"`` and
+    ``"data"`` that it has (the reference's ``batch_axes_of``)."""
+    return tuple(a for a in BATCH_AXES if a in mesh_sizes(mesh))
+
+
+def data_groups(mesh) -> int:
+    """The number of data groups of a mesh: the product of its batch axes."""
+    sizes = mesh_sizes(mesh)
+    n = 1
+    for a in batch_axes_of(mesh):
+        n *= sizes[a]
+    return n
 
 
 def check_fsdp(fsdp, mesh, param_count: int) -> bool:
@@ -191,28 +218,55 @@ def check_fsdp(fsdp, mesh, param_count: int) -> bool:
     ``"auto"`` turns it on where one model shard's bfloat16 weights pass
     10 GB (counted from the config, ``param_count``; the reference's own
     count wraps in int32 on the largest leaves, ROADMAP.md §3).  FSDP
-    shards over the data axis, so it is off on a data axis of one rank."""
-    sizes = mesh_sizes(None if mesh is None else tuple(int(n) for n in mesh))
+    shards over the batch axes, so it is off where they hold one group."""
+    mesh = None if mesh is None else tuple(int(n) for n in mesh)
+    sizes = mesh_sizes(mesh)
     if fsdp == "auto":
         fsdp = (param_count / sizes.get("model", 1)) * 2 > 10e9
-    return bool(fsdp) and sizes.get("data", 1) > 1
+    return bool(fsdp) and data_groups(mesh) > 1
+
+
+#: a stand-in for running the data groups, ``runner(n, fn)`` returning the
+#: ``n`` groups' results (:func:`group_runner`); None runs them all
+_GROUP_RUNNER = None
+
+
+@contextlib.contextmanager
+def group_runner(runner):
+    """Within the block, :func:`run_groups` hands its groups to
+    ``runner(n, fn)``; ``None`` restores its own way."""
+    global _GROUP_RUNNER
+    prev, _GROUP_RUNNER = _GROUP_RUNNER, runner
+    try:
+        yield
+    finally:
+        _GROUP_RUNNER = prev
+
+
+def run_groups(n: int, fn) -> list:
+    """``[fn(0), ..., fn(n - 1)]``: each data group's program, one after
+    another.  Only the first group tallies into an active ledger capture:
+    every group runs the same program, whose traffic the reference's
+    ledger records once."""
+    if _GROUP_RUNNER is not None:
+        return _GROUP_RUNNER(n, fn)
+    from ..parallel import ledger
+
+    out = [fn(0)]
+    with ledger.paused():
+        out.extend(fn(g) for g in range(1, n))
+    return out
 
 
 def over_data_groups(ctx, n_rows: int, fn):
     """Run ``fn(g, rows)`` for each of ``ctx.dp`` data groups ``g``,
     ``rows`` the group's ``slice`` of ``n_rows`` batch rows (the whole
     batch, once, by group 0, when it does not split evenly: the reference
-    then replicates it), and return the list of results.  Only the first
-    group tallies into an active ledger capture: every group runs the same
-    program, whose traffic the reference's ledger records once."""
-    from ..parallel import ledger
-
+    then replicates it), and return the list of results
+    (:func:`run_groups`)."""
     dp = ctx.dp if n_rows % ctx.dp == 0 else 1
     m = n_rows // dp
-    out = [fn(0, slice(0, m))]
-    with ledger.paused():
-        out.extend(fn(g, slice(g * m, (g + 1) * m)) for g in range(1, dp))
-    return out
+    return run_groups(dp, lambda g: fn(g, slice(g * m, (g + 1) * m)))
 
 
 # --------------------------------------------------------------------- FSDP
@@ -231,15 +285,19 @@ def fsdp_dim_for(shape, model_spec, dp: int, *, skip_dim0: bool = False) -> int:
     return -1
 
 
-def build_fsdp_plan(param_shapes, param_specs, mesh, batch_axes=("data",)):
+def build_fsdp_plan(param_shapes, param_specs, mesh, batch_axes=None):
     """A tree of FSDP dims (int; ``-1`` replicated) shaped as the params:
     ``param_shapes`` the global leaves (tensors, or anything with a
     ``shape``, e.g. :func:`~repro_torch.models.param_shapes`'), their
-    ``param_specs`` the model layout.  A ``"periods"`` leaf's dim 0 is the
-    layer dimension and is never sharded."""
+    ``param_specs`` the model layout, sharded over ``batch_axes`` (the
+    mesh's, :func:`batch_axes_of`, unless named).  A ``"periods"`` leaf's
+    dim 0 is the layer dimension and is never sharded."""
     from ..models.common import tree_map_specs
 
-    sizes = mesh_sizes(None if mesh is None else tuple(int(n) for n in mesh))
+    mesh = None if mesh is None else tuple(int(n) for n in mesh)
+    if batch_axes is None:
+        batch_axes = batch_axes_of(mesh)
+    sizes = mesh_sizes(mesh)
     dp = 1
     for a in batch_axes:
         dp *= sizes.get(a, 1)

@@ -95,11 +95,11 @@ class _ShapesOnly:
     device = torch.device("meta")
 
 
-def param_shapes(cfg, ctx=None):
+def param_shapes(cfg, ctx=None, dtype=None):
     """:func:`init_lm`'s global leaves on the ``meta`` device (shapes and
     dtypes, no storage; the reference's ``jax.eval_shape(init_lm)``), for
-    :func:`~repro_torch.mesh.api.build_fsdp_plan`."""
-    return init_lm(cfg, _ShapesOnly(), device="meta", ctx=ctx)
+    :func:`~repro_torch.mesh.api.build_fsdp_plan` and the dry run."""
+    return init_lm(cfg, _ShapesOnly(), device="meta", dtype=dtype, ctx=ctx)
 
 
 _FSDP_TOP = ("embed", "head", "embed_cb", "head_cb", "final_norm")

@@ -111,10 +111,11 @@ def shift_accumulate_plain(x: torch.Tensor, addend: torch.Tensor,
     """The plain PyTorch version of the gather-fused kernel, ``ppermute``
     then add written out: row ``r`` is ``x[src_idx[r]] + addend[r]``, and
     ``0 + addend[r]`` (a real add of zero, so -0.0 becomes +0.0) where
-    ``src_idx[r] < 0``."""
-    shifted = torch.zeros_like(x)
-    recv = src_idx >= 0
-    shifted[recv] = x[src_idx[recv].long()]
+    ``src_idx[r] < 0`` (selected without a boolean mask, whose size
+    would depend on the data: the meta device runs it too)."""
+    recv = (src_idx >= 0).view((-1,) + (1,) * (x.dim() - 1))
+    shifted = torch.where(recv, x.index_select(0, src_idx.clamp_min(0).long()),
+                          torch.zeros((), dtype=x.dtype, device=x.device))
     return shifted + addend
 
 
@@ -214,15 +215,21 @@ class FusedTransport(StaticTransport):
     def accumulate(self, a, b):
         """Every reduction-combine the collective layer routes through
         :meth:`Transport.accumulate` (the rooted folds) lands on the add
-        kernel."""
+        kernel (the plain add on the dry run's ``meta`` tensors, shapes
+        only: the kernel has no meta mode)."""
         self._check(a)
+        if a.is_meta:
+            return accumulate_plain(a, b)
         return fused_accumulate(a.contiguous(), b.contiguous())
 
     def shift_accumulate(self, x, addend, comm, step: int = 1):
         """``shift(x) + addend`` in one launch: tallies one step carrying one
         rank row of ``x``, as :meth:`StaticTransport.permute` does for the
-        shift, so the stats equal the static backend's."""
+        shift, so the stats equal the static backend's (the plain version on
+        ``meta`` tensors)."""
         self._check(x)
         self.account(x)
         src = source_index(tuple(comm.ring_perm(step)), x.shape[0], x.device)
+        if x.is_meta:
+            return shift_accumulate_plain(x, addend, src)
         return fused_shift_accumulate(x.contiguous(), addend.contiguous(), src)

@@ -4,7 +4,9 @@
 
 * **the plan** -- ``build_fsdp_plan``, ``fsdp_storage_specs`` and
   ``opt_specs`` equal the reference's leaf for leaf, for the six model
-  families at full size on (2, 4), (4, 2), (2, 1) and (8, 1);
+  families at full size on (2, 4), (4, 2), (2, 1) and (8, 1), and over
+  the pod axis on (2, 2, 2) and the multi-pod (2, 16, 16) (the reference's
+  mesh a stand-in there: its plan reads only the axis names and sizes);
 * **the rings** -- ``fsdp_allgather`` and ``grad_allreduce`` over the
   ``"dp"`` communicator equal the reference's under ``shard_map`` on the
   static wire (its fused and packet wires fail under ``shard_map`` on jax
@@ -24,6 +26,7 @@
 from __future__ import annotations
 
 import functools
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -37,7 +40,7 @@ from repro import configs as ref_configs
 from repro.core import Communicator as RefComm
 from repro.core import make_test_mesh, run_spmd
 from repro.launch import steps as ref_steps
-from repro.launch.mesh import make_mesh
+from repro.launch.mesh import batch_axes_of, make_mesh
 from repro.mesh import api as ref_api
 from repro.models import init_lm as ref_init_lm
 from repro.models import lm_specs as ref_lm_specs
@@ -60,19 +63,30 @@ pytestmark = pytest.mark.usefixtures("one_thread")
 
 ARCHS = ("yi-6b", "mamba2-2.7b", "qwen3-moe-30b-a3b", "recurrentgemma-9b", "internvl2-1b",
          "musicgen-medium")
-MESHES = ((2, 4), (4, 2), (2, 1), (8, 1))
+MESHES = ((2, 4), (4, 2), (2, 1), (8, 1), (2, 2, 2), (2, 16, 16))
+
+
+def _ref_mesh(mesh):
+    """The reference's mesh: a jax mesh of the host devices over (data,
+    model), or over (pod, data, model) a stand-in with its axis names and
+    sizes (the multi-pod layout needs 512 devices)."""
+    if len(mesh) == 2:
+        return make_mesh(mesh, ("data", "model"))
+    return SimpleNamespace(axis_names=("pod", "data", "model"),
+                           devices=SimpleNamespace(shape=tuple(mesh)))
 
 
 @functools.lru_cache(maxsize=None)
 def _ref_layout(arch, mesh):
     """The reference's global param shapes, model specs and FSDP plan of
-    ``arch`` at full size on ``mesh``."""
+    ``arch`` at full size on ``mesh``, over its batch axes."""
     cfg = ref_configs.get_arch(arch)
-    m = make_mesh(mesh, ("data", "model"))
-    ctx = ref_api.make_ctx(m, comm_mode="smi:static")
+    m = _ref_mesh(mesh)
+    axes = batch_axes_of(m)
+    ctx = ref_api.make_ctx(m, batch_axes=axes, comm_mode="smi:static")
     shapes = jax.eval_shape(lambda: ref_init_lm(jax.random.PRNGKey(0), cfg, ctx))
     specs = ref_lm_specs(cfg, ctx)
-    plan = ref_api.build_fsdp_plan(shapes, specs, m, ("data",))
+    plan = ref_api.build_fsdp_plan(shapes, specs, m, axes)
     return m, shapes, specs, plan
 
 
@@ -90,12 +104,14 @@ def test_plan_storage_and_opt_specs_equal_reference(arch, mesh):
     shapes, specs = param_shapes(cfg, ctx), lm_specs(cfg, ctx)
     assert [tuple(t.shape) for t in tree_flatten(shapes)] == \
         [tuple(t.shape) for t in jax.tree.leaves(ref_shapes)]
-    plan = api.build_fsdp_plan(shapes, specs, mesh, ctx.batch_axes)
+    axes = ctx.batch_axes
+    assert axes == batch_axes_of(m)
+    plan = api.build_fsdp_plan(shapes, specs, mesh, axes)
     assert tree_flatten(plan) == jax.tree.leaves(ref_plan)
-    got = [tuple(s) for s in tree_flatten(api.fsdp_storage_specs(specs, plan, ("data",)))]
-    assert got == _spec_list(ref_api.fsdp_storage_specs(ref_specs, ref_plan, ("data",)))
-    got = opt_specs(specs, mesh, shapes)
-    want = ref_opt_specs(ref_specs, m, ref_shapes)
+    got = [tuple(s) for s in tree_flatten(api.fsdp_storage_specs(specs, plan, axes))]
+    assert got == _spec_list(ref_api.fsdp_storage_specs(ref_specs, ref_plan, axes))
+    got = opt_specs(specs, mesh, shapes, axes)
+    want = ref_opt_specs(ref_specs, m, ref_shapes, axes)
     assert [tuple(s) for s in tree_flatten(got["m"])] == _spec_list(want["m"])
     assert tuple(got["step"]) == tuple(want["step"])
 
