@@ -209,7 +209,7 @@ non-zero):
     form; over ``smi:fused`` bit-equal with A launched once a reduce-scatter
     ring step (455); F gated layer by layer (row cosine >= 0.999 against the plain
     scan) and in float32 end to end (against the plain scan and tp = 1);
-32. ``launch.serve --arch mamba2-2.7b --mesh 1,8 --layers 16`` (cut to 16
+32. ``launch.serve --arch mamba2-2.7b --mesh 1,8 --layers 8`` (cut to 8
     of 64 layers: :data:`SERVE_LAYERS`): phase 14's requests,
     both engines on ``smi:static`` and the bare ``smi``, tokens equal
     across the four runs; a
@@ -227,7 +227,7 @@ non-zero):
     with tp = 1 reported; then a float32 copy cut to 4 layers (256 tokens):
     the chosen experts equal to tp = 1's and the hidden states within 3e-4
     rtol/atol;
-35. ``launch.serve --arch qwen3-moe-30b-a3b --layers 6`` (cut to 6 of
+35. ``launch.serve --arch qwen3-moe-30b-a3b --layers 4`` (cut to 4 of
     48 layers: :data:`SERVE_LAYERS`) at tp = 1 (both engines) and at ``--mesh 1,8``
     (both engines, on ``smi:static`` and the bare ``smi``): tokens equal across the runs at each tp; the pinned fused
     decode as phase 32's; ms a decode step beside tp = 1, the idle share,
@@ -250,7 +250,7 @@ non-zero):
     tp = 1 reported; then a float32 copy cut to 5 layers (256 tokens)
     within 3e-4 rtol/atol of the plain tp = 1 prefill and of the plain
     attention at P = 8;
-39. ``launch.serve --arch recurrentgemma-9b --layers 11`` (3 periods and
+39. ``launch.serve --arch recurrentgemma-9b --layers 5`` (a period and
     the 2 remainder layers of 38: :data:`SERVE_LAYERS`) at tp = 1 and
     ``--mesh 1,8``
     (both engines; at P = 8 on ``smi:static`` and the bare ``smi``): tokens
@@ -262,7 +262,7 @@ non-zero):
     turns (E 24 and 24, D 960, A 343 over ``smi:fused``); a float32 copy at
     4 layers whose patch positions' embeddings are bit-equal at tp = 1 and
     P = 8 and whose hidden states lie within 3e-4; served at ``--mesh 1,8
-    --layers 6`` (6 of 24 layers: :data:`SERVE_LAYERS`; both engines, on
+    --layers 4`` (4 of 24 layers: :data:`SERVE_LAYERS`; both engines, on
     ``smi:static`` and the bare ``smi``, tokens equal
     across the four runs); a pinned ``smi:fused`` decode bit-equal to
     ``smi:static`` over 2 steps; and a float32 copy served at P = 8 and
@@ -271,8 +271,8 @@ non-zero):
     prefilled at tp = 1 and P = 8 in turns (E 48 and 48, D 1,536, A 679
     over ``smi:fused``); a pinned ``smi:fused`` decode bit-equal to
     ``smi:static``; served at tp = 1 and ``--mesh 1,8`` (both engines; at
-    P = 8 on ``smi:static`` and the bare ``smi``; ``--layers 6``, cut to
-    6 of 48 layers: :data:`SERVE_LAYERS`), a list of 4 tokens a step, equal across
+    P = 8 on ``smi:static`` and the bare ``smi``; ``--layers 4``, cut to
+    4 of 48 layers: :data:`SERVE_LAYERS`), a list of 4 tokens a step, equal across
     the runs at each tp; A's launches a step;
 42. ``launch.serve --validate-comm`` over ``smi:static`` for
     recurrentgemma-9b and musicgen-medium at ``1,8`` and ``2,4`` and
@@ -382,7 +382,25 @@ non-zero):
     equal to netsim's prediction, each step's loss bit-equal to ``4,2``'s;
     ms a step of each in turns, and A's, D's and E's launches a step; then
     yi-6b in float32 at both meshes on the same rows: the loss bit-equal,
-    every stored gradient leaf within 1e-5 of its largest magnitude.
+    every stored gradient leaf within 1e-5 of its largest magnitude;
+59. the ranks as processes (``repro_torch.core.spmd``): one spawn of 8
+    rank processes, each its own CUDA context on the card, the steps
+    between them through mailboxes they map from each other by CUDA IPC:
+    (a) the 2x4 stencil at 8192x8192 float32, 8 steps, overlapped and not,
+    through ``launch.stencil``'s process-mode run, in turns with the
+    stacked run on one world: every run bit-equal to the stacked run's
+    and to the single-rank sweep, B launched in every process, the
+    ``halo`` steps and bytes the stacked run's, wall a step; (b) ``allreduce`` and ``reduce_scatter`` of 8 x 16 Mi float32
+    on ring(1x8) and torus(2x4) over ``smi:static`` and ``smi:fused``, each
+    process's rows bit-equal to the stacked ``smi:static`` run's with equal
+    counters, A launched in the processes on ``smi:fused``, ms a call in
+    turns with the stacked runs; (c) ``launch.channels.latency`` over
+    static and fused at 1, 4 and 7 hops with phase 21's checks, µs a
+    transfer and a pop (a loop of 32 elements) in turns with the stacked
+    runs; then ``launch.stencil --ranks process --procs 2`` (4 ranks a
+    process, spawned beside the 8) at (a)'s cell, overlapped, bit-equal to
+    the single-rank sweep.  Each process's start-up and peak device memory
+    printed; phase 1 prints the card's compute mode.
 
 Earlier phases that time or check one schedule pass ``plan=None``.
 
@@ -414,7 +432,8 @@ raw steps), D's ``launches_remat_recompute`` by policy and
 ``launches_traced_allreduce``, and D's and E's
 ``launches_captured_serve``; phase 58's are ``launches_pod_train_step`` on
 E's and D's rows and A's ``launches_pod_train_step_fused``, a step's at
-``2,2,2``), each
+``2,2,2``; phase 59's, counted in each rank process and summed, are B's
+``launches_process_stencil`` and A's ``launches_process_allreduce``), each
 with the path its kernel ran (``simt``, ``vector``, ``warp``,
 ``thread``, ``fma`` or ``wgmma``); the rows of A, C, E, F's wgmma path and
 D add ``ms_before``, the time in this run of the kernel their calls ran
@@ -664,6 +683,11 @@ def phase_build():
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60)
+    # phase 59's rank processes each need a context on the card: an
+    # Exclusive_Process card refuses all but one
+    log(f"compute mode: {mode.stdout.strip().splitlines()[0]}")
     t0 = time.perf_counter()
     proc, smoke = _start_smoke_build()
     lib = build.build()
@@ -2928,9 +2952,10 @@ def _a_launches() -> dict:
 #: inside its time limit: decode is host-bound, so a run's time goes with
 #: its layers (halved again with the tooling's phases 53-55, when a whole
 #: run at the earlier depths took 1261.6 s on a slow host, and yi-6b's,
-#: qwen3-moe's and musicgen's once more with the planning phases 56-58)
-SERVE_LAYERS = {"yi-6b": 4, "mamba2-2.7b": 16, "qwen3-moe-30b-a3b": 6,
-                "recurrentgemma-9b": 11, "internvl2-1b": 6, "musicgen-medium": 6}
+#: qwen3-moe's and musicgen's once more with the planning phases 56-58,
+#: and all but yi-6b's once more with the rank processes of phase 59)
+SERVE_LAYERS = {"yi-6b": 4, "mamba2-2.7b": 8, "qwen3-moe-30b-a3b": 4,
+                "recurrentgemma-9b": 5, "internvl2-1b": 4, "musicgen-medium": 4}
 
 
 def _launcher_runs(arch: str, mesh: str, wires, extra=()) -> tuple[dict, dict]:
@@ -6033,6 +6058,322 @@ def phase_pod_axis(dev) -> tuple[dict, dict]:
     return res, per_step['pod']
 
 
+# -- ranks as processes (slice 15) --------------------------------------------------------
+
+#: phase 59: the rank processes of the 8-rank testbed, one a rank, on the card
+SPMD_PROCS = 8
+SPMD_STEPS = 8
+SPMD_DOMAIN = (8192, 8192)
+SPMD_STENCIL_ARGS = ["--grid", "2x4", "--domain", "x".join(map(str, SPMD_DOMAIN)), "--steps",
+                     str(SPMD_STEPS), "--comm-mode", "smi:static"]
+SPMD_REDUCTIONS = ("allreduce", "reduce_scatter")
+SPMD_LAYOUTS = {"ring(1x8)": (("x",), (8,)), "torus(2x4)": (("x", "y"), DIMS)}
+SPMD_WIRES = ("static", "fused")
+SPMD_REPS = 3
+#: elements a push/pop loop of phase 59 (c) delivers (phase 21: 64)
+SPMD_POPS = 32
+#: a slot holds the largest step of the phase: an all-reduce's ring block
+SPMD_SLOT_BYTES = REDUCE_ELEMS // P * 4 + (64 << 10)
+
+
+def _spmd_reduce(name: str, x, comm, t):
+    from repro_torch.core.collectives import allreduce, stream_reduce_scatter
+
+    if name == "allreduce":
+        return allreduce(x, comm, plan=None, transport=t)
+    return stream_reduce_scatter(x, comm, transport=t)
+
+
+def _spmd_reduce_rank(comm, *, xs, wants, reps: int) -> dict:
+    """Phase 59 (b) in a rank process: its rows of ``xs`` (the parent's
+    rank-stacked input, mapped from the parent's memory) through each
+    reduction of :data:`SPMD_REDUCTIONS` over each wire, held bit for bit
+    against its rows of the stacked ``smi:static`` result in ``wants``
+    (mapped too); the counters, kernel A's launches, and with ``reps`` the
+    stamps around that many timed calls of each."""
+    import torch
+
+    from repro_torch.core.spmd import block_clock
+    from repro_torch.transport import get_transport
+    from repro_torch.transport.fused import fused_accumulate, fused_shift_accumulate
+
+    lo, hi = comm.lo, comm.lo + comm.n_local
+    x = xs[lo:hi]
+    out = {}
+    for name in SPMD_REDUCTIONS:
+        for wire in SPMD_WIRES:
+            t = get_transport(wire, device=comm.device)
+            before = (fused_accumulate.launches, fused_shift_accumulate.launches)
+            y = _spmd_reduce(name, x, comm, t)
+            if y.is_cuda:
+                torch.cuda.synchronize()
+            r = {"equal": same_bits(y, wants[name][lo:hi]),
+                 "finite": bool(torch.isfinite(y).all()),
+                 "stats": (t.stats.steps, t.stats.bytes_moved),
+                 "launches": (fused_accumulate.launches - before[0],
+                              fused_shift_accumulate.launches - before[1])}
+            del y
+            if reps:
+                def fn(t=t, name=name):
+                    _spmd_reduce(name, x, comm, t)
+
+                fn()
+                t0 = block_clock(comm)
+                for _ in range(reps):
+                    fn()
+                r["stamps"] = (t0, block_clock(comm))
+            out[f"{name}/{wire}"] = r
+    return out
+
+
+def _spmd_reductions(grp, dev) -> dict:
+    """Phase 59 (b): the reductions of 8 x 16 Mi float32 on the rank
+    processes against the stacked ``smi:static`` run, bit for bit with equal
+    counters, A launched in the processes on ``smi:fused``; ms of each
+    beside the stacked run's, in turns (stacked, process, process,
+    stacked)."""
+    import torch
+
+    from repro_torch.core import Communicator
+    from repro_torch.transport import get_transport
+
+    g = torch.Generator(device=dev).manual_seed(59)
+    xs = torch.randn((P, REDUCE_ELEMS), generator=g, device=dev)
+    res, launches = {}, 0
+    for layout, (names, sizes) in SPMD_LAYOUTS.items():
+        comm = Communicator.create(names, sizes, device=dev)
+        comm_args = {"axis_names": names, "axis_sizes": sizes}
+        wants, stats = {}, {}
+        for name in SPMD_REDUCTIONS:
+            t = get_transport("static", device=dev)
+            wants[name] = _spmd_reduce(name, xs, comm, t)
+            stats[name] = (t.stats.steps, t.stats.bytes_moved)
+        torch.cuda.synchronize()
+        checked = grp.run(_spmd_reduce_rank, comm_args, xs=xs, wants=wants, reps=0)
+        for key, r in checked.items():
+            name, wire = key.split("/")
+            what = f"ranks as processes: {name} on {layout} over smi:{wire}"
+            if r["equal"] != [True] * SPMD_PROCS or r["finite"] != [True] * SPMD_PROCS:
+                raise AssertionError(f"{what}: not bit-equal to the stacked smi:static "
+                                     f"({r['equal']}, finite {r['finite']})")
+            if r["stats"] != [stats[name]] * SPMD_PROCS:
+                raise AssertionError(f"{what}: counters {r['stats']} != the stacked "
+                                     f"{stats[name]}")
+            folds = [f for f, _ in r["launches"]]
+            if any(s for _, s in r["launches"]):
+                raise AssertionError(f"{what}: the gather-fused form ran in a rank process "
+                                     f"({r['launches']}); its gather cannot see a peer's rows")
+            if wire == "fused" and min(folds) == 0 and xs.is_cuda:
+                raise AssertionError(f"{what}: a rank process never launched kernel A "
+                                     f"({r['launches']})")
+            if wire == "static" and max(folds) > 0:
+                raise AssertionError(f"{what}: kernel A launched on the static wire")
+            if wire == "fused" and name == "allreduce":
+                launches += sum(folds)
+        log(f"ranks as processes: {', '.join(SPMD_REDUCTIONS)} on {layout} over smi:static "
+            f"and smi:fused bit-equal to the stacked smi:static in every process, counters "
+            f"equal ({stats}); kernel A {[f for f, _ in checked['allreduce/fused']['launches']]} "
+            f"launches a process on the fused all-reduce")
+        del checked
+        turns = {k: {"stacked": [], "process": []} for k in
+                 (f"{n}/{w}" for n in SPMD_REDUCTIONS for w in SPMD_WIRES)}
+        for mode in ("stacked", "process", "process", "stacked"):
+            if mode == "stacked":
+                for key in turns:
+                    name, wire = key.split("/")
+                    t = get_transport(wire, device=dev)
+                    turns[key][mode].append(time_ms(lambda: _spmd_reduce(name, xs, comm, t),
+                                                    reps=SPMD_REPS, warmup=1))
+            else:
+                timed = grp.run(_spmd_reduce_rank, comm_args, xs=xs, wants=wants,
+                                reps=SPMD_REPS)
+                for key, r in timed.items():
+                    stamps = r["stamps"]
+                    turns[key][mode].append((max(b for _, b in stamps)
+                                             - min(a for a, _ in stamps)) * 1e3 / SPMD_REPS)
+        for key, tk in turns.items():
+            row = {m: sum(v) / len(v) for m, v in tk.items()} | {"turns_ms": tk}
+            res[f"{key.split('/')[0]}/{layout}/smi:{key.split('/')[1]}"] = row
+            log(f"ranks as processes: {key} on {layout}: {row['process']:.4f} ms a call "
+                f"against {row['stacked']:.4f} stacked ({row['process'] / row['stacked']:.2f}x; "
+                f"turns {tk['stacked'][0]:.4f}, {tk['process'][0]:.4f}, "
+                f"{tk['process'][1]:.4f}, {tk['stacked'][1]:.4f})")
+        del wants
+    del xs
+    torch.cuda.empty_cache()
+    return {"ms": res, "launches_a_allreduce": launches}
+
+
+def _spmd_stencil(grp, dev) -> dict:
+    """Phase 59 (a): the 2x4 stencil at 8192x8192, 8 steps, overlapped and
+    not, through the launcher's process-mode run (``launch.stencil
+    run_process``: a first run, then a timed run between barrier-aligned
+    stamps) on ``grp``'s processes and stacked, in turns (stacked, process,
+    process, stacked) on one world made on the card: every run's tiles
+    bit-equal to the first stacked run's and to the single-rank sweep, its
+    timed run's to its first, B launched in every process on the overlapped
+    schedule, the ``halo`` steps and bytes the stacked run's; wall a step."""
+    import torch
+
+    from repro_torch.apps import HALO_TAG, DistributedStencil
+    from repro_torch.launch.stencil import run_process
+
+    app = DistributedStencil.create(DIMS, comm_mode="smi:static", device=dev)
+    g = torch.Generator(device=dev).manual_seed(59)
+    world = torch.randn(SPMD_DOMAIN, generator=g, device=dev)
+    tiles = app.scatter(world)
+    single = app.single_rank_reference(world, SPMD_STEPS)
+
+    def stacked(overlapped: bool) -> dict:
+        tp = app.halo_schedule.resolve_transport(tiles)
+        got = app.run(tiles, SPMD_STEPS, overlapped=overlapped, transport=tp)
+        halo = tp.stats.tag_counts(HALO_TAG)
+        tp.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timed = app.run(tiles, SPMD_STEPS, overlapped=overlapped, transport=tp)
+        torch.cuda.synchronize()
+        return {"got": got, "timed": timed, "halo": halo, "wall": time.perf_counter() - t0,
+                "halo_timed": tp.stats.tag_counts(HALO_TAG)}
+
+    out = {}
+    for sched in ("overlapped", "reference"):
+        overlapped = sched == "overlapped"
+        runs, first = {"stacked": [], "process": []}, None
+        for mode in ("stacked", "process", "process", "stacked"):
+            r = stacked(overlapped) if mode == "stacked" else run_process(
+                grp, app, tiles, SPMD_STEPS, overlapped, "smi:static", None)
+            first = r if first is None else first
+            what = f"stencil {sched} ({mode}, {grp.n_procs} processes)"
+            if not (same_bits(app.gather(r["got"]), single) and same_bits(r["got"], first["got"])
+                    and same_bits(r["timed"], r["got"])):
+                raise AssertionError(f"{what}: tiles differ from the single-rank sweep or the "
+                                     f"stacked run")
+            if r["halo"] != first["halo"] or r["halo_timed"] != first["halo"]:
+                raise AssertionError(f"{what}: halo {r['halo']}, {r['halo_timed']} against "
+                                     f"the stacked {first['halo']}")
+            if mode == "process" and overlapped and tiles.is_cuda and min(r["launches_b"]) == 0:
+                raise AssertionError(f"{what}: a rank process never launched kernel B "
+                                     f"({r['launches_b']})")
+            runs[mode].append({"ms": r["wall"] * 1e3 / SPMD_STEPS,
+                               "launches_b": r.get("launches_b"), "peaks": r.get("peaks")})
+            del r
+        ms = {m: [v["ms"] for v in rs] for m, rs in runs.items()}
+        b = [v["launches_b"] for v in runs["process"]]
+        out[sched] = {"ms_per_step": {m: sum(v) / len(v) for m, v in ms.items()},
+                      "turns_ms": ms, "halo": list(first["halo"]), "launches_b": b,
+                      "peak_bytes": runs["process"][-1]["peaks"]}
+        log(f"ranks as processes: stencil {sched} at {grp.n_procs} processes, {SPMD_STEPS} "
+            f"steps: ms a step {out[sched]['ms_per_step']['process']:.4f} against "
+            f"{out[sched]['ms_per_step']['stacked']:.4f} stacked (turns {ms}); every run "
+            f"bit-equal to the stacked run and the single-rank sweep; halo {first['halo']} a "
+            f"rank as stacked; kernel B launches a process {b[0]}; peak bytes a process "
+            f"{runs['process'][-1]['peaks']}")
+        del first
+    return out
+
+
+def _spmd_stencil_launcher(grp) -> dict:
+    """Phase 59 (a) at ``grp``'s layout through the launcher itself
+    (``launch.stencil --ranks process``, overlapped): bit-equal to the
+    single-rank sweep, B launched in every process; wall a step."""
+    from repro_torch.launch import stencil as launch_stencil
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "process.json")
+        rc = launch_stencil.main([*SPMD_STENCIL_ARGS, "--ranks", "process", "--procs",
+                                  str(grp.n_procs), "--json", path], group=grp)
+        r = json.loads(Path(path).read_text())
+    on_card = grp.devices[0].type == "cuda"  # a CPU rehearsal runs plain versions
+    if rc != 0 or not r["ok"] or r["max_err"] != 0.0 or (on_card and min(r["launches_b"]) == 0):
+        raise AssertionError(f"stencil overlapped at {grp.n_procs} processes: rc={rc} {r}")
+    log(f"ranks as processes: launch.stencil --ranks process --procs {grp.n_procs}: "
+        f"{r['wall_per_step_s'] * 1e3:.4f} ms a step, bit-equal to the single-rank sweep, halo "
+        f"({r['halo_steps']}, {r['halo_bytes_per_rank']}), kernel B launches a process "
+        f"{r['launches_b']}")
+    return {"ms_per_step": r["wall_per_step_s"] * 1e3, "launches_b": r["launches_b"],
+            "halo": [r["halo_steps"], r["halo_bytes_per_rank"]], "peak_bytes": r["peak_bytes"]}
+
+
+def _spmd_latency(grp, dev) -> dict:
+    """Phase 59 (c): ``launch.channels.latency`` over static and fused at 1,
+    4 and 7 hops, the checks of phase 21 (delivery bit for bit, the first
+    element on the hops-th pop, every one of :data:`SPMD_POPS` delivered),
+    stacked and with the ranks as
+    ``grp``'s processes in turns; µs a transfer and a pop."""
+    from repro_torch.launch.channels import PROCESS_LAT_WIRES, _line, latency
+
+    rows = {"stacked": [], "process": []}
+    for mode in ("stacked", "process", "process", "stacked"):
+        rows[mode].append(latency(dev, PROCESS_LAT_WIRES, count=SPMD_POPS, reps=10,
+                                  group=grp if mode == "process" else None))
+    out = {}
+    for i, row in enumerate(rows["process"][0]):
+        key = f"hops={row['hops']}/{row['wire']}"
+        out[key] = {m: {k: sum(r[i][k] for r in rs) / len(rs)
+                        for k in ("us_per_transfer", "us_per_pop")} for m, rs in rows.items()}
+        log(_line(row) + f"; stacked in turns {out[key]['stacked']['us_per_transfer']:.2f} "
+            f"us/transfer, {out[key]['stacked']['us_per_pop']:.2f} us/pop; process mean "
+            f"{out[key]['process']['us_per_transfer']:.2f}, "
+            f"{out[key]['process']['us_per_pop']:.2f}")
+    return out
+
+
+def phase_spmd(dev) -> dict:
+    """Phase 59: the ranks as processes on the card.  One spawn of 8 rank
+    processes (one a rank, each its own CUDA context on the card) serves
+    (a) the stencil, (b) the reductions and (c) channel latency; a group of
+    2 processes of 4 ranks, spawned beside it (the two spawns' imports
+    overlap), then runs the stencil launcher.  Prints each process's
+    start-up (context, mailboxes) and peak device memory."""
+    from concurrent.futures import ThreadPoolExecutor
+    from contextlib import ExitStack
+
+    import torch
+
+    from repro_torch.core import SpmdGroup
+
+    res = {}
+    t0 = time.perf_counter()
+    free0 = torch.cuda.mem_get_info(dev)[0]
+    with ExitStack() as stack, ThreadPoolExecutor(1) as pool:
+        pending = pool.submit(SpmdGroup, 2, P, device=dev, slot_bytes=SPMD_SLOT_BYTES)
+        grp = stack.enter_context(SpmdGroup(SPMD_PROCS, P, device=dev,
+                                            slot_bytes=SPMD_SLOT_BYTES))
+        grp2 = stack.enter_context(pending.result())
+        res["spawn_s"] = time.perf_counter() - t0
+        # what the processes took of the card beyond their mailboxes: each
+        # one's CUDA context (and its share of the kernels' modules)
+        startup = grp.startup + grp2.startup
+        taken = free0 - torch.cuda.mem_get_info(dev)[0]
+        res["context_bytes"] = (taken - sum(s["device_bytes"] or 0 for s in startup)) \
+            / len(startup)
+        for i, s in enumerate(startup):
+            log(f"ranks as processes: process {i % SPMD_PROCS} of "
+                f"{SPMD_PROCS if i < SPMD_PROCS else 2} ready in {s['start_s']:.3f} s (its "
+                f"CUDA context and 2 x {SPMD_SLOT_BYTES} B a rank of mailbox), "
+                f"{s['device_bytes']} B on the card")
+        log(f"ranks as processes: {SPMD_PROCS} + 2 processes spawned and mapped in "
+            f"{res['spawn_s']:.1f} s; the card's free memory fell {taken} B: "
+            f"{res['context_bytes']:.0f} B a process beyond its mailbox (its context)")
+        t = time.perf_counter()
+        res["stencil"] = _spmd_stencil(grp, dev)
+        log(f"phase 59 (a): {time.perf_counter() - t:.1f}s")
+        t = time.perf_counter()
+        res["reductions"] = _spmd_reductions(grp, dev)
+        log(f"phase 59 (b): {time.perf_counter() - t:.1f}s")
+        for i, p in enumerate(grp.peaks):
+            log(f"ranks as processes: process {i} peak device memory {p} B in the timed "
+                f"reductions")
+        t = time.perf_counter()
+        res["latency"] = _spmd_latency(grp, dev)
+        log(f"phase 59 (c): {time.perf_counter() - t:.1f}s")
+        t = time.perf_counter()
+        res["stencil_procs2"] = _spmd_stencil_launcher(grp2)
+        log(f"phase 59 (a) at 2 processes: {time.perf_counter() - t:.1f}s")
+        res["startup"] = startup
+    return res
+
 def main() -> int:
     import torch
 
@@ -6350,6 +6691,21 @@ def main() -> int:
                train_tp["ms_per_step"]["smi:fused"]),
         "46": (ssm64["state_bytes"], round(ssm64["peak_gb"] * 1e9), ssm64["ms_per_step"][-1])})
     log(f"phase 57 (the dry run against the card): {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    spmd = phase_spmd(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"phase 59 (ranks as processes, {SPMD_PROCS} on the card): "
+        f"{time.perf_counter() - t0:.1f}s")
+    # the launches of slice 15's paths, counted in each rank process and
+    # summed: B in the first overlapped process-mode launcher run (59 a), A
+    # on the fused all-reduces' check runs (59 b, both layouts), where the
+    # ring steps fold on the add kernel (the gather cannot see a peer's rows)
+    by_name["stencil_sweep"]["launches_process_stencil"] = \
+        sum(spmd["stencil"]["overlapped"]["launches_b"][0])
+    by_name["accumulate"]["launches_process_allreduce"] = \
+        spmd["reductions"]["launches_a_allreduce"]
+    by_name["shift_accumulate"]["launches_process_allreduce"] = 0
     # the launches of slice 14's path: a training step's at (2, 2, 2) over
     # smi:fused (phase 58)
     by_name["flash_attention"]["launches_pod_train_step"] = launches_58["E"]
@@ -6494,6 +6850,7 @@ def main() -> int:
     log("dryrun: " + json.dumps(dry))
     log("dryrun_vs_card: " + json.dumps(dry_vs_card))
     log("pod_axis: " + json.dumps(pod))
+    log("ranks_as_processes: " + json.dumps(spmd))
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -14,8 +14,10 @@ every timestep.  Two step schedules, numerically identical by construction:
 
 Every output point is the same ``0.25 * (n + s + w + e)`` float32
 expression in both schedules, so overlapped == reference to the bit, and
-distributed == single-rank on the exact wires.  All ranks' tiles are one
-``(P, nx, ny)`` tensor on the communicator's device.
+distributed == single-rank on the exact wires.  The tiles of the ranks a
+process holds are one ``(n_local, nx, ny)`` tensor on the communicator's
+device: all P of them in stacked mode, a block of them in each rank process
+in process mode (:mod:`repro_torch.core.spmd`).
 """
 
 from __future__ import annotations
@@ -121,19 +123,27 @@ class DistributedStencil:
     # -- domain plumbing ---------------------------------------------------
 
     def scatter(self, world) -> torch.Tensor:
-        """(X, Y) domain -> (n_ranks, nx, ny) row-major tile stack on the
-        app's device."""
+        """(X, Y) domain -> the row-major tiles of the ranks this process
+        holds, ``(n_local, nx, ny)`` on the app's device (every rank's in
+        stacked mode)."""
         RX, RY = self.grid
         world = torch.as_tensor(world, device=self.device)
         X, Y = world.shape
         if X % RX or Y % RY:
             raise ValueError(f"domain {tuple(world.shape)} not divisible by grid {self.grid}")
         nx, ny = X // RX, Y // RY
-        return world.reshape(RX, nx, RY, ny).permute(0, 2, 1, 3).reshape(RX * RY, nx, ny)
+        lo, n = self.comm.lo, self.comm.n_local
+        tiles = world.reshape(RX, nx, RY, ny).permute(0, 2, 1, 3).reshape(RX * RY, nx, ny)
+        return tiles[lo:lo + n]
 
     def gather(self, tiles: torch.Tensor) -> torch.Tensor:
-        """(n_ranks, nx, ny) tile stack -> reassembled (X, Y) domain."""
+        """(n_ranks, nx, ny) tile stack of every rank -> reassembled (X, Y)
+        domain (in process mode, of the tiles every process gave back:
+        :meth:`~repro_torch.core.spmd.SpmdGroup.run` stacks them)."""
         RX, RY = self.grid
+        if tiles.shape[0] != RX * RY:
+            raise ValueError(f"gather needs the tiles of all {RX * RY} ranks, not "
+                             f"{tiles.shape[0]}")
         _, nx, ny = tiles.shape
         return tiles.reshape(RX, RY, nx, ny).permute(0, 2, 1, 3).reshape(RX * nx, RY * ny)
 

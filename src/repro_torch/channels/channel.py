@@ -222,13 +222,13 @@ def open_channel(comm: Communicator, *, count: int | None = None, src: int = 0, 
                  dst=dst, count=count, wire=wire)
     if _capture.ACTIVE:
         _capture.record("open", spec, dtype=_capture.dtype_name(dtype))
-    P, dev = comm.size, comm.device
+    n, dev = comm.n_local, comm.device  # the ranks this process holds
     return Channel(
         spec=spec,
-        pipe=torch.zeros((P,) + tuple(elem_shape), dtype=dtype, device=dev),
-        valid=torch.zeros(P, dtype=torch.float32, device=dev),
-        pushed=torch.zeros(P, dtype=torch.int32, device=dev),
-        popped=torch.zeros(P, dtype=torch.int32, device=dev),
+        pipe=torch.zeros((n,) + tuple(elem_shape), dtype=dtype, device=dev),
+        valid=torch.zeros(n, dtype=torch.float32, device=dev),
+        pushed=torch.zeros(n, dtype=torch.int32, device=dev),
+        popped=torch.zeros(n, dtype=torch.int32, device=dev),
     )
 
 

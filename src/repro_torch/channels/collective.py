@@ -98,7 +98,7 @@ class CollectiveChannel(_ChannelBase):
             buf = self.state[0]
             e = _stacked(elem, buf[:, 0])
             staged = buf.clone()
-            staged[torch.arange(P, device=buf.device), self.pushed % P] = e
+            staged[torch.arange(buf.shape[0], device=buf.device), self.pushed % P] = e
             state = (_mask_sel(ok, staged, buf),) + self.state[1:]
         else:  # one-deep staging, consumed by one round (`state[1]`)
             ok = (self.pushed - self.state[1]) < 1
@@ -314,8 +314,8 @@ def _open(kind: str, comm: Communicator, *, count, root, port, elem_shape, dtype
         _capture.record("open", spec, dtype=_capture.dtype_name(dtype))
     P, es = comm.size, tuple(elem_shape)
 
-    def z(shape, dt=dtype):
-        return torch.zeros((P,) + shape, dtype=dt, device=comm.device)
+    def z(shape, dt=dtype):  # one row a rank this process holds
+        return torch.zeros((comm.n_local,) + shape, dtype=dt, device=comm.device)
 
     i32, f32 = torch.int32, torch.float32
     if kind == "bcast":

@@ -1,5 +1,6 @@
 """SMI core on the rank-stacked runtime: topology, routing, communicators,
-streamed collectives, the halo exchange and the packet router.  The channel
+ranks as processes (``run_spmd``), streamed collectives, the halo exchange
+and the packet router.  The channel
 API (``open_channel``, ``push``, ``pop``, the collective channels) is served
 from :mod:`repro_torch.channels`, as ``repro.core`` serves it."""
 
@@ -18,6 +19,7 @@ from .routing import (
     compute_route_table,
     physical_link_map,
 )
+from .spmd import SpmdGroup, run_spmd
 from .streaming import stream_exchange, stream_p2p
 from .topology import Topology
 
@@ -53,6 +55,7 @@ __all__ = [
     "PortAllocator",
     "RouteTable",
     "RouterConfig",
+    "SpmdGroup",
     "Topology",
     "channel_dependency_acyclic",
     "compute_route_table",
@@ -62,6 +65,7 @@ __all__ = [
     "ppermute",
     "resolve_device",
     "run_router",
+    "run_spmd",
     "snake_bus",
     "stream_exchange",
     "stream_p2p",

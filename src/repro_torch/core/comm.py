@@ -2,19 +2,24 @@
 
 ``repro`` runs SPMD inside ``jax.shard_map``: each device holds one rank's
 shard, the rank is ``lax.axis_index`` and a link step is ``lax.ppermute``.
-The port runs all P ranks on one card instead.  Every distributed tensor
-carries a leading rank dimension ``(P, ...)``; row ``r`` is what rank ``r``
-would hold.  Then:
+The port holds a contiguous block of the P ranks in each process instead.
+Every distributed tensor carries a leading rank dimension: row ``i`` is
+what rank ``lo + i`` would hold.  In the default *stacked* mode one process
+holds all P ranks (``lo = 0``, ``n_local = P``) on one card.  In *process*
+mode (:mod:`repro_torch.core.spmd`) each of ``n_procs`` processes holds
+``P / n_procs`` of them, and its communicator carries the rank group whose
+peer-mapped mailboxes move rows between processes.  Then:
 
-* :meth:`Communicator.rank` is ``torch.arange(P)``, shaped to broadcast
-  against a rank-stacked tensor, so a per-rank predicate
+* :meth:`Communicator.rank` is ``torch.arange(lo, lo + n_local)``, shaped
+  to broadcast against a rank-stacked tensor, so a per-rank predicate
   (``jnp.where(r == root, ...)`` in the reference) is one broadcast
   ``torch.where``;
-* :func:`ppermute` is an index copy along dim 0; ranks that receive
-  nothing get zeros, exactly as ``lax.ppermute`` gives them.
+* :func:`ppermute` is an index copy along dim 0 for the pairs whose source
+  and destination this process holds, and a mailbox exchange for the pairs
+  that cross processes; ranks that receive nothing get zeros, exactly as
+  ``lax.ppermute`` gives them.
 
-A multi-card ``torch.distributed`` rendering of the same interface is later
-work; the schedules written against it do not change.
+The schedules written against this interface are the same in both modes.
 """
 
 from __future__ import annotations
@@ -68,13 +73,20 @@ def _full_gather(pairs: tuple, n: int, device: torch.device):
     return "index", torch.tensor(order, device=device)
 
 
-def ppermute(x: torch.Tensor, pairs) -> torch.Tensor:
+def ppermute(x, pairs, comm: "Communicator | None" = None):
     """Move rank rows of ``x`` along (src, dst) pairs: ``out[dst] = x[src]``,
     zeros on every rank that is no destination (``lax.ppermute``'s
-    semantics).  A permutation that reaches every rank is one copy (a ring
-    shift copies two contiguous slices); any other fills zeros and copies
-    the rows that move.  ``x`` is not modified."""
+    semantics).  ``x`` is a rank-stacked tensor or a tuple of them, moved as
+    one step.  On a process-mode ``comm`` the rows go through its rank
+    group's exchange (:meth:`repro_torch.core.spmd.RankGroup.exchange`);
+    otherwise every rank is a row of ``x``: a permutation that reaches every
+    rank is one copy (a ring shift copies two contiguous slices), any other
+    fills zeros and copies the rows that move.  ``x`` is not modified."""
     pairs = tuple(pairs)
+    if comm is not None and comm.group is not None:
+        return comm.group.exchange(x, pairs)
+    if isinstance(x, tuple):
+        return tuple(ppermute(v, pairs) for v in x)
     full = _full_gather(pairs, x.shape[0], x.device) if pairs else None
     if full is not None:
         kind, arg = full
@@ -90,11 +102,14 @@ def ppermute(x: torch.Tensor, pairs) -> torch.Tensor:
 
 @dataclass(frozen=True)
 class Communicator:
-    """SMI_Comm: ``size`` ranks stacked on ``device`` with a routed topology.
+    """SMI_Comm: ``size`` ranks with a routed topology, of which this
+    process holds ``n_local`` from rank ``lo`` on ``device``.
 
     ``axis_names``/``axis_sizes`` name the rank grid as the reference's mesh
     axes do (row-major linearisation); ``transport`` names the default
-    message-moving backend (see :mod:`repro_torch.transport`).
+    message-moving backend (see :mod:`repro_torch.transport`).  ``group`` is
+    the process-mode rank group that moves rows between processes (None:
+    stacked mode, every rank here; see :mod:`repro_torch.core.spmd`).
     """
 
     axis_names: tuple[str, ...]
@@ -104,6 +119,19 @@ class Communicator:
     name: str = "world"
     transport: str = "static"
     device: torch.device = torch.device("cuda")
+    lo: int = 0
+    n_local: int | None = None  # None: every rank from lo = 0
+    group: object = field(default=None, compare=False, repr=False)
+
+    def __post_init__(self):
+        if self.n_local is None:
+            object.__setattr__(self, "n_local", self.size - self.lo)
+        if not (0 <= self.lo and self.n_local > 0 and self.lo + self.n_local <= self.size):
+            raise ValueError(f"ranks [{self.lo}, {self.lo + self.n_local}) are not a block "
+                             f"of the communicator's {self.size}")
+        if self.group is None and self.n_local != self.size:
+            raise ValueError("a communicator holding part of its ranks needs the rank group "
+                             "that reaches the others")
 
     # -- construction ------------------------------------------------------
 
@@ -166,11 +194,15 @@ class Communicator:
         return self.topology.n_ranks
 
     def rank(self, ndim: int = 1) -> torch.Tensor:
-        """SMI_Comm_rank of every stacked rank: ``arange(P)`` shaped
-        ``(P, 1, ..., 1)`` with ``ndim`` dims, to broadcast against a
-        rank-stacked tensor of that many dims."""
-        r = torch.arange(self.size, device=self.device)
-        return r.view((self.size,) + (1,) * (ndim - 1))
+        """SMI_Comm_rank of every rank this process holds: ``arange(lo, lo +
+        n_local)`` shaped ``(n_local, 1, ..., 1)`` with ``ndim`` dims, to
+        broadcast against a rank-stacked tensor of that many dims."""
+        r = torch.arange(self.lo, self.lo + self.n_local, device=self.device)
+        return r.view((self.n_local,) + (1,) * (ndim - 1))
+
+    def is_local(self, rank: int) -> bool:
+        """Whether this process holds ``rank`` (its row is ``rank - lo``)."""
+        return self.lo <= rank < self.lo + self.n_local
 
     # ring helpers over the linearised rank order -----------------------------
 

@@ -8,10 +8,13 @@ rank-mask helper (paper §3.1).
 * :func:`stream_exchange` — the halo-exchange wire: one step over explicit
   (src, dst) pairs.
 
-The channel API is re-exported here for the reference's import paths.  The
-reference's ``run_spmd``, ``make_test_mesh`` and ``pvary`` have no
-counterpart: the ranks are the leading dimension of every tensor, not
-devices of a mesh.
+The channel API is re-exported here for the reference's import paths, and
+so are :func:`~repro_torch.core.spmd.run_spmd` and
+:class:`~repro_torch.core.spmd.SpmdGroup`, the counterparts of the
+reference's ``run_spmd`` and ``make_test_mesh``: the ranks run as processes,
+each holding a block of them as the leading dimension of its tensors (one
+process holding all of them is the stacked mode).  ``pvary`` has no
+counterpart: eager PyTorch tracks no varying axes.
 """
 
 from __future__ import annotations
@@ -21,11 +24,12 @@ import warnings
 import torch
 
 from .comm import Communicator
+from .spmd import SpmdGroup, run_spmd  # noqa: F401  (the reference's import path)
 
 
 def _mask_sel(pred, a, b):
     """``where(pred, a, b)`` with a per-rank predicate ``pred`` of shape
-    (P,) broadcast over the rank-stacked ``a`` and ``b``."""
+    (n_local,) broadcast over the rank-stacked ``a`` and ``b``."""
     return torch.where(pred.view((-1,) + (1,) * (a.dim() - 1)), a, b)
 
 

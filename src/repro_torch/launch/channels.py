@@ -15,6 +15,14 @@ Every delivered message is checked: bit for bit on the exact wires, within
 the int8 codec's bound on the compressed one.  One line a row; the exit
 code is 1 if a check fails.
 
+``--ranks process`` runs both programs with the 8 ranks as ``--procs``
+processes (one a rank unless named; ``--devices``: the cards they are placed
+on in turn), each on its own CUDA context, the steps moving through the
+mailboxes of :mod:`repro_torch.core.spmd`; the rows come back to this
+process for the checks, and a row's time is taken between barrier-aligned
+stamps around its calls.  The packet wire and ``--validate-sim`` run
+stacked only.
+
 ``--validate-sim`` (the reference's ``benchmarks/{latency,bandwidth}.py
 --validate-sim``) records the static wire's latency and bandwidth
 transfers as netsim calibration points (``TransportStats.record`` of one
@@ -25,6 +33,7 @@ transfer, seconds the median of 9 readings taken in turns), fits a
     python -m repro_torch.launch.channels --device cpu --sizes-kib 16,256
     python -m repro_torch.launch.channels --measure latency
     python -m repro_torch.launch.channels --validate-sim
+    python -m repro_torch.launch.channels --ranks process --procs 8
 
 The device is ``cuda`` unless ``--device cpu`` is given.
 """
@@ -33,11 +42,14 @@ from __future__ import annotations
 
 import argparse
 import time
+from contextlib import ExitStack
+from types import SimpleNamespace
 
 import torch
 
 from ..channels import open_channel
 from ..core.comm import Communicator, ppermute, resolve_device
+from ..core.spmd import block_clock
 from ..core.streaming import _mask_sel
 from ..core.topology import Topology
 from ..transport import get_transport
@@ -55,10 +67,21 @@ BW_CHUNKS = 16
 PACKET_BENCH_ELEMS = 4096
 #: the largest message (KiB per rank) the packet wire is run at
 PACKET_MAX_KIB = 4096
+#: the wires of a process-mode run (the packet wire routes every rank in one
+#: router run: stacked only)
+PROCESS_LAT_WIRES = ("static", "fused")
+PROCESS_BW_WIRES = ("static", "fused", "compressed:static")
+#: slot bytes of the rank processes beyond the largest message a rank
+SLOT_MARGIN = 64 << 10
 
 
 def bus_comm(device) -> Communicator:
     return Communicator.create("x", (8,), topology=Topology.bus(8), device=device)
+
+
+def bus_comm_args() -> dict:
+    """:func:`bus_comm`'s communicator as a rank group's ``comm_args``."""
+    return {"axis_names": ("x",), "axis_sizes": (8,), "topology": Topology.bus(8)}
 
 
 def staged_p2p(x: torch.Tensor, *, src: int, dst: int, comm: Communicator) -> torch.Tensor:
@@ -67,7 +90,7 @@ def staged_p2p(x: torch.Tensor, *, src: int, dst: int, comm: Communicator) -> to
     path = comm.route_table.path(src, dst)
     buf = _mask_sel(comm.rank() == src, x, torch.zeros_like(x))
     for a, b in zip(path[:-1], path[1:]):
-        buf = ppermute(buf, [(a, b)])
+        buf = ppermute(buf, [(a, b)], comm)
     return buf
 
 
@@ -97,6 +120,23 @@ def _transport(wire: str, device, **kw):
     return get_transport(wire, device=device)
 
 
+def _clocked(fn, comm: Communicator, reps: int, warmup: int = 2) -> tuple[float, float]:
+    """Barrier-aligned stamps of the host's clock around ``reps`` calls of
+    ``fn`` (after ``warmup``) in a rank process: the parent takes the span
+    from the first opening stamp to the last closing one."""
+    for _ in range(warmup):
+        fn()
+    t0 = block_clock(comm)
+    for _ in range(reps):
+        fn()
+    return t0, block_clock(comm)
+
+
+def _span_ms(stamps, reps: int) -> float:
+    """Milliseconds a call from every process's :func:`_clocked` stamps."""
+    return (max(b for _, b in stamps) - min(a for a, _ in stamps)) * 1e3 / reps
+
+
 def _check_delivery(y, x, src: int, dst: int, lossy: bool, what: str):
     others = torch.cat((y[:dst], y[dst + 1:]))
     if others.count_nonzero():
@@ -110,10 +150,9 @@ def _check_delivery(y, x, src: int, dst: int, lossy: bool, what: str):
         raise AssertionError(f"{what}: delivered message differs from the source's")
 
 
-def push_pop(comm: Communicator, dst: int, wire, count: int):
-    """``count`` one-element pushes at rank 0 and ``count + hops - 1`` pops:
-    returns the channel and the destination's ``(valid, value)`` of every
-    pop, stacked (read after the loop: no host sync inside it)."""
+def _push_pop_rows(comm: Communicator, dst: int, wire, count: int):
+    """:func:`push_pop` keeping every rank this process holds: the channel
+    and each pop's ``(valid, value)`` as ``(n_local, pops)`` rows."""
     hops = comm.route_table.n_hops(0, dst)
     ch = open_channel(comm, count=count, src=0, dst=dst, port=None, transport=wire)
     oks, vals = [], []
@@ -121,9 +160,17 @@ def push_pop(comm: Communicator, dst: int, wire, count: int):
         if i < count:
             ch = ch.push(float(i + 1))
         ch, val, ok = ch.pop()
-        oks.append(ok[dst])
-        vals.append(val[dst])
-    return ch, torch.stack(oks), torch.stack(vals)
+        oks.append(ok)
+        vals.append(val)
+    return ch, torch.stack(oks, 1), torch.stack(vals, 1)
+
+
+def push_pop(comm: Communicator, dst: int, wire, count: int):
+    """``count`` one-element pushes at rank 0 and ``count + hops - 1`` pops:
+    returns the channel and the destination's ``(valid, value)`` of every
+    pop, stacked (read after the loop: no host sync inside it)."""
+    ch, oks, vals = _push_pop_rows(comm, dst, wire, count)
+    return ch, oks[dst], vals[dst]
 
 
 def _check_push_pop(ch, oks, vals, dst: int, hops: int, count: int, what: str):
@@ -138,14 +185,48 @@ def _check_push_pop(ch, oks, vals, dst: int, hops: int, count: int, what: str):
                              f"(popped {int(ch.popped[dst])})")
 
 
-def latency(device, wires=LAT_WIRES, count: int = 64, reps: int = 20) -> list[dict]:
+def _latency_rank(comm: Communicator, x, wires, count: int, reps: int) -> list[dict]:
+    """One rank process's part of :func:`latency`: per hops and wire, its
+    rows of a transfer and of a push/pop loop, and the stamps around the
+    timed calls of each."""
+    out = []
+    for dst, _ in HOPS:
+        for wire in wires:
+            t = _transport(wire, comm.device)
+            ch = open_channel(comm, src=0, dst=dst, port=None, n_chunks=1, transport=t)
+            y = ch.transfer(x)
+            transfer = _clocked(lambda: ch.transfer(x), comm, reps)
+            pc, oks, vals = _push_pop_rows(comm, dst, t, count)  # warms the loop up
+            loop = _clocked(lambda: _push_pop_rows(comm, dst, t, count), comm, 1, warmup=0)
+            out.append({"y": y, "oks": oks, "vals": vals, "popped": pc.popped,
+                        "transfer": transfer, "loop": loop})
+    return out
+
+
+def latency(device, wires=LAT_WIRES, count: int = 64, reps: int = 20,
+            group=None) -> list[dict]:
     """Tab. 3's rows: per hops and wire, µs per ``transfer`` of
     ``LAT_ELEMS`` float32 and µs per pop of a ``count``-element push/pop
-    loop."""
+    loop.  With ``group`` (an :class:`~repro_torch.core.spmd.SpmdGroup` of
+    8 ranks) the ranks run as its processes."""
     dev = resolve_device(device)
     comm = bus_comm(dev)
     x = torch.arange(8 * LAT_ELEMS, dtype=torch.float32, device=dev).reshape(8, LAT_ELEMS) + 1
     rows = []
+    if group is not None:
+        res = iter(group.run(_latency_rank, bus_comm_args(), x, wires, count, reps))
+        for dst, hops in HOPS:
+            for wire in wires:
+                r = next(res)
+                what = f"latency {wire} hops={hops} ranks as processes"
+                _check_delivery(r["y"].to(dev), x, 0, dst, False, what)
+                _check_push_pop(SimpleNamespace(popped=r["popped"]), r["oks"][dst],
+                                r["vals"][dst], dst, hops, count, f"push/pop {what}")
+                rows.append(dict(measure="latency", hops=hops, wire=wire, elems=LAT_ELEMS,
+                                 us_per_transfer=_span_ms(r["transfer"], reps) * 1e3,
+                                 count=count, pops=count + hops - 1, ranks="process",
+                                 us_per_pop=_span_ms(r["loop"], 1) * 1e3 / (count + hops - 1)))
+        return rows
     for dst, hops in HOPS:
         if comm.route_table.n_hops(0, dst) != hops:
             raise AssertionError(f"bus route 0 -> {dst} is not {hops} hops")
@@ -164,9 +245,32 @@ def latency(device, wires=LAT_WIRES, count: int = 64, reps: int = 20) -> list[di
     return rows
 
 
-def bandwidth(device, sizes_kib=BW_SIZES_KIB, wires=BW_WIRES, reps: int = 5) -> list[dict]:
+def _bandwidth_rank(comm: Communicator, x, wires, reps: int) -> list[dict]:
+    """One rank process's part of :func:`bandwidth` at one size: per hops
+    and wire (then the staged baseline), its rows of a transfer and the
+    stamps around the timed ones."""
+    out = []
+    for dst, _ in HOPS:
+        for wire in (*wires, "staged"):
+            if wire == "staged":
+                def fn():
+                    return staged_p2p(x, src=0, dst=dst, comm=comm)
+            else:
+                ch = open_channel(comm, src=0, dst=dst, port=None, n_chunks=BW_CHUNKS,
+                                  transport=_transport(wire, comm.device))
+
+                def fn(ch=ch):
+                    return ch.transfer(x)
+            out.append({"y": fn(), "stamps": _clocked(fn, comm, reps)})
+    return out
+
+
+def bandwidth(device, sizes_kib=BW_SIZES_KIB, wires=BW_WIRES, reps: int = 5,
+              group=None) -> list[dict]:
     """Fig. 9's rows: per size, hops and wire (and the staged baseline), ms
-    per transfer and GB/s of payload per rank."""
+    per transfer and GB/s of payload per rank.  With ``group`` (an
+    :class:`~repro_torch.core.spmd.SpmdGroup` of 8 ranks whose slots hold a
+    whole message) the ranks run as its processes."""
     dev = resolve_device(device)
     comm = bus_comm(dev)
     g = torch.Generator(device=dev).manual_seed(9)
@@ -174,6 +278,19 @@ def bandwidth(device, sizes_kib=BW_SIZES_KIB, wires=BW_WIRES, reps: int = 5) -> 
     for kib in sizes_kib:
         elems = kib * 256
         x = torch.randn((8, elems), generator=g, device=dev)
+        if group is not None:
+            res = iter(group.run(_bandwidth_rank, bus_comm_args(), x, wires, reps))
+            for dst, hops in HOPS:
+                for wire in (*wires, "staged"):
+                    r = next(res)
+                    what = f"bandwidth {wire} {kib} KiB hops={hops} ranks as processes"
+                    _check_delivery(r["y"].to(dev), x, 0, dst, wire.startswith("compressed"),
+                                    what)
+                    ms = _span_ms(r["stamps"], reps)
+                    rows.append(dict(measure="bandwidth", kib=kib, hops=hops, wire=wire,
+                                     n_chunks=BW_CHUNKS, ms=ms, ranks="process",
+                                     gb_per_s=elems * 4 / (ms * 1e-3) / 1e9))
+            continue
         for dst, hops in HOPS:
             runs = [w for w in wires if w != "packet" or kib <= PACKET_MAX_KIB] + ["staged"]
             for wire in runs:
@@ -275,12 +392,14 @@ def validate_sim(device, sizes_kib=BW_SIZES_KIB, reps: int = 9, tol: float = 2.0
 
 
 def _line(row: dict) -> str:
+    ranks = " (ranks as processes)" if row.get("ranks") == "process" else ""
     if row["measure"] == "latency":
         return (f"latency hops={row['hops']} wire={row['wire']}: "
                 f"{row['us_per_transfer']:.2f} us/transfer ({row['elems']} float32), "
-                f"{row['us_per_pop']:.2f} us/pop ({row['count']} elements, {row['pops']} pops)")
+                f"{row['us_per_pop']:.2f} us/pop ({row['count']} elements, {row['pops']} "
+                f"pops){ranks}")
     return (f"bandwidth {row['kib']} KiB hops={row['hops']} wire={row['wire']}: "
-            f"{row['ms']:.4f} ms, {row['gb_per_s']:.2f} GB/s")
+            f"{row['ms']:.4f} ms, {row['gb_per_s']:.2f} GB/s{ranks}")
 
 
 def main(argv=None) -> int:
@@ -293,24 +412,47 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--validate-sim", action="store_true",
                     help="fit a LinkModel to the static wire's transfers and gate its drift")
+    ap.add_argument("--ranks", default="stacked", choices=("stacked", "process"),
+                    help="every rank in this process (stacked) or ranks as processes")
+    ap.add_argument("--procs", type=int, default=None,
+                    help="rank processes of --ranks process (default: 8, one a rank)")
+    ap.add_argument("--devices", default=None, metavar="I,J,...",
+                    help="card indices the rank processes are placed on in turn "
+                         "(--ranks process; default: --device)")
     args = ap.parse_args(argv)
     measures = args.measure.split(",")
-    try:
-        if args.validate_sim:
-            sizes = tuple(int(s) for s in args.sizes_kib.split(","))
-            model, _, _ = validate_sim(args.device, sizes)
-            print(f"fitted {model!r}", flush=True)
-            return 0
-        if "latency" in measures:
-            for row in latency(args.device):
-                print(_line(row), flush=True)
-        if "bandwidth" in measures:
-            sizes = tuple(int(s) for s in args.sizes_kib.split(","))
-            for row in bandwidth(args.device, sizes):
-                print(_line(row), flush=True)
-    except AssertionError as e:
-        print(f"FAILED: {e}", flush=True)
-        return 1
+    sizes = tuple(int(s) for s in args.sizes_kib.split(","))
+    process = args.ranks == "process"
+    if not process and (args.procs is not None or args.devices is not None):
+        ap.error("--procs and --devices place rank processes: they need --ranks process")
+    if process and args.validate_sim:
+        ap.error("--validate-sim runs stacked only")
+    with ExitStack() as stack:
+        group = None
+        if process:
+            from ..core.spmd import SpmdGroup
+
+            devices = ([f"cuda:{int(i)}" for i in args.devices.split(",")] if args.devices
+                       else [args.device])
+            biggest = max(sizes) * 1024 if "bandwidth" in measures else LAT_ELEMS * 4
+            group = stack.enter_context(SpmdGroup(args.procs or 8, 8, devices=devices,
+                                                  slot_bytes=biggest + SLOT_MARGIN))
+        lat_wires = PROCESS_LAT_WIRES if process else LAT_WIRES
+        bw_wires = PROCESS_BW_WIRES if process else BW_WIRES
+        try:
+            if args.validate_sim:
+                model, _, _ = validate_sim(args.device, sizes)
+                print(f"fitted {model!r}", flush=True)
+                return 0
+            if "latency" in measures:
+                for row in latency(args.device, lat_wires, group=group):
+                    print(_line(row), flush=True)
+            if "bandwidth" in measures:
+                for row in bandwidth(args.device, sizes, bw_wires, group=group):
+                    print(_line(row), flush=True)
+        except AssertionError as e:
+            print(f"FAILED: {e}", flush=True)
+            return 1
     return 0
 
 

@@ -1,16 +1,28 @@
 """Launch the distributed halo-exchange stencil (paper §5.4.2).
 
-Runs ``repro_torch.apps.DistributedStencil`` over a rank grid stacked on
-one device, streams halos through the selected transport backend, checks
-the result against the single-rank sweep bit for bit, and prints the wall
-time per step (a second, timed run after the first) and the ``halo`` tag's
-steps and bytes per rank over one run.
+Runs ``repro_torch.apps.DistributedStencil`` over a rank grid, streams halos
+through the selected transport backend, checks the result against the
+single-rank sweep bit for bit, and prints the wall time per step (a second,
+timed run after the first) and the ``halo`` tag's steps and bytes per rank
+over one run.
 
     python -m repro_torch.launch.stencil --grid 2x4 --domain 8192x8192 --steps 32
     python -m repro_torch.launch.stencil --case ring8 --comm-mode smi:fused \\
         --device cpu --json out.json
     python -m repro_torch.launch.stencil --grid 2x4 --plan auto
     python -m repro_torch.launch.stencil --trace trace.json --metrics metrics.json
+    python -m repro_torch.launch.stencil --ranks process --procs 8
+    python -m repro_torch.launch.stencil --ranks process --procs 2 --device cpu
+
+``--ranks stacked`` (the default) holds every rank in this process, stacked
+on one device.  ``--ranks process`` runs the ranks as ``--procs`` processes
+(one a rank unless named), each holding a block of them on its own CUDA
+context (``--devices``: the cards the processes are placed on in turn,
+default ``--device``), the halos moving through mailboxes the processes map
+from each other (:mod:`repro_torch.core.spmd`); the tiles come back to this
+process for the check, the ``halo`` counters are one rank's, as stacked,
+and the wall time is taken between barrier-aligned stamps around the timed
+run.  The packet wire, ``--trace`` and ``--metrics`` run stacked only.
 
 ``--plan auto`` lets the netsim tuning table pick the halo backend (the
 card's link model; never a lossy wire) and cannot be combined with a
@@ -38,6 +50,9 @@ import numpy as np
 import torch
 
 from ..configs import COMM_MODES, STENCIL_CASES
+
+#: slot bytes of the rank processes beyond one halo slab (see core/spmd.py)
+SLOT_MARGIN = 4096
 
 
 def _pair(s: str) -> tuple[int, int]:
@@ -102,7 +117,53 @@ def _write_trace(path, app, grid, tile, steps: int, step_s, mode_label: str, t_w
     return write_chrome_trace(path, events + sim_report_events(app.comm.topology, reports))
 
 
-def main(argv=None) -> int:
+def _rank_run(comm, tiles, grid, steps: int, overlapped: bool, comm_mode, plan) -> dict:
+    """One rank process's part of a process-mode launch: the first run (the
+    result and the warm-up) and the timed run between barrier-aligned
+    stamps, each over one transport instance; this process's ``halo``
+    counters of each run and its launches of kernel B."""
+    from ..apps import HALO_TAG, DistributedStencil
+    from ..core.spmd import block_clock
+    from ..kernels.stencil import stencil_sweep
+
+    b0 = stencil_sweep.launches
+    app = DistributedStencil.create(grid, comm=comm, comm_mode=comm_mode, plan=plan)
+    tp = app.halo_schedule.resolve_transport(tiles)
+    got = app.run(tiles, steps, overlapped=overlapped, transport=tp)
+    halo = tp.stats.tag_counts(HALO_TAG)
+    tp.reset_stats()
+    t0 = block_clock(comm)
+    timed = app.run(tiles, steps, overlapped=overlapped, transport=tp)
+    t1 = block_clock(comm)
+    return {"got": got, "timed": timed, "halo": halo,
+            "halo_timed": tp.stats.tag_counts(HALO_TAG), "t0": t0, "t1": t1,
+            "backend": tp.name, "launches_b": stencil_sweep.launches - b0}
+
+
+def run_process(group, app, tiles, steps: int, overlapped: bool, comm_mode, plan) -> dict:
+    """The stencil on ``group``'s rank processes (``app``'s communicator
+    and grid, the rank-stacked ``tiles``): every process's tiles stacked
+    back in rank order, on ``tiles``' device; the ``halo`` counters, equal
+    in every process (else a ``ValueError``); the wall seconds from the
+    first opening stamp to the last closing one; kernel B's launches of
+    each process."""
+    c = app.comm
+    res = group.run(_rank_run, {"axis_names": c.axis_names, "axis_sizes": c.axis_sizes,
+                                "topology": c.topology},
+                    tiles, app.grid, steps, overlapped, comm_mode, plan)
+    if len(set(res["halo"])) != 1 or len(set(res["halo_timed"])) != 1:
+        raise ValueError(f"the rank processes counted unequal halo traffic: {res['halo']}, "
+                         f"{res['halo_timed']}")
+    return {"got": res["got"].to(tiles.device), "timed": res["timed"].to(tiles.device),
+            "halo": res["halo"][0], "halo_timed": res["halo_timed"][0],
+            "wall": max(res["t1"]) - min(res["t0"]), "backend": res["backend"][0],
+            "launches_b": res["launches_b"], "peaks": group.peaks}
+
+
+def main(argv=None, *, group=None) -> int:
+    """The launcher; ``group`` (an :class:`~repro_torch.core.spmd.SpmdGroup`
+    of the grid's ranks) runs ``--ranks process`` on processes already
+    spawned instead of a group of its own."""
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--case", default=None, choices=sorted(STENCIL_CASES),
@@ -125,7 +186,23 @@ def main(argv=None) -> int:
                     help="write an obs metrics snapshot (transport counters + drift "
                          "gauges) to OUT")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--ranks", default="stacked", choices=("stacked", "process"),
+                    help="every rank in this process (stacked) or ranks as processes")
+    ap.add_argument("--procs", type=int, default=None,
+                    help="rank processes of --ranks process (default: one a rank)")
+    ap.add_argument("--devices", default=None, metavar="I,J,...",
+                    help="card indices the rank processes are placed on in turn "
+                         "(--ranks process; default: --device)")
     args = ap.parse_args(argv)
+    process = args.ranks == "process"
+    if not process and (args.procs is not None or args.devices is not None):
+        ap.error("--procs and --devices place rank processes: they need --ranks process")
+    if process and (args.trace or args.metrics):
+        ap.error("--trace and --metrics run stacked only")
+    if process and args.comm_mode.startswith("smi:packet"):
+        ap.error("the packet wire routes every rank in one router run: it runs stacked only")
+    if args.devices is not None and args.device != "cuda":
+        ap.error("--devices names cards; it needs --device cuda")
 
     from ..apps import HALO_TAG, DistributedStencil
 
@@ -148,44 +225,70 @@ def main(argv=None) -> int:
     world = torch.from_numpy(np.random.RandomState(0).randn(*domain).astype(np.float32)).to(dev)
     tiles = app.scatter(world)
     overlapped = not args.no_overlap
-    # one instance for every step, resolved from the tiles (a tuned plan is
-    # keyed on their slab size), so its counters hold the run's halo traffic
-    tp = app.halo_schedule.resolve_transport(tiles)
+    nx, ny = domain[0] // grid[0], domain[1] // grid[1]
+    procs = None
+    if process:
+        from ..core.spmd import SpmdGroup
 
-    # the first run gives the result and warms up (allocator, module loads);
-    # the second is timed, its counters alone on the transport
-    got = app.run(tiles, steps, overlapped=overlapped, transport=tp)
-    halo_steps, halo_bytes = tp.stats.tag_counts(HALO_TAG)
-    tp.reset_stats()
-    if args.trace:
-        from ..obs import trace as obs_trace
-
-        obs_trace.enable(capacity=1 << 18)
-    _sync(dev)
-    t0 = time.perf_counter()
-    if args.trace:
-        timed, step_s = _traced_run(app, tiles, steps, overlapped, tp, dev)
+        P = grid[0] * grid[1]
+        procs = args.procs or P
+        devices = ([f"cuda:{int(i)}" for i in args.devices.split(",")] if args.devices
+                   else [dev])
+        slot = max(nx, ny) * world.element_size() + SLOT_MARGIN
+        if group is None:
+            with SpmdGroup(procs, P, devices=devices, slot_bytes=slot) as own:
+                res = run_process(own, app, tiles, steps, overlapped, comm_mode, args.plan)
+        else:
+            if (group.n_procs, group.n_ranks) != (procs, P):
+                raise ValueError(f"the group holds {group.n_ranks} ranks on {group.n_procs} "
+                                 f"processes, not {P} on {procs}")
+            res = run_process(group, app, tiles, steps, overlapped, comm_mode, args.plan)
+        got, timed, wall = res["got"], res["timed"], res["wall"]
+        halo_steps, halo_bytes = res["halo"]
+        halo_timed, backend = res["halo_timed"], res["backend"]
     else:
-        timed = app.run(tiles, steps, overlapped=overlapped, transport=tp)
-    _sync(dev)
-    wall = time.perf_counter() - t0
+        # one instance for every step, resolved from the tiles (a tuned plan
+        # is keyed on their slab size), so its counters hold the run's halo
+        # traffic
+        tp = app.halo_schedule.resolve_transport(tiles)
+
+        # the first run gives the result and warms up (allocator, module
+        # loads); the second is timed, its counters alone on the transport
+        got = app.run(tiles, steps, overlapped=overlapped, transport=tp)
+        halo_steps, halo_bytes = tp.stats.tag_counts(HALO_TAG)
+        tp.reset_stats()
+        if args.trace:
+            from ..obs import trace as obs_trace
+
+            obs_trace.enable(capacity=1 << 18)
+        _sync(dev)
+        t0 = time.perf_counter()
+        if args.trace:
+            timed, step_s = _traced_run(app, tiles, steps, overlapped, tp, dev)
+        else:
+            timed = app.run(tiles, steps, overlapped=overlapped, transport=tp)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        halo_timed, backend = tp.stats.tag_counts(HALO_TAG), tp.name
 
     want = app.single_rank_reference(world, steps)
     ok = bool(torch.equal(app.gather(got), want)) and bool(torch.equal(timed, got)) \
-        and tp.stats.tag_counts(HALO_TAG) == (halo_steps, halo_bytes)
+        and halo_timed == (halo_steps, halo_bytes)
     err = float((app.gather(got) - want).abs().max())
-    nx, ny = domain[0] // grid[0], domain[1] // grid[1]
     model_s = app.predicted_step_time((nx, ny)) * steps
 
     from ..obs.metrics import REGISTRY
 
-    REGISTRY.track("halo", tp)
+    if not process:
+        REGISTRY.track("halo", tp)
     REGISTRY.drift("stencil/wall_vs_model", predicted=model_s, measured=wall)
 
     sched = "overlapped" if overlapped else "reference"
     kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    ranks = f"process procs={procs}" if process else "stacked"
     print(f"[stencil] grid={grid} domain={domain} steps={steps} "
-          f"comm_mode={mode_label} halo_backend={tp.name} schedule={sched} device={kind}")
+          f"comm_mode={mode_label} halo_backend={backend} schedule={sched} device={kind} "
+          f"ranks={ranks}")
     print(f"[stencil] wall_per_step={wall / max(steps, 1) * 1e3:.4f}ms "
           f"halo_steps={halo_steps} halo_bytes_per_rank={halo_bytes} "
           f"max|err|={err:.3g} {'OK' if ok else 'MISMATCH'}")
@@ -200,8 +303,10 @@ def main(argv=None) -> int:
         with open(args.json, "w") as f:
             json.dump({
                 "grid": grid, "domain": domain, "steps": steps,
-                "comm_mode": mode_label, "halo_backend": tp.name, "schedule": sched,
-                "device": kind,
+                "comm_mode": mode_label, "halo_backend": backend, "schedule": sched,
+                "device": kind, "ranks": args.ranks, "procs": procs,
+                "launches_b": res["launches_b"] if process else None,
+                "peak_bytes": res["peaks"] if process else None,
                 "wall_s": wall, "wall_per_step_s": wall / max(steps, 1),
                 "halo_steps": halo_steps, "halo_bytes_per_rank": halo_bytes,
                 "model_halo_s": model_s, "max_err": err, "ok": ok,

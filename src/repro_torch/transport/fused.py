@@ -226,7 +226,11 @@ class FusedTransport(StaticTransport):
         """``shift(x) + addend`` in one launch: tallies one step carrying one
         rank row of ``x``, as :meth:`StaticTransport.permute` does for the
         shift, so the stats equal the static backend's (the plain version on
-        ``meta`` tensors)."""
+        ``meta`` tensors).  In process mode the gather cannot see the rows
+        other processes hold: the shift is the group's exchange and the add
+        kernel folds the arrival, bit-equal to the gather-fused form."""
+        if comm.group is not None:
+            return self.accumulate(self.shift(x, comm, step), addend)
         self._check(x)
         self.account(x)
         src = source_index(tuple(comm.ring_perm(step)), x.shape[0], x.device)

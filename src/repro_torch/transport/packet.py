@@ -197,6 +197,7 @@ class PacketTransport(Transport):
         tuple ``x`` concatenated into one packet train a rank)."""
         from ..core.router import run_router
 
+        _stacked_only(comm)
         self._check(x)
         n = comm.size
         pairs = tuple((int(s), int(d)) for s, d in pairs)
@@ -244,9 +245,19 @@ class PacketTransport(Transport):
         (``n_chunks`` is a scheduling hint other backends use; the router's
         chunking is its packet size)."""
         del n_chunks
+        _stacked_only(comm)
         if src == dst:
             return x
         return self.permute(x, comm, [(src, dst)])
+
+
+def _stacked_only(comm):
+    """The packet wire routes every rank in one router run (one launch of
+    kernel C): it needs every rank in this process."""
+    if comm.group is not None:
+        raise NotImplementedError(
+            "the packet wire routes every rank in one router run and has no process mode; "
+            "run packet-routed programs with every rank in one process (stacked mode)")
 
 
 @register_transport("packet:pallas")

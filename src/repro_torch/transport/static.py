@@ -1,8 +1,9 @@
 """Static transport: routed index-copy schedules on the rank stack.
 
 The fast path.  Every logical step is one :func:`~repro_torch.core.comm.
-ppermute` — an index copy along the rank dimension — and routing decisions
-are burnt into the schedule from the communicator's route table, as the
+ppermute` — an index copy along the rank dimension, or in process mode a
+mailbox exchange between the rank processes — and routing decisions are
+burnt into the schedule from the communicator's route table, as the
 reference's trace-time ``lax.ppermute`` schedules are.
 """
 
@@ -25,9 +26,7 @@ class StaticTransport(Transport):
     def permute(self, x, comm, pairs):
         self._check(x)
         self.account(x)
-        if isinstance(x, tuple):
-            return tuple(ppermute(v, pairs) for v in x)
-        return ppermute(x, pairs)
+        return ppermute(x, pairs, comm)
 
     def p2p(self, x, *, src, dst, comm, n_chunks: int = 1):
         """Chunk-pipelined multi-hop transfer (paper §3.1 / Fig. 9).
@@ -35,7 +34,8 @@ class StaticTransport(Transport):
         Each rank's message (dim 1 of the stack) splits into ``n_chunks``
         chunks that move through the routed pipe one hop per step, all
         hops advancing in parallel — one copy per step carrying every
-        in-flight chunk (asynchronicity degree k of §3.3 = path length)."""
+        in-flight chunk (asynchronicity degree k of §3.3 = path length).
+        The destination's row is written where this process holds it."""
         from ..core.streaming import _mask_sel
 
         if src == dst:
@@ -60,9 +60,9 @@ class StaticTransport(Transport):
             if t < n_chunks:
                 pipe = _mask_sel(r == path[0], x[:, t * csz:(t + 1) * csz], pipe)
             # one pipeline shift: every hop advances
-            pipe = ppermute(pipe, pairs)
+            pipe = ppermute(pipe, pairs, comm)
             # the destination stores chunk t - hops + 1 when it arrives
             c = t - (hops - 1)
-            if c >= 0:
-                y[path[-1], c * csz:(c + 1) * csz] = pipe[path[-1]]
+            if c >= 0 and comm.is_local(dst):
+                y[dst - comm.lo, c * csz:(c + 1) * csz] = pipe[dst - comm.lo]
         return y

@@ -180,3 +180,53 @@ def test_data_axis_entry_points_default_to_cuda():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     assert make_ctx((2, 4), comm_mode="smi:static", device="cpu").data_comm.device.type == "cpu"
+
+
+#: ranks as processes (slice 15): the group, the communicator's block and the
+#: launchers that run it
+PROCESS_MODULES = ("core/spmd.py", "core/comm.py", "launch/stencil.py", "launch/channels.py")
+
+
+@pytest.mark.parametrize("module", PROCESS_MODULES)
+def test_process_mode_modules_stand_alone(module):
+    """The process mode's modules import neither JAX nor ``repro`` (the
+    rank processes import them by name), and each is imported by the
+    package walk."""
+    path = PORT / module
+    assert path in _port_files()
+    assert _forbidden_imports(path) == []
+
+
+def test_rank_processes_load_no_jax_or_repro():
+    """A rank process starts from a fresh interpreter: whatever this test
+    process has loaded, it holds neither JAX nor ``repro`` (and runs torch
+    on one thread on the CPU)."""
+    import _torch_spmd_cases as K
+
+    from repro_torch.core import run_spmd
+
+    assert "jax" in sys.modules  # this process has: the rank processes must not
+    got = run_spmd(K.loaded_modules, {"axis_names": ("x",), "axis_sizes": (8,)}, n_procs=2,
+                   device="cpu")
+    assert got == {"bad": [[], []], "threads": [1, 1], "lo": [0, 4]}
+
+
+def test_process_mode_defaults_to_cuda():
+    """``SpmdGroup`` and ``run_spmd`` place the rank processes on ``cuda``
+    unless the CPU is asked for, and raise without a card rather than move
+    to the CPU."""
+    import _torch_spmd_cases as K
+
+    from repro_torch.core import SpmdGroup, run_spmd
+    from repro_torch.launch import stencil as launch_stencil
+
+    if torch.cuda.is_available():
+        with SpmdGroup(1, 1) as g:
+            assert g.devices[0].type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SpmdGroup(2, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_spmd(K.loaded_modules, {"axis_names": ("x",), "axis_sizes": (8,)}, n_procs=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_stencil.main(["--domain", "16x16", "--steps", "1", "--ranks", "process"])
