@@ -8,7 +8,7 @@ non-zero):
 
 1. print the card's name and power limit (``nvidia-smi``), build the CUDA
    kernels from ``src/repro_torch/csrc`` and, beside them, this script's own
-   two (:data:`SMOKE_CU`: kernel C's tick floor and kernel A's scalar
+   (:data:`SMOKE_CU`: kernel C's tick floors and kernel A's scalar
    predecessor), and print what ``ptxas -v`` says of every kernel;
 2. kernel A (``accumulate``) against its plain PyTorch version, bit for bit,
    in float32, bfloat16 and int32 at a ragged size and at 64 MiB, and its
@@ -399,8 +399,25 @@ non-zero):
     transfer and a pop (a loop of 32 elements) in turns with the stacked
     runs; then ``launch.stencil --ranks process --procs 2`` (4 ranks a
     process, spawned beside the 8) at (a)'s cell, overlapped, bit-equal to
-    the single-rank sweep.  Each process's start-up and peak device memory
-    printed; phase 1 prints the card's compute mode.
+    the single-rank sweep; then the packet wire with the ranks as
+    processes (slice 16): (f) kernel C's block-tick form against its plain
+    version, a whole run stepped tick by tick at the halo shape, a
+    switch-bubble run on the snake-bus table and an undersized transit that
+    overflows, on 1-rank and 4-rank blocks, bit-equal on every output of
+    every tick, then its device time a launch beside an empty launch of its
+    grid; (c) also covers ``packet``; (d) the 2x4 stencil at 8192x8192 over
+    ``smi:packet``, 8 steps, both schedules, on the 8 processes and on the
+    2 of 4 ranks: every tile bit-equal to the stacked packet run and the
+    single-rank sweep, the ``halo`` counters the stacked run's, no
+    overflow, C's block-tick form launched in every process (B on the
+    overlapped schedule), ms a step and a tick beside the stacked run; (e)
+    ``allreduce`` and ``reduce_scatter`` of 64 Ki float32 a rank over
+    ``smi:packet`` on ring(1x8), torus(2x4) and snake_bus(2x4), bit-equal to
+    ``smi:static`` with overflow 0 and the stacked packet run's counters;
+    (g) phase 8's re-route, torus then snake bus, on one config and one
+    packet transport, the kernel library neither rebuilt nor reloaded in
+    any process.  Each process's start-up and peak device memory printed;
+    phase 1 prints the card's compute mode.
 
 Earlier phases that time or check one schedule pass ``plan=None``.
 
@@ -433,7 +450,13 @@ raw steps), D's ``launches_remat_recompute`` by policy and
 ``launches_captured_serve``; phase 58's are ``launches_pod_train_step`` on
 E's and D's rows and A's ``launches_pod_train_step_fused``, a step's at
 ``2,2,2``; phase 59's, counted in each rank process and summed, are B's
-``launches_process_stencil`` and A's ``launches_process_allreduce``), each
+``launches_process_stencil`` and ``launches_process_packet_stencil``, A's
+``launches_process_allreduce``, and the row of C's block-tick form
+(``router_tick_block``, path ``block``), whose ``launches`` are the
+8-process packet stencil's (59 d, both schedules), beside
+``launches_procs2_stencil``, ``launches_reductions``,
+``launches_latency`` and ``launches_reroute``, and whose times are a
+launch's at a 1-rank block, ``at_4_rank_blocks`` beside), each
 with the path its kernel ran (``simt``, ``vector``, ``warp``,
 ``thread``, ``fma`` or ``wgmma``); the rows of A, C, E, F's wgmma path and
 D add ``ms_before``, the time in this run of the kernel their calls ran
@@ -499,9 +522,10 @@ def log(msg: str):
 
 #: kernels this script times beside the port's, never used by the port:
 #: the tick floor of kernel C's warp path (its block of 1024 threads, its
-#: ticking warps and its one named barrier a tick, with no work), and kernel
-#: A's scalar predecessor (one float32 a thread, 16 blocks of 256 a SM), the
-#: kernel the vector one replaced
+#: ticking warps and its one named barrier a tick, with no work), that of its
+#: block-tick form (an empty launch of its grid), and kernel A's scalar
+#: predecessor (one float32 a thread, 16 blocks of 256 a SM), the kernel the
+#: vector one replaced
 SMOKE_CU = r"""
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -532,6 +556,14 @@ __global__ void accumulate_scalar_kernel(const float* __restrict__ a, const floa
 extern "C" int smoke_tick_floor(int n, int ticking, void* ran, void* stream) {
   tick_floor_kernel<<<1, 1024, 0, static_cast<cudaStream_t>(stream)>>>(n, ticking,
                                                                        static_cast<int*>(ran));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// kernel C's block-tick form with no work: a block of 128 threads a rank
+__global__ void empty_tick_kernel() {}
+
+extern "C" int smoke_empty_tick(int blocks, void* stream) {
+  empty_tick_kernel<<<blocks, 128, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -605,19 +637,29 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+#: profiles :func:`device_ms` takes before it gives up on one that records no
+#: device time
+PROFILE_TRIES = 3
+
+
 def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Mean device milliseconds per call of ``fn``: its kernels' own time
     under ``torch.profiler`` over ``reps`` calls, after warm-up.  Where the
     host takes longer to issue a call than the card to run it (a short
     kernel behind a Python wrapper), CUDA events around back-to-back calls
-    time the host; this times the kernels."""
+    time the host; this times the kernels.  A profile now and then holds
+    no kernel row at all; such a profile is taken again, up to
+    :data:`PROFILE_TRIES` times."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    busy, _, _ = _profile_device_ms(lambda: [fn() for _ in range(reps)])
-    return busy / reps
+    for _ in range(PROFILE_TRIES):
+        busy, _, _ = _profile_device_ms(lambda: [fn() for _ in range(reps)])
+        if busy > 0:
+            return busy / reps
+    raise RuntimeError(f"torch.profiler recorded no device time in {PROFILE_TRIES} profiles")
 
 
 def graph_ms(fn, reps: int = 50) -> float:
@@ -664,12 +706,13 @@ def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S) -> tuple[
 def reset_counts():
     from repro_torch.kernels.flash_attention import flash_attention_kernel
     from repro_torch.kernels.matmul import matmul
-    from repro_torch.kernels.router import router_run
+    from repro_torch.kernels.router import router_run, router_tick_block
     from repro_torch.kernels.ssd import ssd_scan_kernel
     from repro_torch.kernels.stencil import stencil_sweep
     from repro_torch.transport.fused import fused_accumulate, fused_shift_accumulate
 
     stencil_sweep.launches = fused_accumulate.launches = router_run.launches = 0
+    router_tick_block.launches = 0
     fused_shift_accumulate.launches = router_run.warp_launches = 0
     flash_attention_kernel.launches = ssd_scan_kernel.launches = matmul.launches = 0
     flash_attention_kernel.wgmma_launches = matmul.wgmma_launches = 0
@@ -702,6 +745,7 @@ def phase_build():
     p, i32 = ctypes.c_void_p, ctypes.c_int
     slib.smoke_tick_floor.argtypes = [i32, i32, p, p]
     slib.smoke_accumulate_scalar.argtypes = [p, p, p, ctypes.c_int64, p]
+    slib.smoke_empty_tick.argtypes = [i32, p]
     _SMOKE_LIB["lib"] = slib
     log(f"kernels built in {time.perf_counter() - t0:.1f}s -> {lib}")
     # every kernel's registers, stack and spills; each entry's name first
@@ -6296,18 +6340,28 @@ def _spmd_stencil_launcher(grp) -> dict:
 
 
 def _spmd_latency(grp, dev) -> dict:
-    """Phase 59 (c): ``launch.channels.latency`` over static and fused at 1,
-    4 and 7 hops, the checks of phase 21 (delivery bit for bit, the first
-    element on the hops-th pop, every one of :data:`SPMD_POPS` delivered),
-    stacked and with the ranks as
-    ``grp``'s processes in turns; µs a transfer and a pop."""
-    from repro_torch.launch.channels import PROCESS_LAT_WIRES, _line, latency
+    """Phase 59 (c): ``launch.channels.latency`` over static, fused and
+    packet at 1, 4 and 7 hops (Tab. 3's shape), the checks of phase 21
+    (delivery bit for bit, the first element on the hops-th pop, every one
+    of :data:`SPMD_POPS` delivered), stacked and with the ranks as
+    ``grp``'s processes in turns; µs a transfer and a pop, and C's
+    block-tick launches of each process's runs."""
+    from repro_torch.launch.channels import LAT_WIRES, _line, latency
 
     rows = {"stacked": [], "process": []}
+    launches = [0] * grp.n_procs
     for mode in ("stacked", "process", "process", "stacked"):
-        rows[mode].append(latency(dev, PROCESS_LAT_WIRES, count=SPMD_POPS, reps=10,
-                                  group=grp if mode == "process" else None))
-    out = {}
+        if mode == "stacked":
+            rows[mode].append(latency(dev, LAT_WIRES, count=SPMD_POPS, reps=10))
+            continue
+        got, n = _launched(grp, lambda: latency(dev, LAT_WIRES, count=SPMD_POPS, reps=10,
+                                                 group=grp))
+        rows[mode].append(got)
+        launches = [a + b for a, b in zip(launches, n["C"])]
+    if dev.type == "cuda" and min(launches) == 0:
+        raise AssertionError(f"packet latency: a rank process never launched C's block-tick "
+                             f"form ({launches})")
+    out = {"launches_c": launches}
     for i, row in enumerate(rows["process"][0]):
         key = f"hops={row['hops']}/{row['wire']}"
         out[key] = {m: {k: sum(r[i][k] for r in rs) / len(rs)
@@ -6319,13 +6373,506 @@ def _spmd_latency(grp, dev) -> dict:
     return out
 
 
+# -- the packet wire with the ranks as processes (slice 16) -------------------------------
+
+#: phase 59 (d): the packet stencil's halo over SPMD_STEPS steps (PACKET_HALO is 32 steps')
+SPMD_PACKET_HALO = (PACKET_HALO[0] // 32 * SPMD_STEPS, PACKET_HALO[1] // 32 * SPMD_STEPS)
+#: phase 59 (e): the packet reductions' message, 64 Ki float32 a rank at 2048 a
+#: packet (phase 11's packet size): a ring step's block is a train of 4
+#: packets, so arbitration and ordering are exercised, while a process-mode
+#: tick (a launch, a stream synchronise and a host barrier in every process)
+#: keeps the 16 Mi of phase 11 (1,029 ticks a ring step) out of the time limit
+SPMD_PACKET_ELEMS = 64 * 1024
+SPMD_PACKET_PKT = 2048
+SPMD_PACKET_LAYOUTS = {"ring(1x8)": (("x",), (8,), False),
+                       "torus(2x4)": (("x", "y"), DIMS, False),
+                       "snake_bus(2x4)": (("x", "y"), DIMS, True)}
+
+
+def _spmd_counts(comm) -> dict:
+    """A rank process's launch counters of kernel C's block-tick form and of
+    kernel B (read before and after a sub-phase: the difference is its
+    launches in that process) and its crossing steps so far."""
+    from repro_torch.kernels.router import router_tick_block
+    from repro_torch.kernels.stencil import stencil_sweep
+
+    return {"C": router_tick_block.launches, "B": stencil_sweep.launches,
+            "steps": comm.group.steps}
+
+
+def _launched(grp, call):
+    """``call()`` (work on ``grp``'s processes) and each process's launches
+    of C's block-tick form and of B, and its crossing steps, in it."""
+    comm_args = {"axis_names": ("x",), "axis_sizes": (grp.n_ranks,)}
+    before = grp.run(_spmd_counts, comm_args)
+    out = call()
+    after = grp.run(_spmd_counts, comm_args)
+    return out, {k: [a - b for a, b in zip(after[k], before[k])] for k in before}
+
+
+def _spmd_packet_stencil_rank(comm, *, tiles, want, overlapped: bool, steps: int) -> dict:
+    """Phase 59 (d) in a rank process: one run of ``steps`` steps of the 2x4
+    stencil over ``smi:packet`` on its rows of ``tiles`` (the parent's
+    stack, mapped from the parent's memory) between barrier-aligned stamps;
+    whether its tiles are bit-equal to its rows of ``want`` (mapped too), the
+    ``halo`` counters and the overflow of the ranks held here."""
+    from repro_torch.apps import HALO_TAG, DistributedStencil
+    from repro_torch.core.spmd import block_clock
+
+    lo, hi = comm.lo, comm.lo + comm.n_local
+    app = DistributedStencil.create(DIMS, comm=comm, comm_mode="smi:packet")
+    tp = app.halo_schedule.resolve_transport(tiles[lo:hi])
+    t0 = block_clock(comm)
+    got = app.run(tiles[lo:hi], steps, overlapped=overlapped, transport=tp)
+    t1 = block_clock(comm)
+    return {"equal": same_bits(got, want[lo:hi]), "halo": tp.stats.tag_counts(HALO_TAG),
+            "overflow": int(tp.stats.overflow.sum()), "t0": t0, "t1": t1}
+
+
+def _spmd_packet_stencil(groups, dev) -> dict:
+    """Phase 59 (d): the 2x4 stencil at 8192x8192 over ``smi:packet``,
+    :data:`SPMD_STEPS` steps, overlapped and not, stacked and on each group
+    of rank processes (8 of one rank, 2 of four: in-process links beside
+    crossing ones): every tile bit-equal to the stacked packet run's and to
+    the single-rank sweep, the ``halo`` counters the stacked run's
+    (:data:`SPMD_PACKET_HALO`), no overflow, C's block-tick form launched in
+    every process and B in every process on the overlapped schedule; ms a
+    step and a tick beside the stacked run's."""
+    import torch
+
+    from repro_torch.apps import HALO_TAG, DistributedStencil
+
+    app = DistributedStencil.create(DIMS, comm_mode="smi:packet", device=dev)
+    g = torch.Generator(device=dev).manual_seed(59)
+    world = torch.randn(SPMD_DOMAIN, generator=g, device=dev)
+    tiles = app.scatter(world)
+    single = app.single_rank_reference(world, SPMD_STEPS)
+    comm_args = {"axis_names": app.comm.axis_names, "axis_sizes": app.comm.axis_sizes}
+    out = {}
+    for sched in ("overlapped", "reference"):
+        overlapped = sched == "overlapped"
+        tp = app.halo_schedule.resolve_transport(tiles)
+        want, stacked_ms = _timed_ms(lambda: app.run(tiles, SPMD_STEPS, overlapped=overlapped,
+                                                     transport=tp))
+        halo = tp.stats.tag_counts(HALO_TAG)
+        if not same_bits(app.gather(want), single) or halo != SPMD_PACKET_HALO \
+                or int(tp.stats.overflow.sum()) != 0:
+            raise AssertionError(f"packet stencil {sched} (stacked): tiles or halo {halo} "
+                                 f"wrong, or packets lost")
+        row = {"stacked_ms_per_step": stacked_ms / SPMD_STEPS, "halo": list(halo)}
+        for grp in groups:
+            what = f"packet stencil {sched} at {grp.n_procs} processes"
+            r, n = _launched(grp, lambda: grp.run(
+                _spmd_packet_stencil_rank, comm_args, tiles=tiles, want=want,
+                overlapped=overlapped, steps=SPMD_STEPS))
+            if r["equal"] != [True] * grp.n_procs:
+                raise AssertionError(f"{what}: tiles differ from the stacked packet run and the "
+                                     f"single-rank sweep ({r['equal']})")
+            if r["halo"] != [halo] * grp.n_procs or any(r["overflow"]):
+                raise AssertionError(f"{what}: halo {r['halo']} against the stacked {halo}, "
+                                     f"overflow {r['overflow']}")
+            if tiles.is_cuda and (min(n["C"]) == 0 or (overlapped and min(n["B"]) == 0)):
+                raise AssertionError(f"{what}: a rank process launched C's block-tick form "
+                                     f"{n['C']} and B {n['B']} times")
+            ms = (max(r["t1"]) - min(r["t0"])) * 1e3
+            ticks = n["steps"][0]
+            row[f"procs{grp.n_procs}"] = {
+                "ms_per_step": ms / SPMD_STEPS, "ticks": ticks, "ms_per_tick": ms / ticks,
+                "launches_c": n["C"], "launches_b": n["B"]}
+            log(f"ranks as processes: {what}, {SPMD_STEPS} steps: {ms / SPMD_STEPS:.4f} ms a "
+                f"step against {stacked_ms / SPMD_STEPS:.4f} stacked, {ticks} ticks "
+                f"({ms / ticks:.4f} ms a tick, a launch, a stream synchronise and a barrier); "
+                f"bit-equal to the stacked packet run and the single-rank sweep, halo {halo}, "
+                f"overflow 0; C's block-tick form {n['C']} and B {n['B']} launches a process")
+            del r
+        out[sched] = row
+    return out
+
+
+def _spmd_packet_reduce_rank(comm, *, xs, wants, snake: bool, pkt_elems: int) -> dict:
+    """Phase 59 (e) in a rank process: its rows of ``xs`` through each
+    reduction of :data:`SPMD_REDUCTIONS` over ``smi:packet`` (on the snake
+    bus embedded in the torus with ``snake``), against its rows of the
+    stacked ``smi:static`` result; the counters, the overflow of the ranks
+    held here and the stamps around each call."""
+    import torch
+
+    from repro_torch.core import snake_bus
+    from repro_torch.core.spmd import block_clock
+    from repro_torch.transport import get_transport
+
+    if snake:
+        comm = comm.with_topology(snake_bus(tuple(comm.axis_sizes)))
+    lo, hi = comm.lo, comm.lo + comm.n_local
+    out = {}
+    for name in SPMD_REDUCTIONS:
+        t = get_transport("packet", device=comm.device, pkt_elems=pkt_elems)
+        t0 = block_clock(comm)
+        y = _spmd_reduce(name, xs[lo:hi], comm, t)
+        t1 = block_clock(comm)
+        out[name] = {"equal": same_bits(y, wants[name][lo:hi]),
+                     "finite": bool(torch.isfinite(y).all()),
+                     "stats": (t.stats.steps, t.stats.bytes_moved),
+                     "overflow": int(t.stats.overflow.sum()), "stamps": (t0, t1)}
+    return out
+
+
+def _spmd_packet_reductions(grp, dev) -> dict:
+    """Phase 59 (e): ``allreduce`` and ``reduce_scatter`` of
+    :data:`SPMD_PACKET_ELEMS` float32 a rank over ``smi:packet`` (±1 ring
+    shifts only) on ring(1x8), torus(2x4) and snake_bus(2x4), ranks as
+    ``grp``'s processes: each process's rows bit-equal to the stacked
+    ``smi:static`` run's, the counters the stacked packet run's, overflow 0,
+    C's block-tick form launched in every process; ms a call beside the
+    stacked packet run's."""
+    import torch
+
+    from repro_torch.core import Communicator, snake_bus
+    from repro_torch.transport import get_transport
+
+    g = torch.Generator(device=dev).manual_seed(60)
+    xs = torch.randn((P, SPMD_PACKET_ELEMS), generator=g, device=dev)
+    out, launches = {}, 0
+    for layout, (names, sizes, snake) in SPMD_PACKET_LAYOUTS.items():
+        comm = Communicator.create(names, sizes, topology=snake_bus(sizes) if snake else None,
+                                   device=dev)
+        wants, stacked = {}, {}
+        for name in SPMD_REDUCTIONS:
+            wants[name] = _spmd_reduce(name, xs, comm, get_transport("static", device=dev))
+            tp = get_transport("packet", device=dev, pkt_elems=SPMD_PACKET_PKT)
+            y, ms = _timed_ms(lambda: _spmd_reduce(name, xs, comm, tp))
+            if not same_bits(y, wants[name]) or int(tp.stats.overflow.sum()) != 0:
+                raise AssertionError(f"{name} on {layout}: stacked smi:packet != smi:static")
+            stacked[name] = {"ms": ms, "stats": (tp.stats.steps, tp.stats.bytes_moved)}
+        r, n = _launched(grp, lambda: grp.run(_spmd_packet_reduce_rank,
+                                              {"axis_names": names, "axis_sizes": sizes},
+                                              xs=xs, wants=wants, snake=snake,
+                                              pkt_elems=SPMD_PACKET_PKT))
+        if xs.is_cuda and min(n["C"]) == 0:
+            raise AssertionError(f"packet reductions on {layout}: a rank process never "
+                                 f"launched C's block-tick form ({n['C']})")
+        launches += sum(n["C"])
+        for name in SPMD_REDUCTIONS:
+            got, what = r[name], f"ranks as processes: {name} on {layout} over smi:packet"
+            if got["equal"] != [True] * grp.n_procs or got["finite"] != [True] * grp.n_procs \
+                    or any(got["overflow"]):
+                raise AssertionError(f"{what}: not bit-equal to the stacked smi:static "
+                                     f"({got['equal']}) or packets lost ({got['overflow']})")
+            if got["stats"] != [stacked[name]["stats"]] * grp.n_procs:
+                raise AssertionError(f"{what}: counters {got['stats']} != the stacked "
+                                     f"{stacked[name]['stats']}")
+            ms = (max(b for _, b in got["stamps"]) - min(a for a, _ in got["stamps"])) * 1e3
+            out[f"{name}/{layout}"] = {"process_ms": ms, "stacked_ms": stacked[name]["ms"],
+                                       "ticks_budgeted": stacked[name]["stats"][0]}
+            log(f"{what}: bit-equal to the stacked smi:static in every process, overflow 0, "
+                f"counters the stacked packet run's ({stacked[name]['stats']}); {ms:.4f} ms "
+                f"a call against {stacked[name]['ms']:.4f} stacked")
+        log(f"ranks as processes: packet reductions on {layout}: C's block-tick form "
+            f"{n['C']} launches a process, {n['steps'][0]} ticks crossed")
+    del xs
+    return {"ms": out, "launches_c": launches}
+
+
+def _spmd_reroute_rank(comm, pay, dst, ln, *, tbls: dict, x) -> dict:
+    """Phase 59 (g) in a rank process: one ``RouterConfig`` routed on the
+    torus table, then on the snake-bus table, and one packet transport
+    instance shifting ``x`` over the torus, then the snake bus; whether the
+    kernel library stayed the one loaded (no rebuild, no reload)."""
+    from repro_torch.core import RouterConfig, run_router, snake_bus
+    from repro_torch.kernels import build
+    from repro_torch.transport import get_transport
+
+    def loaded():  # a CPU rehearsal loads no library
+        if comm.device.type != "cuda":
+            return None
+        return build.library(), build._digest(), build.library.cache_info().misses
+
+    before = loaded()
+    out = {name: run_router(RouterConfig(dims=DIMS), comm, tbl, pay, dst, ln, 64)
+           for name, tbl in tbls.items()}
+    t = get_transport("packet", device=comm.device)
+    lo, hi = comm.lo, comm.lo + comm.n_local
+    for name, c in (("torus", comm), ("snake_bus", comm.with_topology(snake_bus(DIMS)))):
+        out[f"shift/{name}"] = t.shift(x[lo:hi], c, -1)
+    out["tables"] = len(t._tbl_cache)
+    out["overflow"] = int(t.stats.overflow.sum())
+    after = loaded()
+    out["same_library"] = before is None or (after[0] is before[0] and after[1:] == before[1:])
+    return out
+
+
+def _spmd_reroute(grp, dev) -> dict:
+    """Phase 59 (g): phase 8's re-route with the ranks as ``grp``'s
+    processes (torus table, then snake-bus table, one config; everything
+    delivered, nothing lost), and one packet transport instance shifting
+    over both; the kernel library neither rebuilt nor reloaded in any
+    process."""
+    import torch
+
+    from repro_torch.core import Communicator, RouterConfig, snake_bus
+    from repro_torch.transport import get_transport
+
+    cfg = RouterConfig(dims=DIMS)
+    msgs = [(0, 0, 5, 9.0), (2, 1, 6, 8.0), (7, 0, 1, 3.0), (4, 1, 3, 2.0), (6, 0, 0, 7.0)]
+    staged = _stage(dev, cfg.n_ports, cfg.fifo_cap, cfg.pkt_elems, msgs)
+    g = torch.Generator(device=dev).manual_seed(61)
+    x = torch.randn((P, 1000), generator=g, device=dev)
+    comm_args = {"axis_names": ("x", "y"), "axis_sizes": DIMS}
+    r, n = _launched(grp, lambda: grp.run(_spmd_reroute_rank, comm_args, *staged,
+                                          tbls=_tables(dev), x=x))
+    comm = Communicator.create(("x", "y"), DIMS, device=dev)
+    for topo in ("torus", "snake_bus"):
+        out_pay, out_cnt, ovf, _ = r[topo]
+        if int(ovf.sum()) != 0:
+            raise AssertionError(f"re-route {topo} with ranks as processes: packets lost")
+        for _s, p, d, val in msgs:
+            if val not in out_pay[d, p, :int(out_cnt[d, p]), 0].tolist():
+                raise AssertionError(f"re-route {topo} with ranks as processes: message {val} "
+                                     f"not delivered")
+        c = comm if topo == "torus" else comm.with_topology(snake_bus(DIMS))
+        want = get_transport("static", device=dev).shift(x, c, -1)
+        if not same_bits(r[f"shift/{topo}"].to(dev), want):
+            raise AssertionError(f"packet shift over {topo} with ranks as processes != static")
+    if r["tables"] != [2] * grp.n_procs or any(r["overflow"]) \
+            or r["same_library"] != [True] * grp.n_procs:
+        raise AssertionError(f"re-route with ranks as processes: tables {r['tables']}, overflow "
+                             f"{r['overflow']}, library kept {r['same_library']}")
+    if dev.type == "cuda" and min(n["C"]) == 0:
+        raise AssertionError(f"re-route: a rank process never launched C's block-tick form")
+    log(f"re-route with ranks as {grp.n_procs} processes: torus then snake bus on one config "
+        f"and on one packet transport ({r['tables'][0]} tables cached a process), "
+        f"{len(msgs)} messages delivered, shifts equal to static, no loss; the kernel library "
+        f"neither rebuilt nor reloaded in any process; C's block-tick form {n['C']} launches "
+        f"a process")
+    return {"launches_c": sum(n["C"])}
+
+
+def _block_tick_chain(fn, spec, tbl, src, pay, dst, ln, n_steps: int, n_block: int,
+                      tick_batch: int, check=None):
+    """A whole router run stepped tick by tick with ``fn`` (kernel C's
+    block-tick form or its plain version) on blocks of ``n_block`` ranks,
+    each on its own state, the link exchange a gather of every block's send
+    rows between ticks (what the rank processes' mailboxes move); the final
+    arrivals absorbed.  ``check(t, states, snd, pending)`` sees every tick.
+    Returns the blocks' states and the ticks run."""
+    import torch
+
+    from repro_torch.kernels.router import init_state
+    from repro_torch.kernels.router.ref import ROW_HEAD
+
+    dev = pay.device
+    los = range(0, P, n_block)
+    sts = [init_state(spec, n_block, dev) for _ in los]
+    lanes = torch.arange(spec.n_links, device=dev)
+    arr = torch.zeros((P, spec.n_links, ROW_HEAD + spec.pkt_elems), dtype=torch.int32,
+                      device=dev)
+    B = max(1, min(tick_batch, n_steps))
+    while n_steps % B:
+        B -= 1
+    t = 0
+    while t < n_steps:
+        for _ in range(B):
+            snds, pends = [], []
+            for i, lo in enumerate(los):
+                hi = lo + n_block
+                sts[i], snd, pend = fn(spec, tbl[lo:hi], pay[lo:hi], dst[lo:hi], ln[lo:hi],
+                                       sts[i], arr[lo:hi], lo, t)
+                snds.append(snd)
+                pends.append(pend)
+            snd, pend = torch.cat(snds), torch.cat(pends)
+            if check is not None:
+                check(t, sts, snd, pend)
+            arr = snd[src, lanes]
+            t += 1
+        if int(pend.sum()) == 0:
+            break
+    for i, lo in enumerate(los):
+        sts[i], _, _ = fn(spec, tbl[lo:lo + n_block], pay[lo:lo + n_block],
+                          dst[lo:lo + n_block], ln[lo:lo + n_block], sts[i],
+                          arr[lo:lo + n_block], lo, t, arbitrate=False)
+    if check is not None:
+        check(t, sts, None, None)
+    return sts, t
+
+
+def _block_tick_case(dev, name, cfg, tbl, pay, dst, ln, n_steps) -> dict:
+    """Phase 59 (f), one case: a whole run stepped tick by tick through the
+    plain version on one block of all P ranks (``router_tick`` on the
+    stacked state), then through C's block-tick form on blocks of 1 and of
+    4 ranks, each block bit-equal to its rows of the plain run on every
+    output of every tick (the whole state, the send rows, the pending
+    counts), and the result bit-equal to the stacked run (``run_router``,
+    ``impl="vector"``).  Returns, by block size, what phase 59 (f) times:
+    the spec, the exchange table, the ticks and the inputs of the first
+    block's middle tick."""
+    import torch
+
+    from repro_torch.core import Communicator, run_router
+    from repro_torch.core.router import _fabric
+    from repro_torch.kernels.router import (
+        router_tick_block,
+        router_tick_block_plain,
+        tick_spec_of,
+    )
+
+    _, link_ids, src = _fabric(tuple(cfg.dims), dev)
+    spec = tick_spec_of(cfg, P, link_ids)
+    batch = 4 if cfg.tick_batch is None else cfg.tick_batch
+    src = src.long()
+    plain = {}
+
+    def record(t, sts, snd, pend):
+        plain[t] = ({k: v.clone() for k, v in sts[0].items()}, snd, pend)
+
+    _, ticks = _block_tick_chain(router_tick_block_plain, spec, tbl, src, pay, dst, ln, n_steps,
+                                 P, batch, record)
+    comm = Communicator.create(tuple(f"a{i}" for i in range(len(cfg.dims))), cfg.dims,
+                               device=dev)
+    want = run_router(cfg, comm, tbl, pay, dst, ln, n_steps, impl="vector")
+    out = {}
+    for n_block in (1, 4):
+        def compare(t, sts, snd, pend):
+            want_st, want_snd, want_pend = plain[t]
+            for i, st in enumerate(sts):
+                for k, v in st.items():
+                    if not same_bits(v, want_st[k][i * n_block:(i + 1) * n_block]):
+                        raise AssertionError(f"block tick {name}, {n_block}-rank blocks: block "
+                                             f"{i} differs from the plain version on {k} at "
+                                             f"tick {t}")
+            if snd is not None and not (same_bits(snd, want_snd) and same_bits(pend, want_pend)):
+                raise AssertionError(f"block tick {name}, {n_block}-rank blocks: send rows or "
+                                     f"pending differ from the plain version at tick {t}")
+
+        before = router_tick_block.launches
+        sts, kticks = _block_tick_chain(router_tick_block, spec, tbl, src, pay, dst, ln, n_steps,
+                                        n_block, batch, compare)
+        torch.cuda.synchronize()
+        launches = router_tick_block.launches - before
+        # a launch a block a tick, and one a block for the final absorb (the
+        # plain version on a CPU rehearsal launches nothing)
+        if kticks != ticks or (pay.is_cuda and launches != (ticks + 1) * (P // n_block)):
+            raise AssertionError(f"block tick {name}: {kticks} ticks against the plain {ticks}, "
+                                 f"{launches} launches")
+        got = [torch.cat([st[k] for st in sts]) for k in ("out_pay", "out_cnt", "overflow",
+                                                           "t_done")]
+        if not all(same_bits(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"block tick {name}: the stepped run != the stacked run")
+        log(f"block tick {name:>26}, {n_block}-rank blocks: every tick's state, send rows and "
+            f"pending bit-equal to the plain version, the result to the stacked run ({ticks} "
+            f"ticks, delivered {int(got[1].sum())}, overflow {int(got[2].sum())})")
+        # the first block's state after the middle tick and its arrivals: the
+        # inputs of one mid-run tick, on which the plain version is timed
+        mid = ticks // 2
+        st, snd, _ = plain[mid - 1]
+        arr = snd[src, torch.arange(spec.n_links, device=dev)][:n_block]
+        out[n_block] = {"spec": spec, "src": src, "ticks": ticks, "overflow": int(got[2].sum()),
+                        "mid": (mid, {k: v[:n_block] for k, v in st.items()}, arr)}
+    return out
+
+
+def phase_block_tick(dev) -> dict:
+    """Phase 59 (f): kernel C's block-tick form against its plain version at
+    the halo shape (phase 7's E/W permute: 128 packets of 32 float32 a
+    rank), at a switch-bubble configuration on the snake-bus table and at
+    an undersized transit that overflows, each on 1-rank and 4-rank blocks
+    (:func:`_block_tick_case`); then at the halo shape the kernel's device
+    time a launch (``torch.profiler``, its own rows) beside an empty launch
+    of its grid (the tick floor), the plain version's time a call (CUDA
+    events on one mid-run tick) and the bytes bound of a tick.  Returns the
+    kernel table's row (``launches`` filled in by phase 59's runs)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import RouterConfig
+    from repro_torch.kernels.build import current_stream
+    from repro_torch.kernels.router import router_tick_block, router_tick_block_plain
+    from repro_torch.kernels.router.ref import ROW_HEAD
+
+    tables = _tables(dev)
+    cases = []
+    _, (cfg, tbl, pay, dst, ln, n_steps) = _halo_job(dev)
+    cases.append(("halo shape", cfg, tbl, pay, dst, ln, n_steps))
+    cfg_b = RouterConfig(dims=DIMS, fifo_cap=6, transit_cap=8, out_cap=16, pkt_elems=4,
+                         **EQ_CFGS["ports2_bubble_r16"])
+    rng = np.random.RandomState(59)
+    msgs = [(s, p, rng.randint(0, P), float(rng.randint(1, 99)))
+            for s in range(P) for p in range(2) for _ in range(rng.randint(0, 5))]
+    cases.append(("ports2_bubble_r16/snake_bus", cfg_b, tables["snake_bus"],
+                  *_stage(dev, 2, 6, 4, msgs), 64))
+    cfg_o = RouterConfig(dims=DIMS, n_ports=2, fifo_cap=6, transit_cap=1, out_cap=16,
+                         pkt_elems=4, R=4)
+    msgs = [(s, p, (s + 2 + 3 * p) % P, float(10 * s + p)) for s in range(P) for p in range(2)
+            for _ in range(3)]
+    cases.append(("transit_cap_1", cfg_o, tables["torus"], *_stage(dev, 2, 6, 4, msgs), 64))
+    res = {}
+    for name, cfg, tbl, pay, dst, ln, n_steps in cases:
+        for n_block, r in _block_tick_case(dev, name, cfg, tbl, pay, dst, ln, n_steps).items():
+            res[(name, n_block)] = r
+        if name == "transit_cap_1" and res[(name, 1)]["overflow"] == 0:
+            raise AssertionError("block tick: an undersized transit counted no overflow")
+
+    # the halo shape's times: a launch of the form on a block over a whole
+    # stepped run and an empty launch of its grid (the floor), each by its
+    # own kernel rows of one profile; the plain version on one mid-run tick
+    name, cfg, tbl, pay, dst, ln, n_steps = cases[0]
+    row = {"ms": {}, "tick_floor_ms": {}, "plain_ms": {}, "bound_ms": {}}
+    stream = current_stream(pay)
+    floor_reps = 200
+    for n_block in (1, 4):
+        case = res[(name, n_block)]
+        spec, src = case["spec"], case["src"]
+
+        def profiled():
+            _block_tick_chain(router_tick_block, spec, tbl, src, pay, dst, ln, n_steps, n_block,
+                              4)
+            for _ in range(floor_reps):
+                smoke_launch(smoke_lib().smoke_empty_tick(n_block, stream), "empty tick")
+
+        for _ in range(PROFILE_TRIES):  # a profile that recorded no kernel is taken again
+            before = router_tick_block.launches
+            _, rows, _ = _profile_device_ms(profiled)
+            launches = max(1, router_tick_block.launches - before)
+            row["ms"][n_block] = sum(ms for k, ms in rows if "router_tick_block" in k) / launches
+            row["tick_floor_ms"][n_block] = sum(ms for k, ms in rows if "empty_tick" in k) \
+                / floor_reps
+            if row["ms"][n_block] > 0 and row["tick_floor_ms"][n_block] > 0:
+                break
+        else:
+            raise RuntimeError("torch.profiler recorded no block-tick or empty launch in "
+                               f"{PROFILE_TRIES} profiles")
+        mid, st, arr = case["mid"]
+        row["plain_ms"][n_block] = time_ms(lambda: router_tick_block_plain(
+            spec, tbl[:n_block], pay[:n_block], dst[:n_block], ln[:n_block], st, arr, 0, mid))
+        # bytes of a tick: the arrivals read and the send rows written, the
+        # control state (heads, counts, latches, pending) read and written
+        ctrl = n_block * (2 * cfg.n_ports + 2 * spec.n_links + 5)
+        nbytes = 4 * (2 * n_block * spec.n_links * (ROW_HEAD + cfg.pkt_elems) + 2 * ctrl)
+        row["bound_ms"][n_block] = bound(nbytes, 0)[0]
+        log(f"block tick at the halo shape, {n_block}-rank blocks: {row['ms'][n_block]:.5f} ms "
+            f"a launch (device time over {launches} launches), an empty launch of its grid "
+            f"{row['tick_floor_ms'][n_block]:.5f} ms, plain {row['plain_ms'][n_block]:.4f} ms "
+            f"a call, bytes bound {row['bound_ms'][n_block]:.7f} ms")
+    return dict(
+        name="router_tick_block", route="cuda", path="block",
+        source="src/repro_torch/csrc/router.cu", replaces="src/repro/kernels/router/kernel.py:83",
+        launches=0, max_abs_err=0.0, ms=row["ms"][1], plain_ms=row["plain_ms"][1],
+        bound_ms=row["bound_ms"][1], bound_by="bytes", library_ms=None,
+        tick_floor_ms=row["tick_floor_ms"][1], tick_floor_by="a launch",
+        at_4_rank_blocks={k: v[4] for k, v in row.items()},
+        shape=[1] + list(pay.shape[1:]), dtype="float32")
+
+
 def phase_spmd(dev) -> dict:
     """Phase 59: the ranks as processes on the card.  One spawn of 8 rank
     processes (one a rank, each its own CUDA context on the card) serves
     (a) the stencil, (b) the reductions and (c) channel latency; a group of
     2 processes of 4 ranks, spawned beside it (the two spawns' imports
-    overlap), then runs the stencil launcher.  Prints each process's
-    start-up (context, mailboxes) and peak device memory."""
+    overlap), then runs the stencil launcher.  The packet wire runs on the
+    same two groups: (f) kernel C's block-tick form against its plain
+    version first (in this process), then (d) the packet stencil on both
+    groups, (e) the packet reductions and (g) the table swap on the 8.
+    Prints each process's start-up (context, mailboxes) and peak device
+    memory."""
     from concurrent.futures import ThreadPoolExecutor
     from contextlib import ExitStack
 
@@ -6356,6 +6903,11 @@ def phase_spmd(dev) -> dict:
         log(f"ranks as processes: {SPMD_PROCS} + 2 processes spawned and mapped in "
             f"{res['spawn_s']:.1f} s; the card's free memory fell {taken} B: "
             f"{res['context_bytes']:.0f} B a process beyond its mailbox (its context)")
+        # the block-tick form checked against its plain version before any
+        # rank process runs it
+        t = time.perf_counter()
+        res["block_tick_row"] = phase_block_tick(dev)
+        log(f"phase 59 (f): {time.perf_counter() - t:.1f}s")
         t = time.perf_counter()
         res["stencil"] = _spmd_stencil(grp, dev)
         log(f"phase 59 (a): {time.perf_counter() - t:.1f}s")
@@ -6371,6 +6923,15 @@ def phase_spmd(dev) -> dict:
         t = time.perf_counter()
         res["stencil_procs2"] = _spmd_stencil_launcher(grp2)
         log(f"phase 59 (a) at 2 processes: {time.perf_counter() - t:.1f}s")
+        t = time.perf_counter()
+        res["packet_stencil"] = _spmd_packet_stencil((grp, grp2), dev)
+        log(f"phase 59 (d): {time.perf_counter() - t:.1f}s")
+        t = time.perf_counter()
+        res["packet_reductions"] = _spmd_packet_reductions(grp, dev)
+        log(f"phase 59 (e): {time.perf_counter() - t:.1f}s")
+        t = time.perf_counter()
+        res["reroute"] = _spmd_reroute(grp, dev)
+        log(f"phase 59 (g): {time.perf_counter() - t:.1f}s")
         res["startup"] = startup
     return res
 
@@ -6706,6 +7267,20 @@ def main() -> int:
     by_name["accumulate"]["launches_process_allreduce"] = \
         spmd["reductions"]["launches_a_allreduce"]
     by_name["shift_accumulate"]["launches_process_allreduce"] = 0
+    # the launches of slice 16's path, counted in each rank process and
+    # summed: C's block-tick form in the 8-process packet stencil (59 d, both
+    # schedules; its other runs beside), B in its overlapped run
+    row_tick = spmd.pop("block_tick_row")
+    packet = spmd["packet_stencil"]
+    row_tick["launches"] = sum(sum(packet[s]["procs8"]["launches_c"]) for s in packet)
+    row_tick["launches_procs2_stencil"] = sum(sum(packet[s]["procs2"]["launches_c"])
+                                              for s in packet)
+    row_tick["launches_reductions"] = spmd["packet_reductions"]["launches_c"]
+    row_tick["launches_latency"] = sum(spmd["latency"]["launches_c"])
+    row_tick["launches_reroute"] = spmd["reroute"]["launches_c"]
+    rows.append(row_tick)
+    by_name["stencil_sweep"]["launches_process_packet_stencil"] = \
+        sum(packet["overlapped"]["procs8"]["launches_b"])
     # the launches of slice 14's path: a training step's at (2, 2, 2) over
     # smi:fused (phase 58)
     by_name["flash_attention"]["launches_pod_train_step"] = launches_58["E"]

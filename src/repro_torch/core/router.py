@@ -28,6 +28,13 @@ Three implementations of the same tick, equal bit for bit on
 
 ``impl=None`` takes ``kernel`` on a CUDA tensor and ``vector`` on a CPU
 tensor, as the reference takes Pallas on a TPU and ``vector`` elsewhere.
+
+With ranks run as processes (``comm.group``, :mod:`repro_torch.core.spmd`)
+each process ticks only the ranks it holds, one tick at a time, and the
+link rows cross between processes after every tick, the drain test a
+group-wide sum: the reference's own loop under ``shard_map``.  There
+``kernel`` is kernel C's block-tick form, one launch a tick, ``vector`` its
+plain version, and ``scalar`` (the stacked oracle) is refused.
 """
 
 from __future__ import annotations
@@ -38,7 +45,15 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..kernels.router import router_run, router_run_ref, tick_spec_of
+from ..kernels.router import (
+    init_state,
+    router_run,
+    router_run_ref,
+    router_tick_block,
+    router_tick_block_plain,
+    tick_spec_of,
+)
+from ..kernels.router.ref import ROW_HEAD
 from ..obs import trace as obs
 from .comm import Communicator
 from .routing import compute_route_table, physical_link_map
@@ -209,6 +224,9 @@ def run_router(
     route_tbl = route_tbl.to(torch.int32)
     inq_dst, inq_len = inq_dst.to(torch.int32), inq_len.to(torch.int32)
     if impl == "scalar":
+        if comm.group is not None:
+            raise ValueError("impl='scalar' is the stacked oracle; ranks run as processes tick "
+                             "on impl='vector' or 'kernel'")
         return _run_router_scalar(cfg, comm, route_tbl, inq_pay, inq_dst, inq_len, n_steps,
                                   links)
     spec = tick_spec_of(cfg, n, link_ids)
@@ -223,6 +241,9 @@ def run_router(
             B -= 1
         obs.emit("router.tick_batch", batch=B, n_batches=int(n_steps) // B, lane_live=False)
         obs.emit("router.drain", mode="psum")
+    if comm.group is not None:
+        return _run_router_process(spec, tuple(cfg.dims), comm, route_tbl, inq_pay, inq_dst,
+                                   inq_len, n_steps, batch, impl)
     if impl == "vector":
         out = router_run_ref(spec, route_tbl, src, inq_pay, inq_dst, inq_len, n_steps, batch)
     else:
@@ -232,6 +253,62 @@ def run_router(
         out = router_run(spec, route_tbl.contiguous(), src, inq_pay.contiguous(),
                          inq_dst.contiguous(), inq_len.contiguous(), n_steps)
     return out[:4]
+
+
+@functools.lru_cache(maxsize=64)
+def _src_table(dims: tuple[int, ...]) -> np.ndarray:
+    """The host copy of a torus's ``src`` exchange table (the link
+    exchange's plan is made from it)."""
+    links = make_links(dims)
+    return _exchange_tables(links, int(np.prod(dims)) if dims else 1)[1]
+
+
+def link_row_bytes(dims: tuple[int, ...], pkt_elems: int) -> int:
+    """Bytes a rank's link rows of one tick take in a rank process's receive
+    slot (``core/spmd.py``): a row a link, its header and payload."""
+    return len(make_links(tuple(dims))) * (ROW_HEAD + pkt_elems) * 4
+
+
+def _run_router_process(spec, dims, comm, route_tbl, inq_pay, inq_dst, inq_len, n_steps: int,
+                        batch: int, impl: str):
+    """The router run of a rank process: it ticks the ranks ``[lo, lo +
+    n_local)`` it holds, on their rows of the staged input and of the route
+    table, and between ticks moves every link's rows through the group's
+    link exchange, the drain test a group-wide sum once a batch of ticks,
+    as the reference's loop does under ``shard_map`` (tick, exchange, drain
+    check).  ``impl="kernel"`` ticks on kernel C's block-tick form (CUDA
+    tensors only), ``"vector"`` on its plain version.  Returns the held
+    ranks' ``(out_pay, out_cnt, overflow, t_done)``, which stacked in rank
+    order equal the stacked run's."""
+    lo, n, dev = comm.lo, comm.n_local, inq_pay.device
+    if tuple(route_tbl.shape) != (comm.size, comm.size):
+        raise ValueError(f"a rank process routes on the whole ({comm.size}, {comm.size}) route "
+                         f"table, not one of shape {tuple(route_tbl.shape)}")
+    if impl == "kernel" and dev.type != "cuda":
+        raise ValueError("impl='kernel' runs kernel C, which needs CUDA tensors; "
+                         "use impl='vector' on the CPU")
+    tick = router_tick_block if impl == "kernel" else router_tick_block_plain
+    src = _src_table(dims)
+    tbl = route_tbl[lo:lo + n].contiguous()
+    inq_pay, inq_dst, inq_len = (a.contiguous() for a in (inq_pay, inq_dst, inq_len))
+    st = init_state(spec, n, dev, inq_pay.dtype)
+    arr = torch.zeros((n, spec.n_links, ROW_HEAD + spec.pkt_elems), dtype=torch.int32,
+                      device=dev)
+    B = max(1, min(int(batch), int(n_steps)))
+    while n_steps % B:
+        B -= 1
+    t, total = 0, None
+    while t < n_steps:
+        for k in range(B):
+            st, snd, pend = tick(spec, tbl, inq_pay, inq_dst, inq_len, st, arr, lo, t)
+            arr, total = comm.group.exchange_links(
+                snd, src, int(pend.cpu().sum()) if k == B - 1 else None)
+            t += 1
+        if total == 0:
+            break
+    # the final exchange's arrivals are still in flight at loop exit
+    st, _, _ = tick(spec, tbl, inq_pay, inq_dst, inq_len, st, arr, lo, t, arbitrate=False)
+    return st["out_pay"], st["out_cnt"], st["overflow"], st["t_done"]
 
 
 def _run_router_scalar(cfg, comm, route_tbl, inq_pay, inq_dst, inq_len, n_steps, links):

@@ -19,7 +19,10 @@ contiguous block of ``P / n_procs`` ranks in each of ``n_procs`` processes:
   each sender's row into the destination's receive slot of the step's
   parity, in memory every process maps: device buffers shared by CUDA IPC on
   the card, ``share_memory_()`` tensors on the CPU.  Then a host barrier,
-  then each receiver copies out of its own slot.
+  then each receiver copies out of its own slot;
+* a packet-router tick's link exchange (:meth:`RankGroup.exchange_links`)
+  moves every link's rows in one such step, one barrier a tick, and can
+  sum a count over the group beside the barrier (the router's drain test).
 
 Two hazards lie between a copy and the next step, and the stream is
 synchronised before every barrier to close both: the receiver reads a slot
@@ -49,7 +52,9 @@ import time
 import traceback
 import weakref
 from dataclasses import replace
+from types import SimpleNamespace
 
+import numpy as np
 import torch
 
 from .comm import Communicator, resolve_device
@@ -74,7 +79,8 @@ class SpinBarrier:
     others poll (yielding the core while they wait).  A waiter takes the lock
     once after the generation moved, which orders its later reads after
     every other party's writes before arriving.  :meth:`abort` breaks it for
-    every waiter, now and later."""
+    every waiter, now and later.  ``board`` holds a number a party and
+    parity, published before a wait and read after it (a group-wide sum)."""
 
     def __init__(self, ctx, parties: int):
         self.parties = parties
@@ -82,6 +88,7 @@ class SpinBarrier:
         self._count = ctx.RawValue("i", 0)
         self._gen = ctx.RawValue("q", 0)
         self._broken = ctx.RawValue("i", 0)
+        self.board = ctx.RawArray("q", 2 * parties)
 
     def abort(self):
         self._broken.value = 1
@@ -135,9 +142,16 @@ class RankGroup:
         self._barrier = barrier
         self.timeout = timeout
         self._steps = 0
+        self._link_plans: dict = {}
 
     def owner(self, rank: int) -> int:
         return rank // self.n_local
+
+    @property
+    def steps(self) -> int:
+        """The steps between processes this process has run so far (a
+        barrier each)."""
+        return self._steps
 
     def barrier(self):
         """Finish this process's device work, then wait for every rank
@@ -207,6 +221,94 @@ class RankGroup:
                     for off, o, v in zip(offs, outs, leaves):
                         o[d - lo].copy_(self._view(mine[d - lo], off, v))
         return tuple(outs) if isinstance(x, tuple) else outs[0]
+
+
+    def _link_plan(self, src: np.ndarray, row_words: int) -> SimpleNamespace:
+        """The copies of a link exchange on the table ``src`` (``(n, NL)``:
+        the rank whose link-``li`` row lands on ``r``), made once a table:
+        for each process that gets rows from this one, its receive slots of
+        each parity as ``(n_local, NL, row_words)`` int32 (the process's
+        rows laid one after another from the start of its slot area), the
+        rows (destination, source, link) and, where it is one row, that row
+        (a copy of a view, one operation on the card); and whether any row
+        crosses processes."""
+        key = (src.tobytes(), src.shape, row_words)
+        plan = self._link_plans.get(key)
+        if plan is not None:
+            return plan
+        NL = src.shape[1]
+        nbytes = NL * row_words * 4
+        if nbytes > self.capacity:
+            raise ValueError(f"a tick's {NL} link rows of {row_words * 4} bytes a rank do not "
+                             f"fit the group's {self.capacity}-byte slots; make the group with "
+                             f"slot_bytes of at least {nbytes}")
+        lo, hi = self.lo, self.lo + self.n_local
+        rows_to: dict = {}
+        for r in range(self.n_ranks):
+            for li in range(NL):
+                s = int(src[r, li])
+                if lo <= s < hi:
+                    p = self.owner(r)
+                    rows_to.setdefault(p, []).append((r - p * self.n_local, s - lo, li))
+
+        def slots(p):
+            return [self.boxes[p][e].view(-1)[:self.n_local * nbytes].view(torch.int32).view(
+                self.n_local, NL, row_words) for e in (0, 1)]
+
+        def index(rows):
+            return tuple(torch.tensor(c, dtype=torch.long, device=self.device)
+                         for c in zip(*rows))
+
+        plan = SimpleNamespace(
+            sends=[(slots(p), rows[0] if len(rows) == 1 else None, index(rows))
+                   for p, rows in sorted(rows_to.items())],
+            mine=slots(self.proc),
+            crossing=any(self.owner(int(src[r, li])) != self.owner(r)
+                         for r in range(self.n_ranks) for li in range(NL)))
+        self._link_plans[key] = plan
+        return plan
+
+    def exchange_links(self, snd: torch.Tensor, src: np.ndarray, pending: int | None = None):
+        """One router tick's link exchange over the rows this process holds:
+        ``arr[r, li] = snd[src[r, li], li]`` for every link ``li`` at once
+        (``snd``, ``(n_local, NL, W)`` int32 link rows), the reference's
+        packed ``all_to_all`` between ticks.  Every row goes into its
+        receiver's slots of this step's parity (one slot a destination rank
+        and link: ``src`` names one sender a row), a peer's by CUDA IPC or
+        shared memory, this process's own by an index copy; then every
+        process passes the barrier once a tick, not once a link, and
+        ``arr`` is this process's slots, read in place: valid until the
+        exchange after next writes them again.  A group whose rows all stay
+        in their processes copies them into a new tensor and passes no
+        barrier.  With ``pending`` (this process's count), each process
+        publishes it beside the barrier and every process gets the group's
+        sum (the reference's ``psum`` drain test), else None.  Returns
+        ``(arr, total)``."""
+        n_local, NL, W = snd.shape
+        if n_local != self.n_local:
+            raise ValueError(f"process {self.proc} holds {self.n_local} ranks; a tick was "
+                             f"given {n_local} rows")
+        plan = self._link_plan(np.ascontiguousarray(src), W)
+        if not plan.crossing:  # every row stays here
+            arr = torch.empty_like(snd)
+            for _, _, (d, s, li) in plan.sends:
+                arr[d, li] = snd[s, li]
+            return arr, pending
+        parity = self._steps % 2
+        self._steps += 1
+        for slots, one, (d, s, li) in plan.sends:
+            if one is not None:
+                slots[parity][one[0], one[2]].copy_(snd[one[1], one[2]])
+            else:
+                slots[parity][d, li] = snd[s, li]
+        board = self._barrier.board
+        if pending is not None:
+            board[parity * self.n_procs + self.proc] = int(pending)
+        self.barrier()
+        total = None
+        if pending is not None:
+            total = sum(board[parity * self.n_procs:(parity + 1) * self.n_procs])
+        return plan.mine[parity], total
 
 
 def block_clock(comm: Communicator) -> float:

@@ -1,5 +1,6 @@
 // Kernel C: a whole run of the store-and-forward packet router, every tick
-// of every rank, in one launch.
+// of every rank, in one launch; and, for ranks run as processes, one tick of
+// a block of ranks a launch (the block-tick form, at the end of this file).
 //
 // Replaces the Pallas kernel `router_tick_pallas` of
 // src/repro/kernels/router/kernel.py, which runs ONE tick of ONE rank per
@@ -707,5 +708,215 @@ extern "C" int smi_router_run_warp(const void* inq_pay, const void* inq_dst, con
     router_gather_kernel<uint32_t><<<blocks, 256, 0, s>>>(
         static_cast<const uint32_t*>(inq_pay), static_cast<const int*>(org),
         static_cast<const int*>(out_cnt), static_cast<uint32_t*>(out_pay), rows, OC, W);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The block-tick form (smi_router_tick_block): ONE tick of a block of ranks.
+//
+// Ranks run as processes (core/spmd.py), each process holding the ranks
+// [lo, lo + n); a tick's link packets cross between processes through mapped
+// mailboxes, so a process cannot run a whole router run in one launch.  This
+// form is the reference Pallas kernel's own unit of work, one tick per call:
+// absorb the arrivals of tick t - 1 (labelled t - 1), then arbitrate, pop
+// and write the send rows of tick t and each rank's pending count, exactly
+// as kernels/router/ref.py:router_tick computes it.  The router state lives
+// in device tensors the wrapper owns (kernels/router/kernel.py:
+// router_tick_block), read and written in place, so it persists across
+// launches.  A link row is 3 + E int32 words: destination, port, valid, then
+// the payload's bits; the payload travels in the row, since a peer process
+// has no mapping of the staged input a packet came from.
+//
+// One block a rank; its thread 0 walks the arrivals in link order (the
+// reference's exclusive prefix sums) and arbitrates (one masked rotated
+// argmax a link, transit first, R-stickiness, the switch bubble), recording
+// which payload rows move where; then the block copies the absorbed
+// payloads, and after a barrier the sent ones (a packet parked this tick may
+// leave this tick, from the slot the first copies wrote).  An invalid send
+// carries the payload of FIFO 0's head, as the plain version's gather does.
+//
+// Bound on an H100: a launch, not bytes: a tick moves at most n * NL rows.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+constexpr int kRowHead = 3;        // destination, port, valid ahead of the payload
+constexpr int kTickLinks = 32;     // most links a rank takes
+constexpr int kTickThreads = 128;
+
+struct TickArgs {
+  const uint32_t* inq_pay;  // (n, NP, FC, E) staged payload words
+  const int* inq_dst;       // (n, NP, FC)
+  const int* inq_len;       // (n, NP)
+  const int* tbl;           // (n, P) the block's rows of the route table
+  const int* link_ids;      // (NL,)
+  const int* arr;           // (n, NL, 3 + E) the arrivals of tick t - 1
+  int* snd;                 // (n, NL, 3 + E) the send rows of tick t
+  int* inq_head;            // (n, NP)
+  uint32_t* tr_pay;         // (n, TC, E)
+  int *tr_dst, *tr_port;    // (n, TC)
+  int *tr_head, *tr_cnt;    // (n,)
+  uint32_t* out_pay;        // (n, NP, OC, E)
+  int* out_cnt;             // (n, NP)
+  int* overflow;            // (n,)
+  int *last_src, *stick;    // (n, NL)
+  int* t_done;              // (n,)
+  int* pending;             // (n,) staged + parked + sent after the tick
+  int lo, P, NP, FC, TC, OC, E, NL, R, bubble, t, arbitrate;
+};
+
+__device__ void block_absorb(const TickArgs& a, int b, const uint32_t** cp_src,
+                             uint32_t** cp_dst) {
+  const int rank = a.lo + b, W = kRowHead + a.E;
+  for (int li = 0; li < a.NL; ++li) {
+    cp_src[li] = nullptr;
+    const int* row = a.arr + (static_cast<int64_t>(b) * a.NL + li) * W;
+    if (!row[2]) continue;
+    const int dst = row[0], prt = row[1];
+    const uint32_t* pay = reinterpret_cast<const uint32_t*>(row + kRowHead);
+    if (dst == rank) {
+      const int p = min(max(prt, 0), a.NP - 1);
+      const int slot = a.out_cnt[b * a.NP + p];
+      if (slot < a.OC) {
+        cp_src[li] = pay;
+        cp_dst[li] = a.out_pay + ((static_cast<int64_t>(b) * a.NP + p) * a.OC + slot) * a.E;
+        a.out_cnt[b * a.NP + p] = slot + 1;
+        a.t_done[b] = a.t - 1;
+      } else {
+        a.overflow[b] += 1;
+      }
+    } else if (a.tr_cnt[b] < a.TC) {
+      const int pos = (a.tr_head[b] + a.tr_cnt[b]) % a.TC;
+      cp_src[li] = pay;
+      cp_dst[li] = a.tr_pay + (static_cast<int64_t>(b) * a.TC + pos) * a.E;
+      a.tr_dst[b * a.TC + pos] = dst;
+      a.tr_port[b * a.TC + pos] = prt;
+      a.tr_cnt[b] += 1;
+    } else {
+      a.overflow[b] += 1;
+    }
+  }
+}
+
+__device__ void block_arbitrate(const TickArgs& a, int b, const uint32_t** cp_src,
+                                uint32_t** cp_dst) {
+  const int rank = a.lo + b, S = a.NP + 1, W = kRowHead + a.E;
+  int cdst[kMaxSrcs], cprt[kMaxSrcs], cwant[kMaxSrcs];
+  const uint32_t* cpay[kMaxSrcs];
+  unsigned has = 0;
+  for (int p = 0; p < a.NP; ++p) {
+    const int h = a.inq_head[b * a.NP + p];
+    const int64_t row = (static_cast<int64_t>(b) * a.NP + p) * a.FC + min(h, a.FC - 1);
+    if (h < a.inq_len[b * a.NP + p]) has |= 1u << p;
+    cdst[p] = a.inq_dst[row];
+    cprt[p] = p;
+    cpay[p] = a.inq_pay + row * a.E;
+  }
+  const int th = a.tr_head[b] % a.TC;
+  if (a.tr_cnt[b] > 0) has |= 1u << (S - 1);
+  cdst[S - 1] = a.tr_dst[b * a.TC + th];
+  cprt[S - 1] = a.tr_port[b * a.TC + th];
+  cpay[S - 1] = a.tr_pay + (static_cast<int64_t>(b) * a.TC + th) * a.E;
+  for (int c = 0; c < S; ++c)
+    cwant[c] = cdst[c] == rank ? -2 : a.tbl[static_cast<int64_t>(b) * a.P +
+                                            min(max(cdst[c], 0), a.P - 1)];
+
+  int sent = 0;
+  for (int li = 0; li < a.NL; ++li) {
+    const int k = b * a.NL + li, lid = a.link_ids[li];
+    unsigned avail = 0;
+    for (int c = 0; c < S; ++c)
+      if (((has >> c) & 1u) && cwant[c] == lid) avail |= 1u << c;
+    const int last = a.last_src[k];
+    const bool tr_want = (avail >> (S - 1)) & 1u;
+    const bool keep = a.stick[k] < a.R && ((avail >> min(max(last, 0), S - 1)) & 1u);
+    int rr = (last + 1) % S;  // argmax of an all-false row picks its first entry
+    for (int j = 0; j < S; ++j) {
+      const int c = (last + 1 + j) % S;
+      if ((avail >> c) & 1u) { rr = c; break; }
+    }
+    const int chosen = tr_want ? S - 1 : (keep ? last : rr);
+    const bool any = avail != 0;
+    const bool send = a.bubble ? (any && chosen == last) : any;
+    a.last_src[k] = any ? chosen : last;
+    a.stick[k] = (send && chosen == last) ? a.stick[k] + 1 : 0;
+    int* row = a.snd + static_cast<int64_t>(k) * W;
+    row[2] = send;
+    cp_dst[li] = reinterpret_cast<uint32_t*>(row + kRowHead);
+    if (send) {
+      if (chosen < a.NP) {
+        a.inq_head[b * a.NP + chosen] += 1;
+      } else {
+        a.tr_head[b] += 1;
+        a.tr_cnt[b] -= 1;
+      }
+      row[0] = cdst[chosen];
+      row[1] = cprt[chosen];
+      cp_src[li] = cpay[chosen];
+      ++sent;
+    } else {
+      row[0] = -1;
+      row[1] = 0;
+      cp_src[li] = cpay[0];
+    }
+  }
+  int pending = a.tr_cnt[b] + sent;
+  for (int p = 0; p < a.NP; ++p) pending += a.inq_len[b * a.NP + p] - a.inq_head[b * a.NP + p];
+  a.pending[b] = pending;
+}
+
+// the block's threads copy n rows of E words, row c from src[c] to dst[c]
+// (a null source: nothing to copy)
+__device__ void copy_rows(const uint32_t* const* src, uint32_t* const* dst, int n, int E) {
+  for (int i = threadIdx.x; i < n * E; i += blockDim.x) {
+    const int c = i / E;
+    if (src[c]) dst[c][i - c * E] = src[c][i - c * E];
+  }
+}
+
+__global__ void router_tick_block_kernel(TickArgs a) {
+  __shared__ const uint32_t* abs_src[kTickLinks];
+  __shared__ uint32_t* abs_dst[kTickLinks];
+  __shared__ const uint32_t* snd_src[kTickLinks];
+  __shared__ uint32_t* snd_dst[kTickLinks];
+  const int b = blockIdx.x;
+  if (threadIdx.x == 0) {
+    block_absorb(a, b, abs_src, abs_dst);
+    if (a.arbitrate) block_arbitrate(a, b, snd_src, snd_dst);
+  }
+  __syncthreads();
+  copy_rows(abs_src, abs_dst, a.NL, a.E);
+  if (!a.arbitrate) return;
+  __syncthreads();  // a packet parked this tick may be sent from its new slot
+  copy_rows(snd_src, snd_dst, a.NL, a.E);
+}
+
+}  // namespace
+
+// One launch: one tick of the ranks [lo, lo + n) of P, a block each.  With
+// arbitrate == 0 it only absorbs (the arrivals still in flight when a run
+// ends).  Returns the CUDA error of the launch (0 on success);
+// cudaErrorInvalidValue for a shape it does not take: NP + 1 > 16 or NL > 32.
+extern "C" int smi_router_tick_block(
+    const void* inq_pay, const void* inq_dst, const void* inq_len, const void* tbl,
+    const void* link_ids, const void* arr, void* snd, void* inq_head, void* tr_pay,
+    void* tr_dst, void* tr_port, void* tr_head, void* tr_cnt, void* out_pay, void* out_cnt,
+    void* overflow, void* last_src, void* stick, void* t_done, void* pending, int n, int lo,
+    int P, int NP, int FC, int TC, int OC, int E, int NL, int R, int bubble, int t,
+    int arbitrate, void* stream) {
+  if (n < 1 || lo < 0 || lo + n > P || NP < 1 || NP + 1 > kMaxSrcs || NL < 1 ||
+      NL > kTickLinks || FC < 1 || TC < 1 || OC < 1 || E < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  TickArgs a{static_cast<const uint32_t*>(inq_pay), static_cast<const int*>(inq_dst),
+             static_cast<const int*>(inq_len), static_cast<const int*>(tbl),
+             static_cast<const int*>(link_ids), static_cast<const int*>(arr),
+             static_cast<int*>(snd), static_cast<int*>(inq_head),
+             static_cast<uint32_t*>(tr_pay), static_cast<int*>(tr_dst),
+             static_cast<int*>(tr_port), static_cast<int*>(tr_head), static_cast<int*>(tr_cnt),
+             static_cast<uint32_t*>(out_pay), static_cast<int*>(out_cnt),
+             static_cast<int*>(overflow), static_cast<int*>(last_src), static_cast<int*>(stick),
+             static_cast<int*>(t_done), static_cast<int*>(pending),
+             lo, P, NP, FC, TC, OC, E, NL, R, bubble, t, arbitrate};
+  router_tick_block_kernel<<<n, kTickThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -131,6 +131,8 @@ def library() -> ctypes.CDLL:
     lib.smi_router_run.restype = i32
     lib.smi_router_run_warp.argtypes = [p] * 12 + [i32] * 10 + [p]
     lib.smi_router_run_warp.restype = i32
+    lib.smi_router_tick_block.argtypes = [p] * 20 + [i32] * 13 + [p]
+    lib.smi_router_tick_block.restype = i32
     lib.smi_flash_attention.argtypes = [p] * 4 + [i32] * 6 + [ctypes.c_float] + [i32] * 4 + [p]
     lib.smi_flash_attention.restype = i32
     lib.smi_ssd_scan.argtypes = [p] * 6 + [i32] * 5 + [p]

@@ -1,4 +1,6 @@
-"""Kernel C: a whole packet-router run in one CUDA launch.
+"""Kernel C: a whole packet-router run in one CUDA launch, or one tick of a
+block of ranks a launch (:func:`router_tick_block`, for ranks run as
+processes).
 
 :func:`router_run` launches ``csrc/router.cu`` on CUDA tensors and runs the
 plain version :func:`~.ref.router_run_ref` on CPU tensors.  It replaces the
@@ -27,7 +29,7 @@ import functools
 import torch
 
 from ..build import check_launch, current_stream, library
-from .ref import I32, TickSpec, router_run_ref
+from .ref import I32, ROW_HEAD, TickSpec, router_run_ref, router_tick_block_plain
 
 #: most input FIFOs per rank the thread path takes (n_ports + 1 candidates <= 16)
 MAX_PORTS = 15
@@ -180,3 +182,78 @@ def router_run(spec: TickSpec, route_tbl, src, inq_pay, inq_dst, inq_len, n_step
 
 router_run.launches = 0
 router_run.warp_launches = 0
+
+#: the router state the block-tick form reads and writes in place (ref.py:init_state's keys)
+STATE_KEYS = ("inq_head", "tr_pay", "tr_dst", "tr_port", "tr_head", "tr_cnt", "out_pay",
+              "out_cnt", "overflow", "last_src", "stick", "t_done")
+#: most links a rank takes on the block-tick form
+TICK_MAX_LINKS = 32
+
+
+def router_tick_block(spec: TickSpec, my_tbl, inq_pay, inq_dst, inq_len, st, arr, lo: int,
+                      t: int, arbitrate: bool = True):
+    """One router tick of the ranks ``[lo, lo + n)`` of ``spec.n``: kernel
+    C's block-tick form on CUDA tensors, its plain version
+    :func:`~.ref.router_tick_block_plain` on CPU tensors.
+
+    The form ranks run as processes use: a process ticks the ranks it holds,
+    one launch a tick, and the link rows cross between processes between
+    launches (:meth:`~repro_torch.core.spmd.RankGroup.exchange_links`).
+    ``my_tbl (n, P)``, ``inq_dst (n, NP, fifo_cap)`` and ``inq_len (n, NP)``
+    are int32, ``inq_pay (n, NP, fifo_cap, E)`` float32, ``st`` the block's
+    state (:func:`~.ref.init_state` of ``n`` ranks), ``arr (n, NL, ROW_HEAD +
+    E)`` int32 the rows that arrived from tick ``t - 1``.  Returns ``(st,
+    snd, pending)`` as the plain version does; on the card ``st``'s tensors
+    are updated in place.  Raises on anything the kernel does not take and
+    on a failed launch.  ``router_tick_block.launches`` counts launches.
+    """
+    dev = inq_pay.device
+    args = (my_tbl, inq_pay, inq_dst, inq_len, arr, *(st[k] for k in STATE_KEYS))
+    if any(a.device != dev for a in args):
+        raise ValueError("router_tick_block needs all its tensors on one device")
+    if dev.type == "cpu":
+        return router_tick_block_plain(spec, my_tbl, inq_pay, inq_dst, inq_len, st, arr, lo, t,
+                                       arbitrate)
+    if dev.type != "cuda":
+        raise ValueError(f"router_tick_block runs on cuda or cpu, not {dev}")
+    n, NP, FC, E, NL = inq_pay.shape[0], spec.n_ports, spec.fifo_cap, spec.pkt_elems, spec.n_links
+    TC, OC, P = spec.transit_cap, spec.out_cap, spec.n
+    payloads = (inq_pay, st["tr_pay"], st["out_pay"])
+    if any(a.dtype != torch.float32 for a in payloads):
+        raise TypeError("router_tick_block kernel moves a float32 wire")
+    if any(a.dtype != I32 for a in args if all(a is not b for b in payloads)):
+        raise TypeError("router_tick_block kernel needs int32 tables, headers, rows and counters")
+    if not all(a.is_contiguous() for a in args):
+        raise ValueError("router_tick_block kernel needs contiguous tensors")
+    shapes = {"my_tbl": (n, P), "inq_pay": (n, NP, FC, E), "inq_dst": (n, NP, FC),
+              "inq_len": (n, NP), "arr": (n, NL, ROW_HEAD + E), "inq_head": (n, NP),
+              "tr_pay": (n, TC, E), "tr_dst": (n, TC), "tr_port": (n, TC), "tr_head": (n,),
+              "tr_cnt": (n,), "out_pay": (n, NP, OC, E), "out_cnt": (n, NP), "overflow": (n,),
+              "last_src": (n, NL), "stick": (n, NL), "t_done": (n,)}
+    for name, a in zip(("my_tbl", "inq_pay", "inq_dst", "inq_len", "arr", *STATE_KEYS), args):
+        if tuple(a.shape) != shapes[name]:
+            raise ValueError(f"router_tick_block: {name} has shape {tuple(a.shape)}, "
+                             f"expected {shapes[name]}")
+    if not (0 <= lo and lo + n <= P) or NP > MAX_PORTS or not 1 <= NL <= TICK_MAX_LINKS \
+            or min(FC, TC, OC, NP) < 1:
+        raise ValueError(f"router_tick_block kernel does not take {spec} on ranks "
+                         f"[{lo}, {lo + n})")
+    snd = pending = None  # the absorb alone writes neither
+    if arbitrate:
+        snd = torch.empty((n, NL, ROW_HEAD + E), dtype=I32, device=dev)
+        pending = torch.empty((n,), dtype=I32, device=dev)
+    link_ids = _link_ids(spec.link_ids, dev)
+    with torch.cuda.device(dev):
+        err = library().smi_router_tick_block(
+            inq_pay.data_ptr(), inq_dst.data_ptr(), inq_len.data_ptr(), my_tbl.data_ptr(),
+            link_ids.data_ptr(), arr.data_ptr(), snd.data_ptr() if arbitrate else None,
+            *(st[k].data_ptr() for k in STATE_KEYS),
+            pending.data_ptr() if arbitrate else None, n, lo, P, NP, FC, TC,
+            OC, E, NL, spec.R, int(spec.switch_bubble), int(t), int(arbitrate),
+            current_stream(inq_pay))
+    check_launch(err, "router_tick_block")
+    router_tick_block.launches += 1
+    return st, snd, pending
+
+
+router_tick_block.launches = 0

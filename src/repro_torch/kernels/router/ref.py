@@ -212,6 +212,43 @@ def router_tick(spec: TickSpec, my_tbl, inq_pay, inq_dst, inq_len, st,
     return router_arbitrate(spec, my_tbl, inq_pay, inq_dst, inq_len, st, r, link_ids)
 
 
+#: int32 words ahead of a packet's payload in a link row: destination, port, valid
+ROW_HEAD = 3
+
+
+def pack_rows(pay, dst, prt, val) -> torch.Tensor:
+    """One tick's ``(P, NL)`` link rows as one ``(P, NL, ROW_HEAD + E)``
+    int32 tensor: destination, port, valid, then the float32 payload's
+    bits (the form the rows cross between rank processes in)."""
+    return torch.cat([dst.to(I32).unsqueeze(2), prt.to(I32).unsqueeze(2),
+                      val.to(I32).unsqueeze(2), pay.contiguous().view(I32)], 2)
+
+
+def unpack_rows(rows: torch.Tensor):
+    """:func:`pack_rows`'s inverse: ``(pay, dst, prt, val)``."""
+    return (rows[..., ROW_HEAD:].contiguous().view(torch.float32), rows[..., 0],
+            rows[..., 1], rows[..., 2] != 0)
+
+
+def router_tick_block_plain(spec: TickSpec, my_tbl, inq_pay, inq_dst, inq_len, st, arr, lo: int,
+                            t: int, arbitrate: bool = True):
+    """One tick of the ranks ``[lo, lo + n)`` on their own state: the plain
+    version of kernel C's block-tick form.  ``my_tbl`` is the block's
+    ``(n, P)`` rows of the route table, ``arr`` the ``(n, NL, ROW_HEAD +
+    E)`` link rows that arrived from tick ``t - 1``.  Returns ``(st, snd,
+    pending)``: the new state, this tick's send rows (packed the same way)
+    and each rank's pending count; with ``arbitrate=False`` only the
+    arrivals are absorbed and ``snd`` and ``pending`` are None."""
+    n = inq_pay.shape[0]
+    r = torch.arange(lo, lo + n, device=inq_pay.device, dtype=I32)
+    pay, dst, prt, val = unpack_rows(arr)
+    if not arbitrate:
+        return router_absorb(spec, st, pay, dst, prt, val, r, t - 1), None, None
+    st, sp, sd, sq, sv, pend = router_tick(spec, my_tbl, inq_pay, inq_dst, inq_len, st, pay,
+                                           dst, prt, val, r, t)
+    return st, pack_rows(sp, sd, sq, sv), pend
+
+
 def router_run_ref(spec: TickSpec, route_tbl, src, inq_pay, inq_dst, inq_len,
                    n_steps: int, tick_batch: int = 4):
     """A whole router run of up to ``n_steps`` ticks on every rank: the

@@ -18,10 +18,10 @@ code is 1 if a check fails.
 ``--ranks process`` runs both programs with the 8 ranks as ``--procs``
 processes (one a rank unless named; ``--devices``: the cards they are placed
 on in turn), each on its own CUDA context, the steps moving through the
-mailboxes of :mod:`repro_torch.core.spmd`; the rows come back to this
-process for the checks, and a row's time is taken between barrier-aligned
-stamps around its calls.  The packet wire and ``--validate-sim`` run
-stacked only.
+mailboxes of :mod:`repro_torch.core.spmd` (over the packet wire, a router
+tick's link rows after every tick); the rows come back to this process for
+the checks, and a row's time is taken between barrier-aligned stamps around
+its calls.  ``--validate-sim`` runs stacked only.
 
 ``--validate-sim`` (the reference's ``benchmarks/{latency,bandwidth}.py
 --validate-sim``) records the static wire's latency and bandwidth
@@ -67,10 +67,6 @@ BW_CHUNKS = 16
 PACKET_BENCH_ELEMS = 4096
 #: the largest message (KiB per rank) the packet wire is run at
 PACKET_MAX_KIB = 4096
-#: the wires of a process-mode run (the packet wire routes every rank in one
-#: router run: stacked only)
-PROCESS_LAT_WIRES = ("static", "fused")
-PROCESS_BW_WIRES = ("static", "fused", "compressed:static")
 #: slot bytes of the rank processes beyond the largest message a rank
 SLOT_MARGIN = 64 << 10
 
@@ -112,6 +108,12 @@ def time_ms(fn, device: torch.device, reps: int = 5, warmup: int = 2) -> float:
     for _ in range(reps):
         fn()
     return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _bw_wires(wires, kib: int) -> list:
+    """The wires a bandwidth row runs at ``kib`` KiB a rank: the packet
+    wire only up to :data:`PACKET_MAX_KIB`."""
+    return [w for w in wires if w != "packet" or kib <= PACKET_MAX_KIB]
 
 
 def _transport(wire: str, device, **kw):
@@ -256,8 +258,9 @@ def _bandwidth_rank(comm: Communicator, x, wires, reps: int) -> list[dict]:
                 def fn():
                     return staged_p2p(x, src=0, dst=dst, comm=comm)
             else:
+                t = _transport(wire, comm.device, pkt_elems=PACKET_BENCH_ELEMS)
                 ch = open_channel(comm, src=0, dst=dst, port=None, n_chunks=BW_CHUNKS,
-                                  transport=_transport(wire, comm.device))
+                                  transport=t)
 
                 def fn(ch=ch):
                     return ch.transfer(x)
@@ -279,9 +282,10 @@ def bandwidth(device, sizes_kib=BW_SIZES_KIB, wires=BW_WIRES, reps: int = 5,
         elems = kib * 256
         x = torch.randn((8, elems), generator=g, device=dev)
         if group is not None:
-            res = iter(group.run(_bandwidth_rank, bus_comm_args(), x, wires, reps))
+            runs = _bw_wires(wires, kib)
+            res = iter(group.run(_bandwidth_rank, bus_comm_args(), x, runs, reps))
             for dst, hops in HOPS:
-                for wire in (*wires, "staged"):
+                for wire in (*runs, "staged"):
                     r = next(res)
                     what = f"bandwidth {wire} {kib} KiB hops={hops} ranks as processes"
                     _check_delivery(r["y"].to(dev), x, 0, dst, wire.startswith("compressed"),
@@ -292,8 +296,7 @@ def bandwidth(device, sizes_kib=BW_SIZES_KIB, wires=BW_WIRES, reps: int = 5,
                                      gb_per_s=elems * 4 / (ms * 1e-3) / 1e9))
             continue
         for dst, hops in HOPS:
-            runs = [w for w in wires if w != "packet" or kib <= PACKET_MAX_KIB] + ["staged"]
-            for wire in runs:
+            for wire in (*_bw_wires(wires, kib), "staged"):
                 what = f"bandwidth {wire} {kib} KiB hops={hops}"
                 if wire == "staged":
                     def fn():
@@ -430,25 +433,26 @@ def main(argv=None) -> int:
     with ExitStack() as stack:
         group = None
         if process:
+            from ..core.router import link_row_bytes
             from ..core.spmd import SpmdGroup
 
             devices = ([f"cuda:{int(i)}" for i in args.devices.split(",")] if args.devices
                        else [args.device])
-            biggest = max(sizes) * 1024 if "bandwidth" in measures else LAT_ELEMS * 4
+            # a slot holds the largest message, or a router tick's link rows
+            biggest = max(max(sizes) * 1024 if "bandwidth" in measures else LAT_ELEMS * 4,
+                          link_row_bytes((8,), PACKET_BENCH_ELEMS))
             group = stack.enter_context(SpmdGroup(args.procs or 8, 8, devices=devices,
                                                   slot_bytes=biggest + SLOT_MARGIN))
-        lat_wires = PROCESS_LAT_WIRES if process else LAT_WIRES
-        bw_wires = PROCESS_BW_WIRES if process else BW_WIRES
         try:
             if args.validate_sim:
                 model, _, _ = validate_sim(args.device, sizes)
                 print(f"fitted {model!r}", flush=True)
                 return 0
             if "latency" in measures:
-                for row in latency(args.device, lat_wires, group=group):
+                for row in latency(args.device, group=group):
                     print(_line(row), flush=True)
             if "bandwidth" in measures:
-                for row in bandwidth(args.device, sizes, bw_wires, group=group):
+                for row in bandwidth(args.device, sizes, group=group):
                     print(_line(row), flush=True)
         except AssertionError as e:
             print(f"FAILED: {e}", flush=True)

@@ -13,6 +13,8 @@ over one run.
     python -m repro_torch.launch.stencil --trace trace.json --metrics metrics.json
     python -m repro_torch.launch.stencil --ranks process --procs 8
     python -m repro_torch.launch.stencil --ranks process --procs 2 --device cpu
+    python -m repro_torch.launch.stencil --ranks process --procs 2 --device cpu \
+        --comm-mode smi:packet --domain 64x64 --steps 3
 
 ``--ranks stacked`` (the default) holds every rank in this process, stacked
 on one device.  ``--ranks process`` runs the ranks as ``--procs`` processes
@@ -22,7 +24,10 @@ default ``--device``), the halos moving through mailboxes the processes map
 from each other (:mod:`repro_torch.core.spmd`); the tiles come back to this
 process for the check, the ``halo`` counters are one rank's, as stacked,
 and the wall time is taken between barrier-aligned stamps around the timed
-run.  The packet wire, ``--trace`` and ``--metrics`` run stacked only.
+run.  Over the packet wire each process routes the ranks it holds, one
+tick of kernel C's block-tick form a launch, the link rows crossing the
+mailboxes after every tick.  ``--trace`` and ``--metrics`` run stacked
+only.
 
 ``--plan auto`` lets the netsim tuning table pick the halo backend (the
 card's link model; never a lossy wire) and cannot be combined with a
@@ -121,12 +126,14 @@ def _rank_run(comm, tiles, grid, steps: int, overlapped: bool, comm_mode, plan) 
     """One rank process's part of a process-mode launch: the first run (the
     result and the warm-up) and the timed run between barrier-aligned
     stamps, each over one transport instance; this process's ``halo``
-    counters of each run and its launches of kernel B."""
+    counters of each run and its launches of kernel B and of kernel C's
+    block-tick form (the packet wire)."""
     from ..apps import HALO_TAG, DistributedStencil
     from ..core.spmd import block_clock
+    from ..kernels.router import router_tick_block
     from ..kernels.stencil import stencil_sweep
 
-    b0 = stencil_sweep.launches
+    b0, c0 = stencil_sweep.launches, router_tick_block.launches
     app = DistributedStencil.create(grid, comm=comm, comm_mode=comm_mode, plan=plan)
     tp = app.halo_schedule.resolve_transport(tiles)
     got = app.run(tiles, steps, overlapped=overlapped, transport=tp)
@@ -137,7 +144,8 @@ def _rank_run(comm, tiles, grid, steps: int, overlapped: bool, comm_mode, plan) 
     t1 = block_clock(comm)
     return {"got": got, "timed": timed, "halo": halo,
             "halo_timed": tp.stats.tag_counts(HALO_TAG), "t0": t0, "t1": t1,
-            "backend": tp.name, "launches_b": stencil_sweep.launches - b0}
+            "backend": tp.name, "launches_b": stencil_sweep.launches - b0,
+            "launches_c": router_tick_block.launches - c0}
 
 
 def run_process(group, app, tiles, steps: int, overlapped: bool, comm_mode, plan) -> dict:
@@ -145,8 +153,8 @@ def run_process(group, app, tiles, steps: int, overlapped: bool, comm_mode, plan
     and grid, the rank-stacked ``tiles``): every process's tiles stacked
     back in rank order, on ``tiles``' device; the ``halo`` counters, equal
     in every process (else a ``ValueError``); the wall seconds from the
-    first opening stamp to the last closing one; kernel B's launches of
-    each process."""
+    first opening stamp to the last closing one; kernel B's and kernel C's
+    block-tick launches of each process."""
     c = app.comm
     res = group.run(_rank_run, {"axis_names": c.axis_names, "axis_sizes": c.axis_sizes,
                                 "topology": c.topology},
@@ -157,7 +165,8 @@ def run_process(group, app, tiles, steps: int, overlapped: bool, comm_mode, plan
     return {"got": res["got"].to(tiles.device), "timed": res["timed"].to(tiles.device),
             "halo": res["halo"][0], "halo_timed": res["halo_timed"][0],
             "wall": max(res["t1"]) - min(res["t0"]), "backend": res["backend"][0],
-            "launches_b": res["launches_b"], "peaks": group.peaks}
+            "launches_b": res["launches_b"], "launches_c": res["launches_c"],
+            "peaks": group.peaks}
 
 
 def main(argv=None, *, group=None) -> int:
@@ -199,8 +208,6 @@ def main(argv=None, *, group=None) -> int:
         ap.error("--procs and --devices place rank processes: they need --ranks process")
     if process and (args.trace or args.metrics):
         ap.error("--trace and --metrics run stacked only")
-    if process and args.comm_mode.startswith("smi:packet"):
-        ap.error("the packet wire routes every rank in one router run: it runs stacked only")
     if args.devices is not None and args.device != "cuda":
         ap.error("--devices names cards; it needs --device cuda")
 
@@ -228,13 +235,17 @@ def main(argv=None, *, group=None) -> int:
     nx, ny = domain[0] // grid[0], domain[1] // grid[1]
     procs = None
     if process:
+        from ..core.router import link_row_bytes
         from ..core.spmd import SpmdGroup
+        from ..transport.packet import PacketTransport
 
         P = grid[0] * grid[1]
         procs = args.procs or P
         devices = ([f"cuda:{int(i)}" for i in args.devices.split(",")] if args.devices
                    else [dev])
-        slot = max(nx, ny) * world.element_size() + SLOT_MARGIN
+        # a slot holds a halo slab, or a router tick's link rows on the packet wire
+        slot = max(max(nx, ny) * world.element_size(),
+                   link_row_bytes(grid, PacketTransport.pkt_elems)) + SLOT_MARGIN
         if group is None:
             with SpmdGroup(procs, P, devices=devices, slot_bytes=slot) as own:
                 res = run_process(own, app, tiles, steps, overlapped, comm_mode, args.plan)
@@ -306,6 +317,7 @@ def main(argv=None, *, group=None) -> int:
                 "comm_mode": mode_label, "halo_backend": backend, "schedule": sched,
                 "device": kind, "ranks": args.ranks, "procs": procs,
                 "launches_b": res["launches_b"] if process else None,
+                "launches_c": res["launches_c"] if process else None,
                 "peak_bytes": res["peaks"] if process else None,
                 "wall_s": wall, "wall_per_step_s": wall / max(steps, 1),
                 "halo_steps": halo_steps, "halo_bytes_per_rank": halo_bytes,

@@ -9,6 +9,10 @@ the fixed physical link schedule to deliver everything; arrivals are
 reassembled into the tensor the static backend would have produced.  The
 route table is runtime data, so swapping the communicator's logical
 topology (torus → snake bus) re-routes the same kernel (paper §5.3.1).
+With ranks run as processes (:mod:`repro_torch.core.spmd`) each process
+stages, routes and reassembles only the ranks it holds, the link rows
+crossing between processes after every router tick; the counters and the
+overflow are each process's own, the overflow of the ranks it holds.
 
 Delivery guarantees relied on for reassembly:
 
@@ -179,14 +183,18 @@ class PacketTransport(Transport):
         """The router run that moves the ``(P, T)`` float32 wire rows
         ``vec`` along ``pairs`` (a partial permutation without self-pairs):
         ``(cfg, route_tbl, inq_pay, inq_dst, inq_len, n_steps)``, the
-        arguments of :func:`~repro_torch.core.router.run_router`."""
+        arguments of :func:`~repro_torch.core.router.run_router`.  With
+        ranks run as processes ``vec`` and the staged input are the rows
+        this process holds; the route table and the bounds are the whole
+        communicator's."""
         from ..core.router import RouterConfig
 
         n, T = comm.size, vec.shape[1]
         E = self.pkt_elems
         K = -(-T // E)  # packets per sender
-        inq_dst, inq_len, _, _ = _roles(tuple(pairs), n, K, vec.device)
-        pay = F.pad(vec, (0, K * E - T)).reshape(n, 1, K, E)
+        held = slice(comm.lo, comm.lo + comm.n_local)  # every rank unless ranks are processes
+        inq_dst, inq_len = (a[held] for a in _roles(tuple(pairs), n, K, vec.device)[:2])
+        pay = F.pad(vec, (0, K * E - T)).reshape(vec.shape[0], 1, K, E)
         n_steps, transit_cap = self._bounds(comm, pairs, K)
         cfg = RouterConfig(dims=self._phys_dims(comm), n_ports=1, fifo_cap=K,
                            transit_cap=transit_cap, out_cap=K, pkt_elems=E)
@@ -197,7 +205,6 @@ class PacketTransport(Transport):
         tuple ``x`` concatenated into one packet train a rank)."""
         from ..core.router import run_router
 
-        _stacked_only(comm)
         self._check(x)
         n = comm.size
         pairs = tuple((int(s), int(d)) for s, d in pairs)
@@ -223,7 +230,8 @@ class PacketTransport(Transport):
         # silently back-fill zeros below — fold the delivery shortfall into
         # the loss counter so the "overflow == 0" oracle catches it.
         K = cfg.fifo_cap
-        _, _, is_recv, keeps = _roles(pairs, n, K, vec.device)
+        held = slice(comm.lo, comm.lo + comm.n_local)
+        is_recv, keeps = (a[held] for a in _roles(pairs, n, K, vec.device)[2:])
         shortfall = torch.where(is_recv, K - out_cnt[:, 0], torch.zeros_like(out_cnt[:, 0]))
         self.stats.add_overflow(ovf + shortfall)
         if obs.TRACING:
@@ -232,7 +240,7 @@ class PacketTransport(Transport):
             obs.emit("router.overflow", tag=self._tag, n_steps=int(n_steps), packets=int(K),
                      transit_cap=int(cfg.transit_cap), counter="stats.overflow")
 
-        got = out_pay[:, 0].reshape(n, K * cfg.pkt_elems)[:, :T]
+        got = out_pay[:, 0].reshape(vec.shape[0], K * cfg.pkt_elems)[:, :T]
         wire = torch.where(is_recv.view(-1, 1), got,
                            torch.where(keeps.view(-1, 1), vec, torch.zeros_like(vec)))
         if not isinstance(x, tuple):
@@ -245,26 +253,17 @@ class PacketTransport(Transport):
         (``n_chunks`` is a scheduling hint other backends use; the router's
         chunking is its packet size)."""
         del n_chunks
-        _stacked_only(comm)
         if src == dst:
             return x
         return self.permute(x, comm, [(src, dst)])
-
-
-def _stacked_only(comm):
-    """The packet wire routes every rank in one router run (one launch of
-    kernel C): it needs every rank in this process."""
-    if comm.group is not None:
-        raise NotImplementedError(
-            "the packet wire routes every rank in one router run and has no process mode; "
-            "run packet-routed programs with every rank in one process (stacked mode)")
 
 
 @register_transport("packet:pallas")
 @dataclass
 class PallasPacketTransport(PacketTransport):
     """The packet backend pinned to kernel C (``router_impl="kernel"``):
-    every router run is one launch of ``csrc/router.cu``, on the card only.
+    every router run is one launch of ``csrc/router.cu`` (one a tick with
+    ranks as processes), on the card only.
     The key keeps the reference's name, ``"packet:pallas"``, where it pins
     the Pallas tick kernel, so comm-mode strings carry over unchanged."""
 

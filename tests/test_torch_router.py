@@ -544,3 +544,171 @@ def test_kernel_paths_on_seeded_traffic(case, path, cuda_device):
     t = Topology.torus(dims) if topo == "torus" else snake_bus(dims)
     got, _ = _card_run(dims, t, kw, msgs, 96, path, cuda_device)
     assert int(got[1].sum()) > 0
+
+
+# -- the block-tick form (ranks as processes) -----------------------------------------
+
+#: blocks of ranks a process may hold: (lo, n)
+BLOCKS = [(5, 1), (4, 4), (0, 8)]
+
+
+def _block_inputs(spec, st, inq, arr, lo, n, device="cpu"):
+    """One block's rows of a random tick of :func:`_rand_tick`: its state,
+    staged input and route-table rows, and its arrivals packed as link rows."""
+    from repro_torch.kernels.router import pack_rows
+
+    def rows(a):
+        return torch.from_numpy(np.ascontiguousarray(a[lo:lo + n])).to(device)
+
+    packed = pack_rows(*(rows(a) for a in arr))
+    return {k: rows(v) for k, v in st.items()}, [rows(a) for a in inq], packed
+
+
+@pytest.mark.parametrize("block", BLOCKS, ids=lambda b: f"lo{b[0]}n{b[1]}")
+@pytest.mark.parametrize("case", sorted(TICK_CASES))
+def test_block_tick_matches_reference_per_rank(case, block, ref):
+    """The block-tick form on the CPU (its plain version) on a block's rows
+    equals the reference's ``router_tick`` of each of its ranks, and with
+    ``arbitrate=False`` the reference's ``router_absorb``."""
+    from repro_torch.kernels.router import router_tick_block, unpack_rows
+
+    c, (lo, n) = TICK_CASES[case], block
+    links = make_links(DIMS)
+    spec_kw = dict(n=N, n_ports=c["n_ports"], fifo_cap=5, transit_cap=4, out_cap=3, pkt_elems=3,
+                   R=c["R"], switch_bubble=c["switch_bubble"],
+                   link_ids=tuple(lid for lid, _ in links))
+    spec, rspec = TickSpec(**spec_kw), ref.rref.TickSpec(**spec_kw)
+    tbl = _table(c["topo"])
+    jnp = ref.jnp
+    st, inq, arr, t = _rand_tick(spec, np.random.RandomState(sum(map(ord, case)) + lo), c.get(
+        "full", False))
+    b_st, b_inq, b_arr = _block_inputs(spec, st, inq, arr, lo, n)
+    b_tbl = torch.from_numpy(tbl[lo:lo + n].copy())
+    got_st, snd, pend = router_tick_block(spec, b_tbl, *b_inq, b_st, b_arr, lo, t)
+    abs_st, none_snd, none_pend = router_tick_block(spec, b_tbl, *b_inq, b_st, b_arr, lo, t,
+                                                    arbitrate=False)
+    assert none_snd is None and none_pend is None
+    snd = (*unpack_rows(snd), pend)
+    def own(a):  # a copy: an eager reference call may write into a buffer it aliases
+        return jnp.array(np.array(a))
+
+    for i, r in enumerate(range(lo, lo + n)):
+        want = ref.rref.router_tick(rspec, own(tbl[r]), *(own(v[r]) for v in inq),
+                                    {k: own(v[r]) for k, v in st.items()},
+                                    *(own(v[r]) for v in arr), jnp.int32(r), jnp.int32(t))
+        absorbed = ref.rref.router_absorb(rspec, {k: own(v[r]) for k, v in st.items()},
+                                          *(own(v[r]) for v in arr), jnp.int32(r),
+                                          jnp.int32(t - 1))
+        for k in STATE_KEYS:
+            assert got_st[k][i].numpy().tobytes() == np.asarray(want[0][k]).tobytes(), \
+                f"rank {r}: state {k}"
+            assert abs_st[k][i].numpy().tobytes() == np.asarray(absorbed[k]).tobytes(), \
+                f"rank {r}: absorbed state {k}"
+        for j, name in enumerate(("snd_pay", "snd_dst", "snd_prt", "snd_val", "pending")):
+            g, w = snd[j][i].numpy(), np.asarray(want[j + 1])
+            assert g.shape == w.shape and g.tobytes() == w.astype(g.dtype).tobytes(), \
+                f"rank {r}: {name}"
+
+
+def test_link_rows_round_trip_any_bits():
+    from repro_torch.kernels.router import pack_rows, unpack_rows
+
+    rng = np.random.RandomState(5)
+    bits = rng.randint(-2**31, 2**31 - 1, (3, 4, 7), dtype=np.int64).astype(np.int32)
+    bits[0, 0, :3] = np.array([0x7FC00001, 0x7F800001, -1], dtype=np.int64).astype(np.int32)
+    pay = torch.from_numpy(bits).view(torch.float32)
+    dst = torch.from_numpy(rng.randint(-1, 8, (3, 4)).astype(np.int32))
+    prt = torch.from_numpy(rng.randint(0, 3, (3, 4)).astype(np.int32))
+    val = torch.from_numpy(rng.rand(3, 4) < 0.5)
+    rows = pack_rows(pay, dst, prt, val)
+    assert rows.dtype == torch.int32 and rows.shape == (3, 4, 3 + 7)
+    back = unpack_rows(rows)
+    assert back[0].view(torch.int32).equal(pay.view(torch.int32))
+    for a, b in zip(back[1:], (dst, prt, val)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", BLOCKS, ids=lambda b: f"lo{b[0]}n{b[1]}")
+@pytest.mark.parametrize("case", sorted(TICK_CASES))
+def test_block_tick_kernel_matches_plain(case, block, cuda_device):
+    """Kernel C's block-tick form against its plain version on the card, on
+    the random ticks of the reference comparison (wrapped rings, full
+    buffers): every state tensor, the send rows and the pending counts bit
+    for bit, and the absorb alone; one launch a call."""
+    from repro_torch.kernels.router import router_tick_block, router_tick_block_plain
+
+    c, (lo, n) = TICK_CASES[case], block
+    links = make_links(DIMS)
+    spec = TickSpec(n=N, n_ports=c["n_ports"], fifo_cap=5, transit_cap=4, out_cap=3,
+                    pkt_elems=3, R=c["R"], switch_bubble=c["switch_bubble"],
+                    link_ids=tuple(lid for lid, _ in links))
+    tbl = torch.from_numpy(_table(c["topo"])[lo:lo + n].copy()).to(cuda_device)
+    st, inq, arr, t = _rand_tick(spec, np.random.RandomState(len(case) + lo),
+                                 c.get("full", False))
+    for arbitrate in (True, False):
+        b_st, b_inq, b_arr = _block_inputs(spec, st, inq, arr, lo, n, cuda_device)
+        want = router_tick_block_plain(spec, tbl, *b_inq, b_st, b_arr, lo, t, arbitrate)
+        before = router_tick_block.launches
+        got = router_tick_block(spec, tbl, *b_inq, {k: v.clone() for k, v in b_st.items()},
+                                b_arr, lo, t, arbitrate)
+        torch.cuda.synchronize()
+        assert router_tick_block.launches == before + 1
+        for k in STATE_KEYS:
+            assert got[0][k].cpu().numpy().tobytes() == want[0][k].cpu().numpy().tobytes(), k
+        if arbitrate:
+            assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+        else:
+            assert got[1] is None and got[2] is None
+
+
+@pytest.mark.cuda
+def test_block_tick_kernel_refuses_bad_input(cuda_device):
+    from repro_torch.kernels.router import init_state, router_tick_block
+
+    links = make_links(DIMS)
+    spec = TickSpec(n=N, n_ports=1, fifo_cap=4, transit_cap=4, out_cap=4, pkt_elems=4, R=8,
+                    switch_bubble=False, link_ids=tuple(lid for lid, _ in links))
+    dev = cuda_device
+    st = init_state(spec, 2, dev)
+    tbl = torch.zeros((2, N), dtype=torch.int32, device=dev)
+    pay = torch.zeros((2, 1, 4, 4), device=dev)
+    dst = torch.zeros((2, 1, 4), dtype=torch.int32, device=dev)
+    ln = torch.zeros((2, 1), dtype=torch.int32, device=dev)
+    arr = torch.zeros((2, len(links), 3 + 4), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        router_tick_block(spec, tbl, pay.double(), dst, ln, st, arr, 0, 1)
+    with pytest.raises(ValueError, match="shape"):
+        router_tick_block(spec, tbl, pay, dst, ln, st, arr[:, :1].contiguous(), 0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        router_tick_block(spec, tbl, pay, dst, ln, st, arr.repeat(1, 1, 2)[:, :, ::2], 0, 1)
+    with pytest.raises(ValueError, match="does not take"):
+        router_tick_block(spec, tbl, pay, dst, ln, st, arr, 7, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", ["packet", "packet:pallas"])
+def test_process_packet_on_the_card_ticks_the_block_form(key, cuda_device):
+    """The packet wire with the ranks as 2 processes of 4 on the card: a
+    shift equal to the static wire's, no loss, the block-tick form launched
+    in both processes."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import _torch_spmd_packet_cases as K
+
+    from repro_torch.core import SpmdGroup
+    from repro_torch.transport import get_transport
+
+    x = torch.from_numpy(np.random.RandomState(7).randn(N, 12, 3).astype(np.float32))
+    comm_args = {"axis_names": ("x", "y"), "axis_sizes": DIMS}
+    with SpmdGroup(2, N, device=cuda_device, slot_bytes=1 << 16) as group:
+        before = group.run(K.block_tick_launches, comm_args)
+        got = group.run(K.packet_steps, comm_args, x, False, 8, key)["shift+1"]
+        after = group.run(K.block_tick_launches, comm_args)
+    comm = Communicator.create(("x", "y"), DIMS, device=cuda_device)
+    want = get_transport("static", device=cuda_device).shift(x.to(cuda_device), comm, 1)
+    assert torch.equal(got["y"].view(torch.int32), want.cpu().view(torch.int32))
+    assert int(got["overflow"].sum()) == 0
+    assert all(a > b for a, b in zip(after, before))

@@ -9,7 +9,8 @@ receives nothing; the five collectives on ring(1x8) and torus(2x4) over the
 static and fused wires against the reference's ``run_spmd``, with the
 reference's per-tag steps and bytes in every process; the 2x4 stencil
 against the reference's ``DistributedStencil.jitted``; p2p transfers and a
-push/pop loop at 1, 4 and 7 hops against the stacked run.  The rank
+push/pop loop at 1, 4 and 7 hops against the stacked run.  The packet
+wire in process mode is tests/test_torch_spmd_packet.py's.  The rank
 processes run the functions of ``_torch_spmd_cases`` (no JAX there).  One
 group a process layout serves the file, the launcher's case included.
 """
@@ -29,7 +30,6 @@ from repro_torch.core import Communicator, SpmdGroup
 from repro_torch.core.comm import ppermute
 from repro_torch.core.topology import Topology
 from repro_torch.launch import stencil as launch_stencil
-from repro_torch.transport import get_transport
 
 P = 8
 LAYOUTS = (8, 2)  # rank processes: one a rank, four ranks a process
@@ -190,19 +190,13 @@ def test_process_p2p_equals_stacked(n_procs, transport):
 # -- what stays stacked -------------------------------------------------------------------
 
 
-def test_packet_wire_refuses_process_mode():
-    from dataclasses import replace
-
-    comm = replace(Communicator.create("x", (P,), device="cpu"), group=object())
-    t = get_transport("packet", device="cpu")
-    x = torch.ones(P, 4)
-    with pytest.raises(NotImplementedError, match="process mode"):
-        t.permute(x, comm, comm.ring_perm(1))
-    with pytest.raises(NotImplementedError, match="process mode"):
-        t.p2p(x, src=0, dst=3, comm=comm)
-    with pytest.raises(SystemExit):
+@pytest.mark.parametrize("flag", ["--trace", "--metrics"])
+def test_trace_and_metrics_stay_stacked(flag, tmp_path, capsys):
+    with pytest.raises(SystemExit) as exc:
         launch_stencil.main(["--device", "cpu", "--domain", "16x16", "--steps", "1",
-                             "--ranks", "process", "--comm-mode", "smi:packet"])
+                             "--ranks", "process", flag, str(tmp_path / "out.json")])
+    assert exc.value.code == 2  # a usage error
+    assert "run stacked only" in capsys.readouterr().err
 
 
 def test_a_partial_block_needs_its_group():
