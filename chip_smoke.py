@@ -417,7 +417,22 @@ non-zero):
     (g) phase 8's re-route, torus then snake bus, on one config and one
     packet transport, the kernel library neither rebuilt nor reloaded in
     any process.  Each process's start-up and peak device memory printed;
-    phase 1 prints the card's compute mode.
+    phase 1 prints the card's compute mode;
+60. parity with the reference's launch layer: ``launch.train --smoke
+    --mesh 2,4 --comm-mode smi:packet --validate-comm`` exits 0 (the FSDP
+    gather's steps equal the prediction) with kernel C routing the wire;
+    yi-6b at phase 44's cut on ``2,4``: ``launch.train --validate-comm``
+    over ``smi:compressed`` exits 0, then one batch over ``smi:compressed``
+    and ``bulk`` beside ``smi:static`` on the same params (the loss within
+    1e-2 relative, every leaf's gradient within a cosine of 0.99; A's, D's
+    and E's launches a step), a step of each wire timed in turns with its
+    peak memory; ``launch.stencil`` at phase 4's cell over
+    ``smi:compressed`` (max error under 1e-1, B launched); the five
+    examples (``examples/torch_*.py``) at their defaults on the card, the
+    quickstart's Chrome trace written to a temporary directory and read
+    back, ``torch_train_lm --full-100m`` for 40 steps with its two
+    checkpoints and every CE finite (reported, not gated: on uniform random
+    tokens the reference's own run of this recipe ends above its start).
 
 Earlier phases that time or check one schedule pass ``plan=None``.
 
@@ -456,7 +471,11 @@ E's and D's rows and A's ``launches_pod_train_step_fused``, a step's at
 8-process packet stencil's (59 d, both schedules), beside
 ``launches_procs2_stencil``, ``launches_reductions``,
 ``launches_latency`` and ``launches_reroute``, and whose times are a
-launch's at a 1-rank block, ``at_4_rank_blocks`` beside), each
+launch's at a 1-rank block, ``at_4_rank_blocks`` beside); phase 60's are
+``launches_parity_compressed_step`` on A's, D's and E's rows (a (2, 4)
+step over ``smi:compressed``, both groups) and
+``launches_parity_packet_cell`` on C's rows (the packet wire's
+data-axis cell), each
 with the path its kernel ran (``simt``, ``vector``, ``warp``,
 ``thread``, ``fma`` or ``wgmma``); the rows of A, C, E, F's wgmma path and
 D add ``ms_before``, the time in this run of the kernel their calls ran
@@ -6935,6 +6954,251 @@ def phase_spmd(dev) -> dict:
         res["startup"] = startup
     return res
 
+# ------------------------------------------------------------------ parity
+#
+# Phase 60 (slice 17): the port at parity with the reference's launch layer:
+# the packet wire's data-axis cell, training over smi:compressed and bulk,
+# the stencil over smi:compressed, and the five examples on the card.
+
+#: the packet wire's data-axis cell (the FSDP gather's steps once over-counted)
+PARITY_PACKET_ARGS = ["--arch", "yi-6b", "--smoke", "--mesh", "2,4", "--comm-mode", "smi:packet",
+                      "--validate-comm"]
+PARITY_MESH = (2, 4)
+#: the wires held against smi:static on phase 44's cut at (2, 4)
+PARITY_WIRES = ("smi:compressed", "bulk")
+PARITY_LOSS_RTOL = 1e-2
+PARITY_GRAD_COS = 0.99
+PARITY_STENCIL_ARGS = STENCIL_ARGS[:-1] + ["smi:compressed"]
+PARITY_TRAIN_LM_ARGS = ["--full-100m", "--steps", "40"]
+
+
+def _parity_packet_cell() -> dict:
+    """The fault's cell: ``launch.train --smoke --mesh 2,4 --comm-mode
+    smi:packet --validate-comm`` exits 0 (``fsdp.gather``'s steps equal the
+    prediction) with kernel C routing the wire."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.kernels.router import router_run
+    from repro_torch.launch import train as launch_train
+
+    reset_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = launch_train.main(PARITY_PACKET_ARGS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        log(f"parity packet cell: {line}")
+    gather = next((line.split() for line in lines if line.strip().startswith("fsdp.gather")), None)
+    if rc != 0 or gather is None or router_run.launches == 0:
+        raise AssertionError(f"launch.train {' '.join(PARITY_PACKET_ARGS)}: rc {rc}, "
+                             f"fsdp.gather {gather}, C launched {router_run.launches}")
+    return dict(seconds=secs, fsdp_gather_steps=int(gather[3]), launches_c=router_run.launches,
+                launches_c_warp=router_run.warp_launches)
+
+
+def _parity_train(dev, seed: int) -> tuple[dict, dict]:
+    """yi-6b at phase 44's cut on (2, 4): ``launch.train --validate-comm``
+    over ``smi:compressed`` (every tag equal to the prediction), then one
+    batch's loss and gradients over each of :data:`PARITY_WIRES` against
+    ``smi:static`` on the same params (loss within :data:`PARITY_LOSS_RTOL`
+    relative, every leaf's cosine at least :data:`PARITY_GRAD_COS`), A's, D's
+    and E's launches a step, and ms a step and peak GB of each wire, steps
+    in turns."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.steps import build_train
+    from repro_torch.optim import adamw_init
+    from repro_torch.transport.fused import fused_accumulate, fused_shift_accumulate
+
+    mesh = ",".join(map(str, PARITY_MESH))
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = launch_train.main(["--arch", TRAIN_ARCH, "--layers", str(TRAIN_LAYERS), "--seq-len",
+                                str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH), "--mesh", mesh,
+                                "--comm-mode", "smi:compressed", "--validate-comm"])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    validate_s = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        log(f"parity validate smi:compressed: {line}")
+    if rc != 0:
+        raise AssertionError(f"launch.train --mesh {mesh} --comm-mode smi:compressed "
+                             f"--validate-comm exited {rc}")
+    n_tags = sum(1 for line in lines if line.rstrip().endswith(" ok"))
+
+    cfg = _train_cfg(TRAIN_ARCH, TRAIN_LAYERS)
+    shape = ShapeConfig("train_4k_cut", TRAIN_SEQ, TRAIN_BATCH, "train")
+    wires = ("smi:static", *PARITY_WIRES)
+    arts = {w: build_train(cfg, shape, _train_settings(w), mesh=PARITY_MESH, matmul_fn=matmul,
+                           device=dev) for w in wires}
+    params = arts["smi:static"]["init_params"](seed)
+    batches = _train_batches(cfg, TRAIN_SEQ, TRAIN_BATCH, 7, seed)
+    loss, launches, checks = {}, {}, {}
+    want = None
+    for w in wires:
+        reset_counts()
+        lw, _, g = arts[w]["grads"](params, batches[0])
+        torch.cuda.synchronize()
+        launches[w] = dict(D=matmul.launches, E=flash_attention_kernel.launches,
+                           A=dict(fold=fused_accumulate.launches,
+                                  shift=fused_shift_accumulate.launches))
+        loss[w] = float(lw)
+        _finite_nonzero(g, f"parity {w}")
+        if want is None:
+            want = g
+            continue
+        cos = _leaf_cosines(g, want)
+        rel = abs(loss[w] - loss["smi:static"]) / abs(loss["smi:static"])
+        checks[w] = dict(loss_rel=rel, min_leaf_cos=min(cos))
+        del g
+        if rel > PARITY_LOSS_RTOL or min(cos) < PARITY_GRAD_COS:
+            raise AssertionError(f"parity {w}: loss {loss[w]} against smi:static's "
+                                 f"{loss['smi:static']} (rel {rel:.3e}), least leaf cosine "
+                                 f"{min(cos):.6f}")
+        if launches[w]["D"] == 0 or launches[w]["E"] == 0:
+            raise AssertionError(f"parity {w}: launches {launches[w]}")
+    del want
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"parity train (2, 4): losses {loss}; against smi:static {checks}; launches a step "
+        f"{launches}")
+    state = {"params": params, "opt": adamw_init(params)}
+    order = ("smi:static", "smi:compressed", "bulk", "bulk", "smi:compressed", "smi:static")
+    turns, peaks = {w: [] for w in wires}, {w: 0.0 for w in wires}
+    for w, b in zip(order, batches[1:]):
+        torch.cuda.reset_peak_memory_stats()
+        (_, m), t = _timed_ms(lambda: arts[w]["step"](state, b))
+        if not torch.isfinite(m["loss"]):
+            raise AssertionError(f"parity {w}: a step's loss is {m['loss']}")
+        turns[w].append(t)
+        peaks[w] = max(peaks[w], torch.cuda.max_memory_allocated() / 1e9)
+    ms = {w: sum(v) / len(v) for w, v in turns.items()}
+    log(f"parity train (2, 4): ms a step {ms} (in turns {turns}); peak GB {peaks}")
+    del state, params, arts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(validate_s=validate_s, validate_tags=n_tags, losses=loss, checks=checks,
+                launches=launches, ms_per_step=ms, turns=turns, peak_gb=peaks), \
+        launches["smi:compressed"]
+
+
+def _parity_stencil() -> dict:
+    """``launch.stencil`` at phase 4's cell over ``smi:compressed``: the
+    launcher's lossy gate (max error under 1e-1 of the single-rank sweep),
+    kernel B launched."""
+    import torch
+
+    from repro_torch.kernels.stencil import stencil_sweep
+    from repro_torch.launch import stencil as launch_stencil
+
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "stencil.json")
+        rc = launch_stencil.main([*PARITY_STENCIL_ARGS, "--json", out])
+        torch.cuda.synchronize()
+        res = json.loads(Path(out).read_text())
+    if rc != 0 or not res["ok"] or not 0.0 < res["max_err"] < launch_stencil.LOSSY_MAX_ERR \
+            or stencil_sweep.launches == 0:
+        raise AssertionError(f"stencil over smi:compressed: rc={rc} result={res}, B launched "
+                             f"{stencil_sweep.launches}")
+    log(f"parity stencil over smi:compressed: max|err| {res['max_err']:.4g}, "
+        f"{res['wall_per_step_s'] * 1e3:.4f} ms a step, halo {res['halo_steps']} steps / "
+        f"{res['halo_bytes_per_rank']} B a rank, B launched {stencil_sweep.launches}")
+    return dict(max_err=res["max_err"], wall_per_step_ms=res["wall_per_step_s"] * 1e3,
+                halo=(res["halo_steps"], res["halo_bytes_per_rank"]),
+                launches_b=stencil_sweep.launches)
+
+
+def _parity_examples() -> dict:
+    """The five examples on the card at their reference defaults (the
+    training example at ``--full-100m`` for 40 steps), each in this
+    process: every assert of each holds, the quickstart's Chrome trace
+    written to a temporary directory and read back, the training example's
+    checkpoints at steps 20 and 40 and every CE it logs finite."""
+    import contextlib
+    import importlib
+    import io
+    import math
+
+    import torch
+
+    sys.path.insert(0, str(ROOT / "examples"))
+    res = {}
+
+    def run(name, fn):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            got = fn(importlib.import_module(name))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        res[name] = {"seconds": time.perf_counter() - t0}
+        for line in out.getvalue().splitlines():
+            log(f"{name}: {line}")
+        return got
+
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(tmp, "quickstart_trace.json")
+        qs = run("torch_quickstart", lambda m: m.main(["--trace", trace]))
+        records = len(json.loads(Path(trace).read_text())["traceEvents"])
+    if records != qs["records"] or qs["events"] == 0:
+        raise AssertionError(f"torch_quickstart: {records} trace records read back, {qs}")
+    res["torch_quickstart"].update(plan=str(qs["plan"]), trace_records=records)
+    run("torch_stencil", lambda m: m.main())
+    rows = run("torch_gesummv", lambda m: m.main([]))
+    res["torch_gesummv"]["ms"] = {n: {"single": t1 * 1e3, "two_ranks": t2 * 1e3}
+                                  for n, t1, t2 in rows}
+    if run("torch_serve_lm", lambda m: m.main([])) != 0:
+        raise AssertionError("torch_serve_lm exited non-zero")
+    with tempfile.TemporaryDirectory() as tmp:
+        hist = run("torch_train_lm", lambda m: m.main([*PARITY_TRAIN_LM_ARGS, "--ckpt-dir", tmp]))
+        saved = sorted(os.listdir(tmp))
+    ce = [h["ce"] for h in hist]
+    # checkpoints every max(steps // 2, 10) steps and at the end (the newest
+    # three kept), as the reference's example; its CE is not gated: the
+    # tokens are uniform (the best CE is ln V) and the reference's own run of
+    # this recipe ends above its start too
+    steps = int(PARITY_TRAIN_LM_ARGS[PARITY_TRAIN_LM_ARGS.index("--steps") + 1])
+    every = max(steps // 2, 10)
+    want = [f"step_{s:08d}" for s in [*range(every, steps, every), steps][-3:]]
+    if saved != want or hist[-1]["step"] != steps - 1 or not all(map(math.isfinite, ce)):
+        raise AssertionError(f"torch_train_lm --full-100m: checkpoints {saved}, CE {ce}")
+    res["torch_train_lm"].update(ce=ce, checkpoints=saved)
+    return res
+
+
+def phase_parity(dev, seed: int = 60) -> tuple[dict, dict]:
+    """Phase 60: the packet wire's data-axis cell, yi-6b at phase 44's cut
+    trained at (2, 4) over ``smi:compressed`` and ``bulk`` beside
+    ``smi:static``, the stencil over ``smi:compressed`` and the five
+    examples; returns the results and the ``smi:compressed`` step's
+    launches."""
+    res = {}
+    for name, fn in (("packet_cell", _parity_packet_cell),
+                     ("train", lambda: _parity_train(dev, seed)),
+                     ("stencil", _parity_stencil), ("examples", _parity_examples)):
+        t0 = time.perf_counter()
+        res[name] = fn()
+        log(f"phase 60 {name}: {time.perf_counter() - t0:.1f}s")
+    res["train"], launches = res["train"]
+    return res, launches
+
+
 def main() -> int:
     import torch
 
@@ -7258,6 +7522,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase 59 (ranks as processes, {SPMD_PROCS} on the card): "
         f"{time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    parity, launches_60 = phase_parity(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"phase 60 (parity: the packet data-axis cell, smi:compressed and bulk training, the "
+        f"compressed stencil, the examples): {time.perf_counter() - t0:.1f}s")
+    # the launches of slice 17's path: a (2, 4) training step's over
+    # smi:compressed (60), C's in the packet wire's data-axis cell
+    by_name["flash_attention"]["launches_parity_compressed_step"] = launches_60["E"]
+    by_name["matmul"]["launches_parity_compressed_step"] = launches_60["D"]
+    for name, k in (("accumulate", "fold"), ("shift_accumulate", "shift")):
+        by_name[name]["launches_parity_compressed_step"] = launches_60["A"][k]
+    c_warp["launches_parity_packet_cell"] = parity["packet_cell"]["launches_c_warp"]
+    c_thread["launches_parity_packet_cell"] = (parity["packet_cell"]["launches_c"]
+                                               - parity["packet_cell"]["launches_c_warp"])
     # the launches of slice 15's paths, counted in each rank process and
     # summed: B in the first overlapped process-mode launcher run (59 a), A
     # on the fused all-reduces' check runs (59 b, both layouts), where the
@@ -7426,6 +7705,7 @@ def main() -> int:
     log("dryrun_vs_card: " + json.dumps(dry_vs_card))
     log("pod_axis: " + json.dumps(pod))
     log("ranks_as_processes: " + json.dumps(spmd))
+    log("parity: " + json.dumps(parity))
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

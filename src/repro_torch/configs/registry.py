@@ -1,15 +1,17 @@
 """Copy of ``repro.configs.registry``: the ten architectures, ``get_arch``
-and ``smoke``, and the transport and stencil tables restricted to what the
-port has."""
+and ``smoke``, and the transport, comm-mode and stencil tables."""
 
 from __future__ import annotations
 
 from .base import SHAPES, ModelConfig
 
-#: transport backends of the port (``comm_mode="smi:<backend>"``); bare
-#: ``"smi"`` means ``smi:static``
-TRANSPORT_BACKENDS: tuple[str, ...] = ("static", "fused", "packet")
-COMM_MODES: tuple[str, ...] = ("smi", *(f"smi:{b}" for b in TRANSPORT_BACKENDS))
+#: valid ``comm_mode`` strings of the launchers: ``smi:<backend>`` picks the
+#: transport backend that moves the bytes; bare ``"smi"`` means
+#: ``smi:static``; ``"smi:compressed"`` runs the int8 wire over the static
+#: schedules (``compressed:<inner>`` composes with any backend); ``"bulk"``
+#: moves a collective in one untallied pass
+TRANSPORT_BACKENDS: tuple[str, ...] = ("static", "packet", "fused", "compressed")
+COMM_MODES: tuple[str, ...] = ("smi", *(f"smi:{b}" for b in TRANSPORT_BACKENDS), "bulk")
 
 #: default (grid, domain, steps) cells the stencil launcher runs: the
 #: paper's 8-rank testbed shape as a torus and as a 1D ring

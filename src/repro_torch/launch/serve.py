@@ -159,8 +159,7 @@ def main(argv=None) -> int:
                     help="cut the depth to this many layers (full width)")
     ap.add_argument("--engine", default="continuous", choices=["continuous", "wave"])
     ap.add_argument("--mesh", default="1,1", help="data,model or pod,data,model grid")
-    ap.add_argument("--comm-mode", default="smi",
-                    choices=[*COMM_MODES, "smi:compressed", "bulk"])
+    ap.add_argument("--comm-mode", default="smi", choices=list(COMM_MODES))
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--slots", type=int, default=2)

@@ -2,7 +2,8 @@
 
 Runs ``repro_torch.apps.DistributedStencil`` over a rank grid, streams halos
 through the selected transport backend, checks the result against the
-single-rank sweep bit for bit, and prints the wall time per step (a second,
+single-rank sweep bit for bit (within ``LOSSY_MAX_ERR`` over the int8 wire,
+``--comm-mode smi:compressed``), and prints the wall time per step (a second,
 timed run after the first) and the ``halo`` tag's steps and bytes per rank
 over one run.
 
@@ -58,6 +59,9 @@ from ..configs import COMM_MODES, STENCIL_CASES
 
 #: slot bytes of the rank processes beyond one halo slab (see core/spmd.py)
 SLOT_MARGIN = 4096
+#: the gate of a run whose halos ride the int8 wire: the largest error
+#: against the single-rank sweep stays under this (the reference's bound)
+LOSSY_MAX_ERR = 1e-1
 
 
 def _pair(s: str) -> tuple[int, int]:
@@ -181,7 +185,10 @@ def main(argv=None, *, group=None) -> int:
     ap.add_argument("--domain", default="256x256", help="global domain XxY")
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--comm-mode", default="smi", choices=COMM_MODES,
-                    help="smi:<backend> selects the transport; 'smi' = static")
+                    help="smi:<backend> selects the transport; 'smi' = static; "
+                         "'smi:compressed' moves the halos on the int8 wire, gated within "
+                         "1e-1 of the single-rank sweep; 'bulk' maps onto no channel and "
+                         "is refused")
     ap.add_argument("--plan", default=None, choices=["auto"],
                     help="'auto' lets the netsim tuning table pick the halo backend")
     ap.add_argument("--no-overlap", action="store_true",
@@ -210,6 +217,9 @@ def main(argv=None, *, group=None) -> int:
         ap.error("--trace and --metrics run stacked only")
     if args.devices is not None and args.device != "cuda":
         ap.error("--devices names cards; it needs --device cuda")
+    if args.comm_mode == "bulk":
+        ap.error("the halos stream over channels, which only the smi comm modes map onto; "
+                 "bulk has no channel (the reference refuses it too)")
 
     from ..apps import HALO_TAG, DistributedStencil
 
@@ -283,10 +293,13 @@ def main(argv=None, *, group=None) -> int:
         halo_timed, backend = tp.stats.tag_counts(HALO_TAG), tp.name
 
     want = app.single_rank_reference(world, steps)
-    ok = bool(torch.equal(app.gather(got), want)) and bool(torch.equal(timed, got)) \
-        and halo_timed == (halo_steps, halo_bytes)
     err = float((app.gather(got) - want).abs().max())
-    model_s = app.predicted_step_time((nx, ny)) * steps
+    # lossy only where the int8 wire moves the halos (a tuned plan never
+    # picks it, so --plan auto is gated exactly)
+    lossy = (comm_mode or "").startswith("smi:compressed")
+    ok = (err < LOSSY_MAX_ERR if lossy else bool(torch.equal(app.gather(got), want))) \
+        and bool(torch.equal(timed, got)) and halo_timed == (halo_steps, halo_bytes)
+    model_s = app.predicted_step_time((nx, ny), wire="int8" if lossy else "raw") * steps
 
     from ..obs.metrics import REGISTRY
 

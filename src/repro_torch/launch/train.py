@@ -8,6 +8,8 @@ training step -> synthetic data pipeline -> checkpoints -> watchdog.
         --batch 2 --comm-mode smi:fused --compressed-grads --validate-comm
     python -m repro_torch.launch.train --arch yi-6b --layers 4 --mesh 2,2,2 --seq-len 4096 \
         --batch 4 --steps 2 --comm-mode smi:fused
+    python -m repro_torch.launch.train --arch yi-6b --smoke --device cpu --mesh 2,4 \
+        --comm-mode smi:compressed --validate-comm
 
 ``--smoke`` takes the arch's reduced config; ``--layers`` cuts the depth at
 full width (yi-6b's 32 layers with float32 AdamW state need 96 GB, more
@@ -148,7 +150,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--comm-mode", default="smi", choices=list(COMM_MODES),
-                    help="collective mode; smi:<backend> pins the transport")
+                    help="collective mode; smi:<backend> pins the transport, smi:compressed "
+                         "the int8 wire; bulk moves each collective in one untallied pass")
     ap.add_argument("--remat", default="nothing")
     ap.add_argument("--compressed-grads", action="store_true",
                     help="the gradient ring over the data axis on the int8 wire")
@@ -159,6 +162,9 @@ def main(argv=None) -> int:
                          "netsim's prediction, byte-exact")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
+    if args.validate_comm and args.comm_mode == "bulk":
+        ap.error("--validate-comm gates the channel ledger of the smi comm modes; bulk moves "
+                 "its collectives untallied (the reference's prediction refuses it too)")
 
     cfg = get_arch(args.arch)
     if args.smoke:

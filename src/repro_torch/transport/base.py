@@ -24,7 +24,7 @@ from dataclasses import dataclass, field
 
 import torch
 
-from ..core.comm import resolve_device
+from ..core.comm import ppermute, resolve_device
 
 
 @dataclass
@@ -88,6 +88,32 @@ def rank_bytes(x) -> int:
     return x[0].numel() * x.element_size()
 
 
+class _StraightThrough(torch.autograd.Function):
+    """A move whose rows come off the graph (the int8 wire's arrival, a
+    router kernel's output) with the exact move's gradient: ``move()`` runs
+    off the graph; the backward moves the cotangent along ``back``, the
+    move's pairs transposed."""
+
+    @staticmethod
+    def forward(ctx, x, move, comm, back):
+        ctx.comm, ctx.back, ctx.dtype = comm, back, x.dtype
+        return move()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ppermute(g, ctx.back, ctx.comm).to(ctx.dtype), None, None, None
+
+
+def straight_through(x, move, comm, pairs):
+    """``move()``, which moves the rows of ``x`` along ``pairs`` (exactly, or
+    within a lossy wire's codec), with the exact move's gradient where
+    autograd records ``x``: the cotangent goes back along the transposed
+    pairs, untallied as every backward is."""
+    if isinstance(x, torch.Tensor) and x.requires_grad and torch.is_grad_enabled():
+        return _StraightThrough.apply(x, move, comm, tuple((d, s) for s, d in pairs))
+    return move()
+
+
 @dataclass
 class Transport(abc.ABC):
     """One message-moving backend on ``device`` (``cuda`` unless the caller
@@ -107,7 +133,7 @@ class Transport(abc.ABC):
     #: devices a rank row carries: a ring over the data axis moves blocks
     #: that are stacked over the model axis's ranks too, one device's share
     #: each (:func:`~repro_torch.parallel.fsdp_allgather`); a step's bytes
-    #: are one device's
+    #: are one device's (on the packet wire its router job too)
     lanes = 1
 
     def __post_init__(self):

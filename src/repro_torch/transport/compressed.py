@@ -29,6 +29,13 @@ JAX trace; an eager instance here would carry it from one call into the
 next, so ``stream_reduce_scatter`` starts every call at a zero residual
 (:meth:`reset_state`): two calls on one instance equal two calls on fresh
 instances.
+
+Under autograd a move on this wire is straight-through: its values are the
+int8 arrival, its gradient the raw wire's (the cotangent handed back along
+the transposed pairs, untallied as every backward is).  The reference's
+rounding has no gradient, so there an activation or an FSDP block that
+crossed the wire carries none back, and training over ``smi:compressed``
+keeps only the gradient that never crossed it (ROADMAP.md §3).
 """
 
 from __future__ import annotations
@@ -39,7 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from ..netsim.model import WIRE_AXIS_ELEMS, clamp_chunks
-from .base import Transport
+from .base import Transport, straight_through
 from .registry import register_transport
 
 # ------------------------------------------------------------------ codec
@@ -184,6 +191,10 @@ class CompressedTransport(Transport):
     def permute(self, x, comm, pairs):
         """One inner step moving every member's wire (a tuple ``x`` rides as
         one step, as in the reference)."""
+        pairs = tuple(pairs)
+        return straight_through(x, lambda: self._permute(x, comm, pairs), comm, pairs)
+
+    def _permute(self, x, comm, pairs):
         leaves = x if isinstance(x, tuple) else (x,)
         self._check(leaves)
         wires = [self._encode(v) for v in leaves]
@@ -206,6 +217,10 @@ class CompressedTransport(Transport):
         distance ``step``; returns the dequantised float32 arrival.  The
         residual is taken against the local wire, which the inner backend
         moves bit for bit, so it is what the destination dequantises."""
+        pairs = comm.ring_perm(step)
+        return straight_through(c, lambda: self._send(c, comm, pairs), comm, pairs)
+
+    def _send(self, c, comm, pairs):
         self._check(c)
         u = c.float()
         if self.error_feedback:
@@ -215,7 +230,7 @@ class CompressedTransport(Transport):
         wire = self._encode(u)
         if self.error_feedback:
             self._ef = u - self._decode_f32(wire, u)
-        moved = self.inner.permute(wire, comm, comm.ring_perm(step))
+        moved = self.inner.permute(wire, comm, pairs)
         return self._decode_f32(moved, u)
 
     def p2p(self, x, *, src, dst, comm, n_chunks: int = 1):
@@ -226,10 +241,14 @@ class CompressedTransport(Transport):
         if src == dst:
             return x
         self._check(x)
-        wire = _pack_wire(*_quantize_rows(x, self.axis_elems))
-        nc = clamp_chunks(n_chunks, wire.shape[1])
-        got = self.inner.p2p(wire, src=src, dst=dst, comm=comm, n_chunks=nc)
-        return self._decode((got,), x)
+
+        def move():
+            wire = _pack_wire(*_quantize_rows(x, self.axis_elems))
+            nc = clamp_chunks(n_chunks, wire.shape[1])
+            return self._decode((self.inner.p2p(wire, src=src, dst=dst, comm=comm,
+                                                n_chunks=nc),), x)
+
+        return straight_through(x, move, comm, ((src, dst),))
 
     # ------------------------------------------------------ residual, stats
 

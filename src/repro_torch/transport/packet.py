@@ -40,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from ..obs import trace as obs
-from .base import Transport, rank_bytes
+from .base import Transport, rank_bytes, straight_through
 from .registry import register_transport
 
 # ------------------------------------------------------------------ wire
@@ -202,11 +202,11 @@ class PacketTransport(Transport):
 
     def permute(self, x, comm, pairs):
         """One router run moving every rank row of ``x`` (the members of a
-        tuple ``x`` concatenated into one packet train a rank)."""
-        from ..core.router import run_router
-
+        tuple ``x`` concatenated into one packet train a rank).  Under
+        autograd the gradient is the exact move's, handed back along the
+        transposed pairs: kernel C's output is off the graph, so the card
+        and the CPU's plain router give the same gradient."""
         self._check(x)
-        n = comm.size
         pairs = tuple((int(s), int(d)) for s, d in pairs)
         active = [(s, d) for s, d in pairs if s != d]
         if not active:
@@ -216,22 +216,41 @@ class PacketTransport(Transport):
         if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts):
             raise ValueError("packet transport moves partial permutations: unique "
                              f"srcs/dsts required, got {list(pairs)}")
+        return straight_through(x, lambda: self._permute(x, comm, pairs, active), comm, pairs)
+
+    def _permute(self, x, comm, pairs, active):
         leaves = x if isinstance(x, tuple) else (x,)
         parts = [_encode(v) for v in leaves]                 # (P, T_i) each
         vec = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
         T = vec.shape[1]
         if T == 0:
             return x
+        # a row that carries ``lanes`` devices' shares (an FSDP block stacked
+        # over the model ranks) routes as that many router jobs of one
+        # share each, as each device rings its own; a step tallies one's
+        runs = [self._route(v, comm, active, pairs) for v in vec.chunk(self.lanes, dim=1)]
+        self.tally(runs[0][1], rank_bytes(x) // self.lanes)
+        wire = torch.cat([rows for rows, _ in runs], dim=1) if len(runs) > 1 else runs[0][0]
+        if not isinstance(x, tuple):
+            return _decode(wire, x.shape, x.dtype)
+        out = wire.split([p.shape[1] for p in parts], dim=1)
+        return tuple(_decode(w, v.shape, v.dtype) for w, v in zip(out, leaves))
+
+    def _route(self, vec, comm, active, pairs):
+        """One router run moving the ``(P, T)`` wire rows ``vec`` along
+        ``active`` (``pairs`` with its self-pairs): ``(rows, n_steps)``, the
+        rows every rank holds after the step and the run's tick bound."""
+        from ..core.router import run_router
+
         cfg, tbl, pay, inq_dst, inq_len, n_steps = self.router_job(vec, comm, active)
         out_pay, out_cnt, ovf, _ = run_router(cfg, comm, tbl, pay, inq_dst, inq_len, n_steps,
                                               impl=self.router_impl)
-        self.tally(n_steps, rank_bytes(x) // self.lanes)
         # Undelivered packets (an under-provisioned n_steps bound) would
         # silently back-fill zeros below — fold the delivery shortfall into
         # the loss counter so the "overflow == 0" oracle catches it.
         K = cfg.fifo_cap
         held = slice(comm.lo, comm.lo + comm.n_local)
-        is_recv, keeps = (a[held] for a in _roles(pairs, n, K, vec.device)[2:])
+        is_recv, keeps = (a[held] for a in _roles(pairs, comm.size, K, vec.device)[2:])
         shortfall = torch.where(is_recv, K - out_cnt[:, 0], torch.zeros_like(out_cnt[:, 0]))
         self.stats.add_overflow(ovf + shortfall)
         if obs.TRACING:
@@ -240,13 +259,10 @@ class PacketTransport(Transport):
             obs.emit("router.overflow", tag=self._tag, n_steps=int(n_steps), packets=int(K),
                      transit_cap=int(cfg.transit_cap), counter="stats.overflow")
 
-        got = out_pay[:, 0].reshape(vec.shape[0], K * cfg.pkt_elems)[:, :T]
-        wire = torch.where(is_recv.view(-1, 1), got,
+        got = out_pay[:, 0].reshape(vec.shape[0], K * cfg.pkt_elems)[:, :vec.shape[1]]
+        rows = torch.where(is_recv.view(-1, 1), got,
                            torch.where(keeps.view(-1, 1), vec, torch.zeros_like(vec)))
-        if not isinstance(x, tuple):
-            return _decode(wire, x.shape, x.dtype)
-        out = wire.split([p.shape[1] for p in parts], dim=1)
-        return tuple(_decode(w, v.shape, v.dtype) for w, v in zip(out, leaves))
+        return rows, n_steps
 
     def p2p(self, x, *, src, dst, comm, n_chunks: int = 1):
         """Whole message as one packet train src -> dst through the router

@@ -31,6 +31,10 @@ import repro_torch.core.collectives as pc
 from repro_torch.core import Communicator, PortAllocator, Topology, stream_p2p
 from repro_torch.transport import get_transport
 
+from _torch_dp_cases import one_thread  # noqa: F401 (the module's fixture)
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 P = 8
 BACKENDS = ("static", "packet", "fused", "compressed")
 #: rank layouts: name -> (axis names, axis sizes, bus?)

@@ -1,5 +1,7 @@
 """The port stands alone: it imports neither JAX nor anything of ``repro``,
-and its entry points run on ``cuda`` unless the caller names the CPU."""
+and its entry points run on ``cuda`` unless the caller names the CPU.  The
+scan covers the package, ``chip_smoke.py`` and the port's examples
+(``examples/torch_*.py``)."""
 
 import ast
 import os
@@ -16,7 +18,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 def _forbidden_imports(path: Path):
@@ -230,3 +233,28 @@ def test_process_mode_defaults_to_cuda():
         run_spmd(K.loaded_modules, {"axis_names": ("x",), "axis_sizes": (8,)}, n_procs=2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         launch_stencil.main(["--domain", "16x16", "--steps", "1", "--ranks", "process"])
+
+
+#: the port's examples, each beside the reference's of the same name
+EXAMPLES = ("torch_quickstart", "torch_stencil", "torch_gesummv", "torch_serve_lm",
+            "torch_train_lm")
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_examples_stand_alone_and_default_to_cuda(name):
+    """Each example is scanned above, and its ``main`` runs on ``cuda``
+    unless ``--device cpu`` is given: without a card it raises rather than
+    move to the CPU."""
+    import importlib
+
+    path = ROOT / "examples" / f"{name}.py"
+    assert path in _port_files() and _forbidden_imports(path) == []
+    if torch.cuda.is_available():
+        return
+    sys.path.insert(0, str(path.parent))
+    try:
+        main = importlib.import_module(name).main
+    finally:
+        sys.path.remove(str(path.parent))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main() if name == "torch_stencil" else main([])

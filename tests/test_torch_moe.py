@@ -56,6 +56,10 @@ from repro_torch.netsim import predict_decode_step_stats
 from repro_torch.parallel import ledger
 from repro_torch.serving import ContinuousEngine, Request, ServeEngine
 
+from _torch_dp_cases import one_thread  # noqa: F401 (the module's fixture)
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 RTOL = 1e-5
 #: case -> (arch, config overrides)
 CASES = {

@@ -76,6 +76,10 @@ from repro_torch.parallel import ledger
 from repro_torch.serving import ContinuousEngine, Request, ServeEngine
 from repro_torch.serving.continuous import cache_batch_dim, pack_slot
 
+from _torch_dp_cases import one_thread  # noqa: F401 (the module's fixture)
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 ARCH = "recurrentgemma-9b"
 RTOL = 1e-5
 #: one period of (rec, rec, attn) and two remainder rec layers; 8 query heads

@@ -123,6 +123,44 @@ def test_train_ledger_equals_eager_prediction(arch, P, mode, remat, chunks, opts
     assert want and all(e["steps"] > 0 for e in want.values())
 
 
+def test_train_ledger_packet_at_a_data_axis(monkeypatch):
+    """The packet wire at (2, 4), one layer and 8 tokens (the smallest cut
+    that shows an over-count): an FSDP block stacked over the model ranks
+    routes one device's share a router job, so every tag, ``fsdp.gather``
+    among them, equals ``predict_train_step_stats(eager=True)``; every
+    gathered leaf is bit-equal to ``smi:static``'s."""
+    import repro_torch.parallel as par
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.steps import build_train
+
+    _, cfg = _cfgs("yi-6b", 4)
+    cfg = cfg.scaled(n_layers=1)
+    shape = ShapeConfig("t", 8, B, "train")
+    tok, lab, _ = _inputs(cfg, seed=5)
+    batch = {"tokens": tok[:, :8], "labels": lab[:, :8]}
+    gathers, inner = {}, par.fsdp_allgather
+
+    def recorded(mode):
+        def fsdp_allgather(*a, **kw):
+            out = inner(*a, **kw)
+            gathers.setdefault(mode, []).append(out.detach().clone())
+            return out
+        return fsdp_allgather
+
+    for mode in ("smi:packet", "smi:static"):
+        monkeypatch.setattr(par, "fsdp_allgather", recorded(mode))
+        st = TrainSettings(comm_mode=mode, remat="nothing", loss_chunks=1)
+        art = build_train(cfg, shape, st, mesh=(2, 4), device="cpu")
+        with ledger.capture() as led:
+            art["grads"](art["init_params"](0), batch)
+        want = predict_train_step_stats(cfg, (2, 4), shape, st, eager=True)
+        assert {t: dict(e) for t, e in led.by_tag.items()} == want, mode
+    assert want["fsdp.gather"]["steps"] > 0
+    assert len(gathers["smi:packet"]) == len(gathers["smi:static"]) > 0
+    for a, b in zip(gathers["smi:packet"], gathers["smi:static"]):
+        assert torch.equal(a, b)
+
+
 PREDICT_CASES = [(a, P, mode, opts) for a in ARCHS for P in (1, 4, 8)
                  for mode, opts in (("smi:static", {}), ("smi:packet", {"shared_gather": True}),
                                     ("smi:compressed", {"ring_attn": True}))]
